@@ -1,0 +1,15 @@
+from .gnngraph import GnnGraph, empty_graph
+from .builders import grid_graph_2d, rand_graph
+from .transforms import (
+    add_self_loops,
+    csr_offsets,
+    degree,
+    sort_by_receiver,
+    to_dense_adjacency,
+)
+
+__all__ = [
+    "GnnGraph", "empty_graph", "rand_graph", "grid_graph_2d",
+    "add_self_loops", "degree", "sort_by_receiver", "csr_offsets",
+    "to_dense_adjacency",
+]

@@ -1,0 +1,69 @@
+"""Graph constructors (host numpy), the same code as
+``neuralgraphpde.graph.builders`` so both packages build identical arrays
+from one seed."""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from .gnngraph import GnnGraph
+
+
+def rand_graph(
+    num_nodes: int,
+    num_edges: int,
+    *,
+    bidirected: bool = False,
+    seed: Optional[int] = None,
+    **features,
+) -> GnnGraph:
+    """Random COO graph with ``num_edges`` directed edges (no dedup)."""
+    rng = np.random.default_rng(seed)
+    if num_nodes == 0 or num_edges == 0:
+        return GnnGraph.from_coo(
+            np.zeros(0, np.int32), np.zeros(0, np.int32),
+            num_nodes=num_nodes, **features,
+        )
+    if bidirected:
+        if num_edges % 2 != 0:
+            raise ValueError("bidirected rand_graph needs an even num_edges")
+        half = num_edges // 2
+        s = rng.integers(0, num_nodes, size=half)
+        t = rng.integers(0, num_nodes, size=half)
+        senders = np.concatenate([s, t])
+        receivers = np.concatenate([t, s])
+    else:
+        senders = rng.integers(0, num_nodes, size=num_edges)
+        receivers = rng.integers(0, num_nodes, size=num_edges)
+    return GnnGraph.from_coo(
+        senders.astype(np.int32), receivers.astype(np.int32),
+        num_nodes=num_nodes, **features,
+    )
+
+
+def grid_graph_2d(nx: int, ny: int, *, periodic: bool = False,
+                  diagonals: bool = False, **features) -> GnnGraph:
+    """2-D lattice, 4- or 8-neighborhood, bidirected, receiver-sorted."""
+    offsets = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+    if diagonals:
+        offsets += [(-1, -1), (-1, 1), (1, -1), (1, 1)]
+    ix, iy = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    ix = ix.ravel()
+    iy = iy.ravel()
+    s_parts, t_parts = [], []
+    for dx, dy in offsets:
+        jx, jy = ix + dx, iy + dy
+        if periodic:
+            jx, jy = jx % nx, jy % ny
+            keep = slice(None)
+        else:
+            keep = (jx >= 0) & (jx < nx) & (jy >= 0) & (jy < ny)
+        s_parts.append((jx[keep] * ny + jy[keep]).astype(np.int32))
+        t_parts.append((ix[keep] * ny + iy[keep]).astype(np.int32))
+    s = np.concatenate(s_parts)
+    t = np.concatenate(t_parts)
+    order = np.argsort(t, kind="stable")
+    return GnnGraph.from_coo(
+        s[order], t[order], num_nodes=nx * ny, **features,
+    )

@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``neuralgraphpde_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface under
+``build/torch_kernels/`` at the repository root, and loaded with ``ctypes``.
+The build runs at first use; the library's file name carries a hash of the
+sources and flags, so an edited source is rebuilt. Nothing here runs at
+import time.
+
+No ``--use_fast_math``: ``tanhf``, ``expf`` and division stay exact.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argument types; every one returns a cudaError_t as int
+_SIGNATURES = {
+    "ngpde_segment_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ngpde_dia_stencil": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ngpde_dia_gcn_rhs": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _P),
+}
+
+_lib = None
+# what the last build did: seconds, library path, nvcc's -Xptxas -v report
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    path = home / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found: building the CUDA kernels needs the "
+                       "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this source hash has no
+    library yet."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    so = BUILD_DIR / f"libngpde_torch_{digest.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(p) for p in sources if p.suffix == ".cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        log = proc.stdout + proc.stderr
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.ngpde_error_string.argtypes = (ctypes.c_int,)
+    lib.ngpde_error_string.restype = ctypes.c_char_p
+    build_info.update(seconds=time.perf_counter() - t0, path=str(so),
+                      built=bool(log), ptxas=log)
+    _lib = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = library().ngpde_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,148 @@
+"""K2: DIA stencil SpMM and the fused GCN right-hand side.
+
+Replaces ``neuralgraphpde/kernels/dia_kernels.py::_dia_rhs_fwd`` (the Pallas
+kernel behind ``dia_spmm_pallas`` and ``dia_gcn_rhs``). CUDA source:
+``neuralgraphpde_torch/csrc/dia_stencil.cu``.
+
+- ``dia_spmm_stencil``: ``out[i] = Σ_k values[i, k] · x[i + offsets[k]]``.
+- ``dia_gcn_rhs``: ``act((Ĉ x) · W + b)`` with Ĉ = C·Ã·C stored as the DIA
+  values (``cache['dia_norm']``): the whole GCN ODE right-hand side in one
+  kernel; ``W`` and ``b`` may be None.
+
+What bounds it on the H100: the stencil reads x about once from device
+memory (the ±bandwidth rows a block touches stay in L2), K values per row
+and writes one output row: bytes, at a few flops per byte. The fused W
+product adds 2·F·out flops per row on the CUDA cores (f32: the tensor cores
+would round to TF32). The TPU kernel assembled a VMEM window of x from
+halo blocks and relied on zero-padded values at the boundary; here each
+block reads x in place and masks neighbours outside ``[0, N)`` itself, so x
+is never padded or copied. The fused form keeps the aggregated rows of a
+32-row block in shared memory and streams W through a shared tile, so the
+aggregate never goes to device memory.
+
+bf16 follows the TPU kernel: x is read in the values' dtype, W is cast to
+bf16 when the values are bf16, the f32 accumulator is rounded to bf16 before
+the W product, and the output is bf16 when the caller's x is bf16.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..ops.dia import DiaMatrix, stencil_f32
+from . import _build
+from .segment_kernels import _check_cuda_inputs
+
+TF_MAX = 512  # widest fused input the shared-memory row block holds
+MAX_DIAGS = 32
+MAX_BANDWIDTH = 8192
+
+_ACTS = {
+    None: lambda h: h,
+    "identity": lambda h: h,
+    "tanh": torch.tanh,
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+}
+_ACT_CODES = {None: 0, "identity": 0, "tanh": 1, "relu": 2, "sigmoid": 3}
+
+
+def epilogue_supported(act) -> bool:
+    """Activations the fused kernel applies (a callable takes the exact
+    path)."""
+    return act is None or (isinstance(act, str) and act in _ACT_CODES)
+
+
+def dia_rhs_plain(dm: DiaMatrix, x: torch.Tensor, w: Optional[torch.Tensor],
+                  b: Optional[torch.Tensor], act, fused: bool,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of K2 with the kernel's rounding points (x
+    already in the values' dtype, W already cast)."""
+    acc = stencil_f32(dm, x)
+    if not fused:
+        return acc.to(out_dtype)
+    h = acc
+    if w is not None:
+        h = h.to(w.dtype).float() @ w.float()
+    if b is not None:
+        h = h + b.float()
+    return _ACTS[act](h).to(out_dtype)
+
+
+def _dia_rhs(dm: DiaMatrix, x: torch.Tensor, w: Optional[torch.Tensor],
+             b: Optional[torch.Tensor], act, fused: bool,
+             out_dtype: torch.dtype) -> torch.Tensor:
+    n, K = dm.num_nodes, len(dm.offsets)
+    if x.dim() != 2 or x.shape[0] != n:
+        raise ValueError(f"x must be ({n}, F), got {tuple(x.shape)}")
+    if K > MAX_DIAGS or dm.bandwidth > MAX_BANDWIDTH:
+        raise ValueError(f"DIA kernel takes ≤{MAX_DIAGS} diagonals of "
+                         f"bandwidth ≤{MAX_BANDWIDTH}, got {K} and "
+                         f"{dm.bandwidth}")
+    vdt = dm.values.dtype
+    if vdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"DIA values must be f32 or bf16, got {vdt}")
+    x = x.to(vdt)
+    F = x.shape[1]
+    out_w = F
+    if fused:
+        if F > TF_MAX:
+            raise ValueError(f"fused DIA kernel takes F ≤ {TF_MAX}, got {F}")
+        if not epilogue_supported(act):
+            raise ValueError(f"no fused epilogue for activation {act!r}")
+        if w is not None:
+            if w.dim() != 2 or w.shape[0] != F:
+                raise ValueError(f"W must be ({F}, out), got {tuple(w.shape)}")
+            w = w.to(torch.bfloat16) if vdt == torch.bfloat16 else w.float()
+            out_w = w.shape[1]
+        if b is not None:
+            b = b.float().reshape(-1)
+            if b.shape[0] != out_w:
+                raise ValueError(f"b must have {out_w} entries")
+    if x.device.type == "cpu":
+        return dia_rhs_plain(dm, x, w, b, act, fused, out_dtype)
+    extra = [t for t in (w, b) if t is not None]
+    _check_cuda_inputs(x, dm.values, dm.offsets_t, *extra)
+    out = torch.empty((n, out_w), dtype=out_dtype, device=x.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    in_bf16 = int(vdt == torch.bfloat16)
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    b_ptr = None if b is None else b.data_ptr()
+    code = _ACT_CODES[act] if fused else 0
+    if w is None:
+        err = lib.ngpde_dia_stencil(
+            dm.values.data_ptr(), dm.offsets_t.data_ptr(), K, x.data_ptr(),
+            b_ptr, out.data_ptr(), n, F, code, in_bf16, out_bf16, stream)
+    else:
+        err = lib.ngpde_dia_gcn_rhs(
+            dm.values.data_ptr(), dm.offsets_t.data_ptr(), K, x.data_ptr(),
+            w.data_ptr(), b_ptr, out.data_ptr(), n, F, out_w, code, in_bf16,
+            out_bf16, stream)
+    _build.check(err, "dia_gcn_rhs" if fused else "dia_spmm_stencil")
+    return out
+
+
+def dia_spmm_stencil(x: torch.Tensor, dm: DiaMatrix) -> torch.Tensor:
+    """Stencil SpMM ``A @ x`` in x's dtype (f32 accumulation). CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    out = _dia_rhs(dm, x, None, None, None, fused=False, out_dtype=x.dtype)
+    if out.is_cuda:
+        dia_spmm_stencil.launches += 1
+    return out
+
+
+def dia_gcn_rhs(act, x: torch.Tensor, w: Optional[torch.Tensor],
+                b: Optional[torch.Tensor], dm: DiaMatrix) -> torch.Tensor:
+    """Fused ``act((Ĉ x) · W + b)``; f32 out, or bf16 when x is bf16. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    out = _dia_rhs(dm, x, w, b, act, fused=True, out_dtype=out_dtype)
+    if out.is_cuda:
+        dia_gcn_rhs.launches += 1
+    return out
+
+
+dia_spmm_stencil.launches = 0
+dia_gcn_rhs.launches = 0

@@ -1,0 +1,136 @@
+"""K1: receiver segment-SpMM ``out[i] = Σ_{e: r_e = i} w_e · x[s_e]``.
+
+Replaces ``neuralgraphpde/kernels/segment_kernels.py::_tiled_segment_spmm_fwd``
+(the Pallas one-hot MXU kernel behind ``tiled_segment_spmm``). CUDA source:
+``neuralgraphpde_torch/csrc/segment_spmm.cu``.
+
+What bounds it on the H100: bytes. Each edge reads one sender row of x
+(F·itemsize bytes, a random row: the gather), its index and weight (8 bytes);
+each row writes F·out_itemsize bytes once. There are 2 flops per gathered
+element, far below the ridge point, so the kernel is a gather at memory
+speed. The TPU kernel's one-hot matrices exist to feed the MXU; on Hopper
+there is nothing to feed, so the layout is a plain receiver-sorted CSR:
+
+- one warp per receiver row; its lanes split the row's features in 16-byte
+  vectors (4 f32 or 8 bf16), so one edge's row read is coalesced;
+- when a row has fewer vectors than 32, the warp's lanes split into groups
+  that take every ``groups``-th edge, and a shuffle tree adds the groups;
+- f32 accumulation in registers, one store per row, no atomics: the result
+  is deterministic.
+
+``compute_dtype=torch.bfloat16`` halves the gather bytes (bf16 reads, f32
+accumulate); the output keeps x's dtype. This argument replaces the JAX
+package's process-global ``set_kernel_compute_dtype``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _build
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SegmentCSR:
+    """Receiver-sorted CSR: row ``i`` sums ``weight[e] * x[col[e]]`` over
+    ``row_ptr[i] <= e < row_ptr[i + 1]``; within a row, slots are sorted by
+    column for gather locality."""
+
+    row_ptr: torch.Tensor  # (num_rows + 1,) int32
+    col: torch.Tensor  # (E,) int32: the x row each slot reads
+    weight: torch.Tensor  # (E,) f32
+    rows: torch.Tensor  # (E,) int64: the output row of each slot
+    num_rows: int  # output rows
+    num_cols: int  # rows of x
+
+    def to(self, device) -> "SegmentCSR":
+        return SegmentCSR(self.row_ptr.to(device), self.col.to(device),
+                          self.weight.to(device), self.rows.to(device),
+                          self.num_rows, self.num_cols)
+
+
+def build_segment_csr(senders: np.ndarray, receivers: np.ndarray,
+                      num_rows: int, *, num_cols: Optional[int] = None,
+                      edge_weight: Optional[np.ndarray] = None) -> SegmentCSR:
+    """Host build of the K1 layout for edges ``senders -> receivers``.
+    ``num_cols`` (rows of x) defaults to ``num_rows``."""
+    s = np.asarray(senders, np.int64)
+    r = np.asarray(receivers, np.int64)
+    w = (np.ones(len(s), np.float32) if edge_weight is None
+         else np.asarray(edge_weight, np.float32).reshape(-1))
+    order = np.lexsort((s, r))
+    s, r, w = s[order], r[order], w[order]
+    counts = np.bincount(r, minlength=num_rows)
+    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return SegmentCSR(
+        row_ptr=torch.from_numpy(row_ptr),
+        col=torch.from_numpy(s.astype(np.int32)),
+        weight=torch.from_numpy(np.ascontiguousarray(w)),
+        rows=torch.from_numpy(r),
+        num_rows=num_rows,
+        num_cols=num_rows if num_cols is None else num_cols)
+
+
+def segment_spmm_plain(x: torch.Tensor, csr: SegmentCSR) -> torch.Tensor:
+    """Plain PyTorch version of K1: gather, weight, ``index_add_``; f32
+    result."""
+    msgs = x.index_select(0, csr.col).float() * csr.weight[:, None]
+    out = msgs.new_zeros((csr.num_rows, x.shape[1]))
+    return out.index_add_(0, csr.rows, msgs)
+
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def segment_spmm(x: torch.Tensor, csr: SegmentCSR,
+                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``out[i] = Σ_{e in row i} w_e · x[col_e]`` as ``(num_rows, F)`` in
+    x's dtype. ``compute_dtype`` is the dtype x is read in (default: x's).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    out_dtype = x.dtype
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    if x.dim() != 2 or x.shape[0] != csr.num_cols:
+        raise ValueError(f"x must be ({csr.num_cols}, F), got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
+        raise TypeError(f"segment_spmm takes f32/bf16, got {x.dtype} -> "
+                        f"{out_dtype}")
+    if x.device.type == "cpu":
+        return segment_spmm_plain(x, csr).to(out_dtype)
+    _check_cuda_inputs(x, csr.row_ptr, csr.col, csr.weight)
+    F = x.shape[1]
+    out = torch.empty((csr.num_rows, F), dtype=out_dtype, device=x.device)
+    vec = 16 // x.element_size()
+    if F % vec or x.data_ptr() % 16:
+        vec = 1
+    lib = _build.library()
+    err = lib.ngpde_segment_spmm(
+        csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.weight.data_ptr(),
+        x.data_ptr(), out.data_ptr(), csr.num_rows, F,
+        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), vec,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "segment_spmm")
+    segment_spmm.launches += 1
+    return out
+
+
+segment_spmm.launches = 0
+
+
+def _check_cuda_inputs(x: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """A CUDA call takes contiguous tensors on one card, outside autograd
+    (this slice is forward-only)."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x.device}")
+    for t in (x,) + tensors:
+        if t.device != x.device:
+            raise ValueError(f"tensor on {t.device}, expected {x.device}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError("the CUDA kernels are forward-only: run under "
+                               "torch.no_grad() or torch.inference_mode()")

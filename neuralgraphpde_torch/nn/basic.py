@@ -1,0 +1,112 @@
+"""Basic layers: ``Dense``, ``Chain``, activations and initializers.
+
+Row-major convention as in the JAX package: inputs are ``(entities,
+features)`` and weights are stored ``(in, out)``, so the forward is
+``x @ W + b`` with bias ``(1, out)`` (not ``nn.Linear``'s ``(out, in)``).
+Initializers draw from an explicit ``torch.Generator`` on the CPU.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Iterable, Optional, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .core import ContainerLayer, Layer
+
+
+def glorot_uniform(generator, shape, dtype=torch.float32):
+    limit = math.sqrt(6.0 / (shape[0] + shape[1]))
+    u = torch.rand(shape, generator=generator, dtype=dtype)
+    return (2.0 * u - 1.0) * limit
+
+
+def glorot_normal(generator, shape, dtype=torch.float32):
+    std = math.sqrt(2.0 / (shape[0] + shape[1]))
+    return std * torch.randn(shape, generator=generator, dtype=dtype)
+
+
+def zeros_init(generator, shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+_ACTIVATIONS = {
+    "identity": lambda x: x,
+    "relu": torch.relu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu default
+    "swish": F.silu,
+    "silu": F.silu,
+    "softplus": F.softplus,
+    "elu": F.elu,
+    "leaky_relu": F.leaky_relu,
+}
+
+
+def resolve_activation(act: Union[None, str, Callable]) -> Callable:
+    if act is None:
+        return _ACTIVATIONS["identity"]
+    if callable(act):
+        return act
+    return _ACTIVATIONS[act]
+
+
+def make_params(layer: nn.Module, in_dims: int, out_dims: int, use_bias: bool,
+                init_weight: Callable, init_bias: Callable,
+                generator: Optional[torch.Generator], device, dtype) -> None:
+    """Register ``weight`` ``(in, out)`` and ``bias`` ``(1, out)`` (or
+    None) on ``layer``."""
+    w = init_weight(generator, (in_dims, out_dims), dtype)
+    layer.weight = nn.Parameter(w.to(device))
+    if use_bias:
+        b = init_bias(generator, (1, out_dims), dtype)
+        layer.bias = nn.Parameter(b.to(device))
+    else:
+        layer.register_parameter("bias", None)
+
+
+class Dense(Layer):
+    """``y = act(x @ W + b)``."""
+
+    def __init__(self, in_dims: int, out_dims: int,
+                 activation: Union[None, str, Callable] = None, *,
+                 use_bias: bool = True, init_weight=glorot_uniform,
+                 init_bias=zeros_init,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.in_dims, self.out_dims = in_dims, out_dims
+        self.activation = activation
+        make_params(self, in_dims, out_dims, use_bias, init_weight, init_bias,
+                    generator, device, dtype)
+
+    def forward(self, x):
+        y = x @ self.weight
+        if self.bias is not None:
+            y = y + self.bias
+        return resolve_activation(self.activation)(y)
+
+
+class Chain(ContainerLayer):
+    """Sequential container with children ``layer_1..layer_N``; parameter
+    trees always nest per child, even for one child."""
+
+    def __init__(self, layers: Iterable[nn.Module]):
+        super().__init__()
+        names = []
+        for i, layer in enumerate(layers):
+            name = f"layer_{i + 1}"
+            self.add_module(name, layer)
+            names.append(name)
+        self.layer_names = tuple(names)
+
+    def child_params(self, name, tree):
+        return tree[name]
+
+    def forward(self, x):
+        for name in self.layer_names:
+            x = getattr(self, name)(x)
+        return x

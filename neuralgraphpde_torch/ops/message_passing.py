@@ -1,0 +1,98 @@
+"""Message passing: ``propagate`` / ``apply_edges`` / ``aggregate_neighbors``
+(counterparts of ``neuralgraphpde.ops.message_passing``).
+
+For every edge ``j -> i``: gather ``xj`` at the sender, ``xi`` at the
+receiver and ``e`` at the edge, evaluate the message over all edges at once,
+then reduce onto receivers. The fixed-message sum (``copy_xj``, ``e_mul_xj``,
+``w_mul_xj``) goes to the SpMM dispatcher in ``ops.spmm``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Union
+
+import torch
+
+from ..graph.gnngraph import GnnGraph
+from .scatter import Reduction, canonical_reduction, gather, segment_reduce
+
+Features = Union[torch.Tensor, Dict[str, torch.Tensor], None]
+
+
+def copy_xj(xi, xj, e):
+    return xj
+
+
+def e_mul_xj(xi, xj, e):
+    """Edge-scalar (or edge-vector) weighted sender features."""
+    if e.dim() != xj.dim():
+        e = e.reshape(tuple(e.shape) + (1,) * (xj.dim() - e.dim()))
+    return e * xj
+
+
+def w_mul_xj(xi, xj, e):
+    """``e_mul_xj`` on the graph's stored edge weight ``g.edata['e']``,
+    which ``propagate`` resolves."""
+    return e_mul_xj(xi, xj, e)
+
+
+_BUILTIN_SUM_FASTPATH = (copy_xj, e_mul_xj, w_mul_xj)
+
+
+def _tree_gather(x: Features, idx: torch.Tensor) -> Features:
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: gather(v, idx) for k, v in x.items()}
+    return gather(x, idx)
+
+
+def apply_edges(message: Callable, g: GnnGraph, *, xi: Features = None,
+                xj: Features = None, e: Features = None) -> Any:
+    """Edge-expand node features and evaluate ``message(xi_e, xj_e, e)``
+    over all edges."""
+    return message(_tree_gather(xi, g.receivers), _tree_gather(xj, g.senders),
+                   e)
+
+
+def aggregate_neighbors(g: GnnGraph, aggr: Reduction,
+                        messages: torch.Tensor) -> torch.Tensor:
+    """Reduce ``(num_edges, F)`` messages onto receiver nodes. Sum and mean
+    go through the segment-SpMM kernel (K1) over the edge-index layout that
+    ``precompute(pallas=True)`` attaches; max and min keep the scatter path
+    until their kernel is ported."""
+    red = canonical_reduction(aggr)
+    if (red in ("sum", "mean") and "tcsr_edges" in g.cache
+            and isinstance(messages, torch.Tensor) and messages.dim() == 2):
+        from .spmm import kernel_available, get_spmm_mode, segment_sum_pallas
+
+        mode = get_spmm_mode()
+        if mode == "pallas" or (mode == "auto" and kernel_available(messages)):
+            out = segment_sum_pallas(g, messages)
+            if red == "mean":
+                deg = g.cache["in_degree"].to(out.dtype)
+                out = out / deg.clamp_min(1.0)[:, None]
+            return out
+    return segment_reduce(messages, g.receivers, g.num_nodes, aggr)
+
+
+def propagate(message: Callable, g: GnnGraph, aggr: Reduction, *,
+              xi: Features = None, xj: Features = None,
+              e: Features = None) -> torch.Tensor:
+    """gather → message → reduce. The fixed-message sum takes the SpMM
+    dispatcher (dense, K1 segment kernel, DIA stencil or scatter)."""
+    if message is w_mul_xj and e is None:
+        if "e" not in g.edata:
+            raise ValueError("w_mul_xj requires edge weights in g.edata['e']")
+        e = g.edata["e"]
+    if (message in _BUILTIN_SUM_FASTPATH
+            and canonical_reduction(aggr) == "sum"
+            and isinstance(xj, torch.Tensor)):
+        from .spmm import spmm
+
+        weight = None
+        if message in (e_mul_xj, w_mul_xj):
+            weight = e["e"] if isinstance(e, dict) else e
+            weight = weight.reshape(-1) if weight.dim() > 1 else weight
+        return spmm(g, xj, edge_weight=weight)
+    msgs = apply_edges(message, g, xi=xi, xj=xj, e=e)
+    return aggregate_neighbors(g, aggr, msgs)

@@ -1,0 +1,236 @@
+"""K1 (segment SpMM) and K2 (DIA stencil / fused GCN RHS): the port's plain
+versions against the JAX Pallas kernels in interpret mode on the CPU, and
+the CUDA kernels against the plain versions on a card.
+
+Tolerances: f32 rtol 1e-5 / atol 1e-6 (the sums are taken in another order);
+bf16 2e-2 of the largest value (both sides read the same bf16 inputs; the
+output rounds to bf16). JAX is imported inside the fixture and the card is
+looked for inside the test, so this file also runs where only one of the two
+exists: ``python -m pytest --noconftest tests/test_torch_kernels.py`` on a
+machine with a GPU and no JAX runs the CUDA cases.
+"""
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from neuralgraphpde_torch import add_self_loops, grid_graph_2d  # noqa: E402
+from neuralgraphpde_torch.kernels.dia_kernels import (  # noqa: E402
+    dia_gcn_rhs, dia_rhs_plain, dia_spmm_stencil)
+from neuralgraphpde_torch.kernels.segment_kernels import (  # noqa: E402
+    build_segment_csr, segment_spmm, segment_spmm_plain)
+from neuralgraphpde_torch.ops.dia import build_dia, transpose_dia  # noqa
+
+F32 = dict(rtol=1e-5, atol=1e-6)
+BF16 = 2e-2
+
+
+@pytest.fixture
+def jx():
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from neuralgraphpde.kernels import dia_kernels, segment_kernels
+    from neuralgraphpde.ops import dia
+
+    return types.SimpleNamespace(jnp=jnp, pltpu=pltpu, dia=dia,
+                                 dk=dia_kernels, sk=segment_kernels)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+def _edges(n, e, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, n, e), rng.integers(0, n, e),
+            rng.normal(size=e).astype(np.float32), rng)
+
+
+def _grid():
+    g = add_self_loops(grid_graph_2d(20, 12, diagonals=True))
+    return g.host_coo[0], g.host_coo[1], g.num_nodes
+
+
+# ------------------------------------------------------------------- K1
+@pytest.mark.parametrize("n,e,f,weighted", [
+    (50, 200, 16, False), (100, 1000, 128, True), (33, 77, 24, True)])
+def test_k1_matches_pallas(jx, n, e, f, weighted):
+    s, r, w, rng = _edges(n, e, 0)
+    w = w if weighted else None
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    tcsr = jx.sk.build_tiled_csr(s, r, n, edge_weight=w, tn=16, te=32)
+    want = np.asarray(jx.sk._tiled_segment_spmm_fwd(
+        tcsr, jx.jnp.asarray(x), interpret=True))[:n]
+    got = segment_spmm(torch.from_numpy(x),
+                       build_segment_csr(s, r, n, edge_weight=w))
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
+def test_k1_bf16_matches_pallas(jx):
+    """bf16 reads with f32 accumulation: ``compute_dtype`` on f32 x (f32
+    out), and bf16 x (bf16 out)."""
+    n, e, f = 40, 200, 16
+    s, r, _, rng = _edges(n, e, 6)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    tcsr = jx.sk.build_tiled_csr(s, r, n, tn=8, te=32)
+    csr = build_segment_csr(s, r, n)
+    bf = jx.jnp.bfloat16
+    want = jx.sk._tiled_segment_spmm_fwd(tcsr, jx.jnp.asarray(x),
+                                         interpret=True, compute_dtype=bf)
+    got = segment_spmm(torch.from_numpy(x), csr,
+                       compute_dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
+    assert _rel(got, np.asarray(want)[:n]) < BF16
+    want16 = jx.sk._tiled_segment_spmm_fwd(tcsr, jx.jnp.asarray(x).astype(bf),
+                                           interpret=True)
+    got16 = segment_spmm(torch.from_numpy(x).to(torch.bfloat16), csr)
+    assert got16.dtype == torch.bfloat16 and want16.dtype == bf
+    assert _rel(got16.float(), np.asarray(want16, np.float32)[:n]) < BF16
+
+
+# ------------------------------------------------------------------- K2
+def test_dia_build_and_transpose_match_jax(jx):
+    s, r, n = _grid()
+    w = np.random.default_rng(2).random(len(s)).astype(np.float32)
+    dj = jx.dia.build_dia(s, r, n, edge_weight=w)
+    dp = build_dia(s, r, n, edge_weight=w)
+    assert dp.offsets == dj.offsets and dp.padded_nodes % 512 == 0
+    np.testing.assert_array_equal(dp.values.numpy(), np.asarray(dj.values))
+    tj, tp = jx.dia.transpose_dia(dj), transpose_dia(dp)
+    assert tp.offsets == tj.offsets
+    np.testing.assert_array_equal(tp.values.numpy(), np.asarray(tj.values))
+
+
+@pytest.mark.parametrize("act,has_w,has_b", [
+    (False, False, False), ("tanh", True, True), ("relu", True, False),
+    ("sigmoid", True, True), (None, True, True), ("tanh", False, True)])
+def test_k2_f32_matches_pallas(jx, act, has_w, has_b):
+    """Plain stencil (``act=False``) and the fused epilogue, W 12 → 7."""
+    s, r, n = _grid()
+    rng = np.random.default_rng(4)
+    w_edge = rng.random(len(s)).astype(np.float32)
+    x = rng.normal(size=(n, 12)).astype(np.float32)
+    w = rng.normal(size=(12, 7)).astype(np.float32) / 3 if has_w else None
+    b_width = 7 if has_w else 12
+    b = rng.normal(size=(1, b_width)).astype(np.float32) if has_b else None
+    dj = jx.dia.build_dia(s, r, n, edge_weight=w_edge)
+    dp = build_dia(s, r, n, edge_weight=w_edge)
+    jnp = jx.jnp
+    with jx.pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jx.dk._dia_rhs_fwd(
+            dj, jnp.asarray(x), None if w is None else jnp.asarray(w),
+            None if b is None else jnp.asarray(b), act=act,
+            interpret=True))[:n]
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    if act is False:
+        got = dia_spmm_stencil(t(x), dp)
+    else:
+        got = dia_gcn_rhs(act, t(x), t(w), t(b), dp)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_k2_bf16_matches_pallas(jx, fused):
+    """bf16 values and x: W cast to bf16, the accumulator rounded to bf16
+    before the W product, bf16 out."""
+    s, r, n = _grid()
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    w = rng.normal(size=(16, 16)).astype(np.float32) / 4
+    b = rng.normal(size=(1, 16)).astype(np.float32)
+    jnp = jx.jnp
+    dj = jx.dia.build_dia(s, r, n, dtype=jnp.bfloat16)
+    dp = build_dia(s, r, n, dtype=torch.bfloat16)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    xp = torch.from_numpy(x).to(torch.bfloat16)
+    with jx.pltpu.force_tpu_interpret_mode():
+        if fused:
+            want = jx.dk.dia_gcn_rhs("tanh", xj, jnp.asarray(w),
+                                     jnp.asarray(b), dj, None)
+            got = dia_gcn_rhs("tanh", xp, torch.from_numpy(w),
+                              torch.from_numpy(b), dp)
+        else:
+            want = jx.dk.dia_spmm_pallas(xj, dj, None)
+            got = dia_spmm_stencil(xp, dp)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert _rel(got.float(), np.asarray(want, np.float32)) < BF16
+
+
+def test_wrappers_check_inputs():
+    s, r, n = _grid()
+    dm = build_dia(s, r, n)
+    with pytest.raises(ValueError, match="F ≤ 512"):
+        dia_gcn_rhs("tanh", torch.zeros(n, 513), None, None, dm)
+    with pytest.raises(ValueError, match="must be"):
+        dia_spmm_stencil(torch.zeros(n + 1, 4), dm)
+    csr = build_segment_csr(s, r, n)
+    with pytest.raises(ValueError, match="must be"):
+        segment_spmm(torch.zeros(n, 4, 2), csr)
+    # a tensor on neither the CPU nor the card takes no plain fallback
+    with pytest.raises(RuntimeError, match="no kernel"):
+        segment_spmm(torch.zeros(n, 4, device="meta"), csr)
+
+
+# ---------------------------------------------------------- on the card
+@pytest.mark.parametrize("dtype,f", [(torch.float32, 64),
+                                     (torch.float32, 30),
+                                     (torch.bfloat16, 128)])
+def test_k1_kernel_matches_plain_cuda(cuda, dtype, f):
+    n, e = 3000, 40000
+    s, r, w, rng = _edges(n, e, 7)
+    csr = build_segment_csr(s, r, n, edge_weight=w).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32))
+    x = x.to(cuda, dtype)
+    launches = segment_spmm.launches
+    got = segment_spmm(x, csr)
+    torch.cuda.synchronize()
+    assert segment_spmm.launches == launches + 1
+    want = segment_spmm_plain(x, csr).to(dtype)
+    bound = 1e-5 if dtype == torch.float32 else BF16
+    assert _rel(got.cpu().float(), want.cpu().float()) <= bound
+
+
+@pytest.mark.parametrize("act,has_w,dtype", [
+    (False, False, torch.float32), ("tanh", True, torch.float32),
+    ("relu", True, torch.float32), ("sigmoid", False, torch.float32),
+    ("tanh", True, torch.bfloat16)])
+def test_k2_kernel_matches_plain_cuda(cuda, act, has_w, dtype):
+    s, r, n = _grid()
+    rng = np.random.default_rng(8)
+    dm = build_dia(s, r, n, edge_weight=rng.random(len(s)),
+                   dtype=dtype).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(n, 40)).astype(np.float32))
+    x = x.to(cuda, dtype)
+    w = torch.from_numpy(rng.normal(size=(40, 70)).astype(np.float32) / 6)
+    w = w.to(cuda) if has_w else None
+    b = torch.randn(1, 70 if has_w else 40).to(cuda)
+    if act is False:
+        got = dia_spmm_stencil(x, dm)
+        want = dia_rhs_plain(dm, x, None, None, None, False, dtype)
+    else:
+        got = dia_gcn_rhs(act, x, w, b, dm)
+        wc = None if w is None else w.to(dtype)
+        want = dia_rhs_plain(dm, x, wc, b, act, True, dtype)
+    torch.cuda.synchronize()
+    bound = 1e-5 if dtype == torch.float32 else BF16
+    assert _rel(got.cpu().float(), want.cpu().float()) <= bound
+
+
+def test_kernels_refuse_autograd_cuda(cuda):
+    s, r, n = _grid()
+    x = torch.zeros(n, 8, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        segment_spmm(x, build_segment_csr(s, r, n).to(cuda))
