@@ -1,0 +1,490 @@
+// K3: fused edge-MLP + receiver reduce over a receiver-sorted CSR whose
+// `col` holds edge ids (the `tcsr_edges` layout),
+//   out[i, :] = sum_{row_ptr[i] <= s < row_ptr[i+1]} w[s] * MLP(feats[col[s], :])
+// with MLP = up to 4 Dense layers (x @ W + b, then a static activation), in
+// true f32, and its VJP: dfeats, and dW, db of every layer.
+// Replaces neuralgraphpde/kernels/fused_mlp_kernels.py::_fused_mlp_fwd and
+// ::_fused_mlp_bwd_pallas.
+//
+// What bounds it on the H100: at the VMH widths (4 -> 60 -> 60 -> 60) an
+// edge costs ~7.4k FMAs forward and ~3x that backward, against 16 bytes of
+// input and a 240-byte output row per receiver: far above the ridge point
+// in f32, so the limit is the CUDA cores' f32 FMA rate and the shared-memory
+// operand traffic that feeds them (the tensor cores would round to TF32).
+// The TPU kernel keeps every hidden activation in VMEM; here a block keeps
+// them in shared memory, so only the gathered inputs, the output rows (and
+// backward the output-gradient rows and dfeats) touch device memory.
+//
+// Design:
+// - a block of 128 threads owns a run of consecutive receiver rows and walks
+//   their edge slots in chunks of 32. Every layer is a small GEMM on the
+//   chunk (32 x K_in times K_in x K_out) in shared memory; each thread owns
+//   4x4 output tiles. Widths are padded to a multiple of 4 with zeros, and
+//   row strides are odd (padded width + 1) against bank conflicts.
+// - forward: all weights and biases staged in shared memory once per block;
+//   each row's sum is kept in shared memory by one owning thread, added in
+//   slot order, stored once per row: no atomics, deterministic.
+// - backward: the TPU kernel adds dW/db into output blocks that every
+//   (sequential) grid step revisits; GPU blocks run in no order. Here each
+//   block recomputes its chunk's activations, keeps them (and the
+//   pre-activations) in shared memory, and reverses through the layers with
+//   the exact derivative of each activation. dW/db accumulate per block in
+//   shared memory, each entry owned by one thread; the block writes them to
+//   a per-block scratch row and a second kernel sums the rows in block
+//   order. dfeats[col[s]] is written directly: every edge id appears once in
+//   `col`, so there is no scatter. The result is the same on every run.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxLayers = 4;
+constexpr int kThreads = 128;
+constexpr int kTE = 32;  // edge slots per chunk
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+// returned by the launchers for an MLP outside the envelope (cudaError_t
+// codes are >= 0)
+constexpr int kOutsideEnvelope = -1;
+constexpr int kMaxFwdRows = 64;  // receiver rows per forward block, at most
+
+enum Act {
+  kIdentity = 0, kRelu, kTanh, kSigmoid, kSoftplus, kElu, kGelu, kSwish
+};
+
+struct Mlp {
+  const float* w[kMaxLayers];  // (dim[l], dim[l+1]) row-major
+  const float* b[kMaxLayers];  // (dim[l+1],)
+  int dim[kMaxLayers + 1];
+  int act[kMaxLayers];
+  int n;
+};
+
+__host__ __device__ __forceinline__ int pad4(int d) { return (d + 3) & ~3; }
+__host__ __device__ __forceinline__ int imax(int a, int b) {
+  return a > b ? a : b;
+}
+
+// float offsets into the dynamic shared memory of one block
+struct Layout {
+  int w[kMaxLayers], b[kMaxLayers], dw[kMaxLayers], db[kMaxLayers];
+  int h[kMaxLayers + 1], z[kMaxLayers], d[2], acc;
+  int sd;  // row stride of the chunk buffers h[0..1] (fwd) and d[0..1]
+  int total;
+};
+
+__host__ __device__ inline Layout make_layout(const Mlp& m, int rows,
+                                              bool bwd) {
+  Layout L{};
+  int off = 0, pmax = 0;
+  for (int l = 0; l <= m.n; ++l) pmax = imax(pmax, pad4(m.dim[l]));
+  L.sd = pmax + 1;
+  for (int l = 0; l < m.n; ++l) {
+    const int pin = pad4(m.dim[l]), pout = pad4(m.dim[l + 1]);
+    L.w[l] = off;
+    off += pin * (pout + 1);
+    L.b[l] = off;
+    off += pout;
+    if (bwd) {
+      L.dw[l] = off;
+      off += pin * (pout + 1);
+      L.db[l] = off;
+      off += pout;
+    }
+  }
+  if (bwd) {
+    for (int l = 0; l <= m.n; ++l) {
+      L.h[l] = off;
+      off += kTE * (pad4(m.dim[l]) + 1);
+    }
+    for (int l = 0; l < m.n; ++l) {
+      L.z[l] = off;
+      off += kTE * (pad4(m.dim[l + 1]) + 1);
+    }
+    L.d[0] = off;
+    off += kTE * L.sd;
+    L.d[1] = off;
+    off += kTE * L.sd;
+  } else {
+    L.h[0] = off;
+    off += kTE * L.sd;
+    L.h[1] = off;
+    off += kTE * L.sd;
+    L.acc = off;
+    off += rows * pad4(m.dim[m.n]);
+  }
+  L.total = off;
+  return L;
+}
+
+__device__ __forceinline__ float sigmoid(float z) {
+  return 1.f / (1.f + expf(-z));
+}
+
+constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2 / pi)
+constexpr float kGeluA = 0.044715f;
+
+__device__ __forceinline__ float act_fwd(int act, float z) {
+  switch (act) {
+    case kRelu: return fmaxf(z, 0.f);
+    case kTanh: return tanhf(z);
+    case kSigmoid: return sigmoid(z);
+    case kSoftplus: return fmaxf(z, 0.f) + log1pf(expf(-fabsf(z)));
+    case kElu: return z > 0.f ? z : expm1f(z);
+    case kGelu:
+      return 0.5f * z * (1.f + tanhf(kGeluC * (z + kGeluA * z * z * z)));
+    case kSwish: return z * sigmoid(z);
+    default: return z;
+  }
+}
+
+// d act / dz at pre-activation z with value h = act(z)
+__device__ __forceinline__ float act_grad(int act, float z, float h) {
+  switch (act) {
+    case kRelu: return z > 0.f ? 1.f : 0.f;
+    case kTanh: return 1.f - h * h;
+    case kSigmoid: return h * (1.f - h);
+    case kSoftplus: return sigmoid(z);
+    case kElu: return z > 0.f ? 1.f : expf(z);
+    case kGelu: {
+      const float t = tanhf(kGeluC * (z + kGeluA * z * z * z));
+      return 0.5f * (1.f + t) +
+             0.5f * z * (1.f - t * t) * kGeluC * (1.f + 3.f * kGeluA * z * z);
+    }
+    case kSwish: {
+      const float s = sigmoid(z);
+      return s + z * s * (1.f - s);
+    }
+    default: return 1.f;
+  }
+}
+
+// out(i, j) = sum_{k < K} A[i*ai + k*ak] * B[k*bk + j*bj] for i < M, j < N
+// (both multiples of 4); each thread takes 4x4 tiles, and `epi(i, j, v)`
+// stores. Every (i, j) belongs to one thread, the same on every call with
+// the same M and N.
+template <typename Epi>
+__device__ __forceinline__ void block_gemm(int M, int N, int K,
+                                           const float* A, int ai, int ak,
+                                           const float* B, int bk, int bj,
+                                           Epi epi) {
+  const int mt = M >> 2;
+  const int tiles = mt * (N >> 2);
+  for (int t = threadIdx.x; t < tiles; t += kThreads) {
+    const int i0 = (t % mt) << 2;
+    const int j0 = (t / mt) << 2;
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    for (int k = 0; k < K; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = A[(i0 + r) * ai + k * ak];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) b[c] = B[k * bk + (j0 + c) * bj];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) epi(i0 + r, j0 + c, acc[r][c]);
+  }
+}
+
+// weights and biases into shared memory, zero-padded; dW/db zeroed (bwd)
+__device__ void stage_weights(const Mlp& m, const Layout& L, float* sm,
+                              bool bwd) {
+  for (int l = 0; l < m.n; ++l) {
+    const int din = m.dim[l], dout = m.dim[l + 1];
+    const int pin = pad4(din), sw = pad4(dout) + 1;
+    for (int i = threadIdx.x; i < pin * sw; i += kThreads) {
+      const int k = i / sw, j = i % sw;
+      sm[L.w[l] + i] = (k < din && j < dout) ? m.w[l][k * dout + j] : 0.f;
+      if (bwd) sm[L.dw[l] + i] = 0.f;
+    }
+    for (int j = threadIdx.x; j < sw - 1; j += kThreads) {
+      sm[L.b[l] + j] = j < dout ? m.b[l][j] : 0.f;
+      if (bwd) sm[L.db[l] + j] = 0.f;
+    }
+  }
+}
+
+// the chunk's input rows feats[col[s]] into h (row stride sh), zero-padded
+__device__ void gather_inputs(const Mlp& m, const int* __restrict__ col,
+                              const float* __restrict__ feats, int c0, int c1,
+                              float* h, int sh) {
+  const int d0 = m.dim[0], p0 = pad4(d0);
+  for (int i = threadIdx.x; i < kTE * p0; i += kThreads) {
+    const int e = i / p0, k = i % p0;
+    const int s = c0 + e;
+    h[e * sh + k] = (s < c1 && k < d0)
+                        ? feats[(long long)col[s] * d0 + k]
+                        : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_mlp_fwd_kernel(Mlp m, const int* __restrict__ row_ptr,
+                         const int* __restrict__ col,
+                         const float* __restrict__ ew,
+                         const float* __restrict__ feats,
+                         float* __restrict__ out, int n_rows, int rows) {
+  extern __shared__ float sm[];
+  const Layout L = make_layout(m, rows, false);
+  stage_weights(m, L, sm, false);
+  const int r0 = blockIdx.x * rows;
+  const int r1 = min(r0 + rows, n_rows);
+  const int dn = m.dim[m.n], pn = pad4(dn);
+  float* acc = sm + L.acc;
+  for (int i = threadIdx.x; i < rows * pn; i += kThreads) acc[i] = 0.f;
+  const int e_begin = row_ptr[r0], e_end = row_ptr[r1];
+  const int sd = L.sd;
+  __syncthreads();
+  for (int c0 = e_begin; c0 < e_end; c0 += kTE) {
+    const int c1 = min(c0 + kTE, e_end);
+    gather_inputs(m, col, feats, c0, c1, sm + L.h[0], sd);
+    __syncthreads();
+    int cur = 0;
+    for (int l = 0; l < m.n; ++l) {
+      const float* hin = sm + L.h[cur];
+      float* hout = sm + L.h[cur ^ 1];
+      const int pin = pad4(m.dim[l]), pout = pad4(m.dim[l + 1]);
+      const float* bias = sm + L.b[l];
+      const int act = m.act[l];
+      block_gemm(kTE, pout, pin, hin, sd, 1, sm + L.w[l], pout + 1, 1,
+                 [&](int e, int j, float v) {
+                   hout[e * sd + j] = act_fwd(act, v + bias[j]);
+                 });
+      __syncthreads();
+      cur ^= 1;
+    }
+    // each (row, unit) pair adds the chunk's slots of its row, in order
+    const float* hn = sm + L.h[cur];
+    for (int i = threadIdx.x; i < (r1 - r0) * pn; i += kThreads) {
+      const int r = i / pn, j = i % pn;
+      const int lo = max(row_ptr[r0 + r], c0);
+      const int hi = min(row_ptr[r0 + r + 1], c1);
+      float a = acc[i];
+      for (int s = lo; s < hi; ++s) a = fmaf(ew[s], hn[(s - c0) * sd + j], a);
+      acc[i] = a;
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < (r1 - r0) * dn; i += kThreads) {
+    const int r = i / dn, j = i % dn;
+    out[(long long)(r0 + r) * dn + j] = acc[r * pn + j];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_mlp_bwd_kernel(Mlp m, const int* __restrict__ row_ptr,
+                         const int* __restrict__ col,
+                         const float* __restrict__ ew,
+                         const long long* __restrict__ slot_row,
+                         const float* __restrict__ feats,
+                         const float* __restrict__ g_out,
+                         float* __restrict__ dfeats,
+                         float* __restrict__ partial, int n_rows, int rows,
+                         int n_params) {
+  extern __shared__ float sm[];
+  const Layout L = make_layout(m, rows, true);
+  stage_weights(m, L, sm, true);
+  const int r0 = blockIdx.x * rows;
+  const int r1 = min(r0 + rows, n_rows);
+  const int e_begin = row_ptr[r0], e_end = row_ptr[r1];
+  const int sd = L.sd;
+  const int d0 = m.dim[0], dn = m.dim[m.n];
+  __syncthreads();
+  for (int c0 = e_begin; c0 < e_end; c0 += kTE) {
+    const int c1 = min(c0 + kTE, e_end);
+    // recompute: h[l+1] = act(z[l]), z[l] = h[l] @ W[l] + b[l]
+    gather_inputs(m, col, feats, c0, c1, sm + L.h[0], pad4(d0) + 1);
+    __syncthreads();
+    for (int l = 0; l < m.n; ++l) {
+      const int pin = pad4(m.dim[l]), pout = pad4(m.dim[l + 1]);
+      float* z = sm + L.z[l];
+      float* h = sm + L.h[l + 1];
+      const float* bias = sm + L.b[l];
+      const int act = m.act[l];
+      block_gemm(kTE, pout, pin, sm + L.h[l], pin + 1, 1, sm + L.w[l],
+                 pout + 1, 1, [&](int e, int j, float v) {
+                   const float zz = v + bias[j];
+                   z[e * (pout + 1) + j] = zz;
+                   h[e * (pout + 1) + j] = act_fwd(act, zz);
+                 });
+      __syncthreads();
+    }
+    // the output-gradient row of each slot's receiver, times its weight
+    {
+      const int pn = pad4(dn);
+      float* d = sm + L.d[0];
+      for (int i = threadIdx.x; i < kTE * pn; i += kThreads) {
+        const int e = i / pn, j = i % pn;
+        const int s = c0 + e;
+        d[e * sd + j] = (s < c1 && j < dn)
+                            ? ew[s] * g_out[slot_row[s] * dn + j]
+                            : 0.f;
+      }
+    }
+    __syncthreads();
+    int cur = 0;
+    for (int l = m.n - 1; l >= 0; --l) {
+      const int pin = pad4(m.dim[l]), pout = pad4(m.dim[l + 1]);
+      float* dz = sm + L.d[cur];
+      const float* z = sm + L.z[l];
+      const float* h = sm + L.h[l + 1];
+      const int act = m.act[l];
+      for (int i = threadIdx.x; i < kTE * pout; i += kThreads) {
+        const int e = i / pout, j = i % pout;
+        const int q = e * (pout + 1) + j;
+        dz[e * sd + j] *= act_grad(act, z[q], h[q]);
+      }
+      __syncthreads();
+      // dW[l] += h[l]^T dz, db[l] += sum over slots of dz
+      float* dw = sm + L.dw[l];
+      block_gemm(pin, pout, kTE, sm + L.h[l], 1, pin + 1, dz, sd, 1,
+                 [&](int k, int j, float v) { dw[k * (pout + 1) + j] += v; });
+      float* db = sm + L.db[l];
+      for (int j = threadIdx.x; j < pout; j += kThreads) {
+        float a = db[j];
+        for (int e = 0; e < kTE; ++e) a += dz[e * sd + j];
+        db[j] = a;
+      }
+      // dh[l] = dz @ W[l]^T
+      float* dh = sm + L.d[cur ^ 1];
+      block_gemm(kTE, pin, pout, dz, sd, 1, sm + L.w[l], 1, pout + 1,
+                 [&](int e, int k, float v) { dh[e * sd + k] = v; });
+      __syncthreads();
+      cur ^= 1;
+    }
+    const float* dh0 = sm + L.d[cur];
+    for (int i = threadIdx.x; i < kTE * d0; i += kThreads) {
+      const int e = i / d0, k = i % d0;
+      const int s = c0 + e;
+      if (s < c1) dfeats[(long long)col[s] * d0 + k] = dh0[e * sd + k];
+    }
+    __syncthreads();
+  }
+  // this block's dW/db: [dW0 (d0 x d1), db0 (d1), dW1, db1, ...]
+  float* p = partial + (long long)blockIdx.x * n_params;
+  for (int l = 0; l < m.n; ++l) {
+    const int din = m.dim[l], dout = m.dim[l + 1];
+    const int sw = pad4(dout) + 1;
+    for (int i = threadIdx.x; i < din * dout; i += kThreads)
+      p[i] = sm[L.dw[l] + (i / dout) * sw + i % dout];
+    p += din * dout;
+    for (int j = threadIdx.x; j < dout; j += kThreads) p[j] = sm[L.db[l] + j];
+    p += dout;
+  }
+}
+
+// out[i] = sum over blocks b, in order, of partial[b, i]
+__global__ void sum_partials_kernel(const float* __restrict__ partial,
+                                    float* __restrict__ out, int n_blocks,
+                                    int n_params) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_params) return;
+  float a = 0.f;
+  for (int b = 0; b < n_blocks; ++b) a += partial[(long long)b * n_params + i];
+  out[i] = a;
+}
+
+// host: the MLP from the wrapper's arrays; 0, cudaErrorInvalidValue for an
+// unknown activation code, or kOutsideEnvelope. K3's envelope: 1 to
+// kMaxLayers layers of width >= 1 whose forward block (at kMaxFwdRows
+// receiver rows) and backward block both fit kMaxSmem bytes of shared
+// memory. Both launchers hold an MLP to both limits, so a forward never
+// runs whose backward could not.
+int make_mlp(int n, const int* dims, const int* acts, const void* const* w,
+             const void* const* b, Mlp* m) {
+  if (n < 1 || n > kMaxLayers) return kOutsideEnvelope;
+  *m = Mlp{};
+  m->n = n;
+  for (int l = 0; l <= n; ++l) {
+    // no width above 1024 fits (the chunk buffers alone would not), and
+    // the cap keeps the layout's int arithmetic from overflowing
+    if (dims[l] < 1 || dims[l] > 1024) return kOutsideEnvelope;
+    m->dim[l] = dims[l];
+  }
+  for (int l = 0; l < n; ++l) {
+    if (acts[l] < kIdentity || acts[l] > kSwish)
+      return static_cast<int>(cudaErrorInvalidValue);
+    m->act[l] = acts[l];
+    m->w[l] = static_cast<const float*>(w[l]);
+    m->b[l] = static_cast<const float*>(b[l]);
+  }
+  if (make_layout(*m, kMaxFwdRows, false).total * (int)sizeof(float) >
+          kMaxSmem ||
+      make_layout(*m, 1, true).total * (int)sizeof(float) > kMaxSmem)
+    return kOutsideEnvelope;
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// out (n_rows, dims[n]) f32. dims: n + 1 widths; acts: n activation codes;
+// w, b: n device pointers each; rows: receiver rows per block. Returns a
+// cudaError_t, or kOutsideEnvelope (-1).
+int ngpde_fused_mlp_fwd(const int* row_ptr, const int* col, const float* ew,
+                        const float* feats, float* out, int n_rows, int rows,
+                        int n, const int* dims, const int* acts,
+                        const void* const* w, const void* const* b,
+                        void* stream_ptr) {
+  Mlp m;
+  const int bad = make_mlp(n, dims, acts, w, b, &m);
+  if (bad != 0) return bad;
+  if (rows < 1 || rows > kMaxFwdRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows == 0) return 0;
+  const int smem = make_layout(m, rows, false).total * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n_rows + rows - 1) / rows;
+  fused_mlp_fwd_kernel<<<blocks, kThreads, smem,
+                         static_cast<cudaStream_t>(stream_ptr)>>>(
+      m, row_ptr, col, ew, feats, out, n_rows, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dfeats (E, dims[0]); grads: the n_params = sum_l dims[l]*dims[l+1] +
+// dims[l+1] weight and bias gradients, concatenated per layer; partial:
+// scratch of ceil(n_rows / rows) * n_params floats.
+int ngpde_fused_mlp_bwd(const int* row_ptr, const int* col, const float* ew,
+                        const long long* slot_row, const float* feats,
+                        const float* g_out, float* dfeats, float* grads,
+                        float* partial, int n_rows, int rows, int n,
+                        const int* dims, const int* acts,
+                        const void* const* w, const void* const* b,
+                        void* stream_ptr) {
+  Mlp m;
+  const int bad = make_mlp(n, dims, acts, w, b, &m);
+  if (bad != 0) return bad;
+  if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int n_params = 0;
+  for (int l = 0; l < n; ++l) n_params += dims[l] * dims[l + 1] + dims[l + 1];
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int blocks = n_rows == 0 ? 0 : (n_rows + rows - 1) / rows;
+  if (blocks > 0) {
+    const int smem = make_layout(m, rows, true).total * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_mlp_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_mlp_bwd_kernel<<<blocks, kThreads, smem, stream>>>(
+        m, row_ptr, col, ew, slot_row, feats, g_out, dfeats, partial, n_rows,
+        rows, n_params);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  sum_partials_kernel<<<(n_params + 255) / 256, 256, 0, stream>>>(
+      partial, grads, blocks, n_params);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

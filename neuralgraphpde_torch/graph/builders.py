@@ -67,3 +67,27 @@ def grid_graph_2d(nx: int, ny: int, *, periodic: bool = False,
     return GnnGraph.from_coo(
         s[order], t[order], num_nodes=nx * ny, **features,
     )
+
+
+def delaunay_graph(points: np.ndarray, *, bidirected: bool = True,
+                   **features) -> GnnGraph:
+    """Delaunay triangulation edges (the VMH configuration's scattered-node
+    mesh): every simplex side, sorted unique ``(sender, receiver)`` pairs,
+    both directions when ``bidirected``."""
+    from scipy.spatial import Delaunay
+
+    points = np.asarray(points)
+    tri = Delaunay(points)
+    edges = set()
+    for simplex in tri.simplices:
+        m = len(simplex)
+        for a in range(m):
+            for b in range(a + 1, m):
+                i, j = int(simplex[a]), int(simplex[b])
+                edges.add((i, j))
+                if bidirected:
+                    edges.add((j, i))
+    edges = sorted(edges)
+    s = np.asarray([e[0] for e in edges], np.int32)
+    t = np.asarray([e[1] for e in edges], np.int32)
+    return GnnGraph.from_coo(s, t, num_nodes=points.shape[0], **features)

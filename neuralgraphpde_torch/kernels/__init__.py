@@ -2,11 +2,15 @@
 version. Importing this package builds nothing: the library is compiled at
 the first kernel launch (``kernels._build``)."""
 from .dia_kernels import dia_gcn_rhs, dia_rhs_plain, dia_spmm_stencil
+from .fused_mlp_kernels import (fused_mlp_aggregate, fused_mlp_bwd,
+                                fused_mlp_bwd_plain, fused_mlp_fwd,
+                                fused_mlp_plain)
 from .segment_kernels import (SegmentCSR, build_segment_csr, segment_spmm,
                               segment_spmm_plain)
 
 # every kernel wrapper, each counting its launches in ``.launches``
-KERNELS = (segment_spmm, dia_spmm_stencil, dia_gcn_rhs)
+KERNELS = (segment_spmm, dia_spmm_stencil, dia_gcn_rhs, fused_mlp_fwd,
+           fused_mlp_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -15,7 +19,8 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "dia_gcn_rhs", "dia_rhs_plain", "dia_spmm_stencil", "SegmentCSR",
-    "build_segment_csr", "segment_spmm", "segment_spmm_plain", "KERNELS",
-    "reset_launch_counts",
+    "dia_gcn_rhs", "dia_rhs_plain", "dia_spmm_stencil", "fused_mlp_aggregate",
+    "fused_mlp_bwd", "fused_mlp_bwd_plain", "fused_mlp_fwd",
+    "fused_mlp_plain", "SegmentCSR", "build_segment_csr", "segment_spmm",
+    "segment_spmm_plain", "KERNELS", "reset_launch_counts",
 ]

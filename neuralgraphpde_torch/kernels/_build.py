@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``neuralgraphpde_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface under
+(``sm_90a``), one ``nvcc`` process per source, all started together, then
+linked into one shared library with a plain C interface under
 ``build/torch_kernels/`` at the repository root, and loaded with ``ctypes``.
 The build runs at first use; the library's file name carries a hash of the
 sources and flags, so an edited source is rebuilt. Nothing here runs at
@@ -22,7 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +34,10 @@ _SIGNATURES = {
     "ngpde_dia_stencil": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ngpde_dia_gcn_rhs": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _P),
+    "ngpde_fused_mlp_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                            _P),
+    "ngpde_fused_mlp_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _P, _P, _P, _P, _P),
 }
 
 _lib = None
@@ -58,7 +64,7 @@ def library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in sources:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
@@ -67,14 +73,33 @@ def library() -> ctypes.CDLL:
     log = ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in sources if p.suffix == ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        log = proc.stdout + proc.stderr
+        tag = f"{so.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in (p for p in sources if p.suffix == ".cu"):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        tmp = so.with_name(f"{tag}.tmp")
+        try:
+            outs = [proc.communicate()[0] for proc in procs]
+            failed = [(proc.returncode, out) for proc, out in zip(procs, outs)
+                      if proc.returncode != 0]
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(
+                    f"({code})\n{out}" for code, out in failed))
+            proc = subprocess.run(
+                [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+        finally:
+            for obj in objs:  # a failed build leaves no objects behind
+                obj.unlink(missing_ok=True)
+        log = "".join(outs)
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

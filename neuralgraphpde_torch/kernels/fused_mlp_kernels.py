@@ -1,0 +1,283 @@
+"""K3: fused edge-MLP + receiver reduce, forward and backward,
+``out[i] = Σ_{s in row i} w_s · MLP(feats[col_s])``.
+
+Replaces ``neuralgraphpde/kernels/fused_mlp_kernels.py::_fused_mlp_fwd``
+and ``::_fused_mlp_bwd_pallas`` (the Pallas pair behind
+``fused_mlp_aggregate``). CUDA source: ``neuralgraphpde_torch/csrc/
+fused_mlp.cu``, whose header says what bounds it on the H100 and how its
+blocks are laid out.
+
+The layout is the ``tcsr_edges`` ``SegmentCSR`` that ``precompute``
+attaches: receiver-sorted, ``col`` holding edge ids, each edge once. The
+MLP has at most four Dense layers with activations from ``supported_
+activation`` (the JAX kernel's set; ``gelu`` is the tanh form, as
+``jax.nn.gelu``'s default), in true f32.
+
+- ``fused_mlp_fwd`` / ``fused_mlp_bwd``: the kernels (the backward returns
+  ``dfeats``, ``dW`` and ``db`` of every layer for an output cotangent).
+  CPU tensors take the plain versions; CUDA tensors launch the kernel or
+  raise. Both take f32 only. On the card both hold the MLP to the kernels'
+  envelope (1 to 4 layers whose forward and backward blocks fit the card's
+  227 KB of shared memory, worked out by the CUDA source) and raise
+  ``ValueError`` outside it.
+- ``fused_mlp_plain`` / ``fused_mlp_bwd_plain``: the plain PyTorch versions,
+  a per-edge MLP then ``index_add_``, and autograd through it (the saved-
+  activation path, the JAX package's ``xla`` backend).
+- ``fused_mlp_aggregate``: the differentiable call. On the card it is a
+  ``torch.autograd.Function`` whose forward and backward are the two
+  kernels; on the CPU it is the plain forward under autograd.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .segment_kernels import SegmentCSR
+
+# activation name -> the kernel's code (csrc/fused_mlp.cu ``Act``)
+_ACT_CODES = {
+    "identity": 0, "relu": 1, "tanh": 2, "sigmoid": 3, "softplus": 4,
+    "elu": 5, "gelu": 6, "swish": 7, "silu": 7,
+}
+_PLAIN_ACTS = {
+    "identity": lambda x: x,
+    "relu": torch.relu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "softplus": F.softplus,
+    "elu": F.elu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "swish": F.silu,
+    "silu": F.silu,
+}
+
+# forward: receiver rows per block, chosen so a block's edges fill about
+# this many chunk slots on average (at most csrc/fused_mlp.cu kMaxFwdRows)
+_FWD_SLOTS = 56
+_MAX_FWD_ROWS = 64
+# what the CUDA launchers return for an MLP outside the envelope
+_OUTSIDE_ENVELOPE = -1
+# backward: blocks per SM (one block's shared memory fills most of an SM);
+# fewer blocks means fewer per-block dW/db partials to add
+_BWD_BLOCKS_PER_SM = 1
+
+
+def supported_activation(name) -> bool:
+    return name is None or (isinstance(name, str) and name in _ACT_CODES)
+
+
+def _act_name(name: Optional[str]) -> str:
+    return "identity" if name is None else name
+
+
+def _dims(feats: torch.Tensor, ws: Sequence[torch.Tensor]) -> tuple:
+    return (feats.shape[1],) + tuple(w.shape[1] for w in ws)
+
+
+def _check(acts, csr: SegmentCSR, feats, ws, bs) -> None:
+    n = len(ws)
+    if not (len(acts) == len(bs) == n >= 1):
+        raise ValueError(f"{len(acts)} activations, {n} weights and "
+                         f"{len(bs)} biases: one of each per layer")
+    for a in acts:
+        if not supported_activation(a):
+            raise ValueError(f"activation {a!r} has no kernel form")
+    if feats.dim() != 2 or feats.shape[0] != csr.num_cols:
+        raise ValueError(f"feats must be ({csr.num_cols}, Fin), got "
+                         f"{tuple(feats.shape)}")
+    width = feats.shape[1]
+    for w, b in zip(ws, bs):
+        if w.dim() != 2 or w.shape[0] != width:
+            raise ValueError(f"weight {tuple(w.shape)} does not take width "
+                             f"{width}")
+        width = w.shape[1]
+        if b.numel() != width:
+            raise ValueError(f"bias of {b.numel()} entries for width {width}")
+    for t in (feats, *ws, *bs):
+        if t.dtype != torch.float32:
+            raise TypeError(f"the fused MLP kernels take f32 only, got "
+                            f"{t.dtype}: bf16 waits for the precision "
+                            "policy; cast explicitly")
+
+
+def _check_launch(err: int, what: str, dims) -> None:
+    """Raise if a K3 launcher refused the MLP or reported a CUDA error."""
+    if err == _OUTSIDE_ENVELOPE:
+        raise ValueError(f"{what}: MLP widths {dims} are outside the fused "
+                         "MLP kernels' envelope: 1 to 4 layers whose forward "
+                         "and backward blocks fit the card's 227 KB of "
+                         "shared memory")
+    _build.check(err, what)
+
+
+def fused_mlp_plain(acts, csr: SegmentCSR, feats: torch.Tensor,
+                    ws: Sequence[torch.Tensor],
+                    bs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Plain PyTorch version of the forward: the MLP on every edge slot,
+    weighted, ``index_add_`` onto the rows; ``(num_rows, K_n)``, under
+    autograd."""
+    h = feats.index_select(0, csr.col)
+    for w, b, act in zip(ws, bs, acts):
+        h = _PLAIN_ACTS[_act_name(act)](h @ w + b.reshape(1, -1))
+    msgs = h * csr.weight[:, None]
+    out = msgs.new_zeros((csr.num_rows, msgs.shape[1]))
+    return out.index_add_(0, csr.rows, msgs)
+
+
+def fused_mlp_bwd_plain(acts, csr: SegmentCSR, feats, ws, bs,
+                        g_out: torch.Tensor):
+    """Plain PyTorch version of the backward: autograd through
+    ``fused_mlp_plain``. Returns ``(dfeats, dws, dbs)``, each bias gradient
+    shaped like its bias."""
+    n = len(ws)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (feats, *ws, *bs)]
+        out = fused_mlp_plain(acts, csr, leaves[0], leaves[1:n + 1],
+                              leaves[n + 1:])
+        grads = torch.autograd.grad(out, leaves, g_out)
+    return grads[0], tuple(grads[1:n + 1]), tuple(grads[n + 1:])
+
+
+def _check_cuda(csr: SegmentCSR, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    for t in tensors + (csr.row_ptr, csr.col, csr.weight, csr.rows):
+        if t.device != dev:
+            raise ValueError(f"tensor on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    if csr.col.shape[0] != csr.num_cols:
+        raise ValueError("the fused MLP kernels take the edge-id layout "
+                         "(tcsr_edges): one slot per feats row")
+
+
+def _layer_args(acts, dims, ws, bs):
+    n = len(ws)
+    return (n, (ctypes.c_int * (n + 1))(*dims),
+            (ctypes.c_int * n)(*(_ACT_CODES[_act_name(a)] for a in acts)),
+            (ctypes.c_void_p * n)(*(w.data_ptr() for w in ws)),
+            (ctypes.c_void_p * n)(*(b.data_ptr() for b in bs)))
+
+
+def _fwd_rows(csr: SegmentCSR) -> int:
+    avg_degree = csr.col.shape[0] / max(csr.num_rows, 1)
+    return max(1, min(_MAX_FWD_ROWS, int(_FWD_SLOTS / max(avg_degree, 1e-9))))
+
+
+def fused_mlp_fwd(acts, csr: SegmentCSR, feats: torch.Tensor,
+                  ws: Sequence[torch.Tensor],
+                  bs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``out[i] = Σ_{s in row i} w_s · MLP(feats[col_s])`` as
+    ``(num_rows, K_n)`` f32, outside autograd. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    _check(acts, csr, feats, ws, bs)
+    if feats.device.type == "cpu":
+        with torch.no_grad():
+            return fused_mlp_plain(acts, csr, feats, ws, bs)
+    dims = _dims(feats, ws)
+    _check_cuda(csr, feats, *ws, *bs)
+    out = torch.empty((csr.num_rows, dims[-1]), dtype=torch.float32,
+                      device=feats.device)
+    lib = _build.library()
+    err = lib.ngpde_fused_mlp_fwd(
+        csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.weight.data_ptr(),
+        feats.data_ptr(), out.data_ptr(), csr.num_rows, _fwd_rows(csr),
+        *_layer_args(acts, dims, ws, bs),
+        torch.cuda.current_stream(feats.device).cuda_stream)
+    _check_launch(err, "fused_mlp_fwd", dims)
+    fused_mlp_fwd.launches += 1
+    return out
+
+
+fused_mlp_fwd.launches = 0
+
+
+def fused_mlp_bwd(acts, csr: SegmentCSR, feats: torch.Tensor,
+                  ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
+                  g_out: torch.Tensor):
+    """VJP of ``fused_mlp_fwd`` for the cotangent ``g_out``
+    ``(num_rows, K_n)``: ``(dfeats, dws, dbs)``, each bias gradient shaped
+    like its bias. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (and the small kernel that adds its per-block dW/db)."""
+    _check(acts, csr, feats, ws, bs)
+    dims = _dims(feats, ws)
+    if (tuple(g_out.shape) != (csr.num_rows, dims[-1])
+            or g_out.dtype != torch.float32):
+        raise ValueError(f"g_out must be ({csr.num_rows}, {dims[-1]}) f32, "
+                         f"got {tuple(g_out.shape)} {g_out.dtype}")
+    if feats.device.type == "cpu":
+        return fused_mlp_bwd_plain(acts, csr, feats, ws, bs, g_out)
+    _check_cuda(csr, feats, g_out, *ws, *bs)
+    dev = feats.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = max(_fwd_rows(csr),
+               math.ceil(csr.num_rows / (_BWD_BLOCKS_PER_SM * sms)))
+    blocks = math.ceil(csr.num_rows / rows)
+    sizes = [(dims[l], dims[l + 1]) for l in range(len(ws))]
+    n_params = sum(a * b + b for a, b in sizes)
+    dfeats = torch.zeros_like(feats)
+    grads = torch.empty(n_params, dtype=torch.float32, device=dev)
+    partial = torch.empty((max(blocks, 1), n_params), dtype=torch.float32,
+                          device=dev)
+    lib = _build.library()
+    err = lib.ngpde_fused_mlp_bwd(
+        csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.weight.data_ptr(),
+        csr.rows.data_ptr(), feats.data_ptr(), g_out.data_ptr(),
+        dfeats.data_ptr(), grads.data_ptr(), partial.data_ptr(),
+        csr.num_rows, rows, *_layer_args(acts, dims, ws, bs),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(err, "fused_mlp_bwd", dims)
+    fused_mlp_bwd.launches += 1
+    dws, dbs, off = [], [], 0
+    for (a, b), bias in zip(sizes, bs):
+        dws.append(grads[off:off + a * b].view(a, b))
+        off += a * b
+        dbs.append(grads[off:off + b].view(bias.shape))
+        off += b
+    return dfeats, tuple(dws), tuple(dbs)
+
+
+fused_mlp_bwd.launches = 0
+
+
+class _FusedMLP(torch.autograd.Function):
+    """The kernel pair under autograd: K3 forward, K3 backward."""
+
+    @staticmethod
+    def forward(ctx, acts, csr, feats, *params):
+        n = len(acts)
+        ctx.acts, ctx.csr = acts, csr
+        ctx.save_for_backward(feats, *params)
+        return fused_mlp_fwd(acts, csr, feats, params[:n], params[n:])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out):
+        feats, *params = ctx.saved_tensors
+        n = len(ctx.acts)
+        dfeats, dws, dbs = fused_mlp_bwd(ctx.acts, ctx.csr, feats,
+                                         params[:n], params[n:],
+                                         g_out.contiguous())
+        return (None, None, dfeats) + tuple(dws) + tuple(dbs)
+
+
+def fused_mlp_aggregate(acts, feats: torch.Tensor,
+                        ws: Sequence[torch.Tensor],
+                        bs: Sequence[torch.Tensor],
+                        csr: SegmentCSR) -> torch.Tensor:
+    """Differentiable ``out[i] = Σ_{e: recv_e = i} w_e · MLP(feats_e)``
+    over the edge-id layout ``csr`` (``g.cache['tcsr_edges']``), as
+    ``(num_nodes, K_n)``. ``acts``: per-layer activation names;
+    ``ws``/``bs``: ``(K_{l-1}, K_l)`` weights and ``(1, K_l)`` biases
+    (zeros for a bias-free layer)."""
+    acts = tuple(acts)
+    if feats.device.type == "cpu":
+        _check(acts, csr, feats, ws, bs)
+        return fused_mlp_plain(acts, csr, feats, ws, bs)
+    return _FusedMLP.apply(acts, csr, feats, *ws, *bs)

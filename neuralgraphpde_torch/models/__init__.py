@@ -1,3 +1,4 @@
 from .grand import grand_model
+from .vmh import vmh_model
 
-__all__ = ["grand_model"]
+__all__ = ["grand_model", "vmh_model"]

@@ -1,11 +1,13 @@
 from .core import ContainerLayer, Layer
-from .basic import (Chain, Dense, glorot_normal, glorot_uniform,
+from .basic import (MLP, Chain, Dense, glorot_normal, glorot_uniform,
                     resolve_activation, zeros_init)
-from .gnn import AbstractGNNLayer
-from .conv import GCNConv
+from .gnn import (INPUT_KEY, AbstractGNNContainerLayer, AbstractGNNLayer,
+                  wrap_input)
+from .conv import GCNConv, VMHConv
 
 __all__ = [
-    "Layer", "ContainerLayer", "Dense", "Chain", "glorot_normal",
-    "glorot_uniform", "zeros_init", "resolve_activation", "AbstractGNNLayer",
-    "GCNConv",
+    "Layer", "ContainerLayer", "Dense", "Chain", "MLP", "glorot_normal",
+    "glorot_uniform", "zeros_init", "resolve_activation", "INPUT_KEY",
+    "wrap_input", "AbstractGNNLayer", "AbstractGNNContainerLayer", "GCNConv",
+    "VMHConv",
 ]

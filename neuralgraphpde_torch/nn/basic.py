@@ -110,3 +110,24 @@ class Chain(ContainerLayer):
         for name in self.layer_names:
             x = getattr(self, name)(x)
         return x
+
+
+class MLP(Chain):
+    """Dense stack ``dims[0] → … → dims[-1]``: ``activation`` after every
+    layer but the last, ``final_activation`` after the last. Its children
+    are the Dense layers themselves (``layer_1..layer_N``), so its
+    parameter tree is the JAX ``MLP``'s (that of its inner Chain)."""
+
+    def __init__(self, dims, activation: Union[str, Callable] = "tanh",
+                 final_activation: Union[None, str, Callable] = None, *,
+                 use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype=torch.float32):
+        dims = tuple(dims)
+        n = len(dims) - 1
+        super().__init__(
+            Dense(dims[i], dims[i + 1],
+                  activation if i < n - 1 else final_activation,
+                  use_bias=use_bias, generator=generator, device=device,
+                  dtype=dtype)
+            for i in range(n))

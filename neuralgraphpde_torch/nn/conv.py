@@ -1,19 +1,28 @@
 """GNN convolution layers (counterpart of ``neuralgraphpde.nn.conv``;
-``GCNConv`` so far)."""
+``GCNConv`` and ``VMHConv`` so far)."""
 from __future__ import annotations
 
 import warnings
 from typing import Callable, Optional, Union
 
 import torch
+from torch import nn
 
 from ..graph.transforms import add_self_loops as _add_self_loops
 from ..graph.transforms import degree as _degree
 from ..kernels.dia_kernels import TF_MAX, dia_gcn_rhs, epilogue_supported
-from ..ops.message_passing import copy_xj, e_mul_xj, propagate, w_mul_xj
+from ..kernels.fused_mlp_kernels import (fused_mlp_aggregate,
+                                         supported_activation)
+from ..ops.message_passing import (aggregate_neighbors, apply_edges, copy_xj,
+                                   e_mul_xj, propagate, w_mul_xj)
+from ..ops.scatter import canonical_reduction
 from ..ops.spmm import get_spmm_mode, kernel_available
-from .basic import glorot_normal, make_params, resolve_activation, zeros_init
-from .gnn import AbstractGNNLayer
+from ..utils.state import drop
+from .basic import (Chain, Dense, glorot_normal, make_params,
+                    resolve_activation, zeros_init)
+from .gnn import AbstractGNNContainerLayer, AbstractGNNLayer, wrap_input
+
+Aggr = Union[str, Callable]
 
 
 class GCNConv(AbstractGNNLayer):
@@ -125,3 +134,132 @@ class GCNConv(AbstractGNNLayer):
         if b is not None:
             x = x + b
         return resolve_activation(self.activation)(x)
+
+
+# ------------------------------------------------------------------ fused ϕ
+def _split_dense_chain(phi: nn.Module):
+    """ϕ's Dense layers, in order, when ϕ is a Dense or a Chain (or MLP) of
+    Dense layers; else None."""
+    if isinstance(phi, Dense):
+        return (phi,)
+    if isinstance(phi, Chain):
+        layers = tuple(getattr(phi, name) for name in phi.layer_names)
+        if layers and all(isinstance(l, Dense) for l in layers):
+            return layers
+    return None
+
+
+def _node_degree(g, dtype):
+    if "in_degree" in g.cache:
+        return g.cache["in_degree"].to(dtype)
+    return _degree(g, dtype, direction="in")
+
+
+def fused_phi_plan(phi: nn.Module, aggr: Aggr):
+    """Plan for the fused edge-MLP kernel: ``(acts, ws, bs, post)`` when ϕ
+    is a Dense stack with kernel activations and ``aggr`` reduces by sum or
+    mean; else None. When ϕ ends in a linear Dense (and has another layer),
+    that layer is split off as ``post = (W, b)`` and applied after the
+    reduce (``Σ(h@W+b) = (Σh)@W + deg·b``: the kernel reduces the
+    penultimate activations). The plan does not look at widths: on the
+    card, an MLP outside the kernels' envelope raises in the kernel's
+    wrapper."""
+    if canonical_reduction(aggr) not in ("sum", "mean"):
+        return None
+    layers = _split_dense_chain(phi)
+    if layers is None or not all(supported_activation(l.activation)
+                                 for l in layers):
+        return None
+    post = None
+    if len(layers) >= 2 and layers[-1].activation in (None, "identity"):
+        post = (layers[-1].weight, layers[-1].bias)
+        layers = layers[:-1]
+    acts = tuple(l.activation for l in layers)
+    ws = tuple(l.weight for l in layers)
+    bs = tuple(l.bias if l.bias is not None
+               else l.weight.new_zeros((1, l.out_dims)) for l in layers)
+    return acts, ws, bs, post
+
+
+def fused_phi_post(reduced, post, deg, red):
+    """Post-reduce epilogue of the fused ϕ path: mean normalization and the
+    split-off linear layer, with the empty-receiver conventions of the
+    segment reduce (an empty mean row stays 0, a sum row gets ``deg·b``)."""
+    if post is None:
+        return (reduced / deg.clamp_min(1.0)[:, None]
+                if red == "mean" else reduced)
+    w, b = post
+    if red == "mean":
+        m = (reduced / deg.clamp_min(1.0)[:, None]) @ w
+        if b is not None:
+            m = m + b
+        # empty receivers stay 0 (segment-mean convention), not the bias
+        return torch.where(deg[:, None] > 0, m, torch.zeros_like(m))
+    m = reduced @ w
+    if b is not None:
+        m = m + deg[:, None] * b
+    return m
+
+
+def _try_fused_phi(phi, feats, g, aggr):
+    """``aggr_{e→i} ϕ(feats_e)`` through the fused edge-MLP kernel (K3)
+    when the graph carries the edge-id layout (``tcsr_edges``), the mode
+    takes kernels (``pallas``, or ``auto`` with feats on the card) and
+    ``fused_phi_plan`` accepts ϕ; else None."""
+    if "tcsr_edges" not in g.cache:
+        return None
+    mode = get_spmm_mode()
+    if not (mode == "pallas" or (mode == "auto" and kernel_available(feats))):
+        return None
+    plan = fused_phi_plan(phi, aggr)
+    if plan is None:
+        return None
+    acts, ws, bs, post = plan
+    reduced = fused_mlp_aggregate(acts, feats, ws, bs, g.cache["tcsr_edges"])
+    deg = _node_degree(g, reduced.dtype)
+    return fused_phi_post(reduced, post, deg, canonical_reduction(aggr))
+
+
+def _phi_aggregate(phi, feats, g, aggr):
+    """``aggr_{e→i} ϕ(feats_e)``: the fused kernel path when it applies,
+    else ϕ on every edge then the segment reduce."""
+    m = _try_fused_phi(phi, feats, g, aggr)
+    if m is not None:
+        return m
+    return aggregate_neighbors(g, aggr, phi(feats))
+
+
+class VMHConv(AbstractGNNContainerLayer):
+    """Iakovlev et al. (arXiv:2006.08956) convolution:
+    ``m_i = aggr_j ϕ(h_i, h_j − h_i, x_j − x_i)``; ``h_i' = γ(h_i, m_i)``.
+
+    ``h`` are the input features (a tensor, or a dict of them) and ``x``
+    the positions in ``g.ndata['x']``. ϕ sees the receiver's features, the
+    per-key differences and the position difference, concatenated in the
+    order of ``{**input, **g.ndata}``; γ sees the input and the aggregated
+    message. ϕ runs through the fused edge-MLP kernel when
+    ``_try_fused_phi`` accepts it.
+    """
+
+    layer_names = ("phi", "gamma")
+
+    def __init__(self, phi: nn.Module, gamma: nn.Module, initialgraph=None,
+                 aggr: Aggr = "mean"):
+        super().__init__(initialgraph)
+        self.phi, self.gamma = phi, gamma
+        self.aggr = aggr
+
+    def forward(self, x) -> torch.Tensor:
+        x = wrap_input(x)
+        g = self.graph
+        xs = {**x, **g.ndata}
+
+        def edge_feats(xi, xj, e):
+            posi, posj = xi["x"], xj["x"]
+            hi, hj = drop(xi, "x"), drop(xj, "x")
+            return torch.cat([*hi.values(), *(hj[k] - hi[k] for k in hi),
+                              posj - posi], dim=-1)
+
+        feats = apply_edges(edge_feats, g, xi=xs, xj=xs)
+        m = _phi_aggregate(self.phi, feats, g, self.aggr)
+        return self.gamma(torch.cat([*x.values(), m], dim=-1))

@@ -1,5 +1,5 @@
 """NeuralGraphODE: a GNN as the right-hand side of ``du/dt = model(u)``
-(counterpart of ``neuralgraphpde.ode.neural_ode``), forward only."""
+(counterpart of ``neuralgraphpde.ode.neural_ode``)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -19,10 +19,10 @@ class NeuralGraphODE(ContainerLayer):
     or the final state (``output='last'``). Adaptive tableaus step with
     error control (``interpolation`` as in ``odeint``); ``adjoint='grid'``
     or a fixed-step tableau takes ``steps_per_interval`` equal steps per
-    save interval. The JAX package's other ``adjoint`` values choose how
-    gradients are taken; the forward they run is the same. After each call
-    ``last_stats`` holds the adaptive solver's counts (``nfe``, ``steps``,
-    ``accepted``).
+    save interval. Gradients of an adaptive solve are those of the JAX
+    package's ``adjoint='checkpoint'``, with ``checkpoint_steps`` bounding
+    the accepted steps (``odeint``). After each call ``last_stats`` holds
+    the adaptive solver's counts (``nfe``, ``steps``, ``accepted``).
     """
 
     layer_names = ("model",)
@@ -34,7 +34,8 @@ class NeuralGraphODE(ContainerLayer):
                  rtol: float = 1e-6, atol: float = 1e-6,
                  max_steps: int = 10_000, adjoint: str = "checkpoint",
                  interpolation: str = "hermite",
-                 steps_per_interval: int = 8, output: str = "all"):
+                 steps_per_interval: int = 8, checkpoint_steps: int = 128,
+                 output: str = "all"):
         super().__init__()
         self.model = model
         self.tspan, self.saveat = tspan, saveat
@@ -42,6 +43,7 @@ class NeuralGraphODE(ContainerLayer):
         self.max_steps, self.adjoint = max_steps, adjoint
         self.interpolation = interpolation
         self.steps_per_interval = steps_per_interval
+        self.checkpoint_steps = checkpoint_steps
         self.output = output
         self.last_stats: dict = {}
 
@@ -58,5 +60,7 @@ class NeuralGraphODE(ContainerLayer):
             ys = odeint(rhs, x, ts, solver=self.solver, rtol=self.rtol,
                         atol=self.atol, max_steps=self.max_steps,
                         interpolation=self.interpolation,
+                        adjoint=self.adjoint,
+                        checkpoint_steps=self.checkpoint_steps,
                         stats=self.last_stats)
         return ys[-1] if self.output == "last" else ys

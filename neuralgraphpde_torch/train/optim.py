@@ -1,0 +1,64 @@
+"""Rprop− (resilient backprop), the counterpart of ``rprop`` in
+``neuralgraphpde.train.optim``: a sign-based step per parameter entry.
+
+For each entry, with ``s = g · g_prev``: the step size grows by
+``eta_plus`` (capped at ``step_max``) when ``s > 0``, shrinks by
+``eta_minus`` (floored at ``step_min``) when ``s < 0``, and is kept when
+``s == 0``, so it is clamped only in the direction it moves. On a sign
+change the gradient is zeroed for this step (no update), and the gradient
+stored for the next step is the one after that zeroing. The update is
+``−sign(g) · step``. ``torch.optim.Rprop`` clamps in both directions on
+every step, so it differs from this where a step size starts outside
+``[step_min, step_max]``.
+"""
+from __future__ import annotations
+
+from typing import Iterable
+
+import torch
+
+
+class Rprop(torch.optim.Optimizer):
+    """Rprop− with the JAX package's update rule (module docstring)."""
+
+    def __init__(self, params: Iterable, lr: float = 1e-3,
+                 etas=(0.5, 1.2), step_sizes=(1e-8, 50.0)):
+        super().__init__(params, dict(lr=lr, etas=tuple(etas),
+                                      step_sizes=tuple(step_sizes)))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            eta_minus, eta_plus = group["etas"]
+            step_min, step_max = group["step_sizes"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step_size"] = torch.full_like(p, group["lr"])
+                    state["prev_grad"] = torch.zeros_like(p)
+                g, eta = p.grad, state["step_size"]
+                sign = g * state["prev_grad"]
+                eta = torch.where(
+                    sign > 0, torch.clamp(eta * eta_plus, max=step_max),
+                    torch.where(sign < 0,
+                                torch.clamp(eta * eta_minus, min=step_min),
+                                eta))
+                g_eff = torch.where(sign < 0, torch.zeros_like(g), g)
+                p.add_(-torch.sign(g_eff) * eta)
+                state["step_size"] = eta
+                state["prev_grad"] = g_eff
+        return loss
+
+
+def rprop(params: Iterable, learning_rate: float = 1e-3,
+          eta_minus: float = 0.5, eta_plus: float = 1.2,
+          step_min: float = 1e-8, step_max: float = 50.0) -> Rprop:
+    """``Rprop`` with the JAX ``rprop``'s argument names and defaults."""
+    return Rprop(params, lr=learning_rate, etas=(eta_minus, eta_plus),
+                 step_sizes=(step_min, step_max))

@@ -1,3 +1,3 @@
-from .state import update_graph, wrapgraph
+from .state import drop, update_graph, wrapgraph
 
-__all__ = ["update_graph", "wrapgraph"]
+__all__ = ["drop", "update_graph", "wrapgraph"]

@@ -1,15 +1,21 @@
-"""Graph-as-state utilities: ``wrapgraph`` / ``update_graph``.
+"""Graph-as-state utilities: ``wrapgraph`` / ``update_graph``, and
+``drop``.
 
 A GNN layer holds its graph as a plain attribute (state), never as a
 parameter; ``update_graph`` swaps it on every layer of a model, per batch.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Union
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
 
 from ..graph.gnngraph import GnnGraph, empty_graph
+
+
+def drop(d: Mapping, key: str) -> Dict:
+    """Copy of ``d`` without ``key``, in ``d``'s order."""
+    return {k: v for k, v in d.items() if k != key}
 
 
 def wrapgraph(g: Union[None, GnnGraph, Callable]) -> Callable[[], GnnGraph]:
@@ -38,4 +44,3 @@ def update_graph(model: torch.nn.Module, g: Optional[GnnGraph] = None,
             elif feature_overrides:
                 module.graph = old.copy(**feature_overrides)
     return model
-

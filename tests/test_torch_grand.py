@@ -22,6 +22,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread per process: the suite runs in several pytest-xdist
+# workers at once, and many small ops gain nothing from more threads
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -137,10 +140,13 @@ def test_dia_path(monkeypatch, fused, in_dims):
 
 
 def test_port_imports_no_jax():
-    """The port, and the chip smoke script, load neither jax nor the JAX
-    package."""
+    """The port (its training example and measurement scripts included),
+    and the chip smoke script, load neither jax nor the JAX package."""
     code = (
         "import sys; import neuralgraphpde_torch, chip_smoke; "
+        "import neuralgraphpde_torch.examples.train_vmh; "
+        "import neuralgraphpde_torch.tools.profile_vmh, "
+        "neuralgraphpde_torch.tools.time_build; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'neuralgraphpde' or m.startswith('neuralgraphpde.')]; "
         "print(bad); sys.exit(1 if bad else 0)")

@@ -8,6 +8,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread per process: the suite runs in several pytest-xdist
+# workers at once, and many small ops gain nothing from more threads
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -1,11 +1,15 @@
 """K1 (segment SpMM) and K2 (DIA stencil / fused GCN RHS): the port's plain
 versions against the JAX Pallas kernels in interpret mode on the CPU, and
-the CUDA kernels against the plain versions on a card.
+the CUDA kernels (K1, K2, and K3 forward and backward) against the plain
+versions on a card. K3's CPU parity with JAX is in ``test_torch_vmh.py``.
 
 Tolerances: f32 rtol 1e-5 / atol 1e-6 (the sums are taken in another order);
 bf16 2e-2 of the largest value (both sides read the same bf16 inputs; the
-output rounds to bf16). JAX is imported inside the fixture and the card is
-looked for inside the test, so this file also runs where only one of the two
+output rounds to bf16). K3 on the card: max |kernel − plain| ≤ 1e-5 of the
+largest value for the forward and ``dfeats``, 1e-4 for ``dW``/``db``, which
+are sums over every edge taken in another order. JAX is imported inside the
+fixture and the card is looked for inside the test (the CUDA cases carry
+the ``cuda`` marker), so this file also runs where only one of the two
 exists: ``python -m pytest --noconftest tests/test_torch_kernels.py`` on a
 machine with a GPU and no JAX runs the CUDA cases.
 """
@@ -15,8 +19,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread per process: the suite runs in several pytest-xdist
+# workers at once, and many small ops gain nothing from more threads
+torch.set_num_threads(1)
 
 from neuralgraphpde_torch import add_self_loops, grid_graph_2d  # noqa: E402
+from neuralgraphpde_torch.kernels import fused_mlp_kernels as K3  # noqa
 from neuralgraphpde_torch.kernels.dia_kernels import (  # noqa: E402
     dia_gcn_rhs, dia_rhs_plain, dia_spmm_stencil)
 from neuralgraphpde_torch.kernels.segment_kernels import (  # noqa: E402
@@ -185,6 +193,7 @@ def test_wrappers_check_inputs():
 
 
 # ---------------------------------------------------------- on the card
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,f", [(torch.float32, 64),
                                      (torch.float32, 30),
                                      (torch.bfloat16, 128)])
@@ -203,6 +212,7 @@ def test_k1_kernel_matches_plain_cuda(cuda, dtype, f):
     assert _rel(got.cpu().float(), want.cpu().float()) <= bound
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("act,has_w,dtype", [
     (False, False, torch.float32), ("tanh", True, torch.float32),
     ("relu", True, torch.float32), ("sigmoid", False, torch.float32),
@@ -229,8 +239,129 @@ def test_k2_kernel_matches_plain_cuda(cuda, act, has_w, dtype):
     assert _rel(got.cpu().float(), want.cpu().float()) <= bound
 
 
+@pytest.mark.cuda
 def test_kernels_refuse_autograd_cuda(cuda):
     s, r, n = _grid()
     x = torch.zeros(n, 8, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward-only"):
         segment_spmm(x, build_segment_csr(s, r, n).to(cuda))
+
+
+def _k3_case(cuda, acts, dims, seed=9):
+    """A 3,000-node random graph's edge-id layout (in-degrees 0 to ~20)
+    and an MLP of widths ``dims``, on the card."""
+    n, e = 3000, 18000
+    s, r, _, rng = _edges(n, e, seed)
+    csr = build_segment_csr(np.arange(e), r, n, num_cols=e).to(cuda)
+    feats = torch.from_numpy(rng.normal(size=(e, dims[0])).astype(
+        np.float32)).to(cuda)
+    ws = [torch.from_numpy((rng.normal(size=(a, b)) / np.sqrt(a)).astype(
+        np.float32)).to(cuda) for a, b in zip(dims[:-1], dims[1:])]
+    bs = [torch.from_numpy((rng.normal(size=(1, b)) / 3).astype(
+        np.float32)).to(cuda) for b in dims[1:]]
+    g = torch.from_numpy(rng.normal(size=(n, dims[-1])).astype(
+        np.float32)).to(cuda)
+    return csr, feats, ws, bs, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acts,dims", [
+    (("tanh", "tanh", "tanh"), (4, 60, 60, 60)),
+    (("relu", "sigmoid", "softplus", None), (5, 33, 17, 64, 9)),
+    (("elu", "gelu", "swish"), (3, 8, 128, 7))])
+def test_k3_kernels_match_plain_cuda(cuda, acts, dims):
+    csr, feats, ws, bs, g = _k3_case(cuda, acts, dims)
+    fwd0, bwd0 = K3.fused_mlp_fwd.launches, K3.fused_mlp_bwd.launches
+    got = K3.fused_mlp_fwd(acts, csr, feats, ws, bs)
+    kdf, kdw, kdb = K3.fused_mlp_bwd(acts, csr, feats, ws, bs, g)
+    torch.cuda.synchronize()
+    assert K3.fused_mlp_fwd.launches == fwd0 + 1
+    assert K3.fused_mlp_bwd.launches == bwd0 + 1
+    with torch.no_grad():
+        want = K3.fused_mlp_plain(acts, csr, feats, ws, bs)
+    pdf, pdw, pdb = K3.fused_mlp_bwd_plain(acts, csr, feats, ws, bs, g)
+    assert _rel(got.cpu(), want.cpu()) <= 1e-5
+    assert _rel(kdf.cpu(), pdf.cpu()) <= 1e-5
+    for k, p in zip(kdw + kdb, pdw + pdb):
+        assert k.shape == p.shape
+        assert _rel(k.cpu(), p.cpu()) <= 1e-4
+    # the same inputs give the same bits: no atomics
+    again = K3.fused_mlp_bwd(acts, csr, feats, ws, bs, g)
+    for a, b in zip((kdf,) + kdw + kdb, (again[0],) + again[1] + again[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k3_autograd_function_cuda(cuda):
+    """On the card ``fused_mlp_aggregate`` is the K3 pair under autograd;
+    its gradients are those of autograd through the plain version."""
+    acts, dims = ("tanh", "tanh", "tanh"), (4, 60, 60, 60)
+    csr, feats, ws, bs, g = _k3_case(cuda, acts, dims, seed=10)
+    leaves = [t.clone().requires_grad_() for t in (feats, *ws, *bs)]
+    bwd0 = K3.fused_mlp_bwd.launches
+    out = K3.fused_mlp_aggregate(acts, leaves[0], leaves[1:4], leaves[4:],
+                                 csr)
+    out.backward(g)
+    assert K3.fused_mlp_bwd.launches == bwd0 + 1
+    pdf, pdw, pdb = K3.fused_mlp_bwd_plain(acts, csr, feats, ws, bs, g)
+    assert _rel(leaves[0].grad.cpu(), pdf.cpu()) <= 1e-5
+    for leaf, p in zip(leaves[1:], pdw + pdb):
+        assert _rel(leaf.grad.cpu(), p.cpu()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_k3_envelope_raises_cuda(cuda):
+    """On the card the K3 wrappers raise outside the kernels' shared-memory
+    envelope (widths, more than 4 layers) and on bf16, with no launch and no
+    hand-off to the plain version."""
+    acts, dims = ("tanh",), (4, 8)
+    csr, feats, ws, bs, g = _k3_case(cuda, acts, dims)
+    with pytest.raises(TypeError, match="f32 only"):
+        K3.fused_mlp_fwd(acts, csr, feats.to(torch.bfloat16), ws, bs)
+    fwd0, bwd0 = K3.fused_mlp_fwd.launches, K3.fused_mlp_bwd.launches
+    for acts, dims in [(("tanh", None), (4, 300, 300)),
+                       (("tanh",) * 5, (4, 8, 8, 8, 8, 8)),
+                       (("tanh", "tanh", "tanh"), (4, 128, 128, 128))]:
+        csr, feats, ws, bs, g = _k3_case(cuda, acts, dims)
+        with pytest.raises(ValueError, match="envelope"):
+            K3.fused_mlp_fwd(acts, csr, feats, ws, bs)
+        with pytest.raises(ValueError, match="envelope"):
+            K3.fused_mlp_bwd(acts, csr, feats, ws, bs, g)
+    assert K3.fused_mlp_fwd.launches == fwd0
+    assert K3.fused_mlp_bwd.launches == bwd0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["auto", "pallas"])
+def test_vmhconv_outside_envelope_raises_cuda(cuda, mode):
+    """``VMHConv``'s fused-ϕ gate has no width condition, as in JAX: ϕ at
+    hidden 128, depth 3 reaches K3 and raises on the card, while ϕ at the
+    VMH widths launches the kernel."""
+    from neuralgraphpde_torch import (MLP, VMHConv, GnnGraph, precompute,
+                                      set_spmm_mode, update_graph)
+
+    s, r, _, rng = _edges(300, 1800, 11)
+    pos = rng.normal(size=(300, 2)).astype(np.float32)
+    g = precompute(GnnGraph.from_coo(s, r, num_nodes=300, ndata={"x": pos}),
+                   dense=False, pallas=True).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(300, 1)).astype(np.float32)).to(
+        cuda)
+    set_spmm_mode(mode)
+    try:
+        for hidden, fits in ((60, True), (128, False)):
+            gen = torch.Generator().manual_seed(0)
+            layer = VMHConv(MLP((4, hidden, hidden, hidden, 40), "tanh",
+                                generator=gen, device=cuda),
+                            MLP((41, 60, 1), "tanh", generator=gen,
+                                device=cuda))
+            update_graph(layer, g)
+            fwd0 = K3.fused_mlp_fwd.launches
+            if fits:
+                assert torch.isfinite(layer(x)).all()
+                assert K3.fused_mlp_fwd.launches == fwd0 + 1
+            else:
+                with pytest.raises(ValueError, match="envelope"):
+                    layer(x)
+                assert K3.fused_mlp_fwd.launches == fwd0
+    finally:
+        set_spmm_mode("auto")
