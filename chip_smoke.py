@@ -16,6 +16,11 @@ Phases, each fatal on failure:
    timed against autograd through the plain forward, and the training
    pair (forward + backward) against the plain forward under autograd
    plus its backward.
+   The GNO kernels (K5) at the config-4 Darcy graph (32² grid, radius
+   0.08: 1,024 nodes, 19,092 edges) and at the n = 64 grid (4,096 nodes,
+   335,480 edges), K 128, IN = OUT = 64, with a bias: forward, ``dph`` and
+   ``dh`` within 1e-5, ``dWl``/``dbl`` within 1e-4 (sums over every
+   receiver in another order); timed as K3 is.
 4. GRAND forward A: full-size synthetic Cora on the segment kernel (K1).
 5. GRAND forward B: the 512×512 8-neighbour grid on the fused DIA kernel
    (K2), then with ``gcn_fused=False`` on the plain DIA stencil.
@@ -35,6 +40,14 @@ Phases, each fatal on failure:
    largest entry, the same accepted steps per sim); then 3 full-batch Rprop
    epochs on the K3 path, each launching both K3 kernels, with finite
    losses and gradients.
+7. GNO Darcy training at the full configuration (``train_gno_darcy``
+   defaults: 32 samples on the 32² grid, width 64, ϕ 6→128→128→4096, 4
+   convs, Adam 1e-3, batches of 4): the first batch's loss and parameter
+   gradients on the K5 path and on the ``xla`` path (every edge's 64×64
+   matrix) agree (loss rel ≤ 1e-5, each gradient within 1e-4 of its
+   largest entry); then one epoch of Adam steps (6) on the K5 path, each
+   launching K5 16 times forward and 16 times backward, with finite losses
+   and gradients; then the test MSE on the 8 held-out samples.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -61,6 +74,12 @@ K3_PARAM_BOUND = 1e-4
 VMH_LOSS_BOUND = 1e-4
 VMH_GRAD_BOUND = 1e-3
 VMH_POINTS_BENCH = 1 << 15
+# K5 dWl/dbl: sums over every receiver, taken in another order than the
+# plain version's
+K5_PARAM_BOUND = 1e-4
+GNO_LOSS_BOUND = 1e-5
+GNO_GRAD_BOUND = 1e-4
+GNO_N_BENCH = 64  # the resolution-transfer grid
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
@@ -248,6 +267,158 @@ def k3_checks(K, dev, csr_main, csr_bench):
     return records
 
 
+def k5_checks(K, dev, cases):
+    """Phase 3, K5: forward and backward against their plain versions on
+    each ``(label, csr, senders, main_path)`` graph. Returns the JSON
+    records of the main-path graph."""
+    rng = np.random.default_rng(5)
+    k, width = 128, 64
+
+    def put(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(dev)
+
+    w = put(k, width * width, scale=1 / np.sqrt(k))
+    b = put(1, width * width, scale=0.1)
+    wl, bl = K.pack_last_layer(w, b, width, width)
+    records = {}
+    for label, csr, senders, main_path in cases:
+        e, n = csr.num_cols, csr.num_rows
+        ph, h, g = put(e, k), put(n, width), put(n, width)
+        shape = f"K5 {label} N={n} E={e} K={k} IN=OUT={width} bias f32"
+        got = K.fused_gno_fwd(csr, senders, ph, h, wl, bl)
+        kern = K.fused_gno_bwd(csr, senders, ph, h, wl, bl, g)
+        with torch.no_grad():
+            want = K.fused_gno_plain(csr, senders, ph, h, wl, bl)
+        plain = K.fused_gno_bwd_plain(csr, senders, ph, h, wl, bl, g)
+        torch.cuda.synchronize()
+        fwd_rel, fwd_abs = rel_err(got, want)
+        edge = [rel_err(a, p) for a, p in zip(kern[:2], plain[:2])]
+        par = [rel_err(a, p) for a, p in zip(kern[2:], plain[2:])]
+        edge_rel, edge_abs = max(r for r, _ in edge), max(a for _, a in edge)
+        par_rel, par_abs = max(r for r, _ in par), max(a for _, a in par)
+        for out in (got,) + kern:
+            check(bool(torch.isfinite(out).all()), f"{shape}: non-finite")
+        check(fwd_rel <= F32_BOUND, f"{shape} fwd: rel {fwd_rel:.3e}")
+        check(edge_rel <= F32_BOUND, f"{shape} dph/dh: rel {edge_rel:.3e}")
+        check(par_rel <= K5_PARAM_BOUND, f"{shape} dWl/dbl: rel "
+                                         f"{par_rel:.3e}")
+
+        def plain_train():
+            leaves = [t.detach().requires_grad_() for t in (ph, h, wl, bl)]
+            out = K.fused_gno_plain(csr, senders, *leaves)
+            return torch.autograd.grad(out, leaves, g)
+
+        def kernel_train():
+            K.fused_gno_fwd(csr, senders, ph, h, wl, bl)
+            return K.fused_gno_bwd(csr, senders, ph, h, wl, bl, g)
+
+        ms_f = cuda_ms(lambda: K.fused_gno_fwd(csr, senders, ph, h, wl, bl))
+        plain_f = cuda_ms(lambda: K.fused_gno_plain(csr, senders, ph, h, wl,
+                                                    bl))
+        ms_b = cuda_ms(lambda: K.fused_gno_bwd(csr, senders, ph, h, wl, bl,
+                                               g))
+        plain_b = cuda_ms(lambda: K.fused_gno_bwd_plain(csr, senders, ph, h,
+                                                        wl, bl, g))
+        ms_t, plain_t = cuda_ms(kernel_train), cuda_ms(plain_train)
+        print(f"  {shape}\n"
+              f"    fwd    rel {fwd_rel:.3e} (bound {F32_BOUND:g})  kernel "
+              f"{ms_f:.4f} ms  plain {plain_f:.4f} ms\n"
+              f"    bwd    dph/dh rel {edge_rel:.3e} (bound {F32_BOUND:g}), "
+              f"dWl/dbl rel {par_rel:.3e} (bound {K5_PARAM_BOUND:g})  kernel "
+              f"{ms_b:.4f} ms  autograd through plain {plain_b:.4f} ms\n"
+              f"    fwd+bwd (training pair)  kernels {ms_t:.4f} ms  plain "
+              f"fwd under autograd + backward {plain_t:.4f} ms")
+        if main_path:
+            records["fused_gno_fwd"] = dict(
+                max_abs_err=fwd_abs, max_rel_err=fwd_rel, ms=ms_f,
+                plain_ms=plain_f, shape=shape)
+            records["fused_gno_bwd"] = dict(
+                max_abs_err=max(edge_abs, par_abs),
+                max_rel_err=max(edge_rel, par_rel), ms=ms_b,
+                plain_ms=plain_b, shape=shape)
+    return records
+
+
+def gno_training(P, K, model, a, u):
+    """Phase 7: the first batch's gradient on the K5 and xla paths, then
+    one epoch of Adam steps on the K5 path and the test MSE. Returns the
+    launch counts of the Adam steps."""
+    from neuralgraphpde_torch.examples import train_gno_darcy as T
+
+    cfg = T.Config()
+    params = list(model.parameters())
+    perm = torch.from_numpy(np.random.default_rng(cfg.seed).permutation(
+        cfg.n_train)).to(a.device)
+    batches = [perm[i:i + T.BATCH] for i in range(0, cfg.n_train, T.BATCH)]
+
+    def batch_grad(idx):
+        model.zero_grad(set_to_none=True)
+        loss = T.batch_loss(model, a[idx], u[idx])
+        loss.backward()
+        return float(loss.detach()), [p.grad.clone() for p in params]
+
+    P.set_spmm_mode("auto")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_k, grads_k = batch_grad(batches[0])
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    P.set_spmm_mode("xla")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss_x, grads_x = batch_grad(batches[0])
+        torch.cuda.synchronize()
+        xla_s = time.perf_counter() - t0
+        xla_peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        P.set_spmm_mode("auto")
+    loss_rel = abs(loss_k - loss_x) / abs(loss_x)
+    grad_rel = max(rel_err(gk, gx)[0] for gk, gx in zip(grads_k, grads_x))
+    print(f"  batch-1 gradient, K5 path: loss {loss_k:.7f}, {cold:.3f} s "
+          f"(first); xla path: loss {loss_x:.7f}, {xla_s:.3f} s, peak "
+          f"{xla_peak:.3f} GB; loss rel {loss_rel:.3e} (bound "
+          f"{GNO_LOSS_BOUND:g}), worst gradient rel {grad_rel:.3e} (bound "
+          f"{GNO_GRAD_BOUND:g})")
+    check(loss_rel <= GNO_LOSS_BOUND, f"GNO loss rel {loss_rel:.3e}")
+    check(grad_rel <= GNO_GRAD_BOUND, f"GNO gradient rel {grad_rel:.3e}")
+
+    step = P.make_train_step(lambda a_b, u_b: T.batch_loss(model, a_b, u_b),
+                             P.adam(params, cfg.lr))
+    per_step = T.BATCH * model.depth  # one K5 call per conv and sample
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    for i, idx in enumerate(batches, start=1):
+        before = {fn.__name__: fn.launches for fn in K.KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = step(a[idx], u[idx])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches - before[fn.__name__]
+                    for fn in K.KERNELS}
+        print(f"  Adam step {i}: loss {float(loss):.7f}, {seconds:.4f} s, "
+              f"launches {launches}")
+        check(bool(torch.isfinite(loss)), f"step {i}: non-finite loss")
+        check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                  for p in params), f"step {i}: non-finite gradient")
+        check(launches["fused_gno_fwd"] == per_step
+              and launches["fused_gno_bwd"] == per_step,
+              f"step {i}: K5 launched {launches['fused_gno_fwd']} / "
+              f"{launches['fused_gno_bwd']} times, expected {per_step}")
+    totals = {fn.__name__: fn.launches for fn in K.KERNELS}
+    print(f"  peak memory over the Adam steps "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    with torch.no_grad():
+        test_mse = float(T.batch_loss(model, a[cfg.n_train:],
+                                      u[cfg.n_train:]))
+    print(f"  test MSE on the {cfg.num_samples - cfg.n_train} held-out "
+          f"samples: {test_mse:.7f}")
+    check(np.isfinite(test_mse), "GNO: non-finite test MSE")
+    return totals
+
+
 def vmh_training(P, K, model, u):
     """Phase 6: the epoch-1 full-batch gradient on the K3 and xla paths,
     then 3 Rprop epochs on the K3 path. Returns the launch counts of the 3
@@ -384,6 +555,7 @@ def main() -> int:
 
     import neuralgraphpde_torch as P
     from neuralgraphpde_torch import kernels as K
+    from neuralgraphpde_torch.examples import train_gno_darcy as G
     from neuralgraphpde_torch.examples import train_vmh as T
     from neuralgraphpde_torch.kernels import _build
     from neuralgraphpde_torch.ops.bsr import host_edges
@@ -412,10 +584,23 @@ def main() -> int:
     csr_bench = K.build_segment_csr(np.arange(len(r)), r, VMH_POINTS_BENCH,
                                     num_cols=len(r)).to(dev)
     print(f"VMH dataset, model and meshes: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gno_model, gno_a, gno_u = G.setup(G.Config(), dev)
+    gno_g = gno_model.graph
+    m = GNO_N_BENCH
+    s, r = P.darcy_dataset(num_samples=0, n=m,
+                           radius=max(0.08, 1.6 / (m + 1))).graph.host_coo
+    gno_cases = [
+        ("Darcy 32²", gno_g.cache["tcsr_edges"], gno_g.senders, True),
+        (f"Darcy {m}²", K.build_segment_csr(
+            np.arange(len(r)), r, m * m, num_cols=len(r)).to(dev),
+         torch.from_numpy(s).to(dev), False)]
+    print(f"GNO dataset, model and graphs: {time.perf_counter() - t0:.1f} s")
 
     print("kernel vs plain on the card:")
     records = kernel_checks(P, K, dev, grid_fused)
     records.update(k3_checks(K, dev, csr_main, csr_bench))
+    records.update(k5_checks(K, dev, gno_cases))
 
     with torch.inference_mode():
         print("GRAND A (synthetic Cora, K1):")
@@ -455,6 +640,9 @@ def main() -> int:
     print("VMH training (24 sims x 3,000 points, K3):")
     launches_v = vmh_training(P, K, vmh_model, vmh_u)
 
+    print("GNO Darcy training (32 samples on the 32² grid, K5):")
+    launches_g = gno_training(P, K, gno_model, gno_a, gno_u)
+
     sources = {
         "segment_spmm": ("neuralgraphpde_torch/csrc/segment_spmm.cu",
                          "neuralgraphpde/kernels/segment_kernels.py:186",
@@ -471,6 +659,12 @@ def main() -> int:
         "fused_mlp_bwd": ("neuralgraphpde_torch/csrc/fused_mlp.cu",
                           "neuralgraphpde/kernels/fused_mlp_kernels.py:232",
                           launches_v["fused_mlp_bwd"]),
+        "fused_gno_fwd": ("neuralgraphpde_torch/csrc/gno.cu",
+                          "neuralgraphpde/kernels/gno_kernels.py:90",
+                          launches_g["fused_gno_fwd"]),
+        "fused_gno_bwd": ("neuralgraphpde_torch/csrc/gno.cu",
+                          "neuralgraphpde/kernels/gno_kernels.py:198",
+                          launches_g["fused_gno_bwd"]),
     }
     kernels = []
     for name, (source, replaces, launches) in sources.items():

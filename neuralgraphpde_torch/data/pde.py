@@ -1,10 +1,13 @@
-"""PDE dataset generator for the VMH configuration (counterpart of
-``convection_diffusion_dataset`` in ``neuralgraphpde.data.pde``): the same
-numpy and scipy host code, so one seed gives both packages the same arrays.
+"""PDE dataset generators for the VMH and GNO configurations (counterparts
+of ``convection_diffusion_dataset`` and ``darcy_dataset`` in
+``neuralgraphpde.data.pde``): the same numpy and scipy host code, so one
+seed gives both packages the same arrays.
 
-2-D convection-diffusion ``u_t = d Δu − v·∇u`` on a periodic [0, 2π]²
-domain, solved exactly in Fourier space on a fine grid and sampled at
-scattered points that a Delaunay graph connects.
+- 2-D convection-diffusion ``u_t = d Δu − v·∇u`` on a periodic [0, 2π]²
+  domain, solved exactly in Fourier space on a fine grid and sampled at
+  scattered points that a Delaunay graph connects.
+- Darcy flow with threshold-GRF coefficients, solved by 5-point finite
+  differences on a grid that a radius graph connects.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import Tuple
 
 import numpy as np
 
-from ..graph.builders import delaunay_graph
+from ..graph.builders import delaunay_graph, radius_graph
 from ..graph.gnngraph import GnnGraph
 
 
@@ -81,3 +84,73 @@ def convection_diffusion_dataset(
     return ConvectionDiffusionData(
         graph=g, u=u_all, ts=ts.astype(np.float32),
         positions=pts.astype(np.float32))
+
+
+@dataclasses.dataclass
+class DarcyData:
+    graph: GnnGraph  # radius graph over grid nodes
+    a: np.ndarray  # (num_samples, M, 1) coefficient fields
+    u: np.ndarray  # (num_samples, M, 1) solutions
+    positions: np.ndarray  # (M, 2)
+
+
+def darcy_dataset(
+    num_samples: int = 32,
+    n: int = 32,
+    radius: float = 0.08,
+    a_low: float = 3.0,
+    a_high: float = 12.0,
+    seed: int = 0,
+) -> DarcyData:
+    """Darcy flow ``−∇·(a∇u) = f`` on the unit square (the GNO
+    configuration): threshold-GRF coefficients, f ≡ 1, homogeneous Dirichlet
+    boundary, 5-point finite differences on the ``n × n`` interior grid,
+    whose nodes a radius graph connects."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    rng = np.random.default_rng(seed)
+    h = 1.0 / (n + 1)
+    xs = np.linspace(h, 1 - h, n)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    pts = np.stack([X.reshape(-1), Y.reshape(-1)], axis=-1)
+    M = n * n
+
+    a_all = np.empty((num_samples, M, 1), np.float32)
+    u_all = np.empty((num_samples, M, 1), np.float32)
+
+    def idx(i, j):
+        return i * n + j
+
+    for sidx in range(num_samples):
+        grf = _gaussian_random_field_2d(n, rng, scale=3.0)
+        a = np.where(grf > 0, a_high, a_low)
+
+        rows, cols, vals = [], [], []
+        b = np.full(M, 1.0)
+        for i in range(n):
+            for j in range(n):
+                c = idx(i, j)
+                diag = 0.0
+                for di, dj in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+                    ii, jj = i + di, j + dj
+                    if 0 <= ii < n and 0 <= jj < n:
+                        aa = 0.5 * (a[i, j] + a[ii, jj])
+                        rows.append(c)
+                        cols.append(idx(ii, jj))
+                        vals.append(-aa / h ** 2)
+                        diag += aa / h ** 2
+                    else:
+                        diag += a[i, j] / h ** 2  # Dirichlet ghost
+                rows.append(c)
+                cols.append(c)
+                vals.append(diag)
+        A = sp.csr_matrix((vals, (rows, cols)), shape=(M, M))
+        u = spla.spsolve(A, b)
+        a_all[sidx, :, 0] = a.reshape(-1)
+        u_all[sidx, :, 0] = u
+
+    g = radius_graph(pts, radius,
+                     ndata={"x": pts.astype(np.float32)})
+    return DarcyData(graph=g, a=a_all, u=u_all,
+                     positions=pts.astype(np.float32))

@@ -69,6 +69,47 @@ def grid_graph_2d(nx: int, ny: int, *, periodic: bool = False,
     )
 
 
+def radius_graph(
+    points: np.ndarray,
+    radius: float,
+    *,
+    loop: bool = False,
+    max_degree: Optional[int] = None,
+    **features,
+) -> GnnGraph:
+    """Connect all point pairs within ``radius`` (the GNO Darcy
+    configuration's graph), both directions; ``loop`` adds self-loops and
+    ``max_degree`` keeps each receiver's nearest in-edges. ``points``:
+    (n, d). Uses a KD-tree."""
+    from scipy.spatial import cKDTree
+
+    points = np.asarray(points)
+    tree = cKDTree(points)
+    pairs = tree.query_pairs(radius, output_type="ndarray")  # (m, 2), i < j
+    s = np.concatenate([pairs[:, 0], pairs[:, 1]])
+    t = np.concatenate([pairs[:, 1], pairs[:, 0]])
+    if loop:
+        idx = np.arange(points.shape[0])
+        s = np.concatenate([s, idx])
+        t = np.concatenate([t, idx])
+    if max_degree is not None:
+        # Keep at most max_degree in-edges per receiver (nearest first).
+        dist = np.linalg.norm(points[s] - points[t], axis=1)
+        order = np.lexsort((dist, t))
+        s, t, dist = s[order], t[order], dist[order]
+        keep = np.zeros(len(t), dtype=bool)
+        start = 0
+        for i in range(len(t)):
+            if i == 0 or t[i] != t[i - 1]:
+                start = i
+            keep[i] = (i - start) < max_degree
+        s, t = s[keep], t[keep]
+    return GnnGraph.from_coo(
+        s.astype(np.int32), t.astype(np.int32),
+        num_nodes=points.shape[0], **features,
+    )
+
+
 def delaunay_graph(points: np.ndarray, *, bidirected: bool = True,
                    **features) -> GnnGraph:
     """Delaunay triangulation edges (the VMH configuration's scattered-node

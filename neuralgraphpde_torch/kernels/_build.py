@@ -38,6 +38,8 @@ _SIGNATURES = {
                             _P),
     "ngpde_fused_mlp_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _P, _P, _P, _P, _P),
+    "ngpde_gno_fwd": (_P,) * 10 + (_I,) * 6 + (_P,),
+    "ngpde_gno_bwd": (_P,) * 14 + (_I,) * 6 + (_P,),
 }
 
 _lib = None

@@ -1,4 +1,5 @@
+from .gno import GNOModel
 from .grand import grand_model
 from .vmh import vmh_model
 
-__all__ = ["grand_model", "vmh_model"]
+__all__ = ["grand_model", "vmh_model", "GNOModel"]

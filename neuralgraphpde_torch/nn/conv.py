@@ -1,5 +1,5 @@
 """GNN convolution layers (counterpart of ``neuralgraphpde.nn.conv``;
-``GCNConv`` and ``VMHConv`` so far)."""
+``GCNConv``, ``VMHConv`` and ``GNOConv`` so far)."""
 from __future__ import annotations
 
 import warnings
@@ -13,13 +13,14 @@ from ..graph.transforms import degree as _degree
 from ..kernels.dia_kernels import TF_MAX, dia_gcn_rhs, epilogue_supported
 from ..kernels.fused_mlp_kernels import (fused_mlp_aggregate,
                                          supported_activation)
+from ..kernels.gno_kernels import fused_gno_aggregate, pack_last_layer
 from ..ops.message_passing import (aggregate_neighbors, apply_edges, copy_xj,
                                    e_mul_xj, propagate, w_mul_xj)
 from ..ops.scatter import canonical_reduction
 from ..ops.spmm import get_spmm_mode, kernel_available
 from ..utils.state import drop
-from .basic import (Chain, Dense, glorot_normal, make_params,
-                    resolve_activation, zeros_init)
+from .basic import (Chain, Dense, glorot_normal, glorot_uniform,
+                    make_params, resolve_activation, zeros_init)
 from .gnn import AbstractGNNContainerLayer, AbstractGNNLayer, wrap_input
 
 Aggr = Union[str, Callable]
@@ -263,3 +264,122 @@ class VMHConv(AbstractGNNContainerLayer):
         feats = apply_edges(edge_feats, g, xi=xs, xj=xs)
         m = _phi_aggregate(self.phi, feats, g, self.aggr)
         return self.gamma(torch.cat([*x.values(), m], dim=-1))
+
+
+# ------------------------------------------------------------------ GNO
+def _values_cat(d, like: torch.Tensor, count: int) -> torch.Tensor:
+    """Concat dict values in iteration order; an empty dict gives a
+    ``(count, 0)`` tensor."""
+    vals = list(d.values())
+    if not vals:
+        return like.new_zeros((count, 0))
+    return torch.cat(vals, dim=-1)
+
+
+def split_phi_last_linear(phi: nn.Module):
+    """``(prefix_layers, last_dense)`` when ϕ is a Dense or a Chain (or
+    MLP) ending in a linear Dense (the GNO kernel-network shape), else
+    None."""
+    if isinstance(phi, Chain):
+        layers = tuple(getattr(phi, name) for name in phi.layer_names)
+    elif isinstance(phi, Dense):
+        layers = (phi,)
+    else:
+        return None
+    last = layers[-1] if layers else None
+    if not isinstance(last, Dense) or last.activation not in (None,
+                                                              "identity"):
+        return None
+    return layers[:-1], last
+
+
+class GNOConv(AbstractGNNContainerLayer):
+    """Graph kernel network layer (Li et al., arXiv:2003.03485):
+    ``m_i = aggr_j ϕ(e_ij) · h_j``; ``h_i' = σ(W h_i + m_i + b)``.
+
+    ϕ maps each edge's features to a flattened ``in_chs × out_chs`` kernel
+    matrix (row-major: ``w[e, i*out + o] ≡ W_e[i, o]``). The edge features
+    are the receiver's ``g.ndata`` values, then the sender's, each in
+    ``ndata``'s key order, then ``g.edata``'s values (for
+    ``ndata = {'a', 'x'}``: ``[a_i, x_i, a_j, x_j]``).
+
+    Fused path (``fused``): when the graph carries the edge-id layout
+    (``tcsr_edges``), the mode takes kernels (``pallas``, or ``auto`` with
+    ``x`` on the card) and ϕ ends in a linear Dense, ϕ's prefix runs as
+    plain layers and its last layer, the per-edge matvec and the receiver
+    sum run in the GNO kernel (K5, ``fused_gno_aggregate``); mean divides by
+    ``max(in_degree, 1)``. There is no width test: on the card, widths
+    outside the kernel's envelope raise in its wrapper. Otherwise the exact
+    path builds every edge's ``(in, out)`` matrix and ``propagate``s the
+    ``einsum('eio,ei->eo')`` messages.
+    """
+
+    layer_names = ("linear", "phi")
+
+    def __init__(self, in_chs: int, out_chs: int, phi: nn.Module,
+                 activation: Union[None, str, Callable] = None,
+                 initialgraph=None, aggr: Aggr = "mean", *,
+                 use_bias: bool = True, init_weight=glorot_uniform,
+                 init_bias=zeros_init, fused: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype=torch.float32):
+        super().__init__(initialgraph)
+        self.in_chs, self.out_chs = in_chs, out_chs
+        self.activation = activation
+        self.aggr = aggr
+        self.fused = fused
+        self.linear = Dense(in_chs, out_chs, None, use_bias=use_bias,
+                            init_weight=init_weight, init_bias=init_bias,
+                            generator=generator, device=device, dtype=dtype)
+        self.phi = phi
+
+    def _edge_feats(self, g, like):
+        """``[ndata_i..., ndata_j..., edata...]`` for every edge."""
+        s, E = g.ndata, g.num_edges
+
+        def feats(xi, xj, e):
+            si = _values_cat({k: xi[k] for k in s}, like, E)
+            sj = _values_cat({k: xj[k] for k in s}, like, E)
+            return torch.cat([si, sj, _values_cat(e or {}, like, E)], dim=-1)
+
+        return apply_edges(feats, g, xi=s, xj=s, e=g.edata)
+
+    def _fused_forward(self, x, g):
+        """The aggregated message through K5, or None when ϕ or the
+        reduction does not fit it."""
+        split = split_phi_last_linear(self.phi)
+        red = canonical_reduction(self.aggr)
+        if split is None or red not in ("sum", "mean"):
+            return None
+        prefix, last = split
+        ph = self._edge_feats(g, x)
+        for layer in prefix:
+            ph = layer(ph)
+        wl, bl = pack_last_layer(last.weight, last.bias, self.in_chs,
+                                 self.out_chs)
+        m = fused_gno_aggregate(ph, x, wl, bl, g.cache["tcsr_edges"],
+                                g.senders)
+        if red == "mean":
+            m = m / _node_degree(g, m.dtype).clamp_min(1.0)[:, None]
+        return m
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = self.graph
+        m = None
+        if self.fused and "tcsr_edges" in g.cache:
+            mode = get_spmm_mode()
+            if mode == "pallas" or (mode == "auto" and kernel_available(x)):
+                m = self._fused_forward(x, g)
+        if m is None:
+            E = g.num_edges
+            w = self.phi(self._edge_feats(g, x)).reshape(E, self.in_chs,
+                                                          self.out_chs)
+
+            def message(xi, xj, e):
+                return torch.einsum("eio,ei->eo", w, xj)
+
+            m = propagate(message, g, self.aggr, xj=x)
+        y = x @ self.linear.weight + m
+        if self.linear.bias is not None:
+            y = y + self.linear.bias
+        return resolve_activation(self.activation)(y)

@@ -1,0 +1,358 @@
+"""Device-time profile of the port's main paths and of its training kernels,
+on one GPU.
+
+    python -m neuralgraphpde_torch.tools.profile_paths [--out PATH.json]
+
+Every part reads a ``torch.profiler`` trace (CUDA activity) and counts only
+device events: kernels, copies and sets.
+
+- Kernels: the training kernels at the shapes ``chip_smoke.py`` checks,
+  device ms and device kernels per call of the forward kernel, the backward
+  kernel and the two together, beside the plain forward and the plain
+  training pair (the plain forward under autograd, then its backward). K3
+  at the VMH mesh (3,000 nodes) and at 2^15 Delaunay points, widths
+  4→60→60→60 tanh; K5 at the GNO Darcy graph (32² grid, radius 0.08) and at
+  the 64² grid, K 128, IN = OUT = 64, with a bias.
+- GRAND: one GRAND forward under inference mode at the model's
+  tolerances, as ``chip_smoke.py`` builds it: A, synthetic Cora on K1; B,
+  the 512² 8-neighbour grid on the fused K2, then with ``gcn_fused=False``
+  on the plain-stencil K2.
+- VMH: the VMH full-batch epoch gradient (``train_vmh.full_batch_grad``,
+  24 sims × 3,000 points).
+- GNO: one GNO Darcy Adam step (``train_gno_darcy`` defaults: a batch
+  of 4 samples on the 32² grid, 4 convs, 16 K5 forwards and backwards).
+
+Each path runs on its kernel path (``auto``), the ``xla`` path, then the
+kernel path again (B's plain-stencil path once, on ``auto``). Each run: one
+warm-up, one timed run without the profiler (``wall_s``; peak device
+memory, and ``run_mem_GB``, that peak less what was allocated before the
+run: every part's models and graphs stay resident), one under it
+(``profiled_wall_s``). ``busy_ms`` is the union of
+the device events' intervals of the profiled run, ``idle_share`` is ``1 −
+busy_ms / profiled wall``, and ``top_ms`` the device time of the largest
+kernels by name.
+
+Prints one line per measurement and, with ``--out``, writes them all as one
+JSON object.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import tempfile
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from ..kernels import _build
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+KERNEL_REPS = 20
+BENCH_POINTS = 1 << 15
+GNO_N_BENCH = 64
+
+
+def device_events(prof) -> list:
+    """``(name, start_us, dur_us, cat)`` of every device event in a
+    finished profile, from its Chrome trace."""
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return [(e.get("name", ""), float(e["ts"]), float(e.get("dur", 0.0)),
+             e["cat"]) for e in events
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+
+
+def busy_us(events) -> float:
+    """Length of the union of the events' ``[start, start + dur)``
+    intervals: the time at least one device event ran."""
+    total, end = 0.0, -float("inf")
+    for _, start, dur, _ in sorted(events, key=lambda e: e[1]):
+        stop = start + dur
+        if start >= end:
+            total += dur
+            end = stop
+        elif stop > end:
+            total += stop - end
+            end = stop
+    return total
+
+
+def profile(fn, reps: int = 1):
+    """Run ``fn`` ``reps`` times under the profiler (after a synchronize);
+    returns (the device events, host seconds of the profiled run)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return device_events(prof), seconds
+
+
+def per_calls(head: str, fns: dict) -> dict:
+    """Device ms and device kernels per call of each of ``fns``, after 3
+    warm-up calls (build, caches, allocator), keyed ``"head what"``."""
+    out = {}
+    for what, fn in fns.items():
+        for _ in range(3):
+            fn()
+        events, _ = profile(fn, KERNEL_REPS)
+        key = f"{head} {what}"
+        out[key] = rec = dict(
+            device_ms_per_call=sum(e[2] for e in events) / KERNEL_REPS / 1e3,
+            kernels_per_call=sum(e[3] == "kernel" for e in events)
+            / KERNEL_REPS)
+        print(f"{key}: {rec['device_ms_per_call']:.4f} device ms/call, "
+              f"{rec['kernels_per_call']:g} kernels/call", flush=True)
+    return out
+
+
+def _put(rng, dev, *shape, scale=1.0):
+    return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+        np.float32)).to(dev)
+
+
+def k3_times(dev, vmh_graph) -> dict:
+    """K3 and its plain versions at the VMH mesh and at 2^15 points."""
+    from ..graph.builders import delaunay_graph
+    from ..kernels import fused_mlp_kernels as K3
+    from ..kernels.segment_kernels import build_segment_csr
+    from ..ops.bsr import host_edges
+
+    pts = np.random.default_rng(0).random((BENCH_POINTS, 2))
+    _, r = host_edges(delaunay_graph(pts.astype(np.float32)))
+    bench = build_segment_csr(np.arange(len(r)), r, BENCH_POINTS,
+                              num_cols=len(r)).to(dev)
+    rng = np.random.default_rng(3)
+    acts, dims = ("tanh", "tanh", "tanh"), (4, 60, 60, 60)
+    ws = [_put(rng, dev, a, b, scale=1 / np.sqrt(a))
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [_put(rng, dev, 1, b, scale=1 / 3) for b in dims[1:]]
+    out = {}
+    for label, csr in (("VMH mesh", vmh_graph.cache["tcsr_edges"]),
+                       ("2^15 points", bench)):
+        feats = _put(rng, dev, csr.num_cols, dims[0])
+        g = _put(rng, dev, csr.num_rows, dims[-1])
+
+        def plain_train():
+            leaves = [t.detach().requires_grad_() for t in (feats, *ws, *bs)]
+            y = K3.fused_mlp_plain(acts, csr, leaves[0], leaves[1:4],
+                                   leaves[4:])
+            return torch.autograd.grad(y, leaves, g)
+
+        def kernel_train():
+            K3.fused_mlp_fwd(acts, csr, feats, ws, bs)
+            return K3.fused_mlp_bwd(acts, csr, feats, ws, bs, g)
+
+        head = f"K3 {label} (N={csr.num_rows}, E={csr.num_cols})"
+        out.update(per_calls(head, {
+            "fwd kernel": lambda: K3.fused_mlp_fwd(acts, csr, feats, ws, bs),
+            "fwd plain": lambda: K3.fused_mlp_plain(acts, csr, feats, ws, bs),
+            "bwd kernel": lambda: K3.fused_mlp_bwd(acts, csr, feats, ws, bs,
+                                                   g),
+            "fwd+bwd kernels": kernel_train,
+            "fwd+bwd plain (autograd)": plain_train,
+        }))
+    return out
+
+
+def k5_times(dev, gno_graph) -> dict:
+    """K5 and its plain versions at the GNO Darcy graph and the 64² grid."""
+    from ..data.pde import darcy_dataset
+    from ..kernels import gno_kernels as K5
+    from ..kernels.segment_kernels import build_segment_csr
+
+    m = GNO_N_BENCH
+    s, r = darcy_dataset(num_samples=0, n=m,
+                         radius=max(0.08, 1.6 / (m + 1))).graph.host_coo
+    bench = (build_segment_csr(np.arange(len(r)), r, m * m,
+                               num_cols=len(r)).to(dev),
+             torch.from_numpy(s).to(dev))
+    rng = np.random.default_rng(5)
+    k, width = 128, 64
+    wl, bl = K5.pack_last_layer(
+        _put(rng, dev, k, width * width, scale=1 / np.sqrt(k)),
+        _put(rng, dev, 1, width * width, scale=0.1), width, width)
+    out = {}
+    for label, (csr, senders) in (
+            ("Darcy 32²", (gno_graph.cache["tcsr_edges"], gno_graph.senders)),
+            (f"Darcy {m}²", bench)):
+        ph = _put(rng, dev, csr.num_cols, k)
+        h, g = _put(rng, dev, csr.num_rows, width), _put(rng, dev,
+                                                         csr.num_rows, width)
+
+        def plain_train():
+            leaves = [t.detach().requires_grad_() for t in (ph, h, wl, bl)]
+            y = K5.fused_gno_plain(csr, senders, *leaves)
+            return torch.autograd.grad(y, leaves, g)
+
+        def kernel_train():
+            K5.fused_gno_fwd(csr, senders, ph, h, wl, bl)
+            return K5.fused_gno_bwd(csr, senders, ph, h, wl, bl, g)
+
+        head = f"K5 {label} (N={csr.num_rows}, E={csr.num_cols})"
+        out.update(per_calls(head, {
+            "fwd kernel": lambda: K5.fused_gno_fwd(csr, senders, ph, h, wl,
+                                                   bl),
+            "fwd plain": lambda: K5.fused_gno_plain(csr, senders, ph, h, wl,
+                                                    bl),
+            "bwd kernel": lambda: K5.fused_gno_bwd(csr, senders, ph, h, wl,
+                                                   bl, g),
+            "fwd+bwd kernels": kernel_train,
+            "fwd+bwd plain (autograd)": plain_train,
+        }))
+    return out
+
+
+def path_profile(label: str, mode: str, fn) -> dict:
+    """One path in one mode: a warm-up run, a timed run, a profiled run.
+    ``fn`` runs the path once and returns a dict of facts to record."""
+    from ..ops.spmm import set_spmm_mode
+
+    set_spmm_mode(mode)
+    try:
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        facts = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        events, profiled = profile(fn)
+    finally:
+        set_spmm_mode("auto")
+    busy = busy_us(events) / 1e3
+    by_name = defaultdict(float)
+    for name, _, dur, cat in events:
+        if cat == "kernel":
+            by_name[name[:90]] += dur / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    rec = dict(path=label, mode=mode, wall_s=wall, profiled_wall_s=profiled,
+               busy_ms=busy, idle_share=1.0 - busy / (profiled * 1e3),
+               peak_mem_GB=peak / 1e9, run_mem_GB=(peak - resident) / 1e9,
+               n_kernels=sum(e[3] == "kernel" for e in events), top_ms=top,
+               **facts)
+    print(f"{label}, {mode}: wall {wall:.4f} s (profiled {profiled:.4f} s), "
+          f"device busy {busy:.3f} ms, idle share {rec['idle_share']:.4f}, "
+          f"{rec['n_kernels']} kernels, peak {rec['peak_mem_GB']:.4f} GB "
+          f"({rec['run_mem_GB']:.4f} GB above the resident tensors), "
+          f"{facts}", flush=True)
+    for name, ms in top:
+        print(f"    {ms:10.3f} ms  {name}")
+    return rec
+
+
+def grand_runs(dev) -> list:
+    """``(label, modes, fn)`` of GRAND A and B, built as ``chip_smoke.py``
+    builds them."""
+    from ..data.synthetic import synthetic_cora
+    from ..graph.builders import grid_graph_2d
+    from ..models.grand import grand_model
+    from ..ops.spmm import precompute
+    from ..utils.state import update_graph
+
+    data = synthetic_cora()
+    cora = precompute(data.graph, add_self_loops=True, dense=False,
+                      pallas=True).to(dev)
+    model_a = grand_model(1433, 64, 7, rtol=1e-3, atol=1e-3,
+                          precomputed_self_loops=True,
+                          generator=torch.Generator().manual_seed(0),
+                          device=dev)
+    x_a = torch.from_numpy(data.features).to(dev)
+    grid = grid_graph_2d(512, 512, diagonals=True)
+    fused = precompute(grid, add_self_loops=True).to(dev)
+    stencil = precompute(grid, add_self_loops=True, gcn_fused=False).to(dev)
+    model_b = grand_model(128, 128, 7, precomputed_self_loops=True,
+                          generator=torch.Generator().manual_seed(1),
+                          device=dev)
+    x_b = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(grid.num_nodes, 128)).astype(np.float32)).to(dev)
+
+    def forward(model, g, x):
+        def fn():
+            update_graph(model, g)
+            with torch.inference_mode():
+                model(x)
+            st = model.layer_2.last_stats
+            return dict(nfe=st["nfe"], accepted=st["accepted"])
+        return fn
+
+    both = ("auto", "xla", "auto")
+    return [("GRAND A (Cora, K1)", both, forward(model_a, cora, x_a)),
+            ("GRAND B (512² grid, fused K2)", both,
+             forward(model_b, fused, x_b)),
+            ("GRAND B (512² grid, stencil K2)", ("auto",),
+             forward(model_b, stencil, x_b))]
+
+
+def main() -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--out", help="write every measurement here as JSON")
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    from ..examples import train_gno_darcy as G
+    from ..examples import train_vmh as T
+    from ..train.loop import make_train_step
+    from ..train.optim import adam
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    vmh_model, vmh_u = T.setup(T.Config(), dev)
+    gno_cfg = G.Config()
+    gno_model, gno_a, gno_u = G.setup(gno_cfg, dev)
+    result = dict(card=card, torch=torch.__version__, kernels={}, paths=[])
+
+    result["kernels"].update(k3_times(dev, vmh_model.model.graph))
+    result["kernels"].update(k5_times(dev, gno_model.graph))
+
+    def vmh_epoch():
+        loss, stats = T.full_batch_grad(vmh_model, vmh_u)
+        return dict(loss=float(loss),
+                    accepted=sorted({st["accepted"] for st in stats}))
+
+    step = make_train_step(lambda a_b, u_b: G.batch_loss(gno_model, a_b, u_b),
+                           adam(gno_model.parameters(), gno_cfg.lr))
+    idx = torch.from_numpy(np.random.default_rng(gno_cfg.seed).permutation(
+        gno_cfg.n_train)[:G.BATCH]).to(dev)
+
+    def gno_step():
+        loss, _ = step(gno_a[idx], gno_u[idx])
+        return dict(loss=float(loss))
+
+    both = ("auto", "xla", "auto")
+    runs = grand_runs(dev) + [("VMH epoch gradient (K3)", both, vmh_epoch),
+                              ("GNO Adam step (K5)", both, gno_step)]
+    for label, modes, fn in runs:
+        for mode in modes:
+            result["paths"].append(path_profile(label, mode, fn))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,4 +1,6 @@
 from .losses import mse, rollout_mse
-from .optim import Rprop, rprop
+from .loop import MetricsLogger, make_train_step
+from .optim import Rprop, adam, rprop
 
-__all__ = ["mse", "rollout_mse", "Rprop", "rprop"]
+__all__ = ["mse", "rollout_mse", "MetricsLogger", "make_train_step",
+           "Rprop", "adam", "rprop"]

@@ -1,5 +1,11 @@
-"""Rprop− (resilient backprop), the counterpart of ``rprop`` in
-``neuralgraphpde.train.optim``: a sign-based step per parameter entry.
+"""Optimizers with the JAX package's names and defaults (counterparts of
+``neuralgraphpde.train.optim``): ``adam`` and Rprop−.
+
+``adam`` is ``torch.optim.Adam`` with optax's defaults (b1 0.9, b2 0.999,
+eps 1e-8 added outside the square root, no weight decay): the same update
+as ``optax.adam``.
+
+Rprop− (resilient backprop) is a sign-based step per parameter entry.
 
 For each entry, with ``s = g · g_prev``: the step size grows by
 ``eta_plus`` (capped at ``step_max``) when ``s > 0``, shrinks by
@@ -16,6 +22,13 @@ from __future__ import annotations
 from typing import Iterable
 
 import torch
+
+
+def adam(params: Iterable, learning_rate: float = 1e-2) -> torch.optim.Adam:
+    """``torch.optim.Adam`` with the JAX ``adam``'s default learning rate and
+    optax's moments (b1 0.9, b2 0.999, eps 1e-8)."""
+    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
+                            eps=1e-8)
 
 
 class Rprop(torch.optim.Optimizer):

@@ -144,8 +144,9 @@ def test_port_imports_no_jax():
     and the chip smoke script, load neither jax nor the JAX package."""
     code = (
         "import sys; import neuralgraphpde_torch, chip_smoke; "
-        "import neuralgraphpde_torch.examples.train_vmh; "
-        "import neuralgraphpde_torch.tools.profile_vmh, "
+        "import neuralgraphpde_torch.examples.train_vmh, "
+        "neuralgraphpde_torch.examples.train_gno_darcy; "
+        "import neuralgraphpde_torch.tools.profile_paths, "
         "neuralgraphpde_torch.tools.time_build; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'neuralgraphpde' or m.startswith('neuralgraphpde.')]; "

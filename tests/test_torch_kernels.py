@@ -1,13 +1,16 @@
 """K1 (segment SpMM) and K2 (DIA stencil / fused GCN RHS): the port's plain
 versions against the JAX Pallas kernels in interpret mode on the CPU, and
-the CUDA kernels (K1, K2, and K3 forward and backward) against the plain
-versions on a card. K3's CPU parity with JAX is in ``test_torch_vmh.py``.
+the CUDA kernels (K1, K2, K3 and K5 forward and backward) against the plain
+versions on a card. K3's CPU parity with JAX is in ``test_torch_vmh.py``,
+K5's in ``test_torch_gno.py``; here K5's plain forward is also held to a
+per-edge numpy loop.
 
 Tolerances: f32 rtol 1e-5 / atol 1e-6 (the sums are taken in another order);
 bf16 2e-2 of the largest value (both sides read the same bf16 inputs; the
 output rounds to bf16). K3 on the card: max |kernel − plain| ≤ 1e-5 of the
 largest value for the forward and ``dfeats``, 1e-4 for ``dW``/``db``, which
-are sums over every edge taken in another order. JAX is imported inside the
+are sums over every edge taken in another order; K5 the same: 1e-5 for the
+forward, ``dph`` and ``dh``, 1e-4 for ``dWl``/``dbl``. JAX is imported inside the
 fixture and the card is looked for inside the test (the CUDA cases carry
 the ``cuda`` marker), so this file also runs where only one of the two
 exists: ``python -m pytest --noconftest tests/test_torch_kernels.py`` on a
@@ -25,6 +28,7 @@ torch.set_num_threads(1)
 
 from neuralgraphpde_torch import add_self_loops, grid_graph_2d  # noqa: E402
 from neuralgraphpde_torch.kernels import fused_mlp_kernels as K3  # noqa
+from neuralgraphpde_torch.kernels import gno_kernels as K5  # noqa: E402
 from neuralgraphpde_torch.kernels.dia_kernels import (  # noqa: E402
     dia_gcn_rhs, dia_rhs_plain, dia_spmm_stencil)
 from neuralgraphpde_torch.kernels.segment_kernels import (  # noqa: E402
@@ -363,5 +367,154 @@ def test_vmhconv_outside_envelope_raises_cuda(cuda, mode):
                 with pytest.raises(ValueError, match="envelope"):
                     layer(x)
                 assert K3.fused_mlp_fwd.launches == fwd0
+    finally:
+        set_spmm_mode("auto")
+
+
+# ------------------------------------------------------------------- K5
+def _k5_case(device, k, in_chs, out_chs, bias=True, n=1024, e=19092, seed=12):
+    """Random edges onto nodes 0..n−2 (node n − 1 receives none), their
+    edge-id layout and senders, and K5's inputs at widths (k, in, out)."""
+    s, r, _, rng = _edges(n - 1, e, seed)
+    s = np.where(rng.random(e) < 0.5, s, n - 1)  # node n − 1 sends
+    csr = build_segment_csr(np.arange(e), r, n, num_cols=e).to(device)
+    senders = torch.from_numpy(s.astype(np.int32)).to(device)
+
+    def put(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(device)
+
+    ph, h = put(e, k), put(n, in_chs)
+    w = put(k, in_chs * out_chs, scale=1 / np.sqrt(k))
+    b = put(1, in_chs * out_chs) if bias else None
+    wl, bl = K5.pack_last_layer(w, b, in_chs, out_chs)
+    return csr, senders, ph, h, wl, bl, put(n, out_chs)
+
+
+def test_k5_plain_matches_numpy_loop():
+    """The plain forward (which CPU tensors take) against ``out[r_e] +=
+    h[s_e] @ reshape(ph_e @ W + b, in×out)`` edge by edge."""
+    csr, senders, ph, h, wl, bl, _ = _k5_case("cpu", 6, 3, 5, n=20, e=70)
+    got = K5.fused_gno_fwd(csr, senders, ph, h, wl, bl).numpy()
+    w = wl.permute(1, 0, 2).reshape(6, 15).numpy()
+    flat = ph.numpy() @ w + bl.reshape(1, -1).numpy()
+    want = np.zeros((20, 5), np.float32)
+    s, rows = senders.numpy(), csr.rows.numpy()
+    for slot, e in enumerate(csr.col.numpy()):
+        want[rows[slot]] += h.numpy()[s[e]] @ flat[e].reshape(3, 5)
+    np.testing.assert_allclose(got, want, **F32)
+    assert not got[19].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,in_chs,out_chs,bias,n,e", [
+    (128, 64, 64, True, 1024, 19092), (128, 64, 64, False, 1024, 19092),
+    (7, 5, 9, True, 300, 2000), (40, 33, 17, False, 100, 5000)])
+def test_k5_kernels_match_plain_cuda(cuda, k, in_chs, out_chs, bias, n, e):
+    """Forward and backward against the plain versions, at the GNO Darcy
+    widths and at widths that are not multiples of 4; the last case's rows
+    have ~50 edges (several 32-edge chunks each)."""
+    csr, senders, ph, h, wl, bl, g = _k5_case(cuda, k, in_chs, out_chs,
+                                              bias, n, e)
+    fwd0, bwd0 = K5.fused_gno_fwd.launches, K5.fused_gno_bwd.launches
+    got = K5.fused_gno_fwd(csr, senders, ph, h, wl, bl)
+    kern = K5.fused_gno_bwd(csr, senders, ph, h, wl, bl, g)
+    torch.cuda.synchronize()
+    assert K5.fused_gno_fwd.launches == fwd0 + 1
+    assert K5.fused_gno_bwd.launches == bwd0 + 1
+    with torch.no_grad():
+        want = K5.fused_gno_plain(csr, senders, ph, h, wl, bl)
+    plain = K5.fused_gno_bwd_plain(csr, senders, ph, h, wl, bl, g)
+    assert _rel(got.cpu(), want.cpu()) <= 1e-5
+    assert not got[n - 1].any()
+    assert (kern[3] is None) == (not bias)
+    for a, p, bound in zip(kern, plain, (1e-5, 1e-5, 1e-4, 1e-4)):
+        if p is None:
+            continue
+        assert a.shape == p.shape
+        assert _rel(a.cpu(), p.cpu()) <= bound
+    # the same inputs give the same bits (dh adds its per-edge rows with
+    # index_add_, whose atomics may not)
+    again = K5.fused_gno_bwd(csr, senders, ph, h, wl, bl, g)
+    assert torch.equal(K5.fused_gno_fwd(csr, senders, ph, h, wl, bl), got)
+    for a, b in zip(kern[:1] + kern[2:], again[:1] + again[2:]):
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k5_autograd_function_cuda(cuda):
+    """On the card ``fused_gno_aggregate`` is the K5 pair under autograd;
+    its gradients reach the Dense weight and bias through
+    ``pack_last_layer``'s views and equal autograd through the plain
+    version."""
+    csr, senders, ph, h, wl, bl, g = _k5_case(cuda, 128, 64, 64, seed=13)
+    w = wl.permute(1, 0, 2).reshape(128, 64 * 64).clone().requires_grad_()
+    b = bl.reshape(1, -1).clone().requires_grad_()
+    leaves = [ph.clone().requires_grad_(), h.clone().requires_grad_()]
+    bwd0 = K5.fused_gno_bwd.launches
+    out = K5.fused_gno_aggregate(*leaves, *K5.pack_last_layer(w, b, 64, 64),
+                                 csr, senders)
+    out.backward(g)
+    assert K5.fused_gno_bwd.launches == bwd0 + 1
+    dph, dh, dwl, dbl = K5.fused_gno_bwd_plain(csr, senders, ph, h, wl, bl,
+                                               g)
+    assert _rel(leaves[0].grad.cpu(), dph.cpu()) <= 1e-5
+    assert _rel(leaves[1].grad.cpu(), dh.cpu()) <= 1e-5
+    assert _rel(w.grad.cpu(),
+                dwl.permute(1, 0, 2).reshape(128, -1).cpu()) <= 1e-4
+    assert _rel(b.grad.cpu(), dbl.reshape(1, -1).cpu()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_k5_envelope_raises_cuda(cuda):
+    """On the card the K5 wrappers raise outside the kernels' envelope
+    (here K = 2048: the per-edge backward block would need ~330 KB of
+    shared memory) and on bf16, with no launch and no plain version."""
+    csr, senders, ph, h, wl, bl, g = _k5_case(cuda, 16, 8, 8, n=200, e=900)
+    with pytest.raises(TypeError, match="f32 only"):
+        K5.fused_gno_fwd(csr, senders, ph.to(torch.bfloat16), h, wl, bl)
+    fwd0, bwd0 = K5.fused_gno_fwd.launches, K5.fused_gno_bwd.launches
+    csr, senders, ph, h, wl, bl, g = _k5_case(cuda, 2048, 8, 8, n=200, e=900)
+    with pytest.raises(ValueError, match="envelope"):
+        K5.fused_gno_fwd(csr, senders, ph, h, wl, bl)
+    with pytest.raises(ValueError, match="envelope"):
+        K5.fused_gno_bwd(csr, senders, ph, h, wl, bl, g)
+    assert K5.fused_gno_fwd.launches == fwd0
+    assert K5.fused_gno_bwd.launches == bwd0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["auto", "pallas"])
+def test_gnoconv_outside_envelope_raises_cuda(cuda, mode):
+    """``GNOConv``'s fused gate has no width condition, as in JAX: ϕ with a
+    2,048-wide last hidden layer reaches K5 and raises on the card, while
+    ϕ at kernel width 16 launches the kernel."""
+    from neuralgraphpde_torch import (MLP, GNOConv, GnnGraph, precompute,
+                                      set_spmm_mode, update_graph)
+
+    s, r, _, rng = _edges(300, 1800, 14)
+    nd = {"a": rng.normal(size=(300, 1)).astype(np.float32),
+          "x": rng.normal(size=(300, 2)).astype(np.float32)}
+    g = precompute(GnnGraph.from_coo(s, r, num_nodes=300, ndata=nd),
+                   dense=False, pallas=True).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(300, 8)).astype(np.float32)).to(
+        cuda)
+    set_spmm_mode(mode)
+    try:
+        for ker, fits in ((16, True), (2048, False)):
+            gen = torch.Generator().manual_seed(0)
+            layer = GNOConv(8, 8, MLP((6, ker, 64), "relu", generator=gen,
+                                      device=cuda),
+                            generator=gen, device=cuda)
+            update_graph(layer, g)
+            fwd0 = K5.fused_gno_fwd.launches
+            if fits:
+                assert torch.isfinite(layer(x)).all()
+                assert K5.fused_gno_fwd.launches == fwd0 + 1
+            else:
+                with pytest.raises(ValueError, match="envelope"):
+                    layer(x)
+                assert K5.fused_gno_fwd.launches == fwd0
     finally:
         set_spmm_mode("auto")

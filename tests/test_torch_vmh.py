@@ -438,8 +438,8 @@ def test_full_configuration_forward_loss_matches_jax():
     ([("b", 20, 5, "kernel"), ("a", 0, 10, "kernel")], 15.0),  # unsorted
 ])
 def test_profile_busy_time_is_interval_union(events, want):
-    """The device busy time behind the VMH idle share
-    (``tools/profile_vmh.py``) counts overlapping device events once."""
-    from neuralgraphpde_torch.tools.profile_vmh import busy_us
+    """The device busy time behind the paths' idle shares
+    (``tools/profile_paths.py``) counts overlapping device events once."""
+    from neuralgraphpde_torch.tools.profile_paths import busy_us
 
     assert busy_us(events) == want
