@@ -9,18 +9,32 @@ Phases, each fatal on failure:
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: max relative error ``max|k − p| / max|p|``
    (bound 1e-5 in f32, 1e-2 in bf16 against a plain version fed the same
-   bf16 inputs) and CUDA-event times of both. The fused edge-MLP kernels
-   (K3) at the VMH mesh (3,000 nodes) and at 2^15 Delaunay points, widths
-   4→60→60→60 tanh: forward and ``dfeats`` within 1e-5, ``dW``/``db``
-   within 1e-4 (sums over every edge in another order); the backward is
-   timed against autograd through the plain forward, and the training
-   pair (forward + backward) against the plain forward under autograd
-   plus its backward.
+   bf16 inputs), CUDA-event times of both and, where one PyTorch call
+   computes the same function, of that call (``library``:
+   ``torch.sparse.mm`` on the CSR for K1 and the plain DIA stencil,
+   ``scatter_reduce_`` for K6), and the least time the card could take
+   (``bound``: the compulsory bytes over 3.35 TB/s or the f32 operations
+   over 67 TFLOP/s, whichever is larger; H100 SXM data sheet).
+   The fused edge-MLP kernels (K3) at the VMH mesh (3,000 nodes) and at
+   2^15 Delaunay points, widths 4→60→60→60 tanh (the resident variant), at
+   the MP-PDE ϕ on the Burgers chain (1,024 edges, 282→128 swish) and at
+   2^15 points with 4→128→128→128 tanh (the streamed variant, or resident
+   forward and streamed backward): forward and ``dfeats`` within 1e-5,
+   ``dW``/``db`` within 1e-4 (sums over every edge in another order); the
+   backward is timed against autograd through the plain forward, and the
+   training pair (forward + backward) against the plain forward under
+   autograd plus its backward.
    The GNO kernels (K5) at the config-4 Darcy graph (32² grid, radius
    0.08: 1,024 nodes, 19,092 edges) and at the n = 64 grid (4,096 nodes,
    335,480 edges), K 128, IN = OUT = 64, with a bias: forward, ``dph`` and
    ``dh`` within 1e-5, ``dWl``/``dbl`` within 1e-4 (sums over every
    receiver in another order); timed as K3 is.
+   The segment-max kernel (K6), max and min (−max(−m)), forward and the
+   backward of its autograd call, at the ``bench.py`` ``rand`` shape (the
+   K1 graph's edge-id layout, F = 128), on that graph with the edges of
+   every 97th receiver dropped (empty rows), and on the Burgers chain
+   (256 nodes, 1,024 edges, F = 128), messages with ties (a third rounded
+   to a 0.5 grid, clamped at 0): equal to the plain versions bit for bit.
 4. GRAND forward A: full-size synthetic Cora on the segment kernel (K1).
 5. GRAND forward B: the 512×512 8-neighbour grid on the fused DIA kernel
    (K2), then with ``gcn_fused=False`` on the plain DIA stencil.
@@ -48,6 +62,19 @@ Phases, each fatal on failure:
    largest entry); then one epoch of Adam steps (6) on the K5 path, each
    launching K5 16 times forward and 16 times backward, with finite losses
    and gradients; then the test MSE on the 8 held-out samples.
+8. ``MPPDEConv(aggr="max")`` at the config-3 widths (H 128, K 25, ϕ
+   282→128→128, ψ 256→128→128, swish) on the Burgers chain: ϕ on every
+   edge, then K6 (counted); output within 1e-5 of the ``xla`` path, the
+   gradients of x and of every parameter within 1e-4 of their largest
+   entry.
+9. MP-PDE Burgers training at the full configuration
+   (``train_mppde_burgers`` defaults: 32 sims on the 256-node chain, 101
+   saves, K 25, hidden 128, depth 6, Adam 1e-4, pushforward): the dataset
+   build time; the first step's loss and gradients on the K3 path and the
+   ``xla`` path (loss rel ≤ 1e-5, each gradient within 1e-4 of its largest
+   entry); one epoch (32 Adam steps), each launching K3 48 times forward
+   and 48 times backward (4 windows × 2 calls × 6 convs), with finite
+   losses; the first simulation's rollout RMSE.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -59,6 +86,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -80,6 +108,12 @@ K5_PARAM_BOUND = 1e-4
 GNO_LOSS_BOUND = 1e-5
 GNO_GRAD_BOUND = 1e-4
 GNO_N_BENCH = 64  # the resolution-transfer grid
+MPPDE_LOSS_BOUND = 1e-5
+MPPDE_GRAD_BOUND = 1e-4
+# H100 SXM (NVIDIA data sheet, 700 W): device-memory rate and the f32 rate
+# outside the tensor cores (every kernel here computes in true f32)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
@@ -108,9 +142,28 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"FAILED: {what}")
 
 
-def kernel_checks(P, K, dev, grid_g):
-    """Phase 3: kernels vs plain versions. Returns the JSON records of the
-    main-path shapes."""
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes: float, ops: float) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move ``n_bytes`` (each input read once, each output written once) and
+    do ``ops`` f32 operations (an FMA is two)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def csr_bytes(csr) -> int:
+    """The layout a kernel reads: row offsets, columns, weights."""
+    return nbytes(csr.row_ptr, csr.col, csr.weight)
+
+
+def kernel_checks(P, K, dev, grid_g, rand_edges):
+    """Phase 3, K1 and K2: kernels vs plain versions. Returns the JSON
+    records of the main-path shapes."""
     from neuralgraphpde_torch.kernels.segment_kernels import build_segment_csr
     from neuralgraphpde_torch.ops.bsr import host_edges
     from neuralgraphpde_torch.ops.dia import DiaMatrix
@@ -118,22 +171,42 @@ def kernel_checks(P, K, dev, grid_g):
     rng = np.random.default_rng(0)
     records = {}
 
-    def compare(label, kernel, plain, bound, record=None):
+    def compare(label, kernel, plain, bound_to, record=None, library=None,
+                work=None):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         rel, diff = rel_err(got, want)
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        print(f"  {label:<44} rel {rel:.3e} (bound {bound:g})  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
+        lib_ms = None if library is None else cuda_ms(library)
+        b_ms = b_by = None
+        line = (f"  {label:<44} rel {rel:.3e} (bound {bound_to:g})  kernel "
+                f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
+        if library is not None:
+            lib_rel = rel_err(library(), want)[0]
+            line += f"  library {lib_ms:.4f} ms (rel {lib_rel:.1e})"
+        if work is not None:
+            b_ms, b_by = bound(*work)
+            line += f"  bound {b_ms:.4f} ms ({b_by})"
+        print(line)
         check(bool(torch.isfinite(got.float()).all()), f"{label}: non-finite")
-        check(rel <= bound, f"{label}: rel error {rel:.3e} > {bound:g}")
+        check(rel <= bound_to, f"{label}: rel error {rel:.3e} > "
+                               f"{bound_to:g}")
         if record is not None:
             records[record] = dict(max_abs_err=diff, max_rel_err=rel, ms=ms,
-                                   plain_ms=plain_ms, shape=label)
+                                   plain_ms=plain_ms, library_ms=lib_ms,
+                                   bound_ms=b_ms, bound_by=b_by, shape=label)
 
     def normal(*shape):
         return torch.from_numpy(
             rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def sparse_csr(csr, n_cols):
+        """The same CSR as a torch sparse tensor (for ``torch.sparse.mm``,
+        timed as the library call; the port never calls it)."""
+        with warnings.catch_warnings():  # "beta", "invariant checks"
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.sparse_csr_tensor(csr.row_ptr, csr.col, csr.weight,
+                                           size=(csr.num_rows, n_cols))
 
     # K1 on full synthetic Cora, self-looped, F = 64 (the hidden width)
     cora = P.add_self_loops(P.synthetic_cora().graph)
@@ -144,31 +217,39 @@ def kernel_checks(P, K, dev, grid_g):
             lambda: K.segment_spmm(x, csr),
             lambda: K.segment_spmm_plain(x, csr), F32_BOUND)
     # K1 on rand_graph(2^18, 2^22), F = 128
-    rg = P.rand_graph(2 ** 18, 2 ** 22, seed=0)
-    s, r = host_edges(rg)
-    csr = build_segment_csr(s, r, rg.num_nodes).to(dev)
-    x = normal(rg.num_nodes, 128)
+    s, r, n = rand_edges
+    csr = build_segment_csr(s, r, n).to(dev)
+    x = normal(n, 128)
     xb = x.to(torch.bfloat16)
-    label = f"K1 rand N={rg.num_nodes} E={rg.num_edges} F=128"
+    a = sparse_csr(csr, n)
+    label = f"K1 rand N={n} E={len(r)} F=128"
     compare(f"{label} f32", lambda: K.segment_spmm(x, csr),
             lambda: K.segment_spmm_plain(x, csr), F32_BOUND,
-            record="segment_spmm")
+            record="segment_spmm", library=lambda: torch.sparse.mm(a, x),
+            work=(nbytes(x, x) + csr_bytes(csr), 2.0 * len(r) * 128))
     compare(f"{label} bf16", lambda: K.segment_spmm(xb, csr),
             lambda: K.segment_spmm_plain(xb, csr).to(torch.bfloat16),
             BF16_BOUND)
+    del a
 
     # K2 on the self-looped 512² 8-neighbour grid, F = 128
     dm, dn = grid_g.cache["dia"], grid_g.cache["dia_norm"]
     n = dm.num_nodes
+    e = grid_g.num_edges
     x = normal(n, 128)
     w = normal(128, 128) / np.sqrt(128.0)
     b = normal(1, 128) / 10
-    label = (f"K2 grid N={n} E={grid_g.num_edges} K={len(dm.offsets)} "
+    gs, gr = host_edges(grid_g)
+    a = sparse_csr(build_segment_csr(gs, gr, n).to(dev), n)
+    label = (f"K2 grid N={n} E={e} K={len(dm.offsets)} "
              f"bw={dm.bandwidth} F=128")
     compare(f"{label} stencil f32", lambda: K.dia_spmm_stencil(x, dm),
             lambda: K.dia_rhs_plain(dm, x, None, None, None, False,
                                     torch.float32),
-            F32_BOUND, record="dia_spmm_stencil")
+            F32_BOUND, record="dia_spmm_stencil",
+            library=lambda: torch.sparse.mm(a, x),
+            work=(nbytes(x, x, dm.values), 2.0 * e * 128))
+    del a
     dm16 = DiaMatrix(dm.values.to(torch.bfloat16), dm.offsets, n)
     xb = x.to(torch.bfloat16)
     compare(f"{label} stencil bf16", lambda: K.dia_spmm_stencil(xb, dm16),
@@ -180,7 +261,9 @@ def kernel_checks(P, K, dev, grid_g):
                 lambda: K.dia_gcn_rhs(act, x, w, b, dn),
                 lambda: K.dia_rhs_plain(dn, x, w, b, act, True,
                                         torch.float32),
-                F32_BOUND, record="dia_gcn_rhs" if act == "tanh" else None)
+                F32_BOUND, record="dia_gcn_rhs" if act == "tanh" else None,
+                work=(nbytes(x, x, dn.values, w, b),
+                      2.0 * e * 128 + 2.0 * n * 128 * 128))
     compare(f"{label} fused tanh b (w=None) f32",
             lambda: K.dia_gcn_rhs("tanh", x, None, b, dn),
             lambda: K.dia_rhs_plain(dn, x, None, b.reshape(-1), "tanh", True,
@@ -196,26 +279,43 @@ def kernel_checks(P, K, dev, grid_g):
     return records
 
 
-def k3_checks(K, dev, csr_main, csr_bench):
-    """Phase 3, K3: forward and backward against their plain versions at
-    two shapes. Returns the JSON records of the main-path shape."""
+def k3_work(csr, dims, backward: bool) -> tuple:
+    """(bytes, operations) K3 needs on ``csr`` for an MLP of widths
+    ``dims``: the layout, feats, weights and biases (backward: and the
+    output cotangent, the slots' rows) read once, the output (backward:
+    dfeats, dW, db) written once; 2 operations per multiply-add of the
+    per-edge MLP, three products backward (recompute, dW, dh)."""
+    e, n = csr.num_cols, csr.num_rows
+    params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    macs = e * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    read = csr_bytes(csr) + 4 * (e * dims[0] + params)
+    if backward:
+        return (read + 4 * n * dims[-1] + 8 * e + 4 * (e * dims[0] + params),
+                6.0 * macs)
+    return read + 4 * n * dims[-1], 2.0 * macs
+
+
+def k3_checks(K, dev, cases):
+    """Phase 3, K3: forward and backward against their plain versions on
+    each ``(label, csr, acts, dims, record)`` case. Returns the JSON
+    records of the cases with a ``record`` key."""
     rng = np.random.default_rng(3)
-    acts, dims = ("tanh", "tanh", "tanh"), (4, 60, 60, 60)
-    ws = [torch.from_numpy((rng.normal(size=(a, b)) / np.sqrt(a)).astype(
-        np.float32)).to(dev) for a, b in zip(dims[:-1], dims[1:])]
-    bs = [torch.from_numpy((rng.normal(size=(1, b)) / 3).astype(
-        np.float32)).to(dev) for b in dims[1:]]
     records = {}
-    for label, csr, main_path in (
-            ("VMH mesh", csr_main, True),
-            (f"Delaunay 2^{VMH_POINTS_BENCH.bit_length() - 1}", csr_bench,
-             False)):
+    for label, csr, acts, dims, record in cases:
+        ws = [torch.from_numpy((rng.normal(size=(a, b)) / np.sqrt(a)).astype(
+            np.float32)).to(dev) for a, b in zip(dims[:-1], dims[1:])]
+        bs = [torch.from_numpy((rng.normal(size=(1, b)) / 3).astype(
+            np.float32)).to(dev) for b in dims[1:]]
+        n_layers = len(ws)
         e, n = csr.num_cols, csr.num_rows
         feats = torch.from_numpy(rng.normal(size=(e, dims[0])).astype(
             np.float32)).to(dev)
         g = torch.from_numpy(rng.normal(size=(n, dims[-1])).astype(
             np.float32)).to(dev)
-        shape = f"K3 {label} N={n} E={e} 4-60-60-60 tanh f32"
+        variants = (K.fused_mlp_variant(dims),
+                    K.fused_mlp_variant(dims, backward=True))
+        shape = (f"K3 {label} N={n} E={e} {'-'.join(map(str, dims))} "
+                 f"{'/'.join(a or 'linear' for a in acts)} f32")
         got = K.fused_mlp_fwd(acts, csr, feats, ws, bs)
         kdf, kdw, kdb = K.fused_mlp_bwd(acts, csr, feats, ws, bs, g)
         with torch.no_grad():
@@ -234,8 +334,9 @@ def k3_checks(K, dev, csr_main, csr_bench):
 
         def plain_train():
             leaves = [t.detach().requires_grad_() for t in (feats, *ws, *bs)]
-            out = K.fused_mlp_plain(acts, csr, leaves[0], leaves[1:4],
-                                    leaves[4:])
+            out = K.fused_mlp_plain(acts, csr, leaves[0],
+                                    leaves[1:n_layers + 1],
+                                    leaves[n_layers + 1:])
             return torch.autograd.grad(out, leaves, g)
 
         def kernel_train():
@@ -248,22 +349,30 @@ def k3_checks(K, dev, csr_main, csr_bench):
         plain_b = cuda_ms(lambda: K.fused_mlp_bwd_plain(acts, csr, feats, ws,
                                                          bs, g))
         ms_t, plain_t = cuda_ms(kernel_train), cuda_ms(plain_train)
-        print(f"  {shape}\n"
+        bound_f, by_f = bound(*k3_work(csr, dims, False))
+        bound_b, by_b = bound(*k3_work(csr, dims, True))
+        print(f"  {shape} ({variants[0]} forward, {variants[1]} backward)\n"
               f"    fwd    rel {fwd_rel:.3e} (bound {F32_BOUND:g})  kernel "
-              f"{ms_f:.4f} ms  plain {plain_f:.4f} ms\n"
+              f"{ms_f:.4f} ms  plain {plain_f:.4f} ms  bound {bound_f:.4f} "
+              f"ms ({by_f})\n"
               f"    bwd    dfeats rel {df_rel:.3e} (bound {F32_BOUND:g}), "
               f"dW/db rel {par_rel:.3e} (bound {K3_PARAM_BOUND:g})  kernel "
-              f"{ms_b:.4f} ms  autograd through plain {plain_b:.4f} ms\n"
+              f"{ms_b:.4f} ms  autograd through plain {plain_b:.4f} ms  "
+              f"bound {bound_b:.4f} ms ({by_b})\n"
               f"    fwd+bwd (training pair)  kernels {ms_t:.4f} ms  plain "
               f"fwd under autograd + backward {plain_t:.4f} ms")
-        if main_path:
-            records["fused_mlp_fwd"] = dict(
-                max_abs_err=fwd_abs, max_rel_err=fwd_rel, ms=ms_f,
-                plain_ms=plain_f, shape=shape)
-            records["fused_mlp_bwd"] = dict(
-                max_abs_err=max(df_abs, par_abs),
-                max_rel_err=max(df_rel, par_rel), ms=ms_b, plain_ms=plain_b,
-                shape=shape)
+        if record is not None:
+            records[record] = dict(
+                fused_mlp_fwd=dict(
+                    variant=variants[0], max_abs_err=fwd_abs,
+                    max_rel_err=fwd_rel, ms=ms_f, plain_ms=plain_f,
+                    library_ms=None, bound_ms=bound_f, bound_by=by_f,
+                    shape=shape),
+                fused_mlp_bwd=dict(
+                    variant=variants[1], max_abs_err=max(df_abs, par_abs),
+                    max_rel_err=max(df_rel, par_rel), ms=ms_b,
+                    plain_ms=plain_b, library_ms=None, bound_ms=bound_b,
+                    bound_by=by_b, shape=shape))
     return records
 
 
@@ -321,23 +430,229 @@ def k5_checks(K, dev, cases):
         plain_b = cuda_ms(lambda: K.fused_gno_bwd_plain(csr, senders, ph, h,
                                                         wl, bl, g))
         ms_t, plain_t = cuda_ms(kernel_train), cuda_ms(plain_train)
+        # reduce-then-contract: the reduce E·IN·KB and the product
+        # N·IN·KB·OUT multiply-adds forward; backward the reduce again, two
+        # products (dS, dWl') and the per-edge dph' and dh rows
+        reduce_macs = e * width * (k + 1)
+        product_macs = n * width * (k + 1) * width
+        inputs = csr_bytes(csr) + nbytes(senders, ph, h, wl, bl)
+        bound_f, by_f = bound(inputs + nbytes(got),
+                              2.0 * (reduce_macs + product_macs))
+        bound_b, by_b = bound(inputs + nbytes(g, *kern),
+                              2.0 * (3 * reduce_macs + 2 * product_macs))
         print(f"  {shape}\n"
               f"    fwd    rel {fwd_rel:.3e} (bound {F32_BOUND:g})  kernel "
-              f"{ms_f:.4f} ms  plain {plain_f:.4f} ms\n"
+              f"{ms_f:.4f} ms  plain {plain_f:.4f} ms  bound {bound_f:.4f} "
+              f"ms ({by_f})\n"
               f"    bwd    dph/dh rel {edge_rel:.3e} (bound {F32_BOUND:g}), "
               f"dWl/dbl rel {par_rel:.3e} (bound {K5_PARAM_BOUND:g})  kernel "
-              f"{ms_b:.4f} ms  autograd through plain {plain_b:.4f} ms\n"
+              f"{ms_b:.4f} ms  autograd through plain {plain_b:.4f} ms  "
+              f"bound {bound_b:.4f} ms ({by_b})\n"
               f"    fwd+bwd (training pair)  kernels {ms_t:.4f} ms  plain "
               f"fwd under autograd + backward {plain_t:.4f} ms")
         if main_path:
             records["fused_gno_fwd"] = dict(
                 max_abs_err=fwd_abs, max_rel_err=fwd_rel, ms=ms_f,
-                plain_ms=plain_f, shape=shape)
+                plain_ms=plain_f, library_ms=None, bound_ms=bound_f,
+                bound_by=by_f, shape=shape)
             records["fused_gno_bwd"] = dict(
                 max_abs_err=max(edge_abs, par_abs),
                 max_rel_err=max(edge_rel, par_rel), ms=ms_b,
-                plain_ms=plain_b, shape=shape)
+                plain_ms=plain_b, library_ms=None, bound_ms=bound_b,
+                bound_by=by_b, shape=shape)
     return records
+
+
+def k6_checks(K, dev, cases):
+    """Phase 3, K6: the forward (max, and min as −max(−m)) and the backward
+    of ``segment_max_aggregate`` against the plain versions on each
+    ``(label, csr, receivers, record)`` case, F = 128, messages with ties.
+    Bound: equal bits. Returns the JSON records of the cases with a
+    ``record`` key."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    records = {}
+    for label, csr, recv, record in cases:
+        e, n, f = csr.num_cols, csr.num_rows, 128
+        m = torch.randn(e, f, device=dev, generator=gen)
+        m[::3] = (m[::3] * 2).round().clamp_min(0) / 2  # ties, many zeros
+        g = torch.randn(n, f, device=dev, generator=gen)
+        recv64 = recv.long()
+        idx = recv64.reshape(-1, 1).expand(e, f)
+        empty = int((csr.row_ptr[1:] == csr.row_ptr[:-1]).sum())
+        shape = f"K6 {label} N={n} E={e} F={f} f32 ({empty} empty rows)"
+        for sign in (1.0, -1.0):
+            got = sign * K.segment_max(sign * m, csr)
+            want = sign * K.segment_max_plain(sign * m, csr)
+            leaf = m.clone().requires_grad_()
+            (sign * K.segment_max_aggregate(sign * leaf, csr, recv)
+             ).backward(g)
+            winners = sign * m == K.segment_max_plain(sign * m, csr)[recv64]
+            want_g = torch.where(winners, g[recv64], 0.0)
+            torch.cuda.synchronize()
+            what = "max" if sign > 0 else "min"
+            check(torch.equal(got, want), f"{shape} {what}: kernel != plain")
+            check(torch.equal(leaf.grad, want_g),
+                  f"{shape} {what}: gradient != plain")
+            check(bool(torch.isinf(got).any()) == (empty > 0),
+                  f"{shape} {what}: empty rows")
+            del leaf, winners, want_g
+        err = float((got - want).abs().nan_to_num().max())
+
+        def library():
+            return torch.full((n, f), float("-inf"), device=dev
+                              ).scatter_reduce_(0, idx, m, "amax")
+
+        check(torch.equal(library(), K.segment_max_plain(m, csr)),
+              f"{shape}: scatter_reduce_ != plain")
+        ms = cuda_ms(lambda: K.segment_max(m, csr))
+        plain_ms = cuda_ms(lambda: K.segment_max_plain(m, csr))
+        lib_ms = cuda_ms(library)
+        # messages and the layout read once, the output written once; one
+        # compare per message element
+        b_ms, b_by = bound(nbytes(m, csr.row_ptr, csr.col) + 4 * n * f,
+                           float(e * f))
+        print(f"  {shape}: max and min, forward and backward equal to plain "
+              f"(bits)  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"scatter_reduce_ {lib_ms:.4f} ms  bound {b_ms:.4f} ms "
+              f"({b_by})")
+        if record is not None:
+            records[record] = dict(
+                max_abs_err=err, max_rel_err=0.0, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, shape=shape)
+        del m, g, idx
+    return records
+
+
+def mppde_layer_max(P, K, g, dev):
+    """Phase 8: one ``MPPDEConv(aggr="max")`` at the config-3 widths on the
+    Burgers chain, on the K6 path and the ``xla`` path. Returns the K6
+    launches of the K6-path forward and backward."""
+    from neuralgraphpde_torch.examples import train_mppde_burgers as T
+
+    cfg = T.Config()
+    H, KB = cfg.hidden, cfg.bundle
+    gen = torch.Generator().manual_seed(11)
+    kw = dict(activation="swish", generator=gen, device=dev)
+    layer = P.MPPDEConv(P.MLP((2 * H + KB + 1, H, H), **kw),
+                        P.MLP((2 * H, H, H), **kw), aggr="max")
+    rng = np.random.default_rng(11)
+    window = torch.from_numpy(rng.normal(size=(g.num_nodes, KB)).astype(
+        np.float32)).to(dev)
+    P.update_graph(layer, g.copy(ndata={"u": window, "x": g.ndata["x"]}))
+    x = torch.from_numpy(rng.normal(size=(g.num_nodes, H)).astype(
+        np.float32)).to(dev)
+    gy = torch.from_numpy(rng.normal(size=(g.num_nodes, H)).astype(
+        np.float32)).to(dev)
+    params = list(layer.parameters())
+
+    def run():
+        layer.zero_grad(set_to_none=True)
+        xl = x.clone().requires_grad_()
+        y = layer(xl)
+        y.backward(gy)
+        torch.cuda.synchronize()
+        return y.detach(), [xl.grad] + [p.grad.clone() for p in params]
+
+    P.set_spmm_mode("auto")
+    K.reset_launch_counts()
+    y_k, grads_k = run()
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    P.set_spmm_mode("xla")
+    try:
+        y_x, grads_x = run()
+    finally:
+        P.set_spmm_mode("auto")
+    out_rel = rel_err(y_k, y_x)[0]
+    grad_rel = max(rel_err(a, b)[0] for a, b in zip(grads_k, grads_x))
+    print(f"  N={g.num_nodes} E={g.num_edges}, H {H}, K {KB}: output rel "
+          f"{out_rel:.3e} (bound {F32_BOUND:g}), worst gradient rel "
+          f"{grad_rel:.3e} (bound {MPPDE_GRAD_BOUND:g}, x and "
+          f"{len(params)} parameters); launches {launches}")
+    check(out_rel <= F32_BOUND, f"MPPDEConv max: output rel {out_rel:.3e}")
+    check(grad_rel <= MPPDE_GRAD_BOUND,
+          f"MPPDEConv max: gradient rel {grad_rel:.3e}")
+    check(launches["segment_max"] > 0, "MPPDEConv max: K6 not launched")
+    check(launches["fused_mlp_fwd"] == 0, "MPPDEConv max: K3 launched")
+    return launches
+
+
+def mppde_training(P, K, model, u):
+    """Phase 9: the first step's gradient on the K3 and xla paths, then one
+    epoch of Adam steps on the K3 path and the first simulation's rollout
+    RMSE. Returns the launch counts of the epoch."""
+    from neuralgraphpde_torch.examples import train_mppde_burgers as T
+
+    cfg = T.Config()
+    params = list(model.parameters())
+    starts = T.window_starts(cfg, u.shape[2])
+    first = np.random.default_rng(cfg.seed).choice(starts, size=T.SAMPLES)
+
+    def batch_grad():
+        model.zero_grad(set_to_none=True)
+        loss = T.batch_loss(model, u[0], first, cfg.pushforward)
+        loss.backward()
+        return float(loss.detach()), [p.grad.clone() for p in params]
+
+    P.set_spmm_mode("auto")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_k, grads_k = batch_grad()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    P.set_spmm_mode("xla")
+    try:
+        t0 = time.perf_counter()
+        loss_x, grads_x = batch_grad()
+        torch.cuda.synchronize()
+        xla_s = time.perf_counter() - t0
+    finally:
+        P.set_spmm_mode("auto")
+    loss_rel = abs(loss_k - loss_x) / abs(loss_x)
+    grad_rel = max(rel_err(gk, gx)[0] for gk, gx in zip(grads_k, grads_x))
+    print(f"  step-1 gradient (windows at {first.tolist()}), K3 path: loss "
+          f"{loss_k:.7f}, {cold:.3f} s (first); xla path: loss "
+          f"{loss_x:.7f}, {xla_s:.3f} s; loss rel {loss_rel:.3e} (bound "
+          f"{MPPDE_LOSS_BOUND:g}), worst gradient rel {grad_rel:.3e} (bound "
+          f"{MPPDE_GRAD_BOUND:g})")
+    check(loss_rel <= MPPDE_LOSS_BOUND, f"MP-PDE loss rel {loss_rel:.3e}")
+    check(grad_rel <= MPPDE_GRAD_BOUND, f"MP-PDE gradient rel {grad_rel:.3e}")
+
+    step = P.make_train_step(
+        lambda u_sim, s0s: T.batch_loss(model, u_sim, s0s, cfg.pushforward),
+        P.adam(params, cfg.lr))
+    per_step = T.SAMPLES * 2 * model.depth  # 2 calls per window, 1 per conv
+    rng = np.random.default_rng(cfg.seed)
+    seconds, losses = [], []
+    K.reset_launch_counts()
+    for i in range(cfg.num_sims):
+        before = {fn.__name__: fn.launches for fn in K.KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = step(u[i], rng.choice(starts, size=T.SAMPLES))
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = {fn.__name__: fn.launches - before[fn.__name__]
+                    for fn in K.KERNELS}
+        check(np.isfinite(losses[-1]), f"step {i + 1}: non-finite loss")
+        check(launches["fused_mlp_fwd"] == per_step
+              and launches["fused_mlp_bwd"] == per_step,
+              f"step {i + 1}: K3 launched {launches['fused_mlp_fwd']} / "
+              f"{launches['fused_mlp_bwd']} times, expected {per_step}")
+    totals = {fn.__name__: fn.launches for fn in K.KERNELS}
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              for p in params), "MP-PDE: non-finite gradient")
+    warm = seconds[1:]
+    print(f"  one epoch, {cfg.num_sims} Adam steps: losses {losses[0]:.6f} "
+          f"... {losses[-1]:.6f} (min {min(losses):.6f}); s/step first "
+          f"{seconds[0]:.4f}, warm median {float(np.median(warm)):.4f} "
+          f"(min {min(warm):.4f}, max {max(warm):.4f}); K3 launches per step "
+          f"{per_step} + {per_step}; epoch launches {totals}")
+    rmse, steps = T.rollout_rmse(model, u[0])
+    print(f"  rollout RMSE of simulation 0 over {steps} steps "
+          f"({steps // cfg.bundle} bundles, the first given): {rmse:.6f}")
+    check(np.isfinite(rmse), "MP-PDE: non-finite rollout RMSE")
+    return totals
 
 
 def gno_training(P, K, model, a, u):
@@ -556,6 +871,7 @@ def main() -> int:
     import neuralgraphpde_torch as P
     from neuralgraphpde_torch import kernels as K
     from neuralgraphpde_torch.examples import train_gno_darcy as G
+    from neuralgraphpde_torch.examples import train_mppde_burgers as M
     from neuralgraphpde_torch.examples import train_vmh as T
     from neuralgraphpde_torch.kernels import _build
     from neuralgraphpde_torch.ops.bsr import host_edges
@@ -596,11 +912,48 @@ def main() -> int:
             np.arange(len(r)), r, m * m, num_cols=len(r)).to(dev),
          torch.from_numpy(s).to(dev), False)]
     print(f"GNO dataset, model and graphs: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mppde_model, mppde_u = M.setup(M.Config(), dev)
+    torch.cuda.synchronize()
+    mppde_g = mppde_model.graph
+    print(f"MP-PDE Burgers dataset ({tuple(mppde_u.shape)} sims × nodes × "
+          f"saves, RK4 on the card) and model: "
+          f"{time.perf_counter() - t0:.2f} s")
+    rg = P.rand_graph(2 ** 18, 2 ** 22, seed=0)
+    s, r = host_edges(rg)
+    rand_edges = (s, r, rg.num_nodes)
+    kept = r % 97 != 0  # every 97th receiver loses its edges
+    r_empty = r[kept]
+
+    def edge_layout(r, n):
+        return (K.build_segment_csr(np.arange(len(r)), r, n,
+                                    num_cols=len(r)).to(dev),
+                torch.from_numpy(r.astype(np.int32)).to(dev))
+
+    k6_cases = [
+        ("rand", *edge_layout(r, rg.num_nodes), "segment_max"),
+        ("rand, every 97th row empty", *edge_layout(r_empty, rg.num_nodes),
+         None),
+        ("Burgers", mppde_g.cache["tcsr_edges"], mppde_g.receivers,
+         "segment_max Burgers")]
+    tanh3 = ("tanh", "tanh", "tanh")
+    label_bench = f"Delaunay 2^{VMH_POINTS_BENCH.bit_length() - 1}"
+    k3_cases = [
+        ("VMH mesh", csr_main, tanh3, (4, 60, 60, 60), "VMH"),
+        (label_bench, csr_bench, tanh3, (4, 60, 60, 60), None),
+        ("MP-PDE phi, Burgers", mppde_g.cache["tcsr_edges"], ("swish",),
+         (2 * mppde_model.hidden + mppde_model.bundle + 1,
+          mppde_model.hidden), "MP-PDE"),
+        (label_bench, csr_bench, tanh3, (4, 128, 128, 128), None)]
 
     print("kernel vs plain on the card:")
-    records = kernel_checks(P, K, dev, grid_fused)
-    records.update(k3_checks(K, dev, csr_main, csr_bench))
+    records = kernel_checks(P, K, dev, grid_fused, rand_edges)
+    k3_records = k3_checks(K, dev, k3_cases)
+    records.update(k3_records["VMH"])
     records.update(k5_checks(K, dev, gno_cases))
+    records.update(k6_checks(K, dev, k6_cases))
+    del k6_cases
 
     with torch.inference_mode():
         print("GRAND A (synthetic Cora, K1):")
@@ -643,6 +996,12 @@ def main() -> int:
     print("GNO Darcy training (32 samples on the 32² grid, K5):")
     launches_g = gno_training(P, K, gno_model, gno_a, gno_u)
 
+    print("MPPDEConv(aggr='max') at the config-3 widths (K6):")
+    launches_k6 = mppde_layer_max(P, K, mppde_g, dev)
+
+    print("MP-PDE Burgers training (32 sims on the 256-node chain, K3):")
+    launches_m = mppde_training(P, K, mppde_model, mppde_u)
+
     sources = {
         "segment_spmm": ("neuralgraphpde_torch/csrc/segment_spmm.cu",
                          "neuralgraphpde/kernels/segment_kernels.py:186",
@@ -665,15 +1024,31 @@ def main() -> int:
         "fused_gno_bwd": ("neuralgraphpde_torch/csrc/gno.cu",
                           "neuralgraphpde/kernels/gno_kernels.py:198",
                           launches_g["fused_gno_bwd"]),
+        "segment_max": ("neuralgraphpde_torch/csrc/segment_max.cu",
+                        "neuralgraphpde/kernels/segment_kernels.py:398",
+                        launches_k6["segment_max"]),
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_rel_err", "shape")
     kernels = []
     for name, (source, replaces, launches) in sources.items():
         rec = records[name]
-        kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, launches=launches,
-                            max_abs_err=rec["max_abs_err"],
-                            max_rel_err=rec["max_rel_err"], ms=rec["ms"],
-                            plain_ms=rec["plain_ms"], shape=rec["shape"]))
+        entry = dict(name=name, route="cuda", source=source,
+                     replaces=replaces, launches=launches,
+                     **{k: rec[k] for k in keys})
+        if name in ("fused_mlp_fwd", "fused_mlp_bwd"):
+            # K3's two variants: the record above is the resident one on
+            # the VMH path; the streamed one runs config 3's MP-PDE ϕ
+            entry["variants"] = [
+                dict(variant=rec["variant"], path="VMH training",
+                     launches=launches, ms=rec["ms"], shape=rec["shape"]),
+                dict(path="MP-PDE training", launches=launches_m[name],
+                     **{k: k3_records["MP-PDE"][name][k]
+                        for k in ("variant",) + keys})]
+        if name == "segment_max":
+            burgers = records["segment_max Burgers"]
+            entry["other_shapes"] = [{k: burgers[k] for k in keys}]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,17 +9,20 @@ This package imports neither ``jax`` nor ``neuralgraphpde``.
 """
 
 from .graph import (GnnGraph, add_self_loops, csr_offsets, degree,
-                    delaunay_graph, empty_graph, grid_graph_2d, radius_graph,
-                    rand_graph, sort_by_receiver, to_dense_adjacency)
+                    delaunay_graph, empty_graph, grid_graph_1d, grid_graph_2d,
+                    radius_graph, rand_graph, sort_by_receiver,
+                    to_dense_adjacency)
 from .ops import (aggregate_neighbors, apply_edges, copy_xj,
                   e_mul_xj, get_spmm_mode, precompute, propagate,
                   segment_reduce, set_spmm_mode, spmm, w_mul_xj)
 from .nn import (MLP, AbstractGNNContainerLayer, AbstractGNNLayer, Chain,
-                 ContainerLayer, Dense, GCNConv, GNOConv, Layer, VMHConv)
+                 ContainerLayer, Dense, ExplicitEdgeConv, GCNConv, GNOConv,
+                 Layer, MPPDEConv, VMHConv)
 from .utils import drop, update_graph, wrapgraph
 from .ode import NeuralGraphODE, odeint, odeint_grid
-from .models import GNOModel, grand_model, vmh_model
-from .data import convection_diffusion_dataset, darcy_dataset, synthetic_cora
+from .models import GNOModel, MPPDESolver, grand_model, vmh_model
+from .data import (burgers_dataset, convection_diffusion_dataset,
+                   darcy_dataset, synthetic_cora)
 from .train import (MetricsLogger, Rprop, adam, make_train_step, mse,
                     rollout_mse, rprop)
 from .interop import params_from_jax

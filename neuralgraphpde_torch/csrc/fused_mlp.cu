@@ -33,18 +33,50 @@
 //   a per-block scratch row and a second kernel sums the rows in block
 //   order. dfeats[col[s]] is written directly: every edge id appears once in
 //   `col`, so there is no scatter. The result is the same on every run.
+//
+// Two variants of each kernel, chosen by the launcher from the widths alone:
+// - resident (above): every weight, and backward every dW/db, lives in
+//   shared memory for the whole block. Taken when it fits (VMH's widths).
+// - streamed: for wider MLPs (MP-PDE's 282 -> 128, 4 -> 300 -> 300, ...).
+//   Each layer's W passes through shared tiles of `kt` rows, two buffers
+//   filled by cp.async, so the next tile's copy runs under the current
+//   tile's product; the chunk's activations (`te` edge slots, 4 <= te <=
+//   32) and the layer's bias stay in shared memory. The backward stores its
+//   first chunk's dW/db straight into the block's partial row in device
+//   memory and adds the later chunks' onto it, each entry owned by one
+//   thread (the same mapping on every chunk), and the same in-order sum of
+//   the partials follows: still no atomics, still deterministic. Every
+//   MLP of 1 to 4 layers with widths up to 1024 has a streamed plan (4
+//   layers of 1024 take te = 4). W is read once per chunk whatever a
+//   block's size, so the wrapper spreads a small graph's rows over about
+//   one block per SM and the launcher sizes the chunk to the average slots
+//   per block. The chunk is shallow (te slots) and a W tile narrow (kt
+//   rows), so the backward's dW = h^T dz and dh = dz W^T products give each
+//   thread whole dot products: dW entries in memory order (coalesced
+//   stores), dh entries along a tile's rows (conflict-free shared reads).
+// - the streamed block's other copies from device memory (biases, gathered
+//   inputs, cotangent rows, dW partials) issue kBatch loads per thread
+//   before their first store: a plain loop waits out each load's latency,
+//   since the compiler cannot move a load above a store that may alias it.
+//   The resident kernels share the input gather but keep plain loops for
+//   their weights and cotangent rows: batched there, the resident backward
+//   ran slower on the H100.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxLayers = 4;
+constexpr int kMaxWidth = 1024;
 constexpr int kThreads = 128;
 constexpr int kTE = 32;  // edge slots per chunk
+constexpr int kKT = 64;  // W rows per streamed tile, at most
+constexpr int kBatch = 8;  // loads in flight per thread in block_copy
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
 // returned by the launchers for an MLP outside the envelope (cudaError_t
 // codes are >= 0)
 constexpr int kOutsideEnvelope = -1;
 constexpr int kMaxFwdRows = 64;  // receiver rows per forward block, at most
+enum Variant { kResident = 0, kStreamed = 1 };
 
 enum Act {
   kIdentity = 0, kRelu, kTanh, kSigmoid, kSoftplus, kElu, kGelu, kSwish
@@ -113,6 +145,92 @@ __host__ __device__ inline Layout make_layout(const Mlp& m, int rows,
   }
   L.total = off;
   return L;
+}
+
+// float offsets into the dynamic shared memory of a streamed block: two W
+// tiles, the bias, then the chunk buffers of te slots (bwd: h[0..n],
+// z[0..n-1], d[0..1]; fwd: h[0..1] and the block's `rows` output sums)
+struct StreamLayout {
+  int wt[2], bias, h[kMaxLayers + 1], z[kMaxLayers], d[2], acc;
+  int sd;  // row stride of h[0..1] (fwd) and d[0..1]
+  int te, kt, total;
+};
+
+__host__ __device__ inline StreamLayout make_stream_layout(const Mlp& m,
+                                                           int te, int kt,
+                                                           int rows,
+                                                           bool bwd) {
+  StreamLayout L{};
+  int off = 0, pmax = 0;
+  for (int l = 0; l <= m.n; ++l) pmax = imax(pmax, pad4(m.dim[l]));
+  L.sd = pmax + 1;
+  L.te = te;
+  L.kt = kt;
+  for (int t = 0; t < 2; ++t) {
+    L.wt[t] = off;
+    off += kt * (pmax + 1);
+  }
+  L.bias = off;
+  off += pmax;
+  if (bwd) {
+    for (int l = 0; l <= m.n; ++l) {
+      L.h[l] = off;
+      off += te * (pad4(m.dim[l]) + 1);
+    }
+    for (int l = 0; l < m.n; ++l) {
+      L.z[l] = off;
+      off += te * (pad4(m.dim[l + 1]) + 1);
+    }
+    L.d[0] = off;
+    off += te * L.sd;
+    L.d[1] = off;
+    off += te * L.sd;
+  } else {
+    L.h[0] = off;
+    off += te * L.sd;
+    L.h[1] = off;
+    off += te * L.sd;
+    L.acc = off;
+    off += rows * pad4(m.dim[m.n]);
+  }
+  L.total = off;
+  return L;
+}
+
+// the resident block fits: forward at kMaxFwdRows rows, or the backward
+bool resident_fits(const Mlp& m, bool bwd) {
+  const int floats = bwd ? make_layout(m, 1, true).total
+                         : make_layout(m, kMaxFwdRows, false).total;
+  return floats * (int)sizeof(float) <= kMaxSmem;
+}
+
+struct StreamPlan {
+  int te, kt, rows, smem;
+};
+
+// the largest chunk of at most max(4, te_max) slots, then the largest W
+// tile, that fit, and (forward) at most `rows` receiver rows per block;
+// false if nothing fits
+bool plan_stream(const Mlp& m, int rows, int te_max, bool bwd,
+                 StreamPlan* p) {
+  const int pn = pad4(m.dim[m.n]);
+  int te0 = 4;
+  while (te0 < te_max && te0 < kTE) te0 <<= 1;
+  for (int te = te0; te >= 4; te >>= 1) {
+    for (int kt = kKT; kt >= 4; kt >>= 1) {
+      const int avail = kMaxSmem / (int)sizeof(float) -
+                        make_stream_layout(m, te, kt, 0, bwd).total;
+      const int r = bwd ? rows : (avail / pn < rows ? avail / pn : rows);
+      if (avail < 0 || r < 1) continue;
+      p->te = te;
+      p->kt = kt;
+      p->rows = r;
+      p->smem = make_stream_layout(m, te, kt, r, bwd).total *
+                (int)sizeof(float);
+      return true;
+    }
+  }
+  return false;
 }
 
 __device__ __forceinline__ float sigmoid(float z) {
@@ -194,6 +312,26 @@ __device__ __forceinline__ void block_gemm(int M, int N, int K,
   }
 }
 
+// store(i, load(i)) for i < count, by the whole block; each thread issues
+// kBatch loads before its first store
+template <typename Load, typename Store>
+__device__ __forceinline__ void block_copy(int count, Load load,
+                                           Store store) {
+  for (int base = threadIdx.x; base < count; base += kThreads * kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = base + u * kThreads;
+      v[u] = i < count ? load(i) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = base + u * kThreads;
+      if (i < count) store(i, v[u]);
+    }
+  }
+}
+
 // weights and biases into shared memory, zero-padded; dW/db zeroed (bwd)
 __device__ void stage_weights(const Mlp& m, const Layout& L, float* sm,
                               bool bwd) {
@@ -212,18 +350,37 @@ __device__ void stage_weights(const Mlp& m, const Layout& L, float* sm,
   }
 }
 
-// the chunk's input rows feats[col[s]] into h (row stride sh), zero-padded
+// the chunk's input rows feats[col[s]] into h (te rows of stride sh),
+// zero-padded
 __device__ void gather_inputs(const Mlp& m, const int* __restrict__ col,
                               const float* __restrict__ feats, int c0, int c1,
-                              float* h, int sh) {
+                              float* h, int sh, int te) {
   const int d0 = m.dim[0], p0 = pad4(d0);
-  for (int i = threadIdx.x; i < kTE * p0; i += kThreads) {
-    const int e = i / p0, k = i % p0;
-    const int s = c0 + e;
-    h[e * sh + k] = (s < c1 && k < d0)
-                        ? feats[(long long)col[s] * d0 + k]
-                        : 0.f;
-  }
+  block_copy(
+      te * p0,
+      [&](int i) {
+        const int e = i / p0, k = i % p0;
+        const int s = c0 + e;
+        return (s < c1 && k < d0) ? feats[(long long)col[s] * d0 + k] : 0.f;
+      },
+      [&](int i, float v) { h[(i / p0) * sh + i % p0] = v; });
+}
+
+// the chunk's output-gradient rows ew[s] * g_out[slot_row[s]] into d (te
+// rows of stride sd, pad4(dn) columns), zero-padded
+__device__ void gather_cotangents(int dn, const float* __restrict__ ew,
+                                  const long long* __restrict__ slot_row,
+                                  const float* __restrict__ g_out, int c0,
+                                  int c1, float* d, int sd, int te) {
+  const int pn = pad4(dn);
+  block_copy(
+      te * pn,
+      [&](int i) {
+        const int e = i / pn, j = i % pn;
+        const int s = c0 + e;
+        return (s < c1 && j < dn) ? ew[s] * g_out[slot_row[s] * dn + j] : 0.f;
+      },
+      [&](int i, float v) { d[(i / pn) * sd + i % pn] = v; });
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -245,7 +402,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int c0 = e_begin; c0 < e_end; c0 += kTE) {
     const int c1 = min(c0 + kTE, e_end);
-    gather_inputs(m, col, feats, c0, c1, sm + L.h[0], sd);
+    gather_inputs(m, col, feats, c0, c1, sm + L.h[0], sd, kTE);
     __syncthreads();
     int cur = 0;
     for (int l = 0; l < m.n; ++l) {
@@ -301,7 +458,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int c0 = e_begin; c0 < e_end; c0 += kTE) {
     const int c1 = min(c0 + kTE, e_end);
     // recompute: h[l+1] = act(z[l]), z[l] = h[l] @ W[l] + b[l]
-    gather_inputs(m, col, feats, c0, c1, sm + L.h[0], pad4(d0) + 1);
+    gather_inputs(m, col, feats, c0, c1, sm + L.h[0], pad4(d0) + 1, kTE);
     __syncthreads();
     for (int l = 0; l < m.n; ++l) {
       const int pin = pad4(m.dim[l]), pout = pad4(m.dim[l + 1]);
@@ -381,34 +538,297 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[i] = sum over blocks b, in order, of partial[b, i]
+// ---------------------------------------------------------------- streamed
+// 4 bytes from device memory into shared memory without passing through
+// registers; zero-filled where !valid (src is then not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// rows [k0, k0 + kr) of layer l's W into the tile wt (row stride
+// pad4(dout) + 1), zero outside W, as one cp.async group
+__device__ void load_w_tile(const Mlp& m, int l, int k0, int kr, float* wt) {
+  const int din = m.dim[l], dout = m.dim[l + 1], sw = pad4(dout) + 1;
+  const float* w = m.w[l];
+  for (int i = threadIdx.x; i < kr * sw; i += kThreads) {
+    const int k = k0 + i / sw, j = i % sw;
+    const bool in = k < din && j < dout;
+    cp_async4(wt + i, in ? w + (long long)k * dout + j : w, in);
+  }
+  cp_async_commit();
+}
+
+// body(k0, kr, tile) for rows [k0, k0 + kr) of layer l's W, kr = min(kt,
+// total - k0), k0 = 0, kt, ... below total, in order. When body runs its
+// tile is in shared memory and the next tile's copy is in flight into the
+// other buffer. Starts and ends synchronised.
+template <typename Body>
+__device__ void for_w_tiles(const Mlp& m, int l, int total,
+                            const StreamLayout& L, float* sm, Body body) {
+  const int kt = L.kt;
+  __syncthreads();  // no reader of either buffer is left
+  load_w_tile(m, l, 0, min(kt, total), sm + L.wt[0]);
+  for (int k0 = 0, t = 0; k0 < total; k0 += kt, ++t) {
+    const int next = k0 + kt;
+    if (next < total) {
+      load_w_tile(m, l, next, min(kt, total - next), sm + L.wt[(t + 1) & 1]);
+      cp_async_wait<1>();  // this tile's copies are done, the next's not
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // every thread's copies of this tile have landed
+    body(k0, min(kt, total - k0), sm + L.wt[t & 1]);
+    __syncthreads();  // the buffer is free for the tile after next
+  }
+}
+
+// out[e, j] = act(sum_{k < din} hin[e, k] W[k, j] + b[j]) for the te chunk
+// rows and j < pad4(dout), W streamed through the shared tiles and b staged
+// beside them; with `z`, the pre-activation is kept there too (row stride
+// so). Padded columns (j >= dout) see zero weights and bias. Ends
+// synchronised.
+__device__ void stream_dense(const Mlp& m, int l, const StreamLayout& L,
+                             float* sm, const float* hin, int sin,
+                             float* out, int so, float* z) {
+  const int din = m.dim[l], dout = m.dim[l + 1];
+  const int pout = pad4(dout), sw = pout + 1;
+  float* bias = sm + L.bias;
+  const float* b = m.b[l];
+  // the last reader of the bias (the previous layer) ended synchronised
+  block_copy(
+      pout, [&](int j) { return j < dout ? b[j] : 0.f; },
+      [&](int j, float v) { bias[j] = v; });
+  for_w_tiles(m, l, din, L, sm, [&](int k0, int kn, const float* wt) {
+    const bool first = k0 == 0;
+    // one owner per (e, j): the same tiling on every k-tile
+    block_gemm(L.te, pout, kn, hin + k0, sin, 1, wt, sw, 1,
+               [&](int e, int j, float v) {
+                 float* q = out + e * so + j;
+                 *q = first ? v : *q + v;
+               });
+  });
+  const int act = m.act[l];
+  for (int i = threadIdx.x; i < L.te * pout; i += kThreads) {
+    const int e = i / pout, j = i % pout;
+    const float zz = out[e * so + j] + bias[j];
+    if (z != nullptr) z[e * so + j] = zz;
+    out[e * so + j] = act_fwd(act, zz);
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_mlp_fwd_stream_kernel(Mlp m, const int* __restrict__ row_ptr,
+                                const int* __restrict__ col,
+                                const float* __restrict__ ew,
+                                const float* __restrict__ feats,
+                                float* __restrict__ out, int n_rows, int rows,
+                                int te, int kt) {
+  extern __shared__ float sm[];
+  const StreamLayout L = make_stream_layout(m, te, kt, rows, false);
+  const int r0 = blockIdx.x * rows;
+  const int r1 = min(r0 + rows, n_rows);
+  const int dn = m.dim[m.n], pn = pad4(dn);
+  float* acc = sm + L.acc;
+  for (int i = threadIdx.x; i < rows * pn; i += kThreads) acc[i] = 0.f;
+  const int e_begin = row_ptr[r0], e_end = row_ptr[r1];
+  const int sd = L.sd;
+  for (int c0 = e_begin; c0 < e_end; c0 += te) {
+    const int c1 = min(c0 + te, e_end);
+    gather_inputs(m, col, feats, c0, c1, sm + L.h[0], sd, te);
+    int cur = 0;
+    for (int l = 0; l < m.n; ++l) {
+      stream_dense(m, l, L, sm, sm + L.h[cur], sd, sm + L.h[cur ^ 1], sd,
+                   nullptr);
+      cur ^= 1;
+    }
+    const float* hn = sm + L.h[cur];
+    for (int i = threadIdx.x; i < (r1 - r0) * pn; i += kThreads) {
+      const int r = i / pn, j = i % pn;
+      const int lo = max(row_ptr[r0 + r], c0);
+      const int hi = min(row_ptr[r0 + r + 1], c1);
+      float a = acc[i];
+      for (int s = lo; s < hi; ++s) a = fmaf(ew[s], hn[(s - c0) * sd + j], a);
+      acc[i] = a;
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < (r1 - r0) * dn; i += kThreads) {
+    const int r = i / dn, j = i % dn;
+    out[(long long)(r0 + r) * dn + j] = acc[r * pn + j];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_mlp_bwd_stream_kernel(Mlp m, const int* __restrict__ row_ptr,
+                                const int* __restrict__ col,
+                                const float* __restrict__ ew,
+                                const long long* __restrict__ slot_row,
+                                const float* __restrict__ feats,
+                                const float* __restrict__ g_out,
+                                float* __restrict__ dfeats,
+                                float* __restrict__ partial, int n_rows,
+                                int rows, int n_params, int te, int kt) {
+  extern __shared__ float sm[];
+  const StreamLayout L = make_stream_layout(m, te, kt, 0, true);
+  const int r0 = blockIdx.x * rows;
+  const int r1 = min(r0 + rows, n_rows);
+  const int e_begin = row_ptr[r0], e_end = row_ptr[r1];
+  const int sd = L.sd;
+  const int d0 = m.dim[0], dn = m.dim[m.n];
+  // this block's dW/db, [dW0 (d0 x d1), db0 (d1), dW1, db1, ...]: its first
+  // chunk stores them, later chunks add; a block without edges stores 0
+  float* p = partial + (long long)blockIdx.x * n_params;
+  if (e_begin == e_end)
+    for (int i = threadIdx.x; i < n_params; i += kThreads) p[i] = 0.f;
+  int poff[kMaxLayers];
+  for (int l = 0, off = 0; l < m.n; ++l) {
+    poff[l] = off;
+    off += m.dim[l] * m.dim[l + 1] + m.dim[l + 1];
+  }
+  __syncthreads();
+  for (int c0 = e_begin; c0 < e_end; c0 += te) {
+    const int c1 = min(c0 + te, e_end);
+    const bool first = c0 == e_begin;
+    // recompute: h[l+1] = act(z[l]), z[l] = h[l] @ W[l] + b[l]
+    gather_inputs(m, col, feats, c0, c1, sm + L.h[0], pad4(d0) + 1, te);
+    for (int l = 0; l < m.n; ++l) {
+      const int so = pad4(m.dim[l + 1]) + 1;
+      stream_dense(m, l, L, sm, sm + L.h[l], pad4(m.dim[l]) + 1,
+                   sm + L.h[l + 1], so, sm + L.z[l]);
+    }
+    gather_cotangents(dn, ew, slot_row, g_out, c0, c1, sm + L.d[0], sd, te);
+    __syncthreads();
+    int cur = 0;
+    for (int l = m.n - 1; l >= 0; --l) {
+      const int din = m.dim[l], dout = m.dim[l + 1];
+      const int pin = pad4(din), pout = pad4(dout);
+      float* dz = sm + L.d[cur];
+      const float* z = sm + L.z[l];
+      const float* h = sm + L.h[l + 1];
+      const int act = m.act[l];
+      for (int i = threadIdx.x; i < te * pout; i += kThreads) {
+        const int e = i / pout, j = i % pout;
+        const int q = e * (pout + 1) + j;
+        dz[e * sd + j] *= act_grad(act, z[q], h[q]);
+      }
+      __syncthreads();
+      // dW[l] += h[l]^T dz and db[l] += the column sums of dz, into this
+      // block's partial row; each entry has one owning thread. Only te
+      // slots deep, so one entry per thread, consecutive threads on
+      // consecutive entries (coalesced), kBatch read back at a time.
+      float* pw = p + poff[l];
+      const float* hl = sm + L.h[l];
+      for (int base = threadIdx.x; base < din * dout;
+           base += kThreads * kBatch) {
+        float old[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int o = base + u * kThreads;
+          old[u] = (!first && o < din * dout) ? pw[o] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int o = base + u * kThreads;
+          if (o >= din * dout) continue;
+          const int k = o / dout, j = o % dout;
+          float a = 0.f;
+          for (int e = 0; e < te; ++e)
+            a = fmaf(hl[e * (pin + 1) + k], dz[e * sd + j], a);
+          pw[o] = old[u] + a;
+        }
+      }
+      float* pb = pw + din * dout;
+      for (int j = threadIdx.x; j < dout; j += kThreads) {
+        float a = 0.f;
+        for (int e = 0; e < te; ++e) a += dz[e * sd + j];
+        pb[j] = first ? a : pb[j] + a;
+      }
+      // dh[l] = dz @ W[l]^T, by row tiles of W (column tiles of dh): te x
+      // kr entries a tile, one per thread, each a dot product of length
+      // pout (a warp reads one dz row and kr W rows of odd stride)
+      float* dh = sm + L.d[cur ^ 1];
+      for_w_tiles(m, l, pin, L, sm, [&](int k0, int kr, const float* wt) {
+        for (int o = threadIdx.x; o < te * kr; o += kThreads) {
+          const int e = o / kr, k = o % kr;
+          float a = 0.f;
+          for (int j = 0; j < pout; ++j)
+            a = fmaf(dz[e * sd + j], wt[k * (pout + 1) + j], a);
+          dh[e * sd + k0 + k] = a;
+        }
+      });
+      cur ^= 1;
+    }
+    const float* dh0 = sm + L.d[cur];
+    for (int i = threadIdx.x; i < te * d0; i += kThreads) {
+      const int e = i / d0, k = i % d0;
+      const int s = c0 + e;
+      if (s < c1) dfeats[(long long)col[s] * d0 + k] = dh0[e * sd + k];
+    }
+    __syncthreads();
+  }
+}
+
+// out[i] = sum over blocks b, in order, of partial[b, i]; kBatch loads in
+// flight at a time, added in block order
 __global__ void sum_partials_kernel(const float* __restrict__ partial,
                                     float* __restrict__ out, int n_blocks,
                                     int n_params) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_params) return;
   float a = 0.f;
-  for (int b = 0; b < n_blocks; ++b) a += partial[(long long)b * n_params + i];
+  int b = 0;
+  for (; b + kBatch <= n_blocks; b += kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      v[u] = partial[(long long)(b + u) * n_params + i];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) a += v[u];
+  }
+  for (; b < n_blocks; ++b) a += partial[(long long)b * n_params + i];
   out[i] = a;
 }
 
-// host: the MLP from the wrapper's arrays; 0, cudaErrorInvalidValue for an
-// unknown activation code, or kOutsideEnvelope. K3's envelope: 1 to
-// kMaxLayers layers of width >= 1 whose forward block (at kMaxFwdRows
-// receiver rows) and backward block both fit kMaxSmem bytes of shared
-// memory. Both launchers hold an MLP to both limits, so a forward never
-// runs whose backward could not.
-int make_mlp(int n, const int* dims, const int* acts, const void* const* w,
-             const void* const* b, Mlp* m) {
+// host: the MLP's widths; 0 or kOutsideEnvelope. K3's envelope: 1 to
+// kMaxLayers layers of widths 1 to kMaxWidth (the cap keeps the layouts'
+// int arithmetic from overflowing) that have a streamed plan, forward and
+// backward (every such MLP has one). A forward never runs whose backward
+// could not.
+int make_mlp_dims(int n, const int* dims, Mlp* m) {
   if (n < 1 || n > kMaxLayers) return kOutsideEnvelope;
   *m = Mlp{};
   m->n = n;
   for (int l = 0; l <= n; ++l) {
-    // no width above 1024 fits (the chunk buffers alone would not), and
-    // the cap keeps the layout's int arithmetic from overflowing
-    if (dims[l] < 1 || dims[l] > 1024) return kOutsideEnvelope;
+    if (dims[l] < 1 || dims[l] > kMaxWidth) return kOutsideEnvelope;
     m->dim[l] = dims[l];
   }
+  StreamPlan p;
+  if (!plan_stream(*m, 1, 4, false, &p) || !plan_stream(*m, 1, 4, true, &p))
+    return kOutsideEnvelope;
+  return 0;
+}
+
+// host: the MLP from the wrapper's arrays; 0, cudaErrorInvalidValue for an
+// unknown activation code, or kOutsideEnvelope
+int make_mlp(int n, const int* dims, const int* acts, const void* const* w,
+             const void* const* b, Mlp* m) {
+  const int bad = make_mlp_dims(n, dims, m);
+  if (bad != 0) return bad;
   for (int l = 0; l < n; ++l) {
     if (acts[l] < kIdentity || acts[l] > kSwish)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -416,10 +836,6 @@ int make_mlp(int n, const int* dims, const int* acts, const void* const* w,
     m->w[l] = static_cast<const float*>(w[l]);
     m->b[l] = static_cast<const float*>(b[l]);
   }
-  if (make_layout(*m, kMaxFwdRows, false).total * (int)sizeof(float) >
-          kMaxSmem ||
-      make_layout(*m, 1, true).total * (int)sizeof(float) > kMaxSmem)
-    return kOutsideEnvelope;
   return 0;
 }
 
@@ -427,12 +843,22 @@ int make_mlp(int n, const int* dims, const int* acts, const void* const* w,
 
 extern "C" {
 
+// which variant the launchers take for these widths (bwd: the backward's):
+// kResident (0), kStreamed (1), or kOutsideEnvelope (-1)
+int ngpde_fused_mlp_variant(int n, const int* dims, int bwd) {
+  Mlp m;
+  if (make_mlp_dims(n, dims, &m) != 0) return kOutsideEnvelope;
+  return resident_fits(m, bwd != 0) ? kResident : kStreamed;
+}
+
 // out (n_rows, dims[n]) f32. dims: n + 1 widths; acts: n activation codes;
-// w, b: n device pointers each; rows: receiver rows per block. Returns a
-// cudaError_t, or kOutsideEnvelope (-1).
+// w, b: n device pointers each; rows: receiver rows per block (the streamed
+// variant may take fewer); slots: the edge slots a block holds on average
+// (the streamed variant's chunk is at most the power of two above it).
+// Returns a cudaError_t, or kOutsideEnvelope (-1).
 int ngpde_fused_mlp_fwd(const int* row_ptr, const int* col, const float* ew,
                         const float* feats, float* out, int n_rows, int rows,
-                        int n, const int* dims, const int* acts,
+                        int slots, int n, const int* dims, const int* acts,
                         const void* const* w, const void* const* b,
                         void* stream_ptr) {
   Mlp m;
@@ -441,24 +867,39 @@ int ngpde_fused_mlp_fwd(const int* row_ptr, const int* col, const float* ew,
   if (rows < 1 || rows > kMaxFwdRows)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows == 0) return 0;
-  const int smem = make_layout(m, rows, false).total * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err;
+  if (resident_fits(m, false)) {
+    const int smem = make_layout(m, rows, false).total * (int)sizeof(float);
+    err = cudaFuncSetAttribute(fused_mlp_fwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int blocks = (n_rows + rows - 1) / rows;
+    fused_mlp_fwd_kernel<<<blocks, kThreads, smem, stream>>>(
+        m, row_ptr, col, ew, feats, out, n_rows, rows);
+    return static_cast<int>(cudaGetLastError());
+  }
+  StreamPlan p;
+  if (!plan_stream(m, rows, slots, false, &p)) return kOutsideEnvelope;
+  err = cudaFuncSetAttribute(fused_mlp_fwd_stream_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n_rows + rows - 1) / rows;
-  fused_mlp_fwd_kernel<<<blocks, kThreads, smem,
-                         static_cast<cudaStream_t>(stream_ptr)>>>(
-      m, row_ptr, col, ew, feats, out, n_rows, rows);
+  const int blocks = (n_rows + p.rows - 1) / p.rows;
+  fused_mlp_fwd_stream_kernel<<<blocks, kThreads, p.smem, stream>>>(
+      m, row_ptr, col, ew, feats, out, n_rows, p.rows, p.te, p.kt);
   return static_cast<int>(cudaGetLastError());
 }
 
 // dfeats (E, dims[0]); grads: the n_params = sum_l dims[l]*dims[l+1] +
 // dims[l+1] weight and bias gradients, concatenated per layer; partial:
-// scratch of ceil(n_rows / rows) * n_params floats.
+// scratch of ceil(n_rows / rows) * n_params floats; slots as for the
+// forward.
 int ngpde_fused_mlp_bwd(const int* row_ptr, const int* col, const float* ew,
                         const long long* slot_row, const float* feats,
                         const float* g_out, float* dfeats, float* grads,
-                        float* partial, int n_rows, int rows, int n,
+                        float* partial, int n_rows, int rows, int slots, int n,
                         const int* dims, const int* acts,
                         const void* const* w, const void* const* b,
                         void* stream_ptr) {
@@ -471,14 +912,27 @@ int ngpde_fused_mlp_bwd(const int* row_ptr, const int* col, const float* ew,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int blocks = n_rows == 0 ? 0 : (n_rows + rows - 1) / rows;
   if (blocks > 0) {
-    const int smem = make_layout(m, rows, true).total * (int)sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_mlp_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fused_mlp_bwd_kernel<<<blocks, kThreads, smem, stream>>>(
-        m, row_ptr, col, ew, slot_row, feats, g_out, dfeats, partial, n_rows,
-        rows, n_params);
+    cudaError_t err;
+    if (resident_fits(m, true)) {
+      const int smem = make_layout(m, rows, true).total * (int)sizeof(float);
+      err = cudaFuncSetAttribute(fused_mlp_bwd_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      fused_mlp_bwd_kernel<<<blocks, kThreads, smem, stream>>>(
+          m, row_ptr, col, ew, slot_row, feats, g_out, dfeats, partial,
+          n_rows, rows, n_params);
+    } else {
+      StreamPlan p;
+      if (!plan_stream(m, rows, slots, true, &p)) return kOutsideEnvelope;
+      err = cudaFuncSetAttribute(fused_mlp_bwd_stream_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 p.smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      fused_mlp_bwd_stream_kernel<<<blocks, kThreads, p.smem, stream>>>(
+          m, row_ptr, col, ew, slot_row, feats, g_out, dfeats, partial,
+          n_rows, rows, n_params, p.te, p.kt);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -1,7 +1,9 @@
-from .pde import (ConvectionDiffusionData, DarcyData,
-                  convection_diffusion_dataset, darcy_dataset)
+from .pde import (BurgersData, ConvectionDiffusionData, DarcyData,
+                  burgers_dataset, convection_diffusion_dataset,
+                  darcy_dataset)
 from .synthetic import NodeClassificationData, synthetic_cora
 
-__all__ = ["ConvectionDiffusionData", "convection_diffusion_dataset",
+__all__ = ["BurgersData", "burgers_dataset", "ConvectionDiffusionData",
+           "convection_diffusion_dataset",
            "DarcyData", "darcy_dataset",
            "NodeClassificationData", "synthetic_cora"]

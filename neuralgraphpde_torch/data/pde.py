@@ -1,11 +1,13 @@
-"""PDE dataset generators for the VMH and GNO configurations (counterparts
-of ``convection_diffusion_dataset`` and ``darcy_dataset`` in
-``neuralgraphpde.data.pde``): the same numpy and scipy host code, so one
-seed gives both packages the same arrays.
+"""PDE dataset generators for the VMH, MP-PDE and GNO configurations
+(counterparts of ``convection_diffusion_dataset``, ``burgers_dataset`` and
+``darcy_dataset`` in ``neuralgraphpde.data.pde``): the same numpy and scipy
+host code, so one seed gives both packages the same arrays (Burgers: the
+same initial conditions, then a torch solve).
 
 - 2-D convection-diffusion ``u_t = d Δu − v·∇u`` on a periodic [0, 2π]²
   domain, solved exactly in Fourier space on a fine grid and sampled at
   scattered points that a Delaunay graph connects.
+- 1-D viscous Burgers on a periodic chain, pseudo-spectral RK4.
 - Darcy flow with threshold-GRF coefficients, solved by 5-point finite
   differences on a grid that a radius graph connects.
 """
@@ -16,7 +18,7 @@ from typing import Tuple
 
 import numpy as np
 
-from ..graph.builders import delaunay_graph, radius_graph
+from ..graph.builders import delaunay_graph, grid_graph_1d, radius_graph
 from ..graph.gnngraph import GnnGraph
 
 
@@ -84,6 +86,75 @@ def convection_diffusion_dataset(
     return ConvectionDiffusionData(
         graph=g, u=u_all, ts=ts.astype(np.float32),
         positions=pts.astype(np.float32))
+
+
+@dataclasses.dataclass
+class BurgersData:
+    graph: GnnGraph  # 1-D stencil graph, ndata['x'] = positions (nx, 1)
+    u: np.ndarray  # (num_sims, T, nx, 1)
+    ts: np.ndarray  # (T,)
+    nu: float
+
+
+def burgers_dataset(
+    num_sims: int = 32,
+    nx: int = 256,
+    t_end: float = 2.0,
+    num_saves: int = 41,
+    nu: float = 0.01,
+    stencil: int = 2,
+    seed: int = 0,
+    substeps: int = 40,
+    device=None,
+) -> BurgersData:
+    """1-D periodic viscous Burgers ``u_t + u u_x = ν u_xx`` on [0, 2π) (the
+    MP-PDE configuration): pseudo-spectral, the nonlinear term dealiased at
+    ``nx // 3``, RK4 with ``substeps`` steps per save interval, all sims in
+    one batch. The initial conditions are sums of 2 to 5 low-frequency sines
+    drawn from ``np.random.default_rng(seed)`` in the JAX package's order.
+    The solve runs on ``device`` (default: the CPU) in complex64, as the JAX
+    package's does with x64 off; its FFTs are another library's, so the
+    arrays agree with JAX's to float rounding, not bit for bit."""
+    import torch
+
+    from ..ode.integrate import odeint_grid
+
+    rng = np.random.default_rng(seed)
+    freqs = np.fft.fftfreq(nx) * nx
+    k = torch.as_tensor(freqs, dtype=torch.float32, device=device)
+    ik = 1j * k
+    dealias = torch.as_tensor(np.abs(freqs) < nx // 3, device=device)
+
+    def rhs(t, u, args):
+        u_hat = torch.fft.fft(u)
+        conv_hat = 0.5 * ik * torch.fft.fft(u * u) * dealias
+        visc_hat = -nu * (k ** 2) * u_hat
+        return torch.fft.ifft(visc_hat - conv_hat).real
+
+    ts = np.linspace(0.0, t_end, num_saves)
+    x = np.linspace(0, 2 * np.pi, nx, endpoint=False)
+
+    u0s = []
+    for _ in range(num_sims):
+        # random sum of low-frequency sines (Brandstetter-style init)
+        u0 = np.zeros(nx)
+        for _ in range(rng.integers(2, 6)):
+            A = rng.uniform(-0.5, 0.5)
+            kk = rng.integers(1, 4)
+            phi = rng.uniform(0, 2 * np.pi)
+            u0 += A * np.sin(kk * x + phi)
+        u0s.append(u0)
+    u0s = torch.as_tensor(np.stack(u0s).astype(np.float32).reshape(
+        num_sims, nx), device=device)
+    with torch.no_grad():
+        u = odeint_grid(rhs, u0s, ts.astype(np.float32), solver="rk4",
+                        steps_per_interval=substeps)  # (T, S, nx)
+    u = u.transpose(0, 1).cpu().numpy()
+
+    g = grid_graph_1d(nx, periodic=True, stencil=stencil,
+                      ndata={"x": x.reshape(-1, 1).astype(np.float32)})
+    return BurgersData(graph=g, u=u[..., None].astype(np.float32),
+                       ts=ts.astype(np.float32), nu=nu)
 
 
 @dataclasses.dataclass

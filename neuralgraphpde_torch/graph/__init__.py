@@ -1,6 +1,6 @@
 from .gnngraph import GnnGraph, empty_graph
-from .builders import (delaunay_graph, grid_graph_2d, radius_graph,
-                       rand_graph)
+from .builders import (delaunay_graph, grid_graph_1d, grid_graph_2d,
+                       radius_graph, rand_graph)
 from .transforms import (
     add_self_loops,
     csr_offsets,
@@ -10,7 +10,8 @@ from .transforms import (
 )
 
 __all__ = [
-    "GnnGraph", "empty_graph", "rand_graph", "grid_graph_2d", "delaunay_graph",
+    "GnnGraph", "empty_graph", "rand_graph", "grid_graph_1d", "grid_graph_2d",
+    "delaunay_graph",
     "radius_graph",
     "add_self_loops", "degree", "sort_by_receiver", "csr_offsets",
     "to_dense_adjacency",

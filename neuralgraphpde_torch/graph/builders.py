@@ -42,6 +42,29 @@ def rand_graph(
     )
 
 
+def grid_graph_1d(n: int, *, periodic: bool = False, stencil: int = 1,
+                  **features) -> GnnGraph:
+    """1-D chain with ``stencil`` neighbours each side (the MP-PDE Burgers
+    mesh); edges in receiver order, each receiver's senders from
+    ``-stencil`` to ``+stencil``."""
+    s_list, t_list = [], []
+    for i in range(n):
+        for off in range(-stencil, stencil + 1):
+            if off == 0:
+                continue
+            j = i + off
+            if periodic:
+                j %= n
+            elif not (0 <= j < n):
+                continue
+            s_list.append(j)
+            t_list.append(i)
+    return GnnGraph.from_coo(
+        np.asarray(s_list, np.int32), np.asarray(t_list, np.int32),
+        num_nodes=n, **features,
+    )
+
+
 def grid_graph_2d(nx: int, ny: int, *, periodic: bool = False,
                   diagonals: bool = False, **features) -> GnnGraph:
     """2-D lattice, 4- or 8-neighborhood, bidirected, receiver-sorted."""

@@ -4,9 +4,10 @@ A JAX model's parameters ``ps`` are a nested dict (``layer_1/weight``,
 ``layer_2/layer_1/weight``, ...). Containers follow the Lux rule kept in
 ``nn.core.ContainerLayer``: a ``Chain`` (and an ``MLP``) nests each child
 under its name, as does a container of several children such as
-``VMHConv`` (``phi/layer_1/weight``, ``gamma/...``); a single-child
-container such as ``NeuralGraphODE`` flattens its child's tree into its own
-level. Both packages store weights ``(in, out)`` and biases
+``VMHConv`` (``phi/layer_1/weight``, ``gamma/...``) or ``MPPDESolver``
+(``encoder``, ``conv_1/phi/...``, ``decoder``); a single-child container
+such as ``NeuralGraphODE`` or ``ExplicitEdgeConv`` flattens its child's
+tree into its own level. Both packages store weights ``(in, out)`` and biases
 ``(1, out)``, so arrays copy over unchanged.
 """
 from __future__ import annotations

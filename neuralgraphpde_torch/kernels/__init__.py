@@ -4,16 +4,17 @@ the first kernel launch (``kernels._build``)."""
 from .dia_kernels import dia_gcn_rhs, dia_rhs_plain, dia_spmm_stencil
 from .fused_mlp_kernels import (fused_mlp_aggregate, fused_mlp_bwd,
                                 fused_mlp_bwd_plain, fused_mlp_fwd,
-                                fused_mlp_plain)
+                                fused_mlp_plain, fused_mlp_variant)
 from .gno_kernels import (fused_gno_aggregate, fused_gno_bwd,
                           fused_gno_bwd_plain, fused_gno_fwd, fused_gno_plain,
                           pack_last_layer)
-from .segment_kernels import (SegmentCSR, build_segment_csr, segment_spmm,
-                              segment_spmm_plain)
+from .segment_kernels import (SegmentCSR, build_segment_csr, segment_max,
+                              segment_max_aggregate, segment_max_plain,
+                              segment_spmm, segment_spmm_plain)
 
 # every kernel wrapper, each counting its launches in ``.launches``
 KERNELS = (segment_spmm, dia_spmm_stencil, dia_gcn_rhs, fused_mlp_fwd,
-           fused_mlp_bwd, fused_gno_fwd, fused_gno_bwd)
+           fused_mlp_bwd, fused_gno_fwd, fused_gno_bwd, segment_max)
 
 
 def reset_launch_counts() -> None:
@@ -24,8 +25,9 @@ def reset_launch_counts() -> None:
 __all__ = [
     "dia_gcn_rhs", "dia_rhs_plain", "dia_spmm_stencil", "fused_mlp_aggregate",
     "fused_mlp_bwd", "fused_mlp_bwd_plain", "fused_mlp_fwd",
-    "fused_mlp_plain", "fused_gno_aggregate", "fused_gno_bwd",
+    "fused_mlp_plain", "fused_mlp_variant", "fused_gno_aggregate", "fused_gno_bwd",
     "fused_gno_bwd_plain", "fused_gno_fwd", "fused_gno_plain",
-    "pack_last_layer", "SegmentCSR", "build_segment_csr", "segment_spmm",
-    "segment_spmm_plain", "KERNELS", "reset_launch_counts",
+    "pack_last_layer", "SegmentCSR", "build_segment_csr", "segment_max",
+    "segment_max_aggregate", "segment_max_plain",
+    "segment_spmm", "segment_spmm_plain", "KERNELS", "reset_launch_counts",
 ]

@@ -17,9 +17,11 @@ activation`` (the JAX kernel's set; ``gelu`` is the tanh form, as
   ``dfeats``, ``dW`` and ``db`` of every layer for an output cotangent).
   CPU tensors take the plain versions; CUDA tensors launch the kernel or
   raise. Both take f32 only. On the card both hold the MLP to the kernels'
-  envelope (1 to 4 layers whose forward and backward blocks fit the card's
-  227 KB of shared memory, worked out by the CUDA source) and raise
-  ``ValueError`` outside it.
+  envelope (1 to 4 layers of widths 1 to 1024, worked out by the CUDA
+  source) and raise ``ValueError`` outside it. Inside it the CUDA launcher
+  picks one of two variants from the widths: ``resident`` (every weight in
+  shared memory) where that fits, else ``streamed`` (W through a shared
+  tile); ``fused_mlp_variant`` says which.
 - ``fused_mlp_plain`` / ``fused_mlp_bwd_plain``: the plain PyTorch versions,
   a per-edge MLP then ``index_add_``, and autograd through it (the saved-
   activation path, the JAX package's ``xla`` backend).
@@ -56,15 +58,14 @@ _PLAIN_ACTS = {
     "silu": F.silu,
 }
 
-# forward: receiver rows per block, chosen so a block's edges fill about
-# this many chunk slots on average (at most csrc/fused_mlp.cu kMaxFwdRows)
+# resident forward: receiver rows per block, chosen so a block's edges fill
+# about this many chunk slots on average (at most csrc/fused_mlp.cu
+# kMaxFwdRows): every block stages all the weights once
 _FWD_SLOTS = 56
 _MAX_FWD_ROWS = 64
 # what the CUDA launchers return for an MLP outside the envelope
 _OUTSIDE_ENVELOPE = -1
-# backward: blocks per SM (one block's shared memory fills most of an SM);
-# fewer blocks means fewer per-block dW/db partials to add
-_BWD_BLOCKS_PER_SM = 1
+_VARIANTS = ("resident", "streamed")
 
 
 def supported_activation(name) -> bool:
@@ -109,10 +110,21 @@ def _check_launch(err: int, what: str, dims) -> None:
     """Raise if a K3 launcher refused the MLP or reported a CUDA error."""
     if err == _OUTSIDE_ENVELOPE:
         raise ValueError(f"{what}: MLP widths {dims} are outside the fused "
-                         "MLP kernels' envelope: 1 to 4 layers whose forward "
-                         "and backward blocks fit the card's 227 KB of "
-                         "shared memory")
+                         "MLP kernels' envelope: 1 to 4 layers of widths 1 "
+                         "to 1024")
     _build.check(err, what)
+
+
+def fused_mlp_variant(dims: Sequence[int], backward: bool = False) -> str:
+    """The variant the card's launcher takes for an MLP of widths ``dims``
+    (``(K_0, ..., K_n)``): ``"resident"`` or ``"streamed"``; ``ValueError``
+    outside the envelope. Needs the kernel library (the card's machine)."""
+    dims = tuple(int(d) for d in dims)
+    code = _build.library().ngpde_fused_mlp_variant(
+        len(dims) - 1, (ctypes.c_int * len(dims))(*dims), int(backward))
+    if code == _OUTSIDE_ENVELOPE:
+        _check_launch(code, "fused_mlp_variant", dims)
+    return _VARIANTS[code]
 
 
 def fused_mlp_plain(acts, csr: SegmentCSR, feats: torch.Tensor,
@@ -165,9 +177,26 @@ def _layer_args(acts, dims, ws, bs):
             (ctypes.c_void_p * n)(*(b.data_ptr() for b in bs)))
 
 
-def _fwd_rows(csr: SegmentCSR) -> int:
-    avg_degree = csr.col.shape[0] / max(csr.num_rows, 1)
-    return max(1, min(_MAX_FWD_ROWS, int(_FWD_SLOTS / max(avg_degree, 1e-9))))
+def _block_rows(csr: SegmentCSR, dims, backward: bool, dev) -> tuple:
+    """``(rows, slots)``: receiver rows per block and the edge slots a block
+    holds on average. A resident forward block stages every weight, so it
+    takes about ``_FWD_SLOTS`` slots; a resident backward block also keeps
+    every dW in shared memory and writes them once, so the backward spreads
+    the rows over at most one block per SM (fewer partials to add) unless
+    the forward's share is larger. A streamed block reads W once per chunk
+    whatever its size, so both directions spread the rows over about one
+    block per SM: a small graph (the MP-PDE chain: 256 rows) gets 128
+    blocks instead of 19."""
+    n_rows = max(csr.num_rows, 1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = math.ceil(n_rows / sms)
+    avg_degree = csr.col.shape[0] / n_rows
+    fwd = max(1, min(_MAX_FWD_ROWS, int(_FWD_SLOTS / max(avg_degree, 1e-9))))
+    if fused_mlp_variant(dims, backward) == "streamed":
+        rows = min(_MAX_FWD_ROWS, per_sm) if not backward else per_sm
+    else:
+        rows = max(fwd, per_sm) if backward else fwd
+    return rows, max(1, math.ceil(avg_degree * rows))
 
 
 def fused_mlp_fwd(acts, csr: SegmentCSR, feats: torch.Tensor,
@@ -184,10 +213,11 @@ def fused_mlp_fwd(acts, csr: SegmentCSR, feats: torch.Tensor,
     _check_cuda(csr, feats, *ws, *bs)
     out = torch.empty((csr.num_rows, dims[-1]), dtype=torch.float32,
                       device=feats.device)
+    rows, slots = _block_rows(csr, dims, False, feats.device)
     lib = _build.library()
     err = lib.ngpde_fused_mlp_fwd(
         csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.weight.data_ptr(),
-        feats.data_ptr(), out.data_ptr(), csr.num_rows, _fwd_rows(csr),
+        feats.data_ptr(), out.data_ptr(), csr.num_rows, rows, slots,
         *_layer_args(acts, dims, ws, bs),
         torch.cuda.current_stream(feats.device).cuda_stream)
     _check_launch(err, "fused_mlp_fwd", dims)
@@ -215,9 +245,7 @@ def fused_mlp_bwd(acts, csr: SegmentCSR, feats: torch.Tensor,
         return fused_mlp_bwd_plain(acts, csr, feats, ws, bs, g_out)
     _check_cuda(csr, feats, g_out, *ws, *bs)
     dev = feats.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows = max(_fwd_rows(csr),
-               math.ceil(csr.num_rows / (_BWD_BLOCKS_PER_SM * sms)))
+    rows, slots = _block_rows(csr, dims, True, dev)
     blocks = math.ceil(csr.num_rows / rows)
     sizes = [(dims[l], dims[l + 1]) for l in range(len(ws))]
     n_params = sum(a * b + b for a, b in sizes)
@@ -230,7 +258,7 @@ def fused_mlp_bwd(acts, csr: SegmentCSR, feats: torch.Tensor,
         csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.weight.data_ptr(),
         csr.rows.data_ptr(), feats.data_ptr(), g_out.data_ptr(),
         dfeats.data_ptr(), grads.data_ptr(), partial.data_ptr(),
-        csr.num_rows, rows, *_layer_args(acts, dims, ws, bs),
+        csr.num_rows, rows, slots, *_layer_args(acts, dims, ws, bs),
         torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(err, "fused_mlp_bwd", dims)
     fused_mlp_bwd.launches += 1

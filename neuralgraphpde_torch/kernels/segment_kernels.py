@@ -1,7 +1,9 @@
-"""K1: receiver segment-SpMM ``out[i] = Σ_{e: r_e = i} w_e · x[s_e]``.
+"""K1: receiver segment-SpMM ``out[i] = Σ_{e: r_e = i} w_e · x[s_e]``, and
+K6: receiver segment-max ``out[i] = max_{e: r_e = i} m_e``.
 
-Replaces ``neuralgraphpde/kernels/segment_kernels.py::_tiled_segment_spmm_fwd``
-(the Pallas one-hot MXU kernel behind ``tiled_segment_spmm``). CUDA source:
+K1 replaces ``neuralgraphpde/kernels/segment_kernels.py::
+_tiled_segment_spmm_fwd`` (the Pallas one-hot MXU kernel behind
+``tiled_segment_spmm``). CUDA source:
 ``neuralgraphpde_torch/csrc/segment_spmm.cu``.
 
 What bounds it on the H100: bytes. Each edge reads one sender row of x
@@ -21,6 +23,24 @@ there is nothing to feed, so the layout is a plain receiver-sorted CSR:
 ``compute_dtype=torch.bfloat16`` halves the gather bytes (bf16 reads, f32
 accumulate); the output keeps x's dtype. This argument replaces the JAX
 package's process-global ``set_kernel_compute_dtype``.
+
+K6 replaces ``segment_kernels.py::_tiled_segment_max_fwd`` (the Pallas
+segmented max-scan behind ``tiled_segment_max``). CUDA source:
+``neuralgraphpde_torch/csrc/segment_max.cu``, one warp per receiver row of
+the edge-id layout (``tcsr_edges``), a running max in registers, no
+atomics: max is order-free, so the kernel equals its plain version exactly.
+Empty rows get ``-inf``; a NaN message makes its row's entry NaN (the
+``xla`` path's ``scatter_reduce_`` amax does the same).
+
+- ``segment_max``: the kernel wrapper (forward, outside autograd); CPU
+  tensors take ``segment_max_plain`` (``scatter_reduce_`` amax).
+- ``segment_max_aggregate``: the differentiable call, a
+  ``torch.autograd.Function`` on every device. Its backward is the JAX
+  custom VJP's rule (``segment_kernels.py:456-462``), computed with torch
+  ops as JAX computes it outside Pallas: the full cotangent goes to every
+  edge whose message equals its receiver's maximum, ties included
+  (``scatter_reduce_``'s own gradient, like ``jax.ops.segment_max``'s,
+  splits it among ties instead).
 """
 from __future__ import annotations
 
@@ -121,9 +141,83 @@ def segment_spmm(x: torch.Tensor, csr: SegmentCSR,
 segment_spmm.launches = 0
 
 
+def segment_max_plain(m: torch.Tensor, csr: SegmentCSR) -> torch.Tensor:
+    """Plain PyTorch version of K6: every slot's message row, then
+    ``scatter_reduce_`` amax onto a ``-inf`` output (include_self)."""
+    vals = m.index_select(0, csr.col)
+    out = vals.new_full((csr.num_rows, m.shape[1]), float("-inf"))
+    idx = csr.rows.reshape(-1, 1).expand_as(vals)
+    return out.scatter_reduce_(0, idx, vals, "amax", include_self=True)
+
+
+def segment_max(m: torch.Tensor, csr: SegmentCSR) -> torch.Tensor:
+    """``out[i] = max_{s in row i} m[col_s]`` as ``(num_rows, F)`` f32 over
+    the edge-id layout ``csr``, outside autograd; ``-inf`` for a row with
+    no slot. CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if m.dim() != 2 or m.shape[0] != csr.num_cols:
+        raise ValueError(f"m must be ({csr.num_cols}, F), got "
+                         f"{tuple(m.shape)}")
+    if m.dtype != torch.float32:
+        raise TypeError(f"segment_max takes f32 only, got {m.dtype}")
+    if m.device.type == "cpu":
+        return segment_max_plain(m, csr)
+    _check_cuda_inputs(m, csr.row_ptr, csr.col)
+    F = m.shape[1]
+    out = torch.empty((csr.num_rows, F), dtype=torch.float32, device=m.device)
+    vec = 4 if F % 4 == 0 and m.data_ptr() % 16 == 0 else 1
+    err = _build.library().ngpde_segment_max(
+        csr.row_ptr.data_ptr(), csr.col.data_ptr(), m.data_ptr(),
+        out.data_ptr(), csr.num_rows, F, vec,
+        torch.cuda.current_stream(m.device).cuda_stream)
+    _build.check(err, "segment_max")
+    segment_max.launches += 1
+    return out
+
+
+segment_max.launches = 0
+
+
+def segment_max_bwd(m: torch.Tensor, out: torch.Tensor,
+                    receivers: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The VJP of the segment max: ``g[r_e]`` for every edge ``e`` whose
+    message equals its receiver's maximum (every tied edge gets all of it),
+    0 elsewhere."""
+    recv = receivers.to(torch.int64)
+    winners = m == out.index_select(0, recv)
+    return torch.where(winners, g.index_select(0, recv),
+                       torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+class _SegmentMax(torch.autograd.Function):
+    """K6 (or its plain version on the CPU) under autograd, with the JAX
+    kernel's tie rule in the backward."""
+
+    @staticmethod
+    def forward(ctx, m, csr, receivers):
+        out = segment_max(m, csr)
+        ctx.save_for_backward(m, out, receivers)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        m, out, receivers = ctx.saved_tensors
+        return segment_max_bwd(m, out, receivers, g), None, None
+
+
+def segment_max_aggregate(m: torch.Tensor, csr: SegmentCSR,
+                          receivers: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``out[i] = max_{e: r_e = i} m_e`` over the edge-id
+    layout ``csr`` (``g.cache['tcsr_edges']`` of a receiver-sorted graph);
+    ``receivers`` is the graph's ``(E,)`` receiver array, which routes the
+    cotangent to the arg-max edges."""
+    return _SegmentMax.apply(m, csr, receivers)
+
+
 def _check_cuda_inputs(x: torch.Tensor, *tensors: torch.Tensor) -> None:
     """A CUDA call takes contiguous tensors on one card, outside autograd
-    (this slice is forward-only)."""
+    (K1 is forward-only; K6's autograd call runs it with grad off)."""
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     for t in (x,) + tensors:

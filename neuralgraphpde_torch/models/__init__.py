@@ -1,5 +1,6 @@
 from .gno import GNOModel
 from .grand import grand_model
+from .mppde import MPPDESolver
 from .vmh import vmh_model
 
-__all__ = ["grand_model", "vmh_model", "GNOModel"]
+__all__ = ["grand_model", "vmh_model", "GNOModel", "MPPDESolver"]

@@ -3,11 +3,11 @@ from .basic import (MLP, Chain, Dense, glorot_normal, glorot_uniform,
                     resolve_activation, zeros_init)
 from .gnn import (INPUT_KEY, AbstractGNNContainerLayer, AbstractGNNLayer,
                   wrap_input)
-from .conv import GCNConv, GNOConv, VMHConv
+from .conv import ExplicitEdgeConv, GCNConv, GNOConv, MPPDEConv, VMHConv
 
 __all__ = [
     "Layer", "ContainerLayer", "Dense", "Chain", "MLP", "glorot_normal",
     "glorot_uniform", "zeros_init", "resolve_activation", "INPUT_KEY",
     "wrap_input", "AbstractGNNLayer", "AbstractGNNContainerLayer", "GCNConv",
-    "VMHConv", "GNOConv",
+    "ExplicitEdgeConv", "VMHConv", "MPPDEConv", "GNOConv",
 ]

@@ -1,5 +1,6 @@
 """GNN convolution layers (counterpart of ``neuralgraphpde.nn.conv``;
-``GCNConv``, ``VMHConv`` and ``GNOConv`` so far)."""
+``GCNConv``, ``ExplicitEdgeConv``, ``VMHConv``, ``MPPDEConv`` and
+``GNOConv`` so far)."""
 from __future__ import annotations
 
 import warnings
@@ -21,7 +22,8 @@ from ..ops.spmm import get_spmm_mode, kernel_available
 from ..utils.state import drop
 from .basic import (Chain, Dense, glorot_normal, glorot_uniform,
                     make_params, resolve_activation, zeros_init)
-from .gnn import AbstractGNNContainerLayer, AbstractGNNLayer, wrap_input
+from .gnn import (INPUT_KEY, AbstractGNNContainerLayer, AbstractGNNLayer,
+                  wrap_input)
 
 Aggr = Union[str, Callable]
 
@@ -230,6 +232,41 @@ def _phi_aggregate(phi, feats, g, aggr):
     return aggregate_neighbors(g, aggr, phi(feats))
 
 
+class ExplicitEdgeConv(AbstractGNNContainerLayer):
+    """Edge convolution ``h_i' = aggr_{j∈N(i)} ϕ([h_i; h_j; x_j − x_i])``.
+
+    ``x`` are the positions in ``g.ndata['x']``; the other ``ndata`` keys
+    join the input features (``{**input, **g.ndata}``: ``ndata`` wins on a
+    key collision), and the message is ``[h_i…, h_j…, x_j − x_i]`` in that
+    key order. ϕ is the only child, so its parameter tree is the layer's
+    own (``ContainerLayer.child_params``). Sum and mean may run through the
+    fused edge-MLP kernel (K3); max and min run ϕ on every edge, then the
+    segment-max kernel (K6) via ``aggregate_neighbors``.
+    """
+
+    layer_names = ("phi",)
+
+    def __init__(self, phi: nn.Module, initialgraph=None,
+                 aggr: Aggr = "mean"):
+        super().__init__(initialgraph)
+        self.phi = phi
+        self.aggr = aggr
+
+    def forward(self, x) -> torch.Tensor:
+        x = wrap_input(x)
+        g = self.graph
+        xs = {**x, **g.ndata}
+
+        def edge_feats(xi, xj, e):
+            posi, posj = xi["x"], xj["x"]
+            hi, hj = drop(xi, "x"), drop(xj, "x")
+            return torch.cat([*hi.values(), *hj.values(), posj - posi],
+                             dim=-1)
+
+        feats = apply_edges(edge_feats, g, xi=xs, xj=xs)
+        return _phi_aggregate(self.phi, feats, g, self.aggr)
+
+
 class VMHConv(AbstractGNNContainerLayer):
     """Iakovlev et al. (arXiv:2006.08956) convolution:
     ``m_i = aggr_j ϕ(h_i, h_j − h_i, x_j − x_i)``; ``h_i' = γ(h_i, m_i)``.
@@ -274,6 +311,53 @@ def _values_cat(d, like: torch.Tensor, count: int) -> torch.Tensor:
     if not vals:
         return like.new_zeros((count, 0))
     return torch.cat(vals, dim=-1)
+
+
+class MPPDEConv(AbstractGNNContainerLayer):
+    """Brandstetter et al. (arXiv:2202.03376) message-passing PDE layer:
+    ``m_i = aggr_j ϕ(h_i, h_j, d_i − d_j, e_ij, θ)``;
+    ``h_i' = ψ(h_i, m_i, θ)``.
+
+    ``d`` are the ``g.ndata`` values in key order (for the MP-PDE solver
+    ``{'u': window, 'x': positions}``), ``e`` the ``g.edata`` values, and θ
+    the ``g.gdata`` values, detached and repeated per edge and per node in
+    equal blocks per graph (a batch of graphs must share one structure).
+    ϕ runs through ``_phi_aggregate``: the fused edge-MLP kernel (K3) for
+    sum and mean, else ϕ on every edge then ``aggregate_neighbors`` (max
+    and min: the segment-max kernel, K6).
+    """
+
+    layer_names = ("phi", "psi")
+
+    def __init__(self, phi: nn.Module, psi: nn.Module, initialgraph=None,
+                 aggr: Aggr = "mean"):
+        super().__init__(initialgraph)
+        self.phi, self.psi = phi, psi
+        self.aggr = aggr
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = self.graph
+        N, E, G = g.num_nodes, g.num_edges, g.num_graphs
+        if N % G or E % G:
+            raise ValueError(
+                "MPPDEConv's θ broadcast needs identically-structured graphs "
+                f"in a batch (N={N}, E={E}, num_graphs={G})")
+        s = g.ndata
+        theta = _values_cat(g.gdata, x, G).detach()
+        theta_e = theta.repeat_interleave(E // G, dim=0)  # (E, Fθ)
+        theta_n = theta.repeat_interleave(N // G, dim=0)  # (N, Fθ)
+
+        def edge_feats(xi, xj, e_feat):
+            di = _values_cat({k: xi[k] for k in s}, x, E)
+            dj = _values_cat({k: xj[k] for k in s}, x, E)
+            e_cat = _values_cat(e_feat or {}, x, E)
+            return torch.cat([xi[INPUT_KEY], xj[INPUT_KEY], di - dj, e_cat,
+                              theta_e], dim=-1)
+
+        xs = {INPUT_KEY: x, **s}
+        feats = apply_edges(edge_feats, g, xi=xs, xj=xs, e=g.edata)
+        m = _phi_aggregate(self.phi, feats, g, self.aggr)
+        return self.psi(torch.cat([x, m, theta_n], dim=-1))
 
 
 def split_phi_last_linear(phi: nn.Module):

@@ -56,22 +56,33 @@ def apply_edges(message: Callable, g: GnnGraph, *, xi: Features = None,
 
 def aggregate_neighbors(g: GnnGraph, aggr: Reduction,
                         messages: torch.Tensor) -> torch.Tensor:
-    """Reduce ``(num_edges, F)`` messages onto receiver nodes. Sum and mean
-    go through the segment-SpMM kernel (K1) over the edge-index layout that
-    ``precompute(pallas=True)`` attaches; max and min keep the scatter path
-    until their kernel is ported."""
+    """Reduce ``(num_edges, F)`` messages onto receiver nodes. Over the
+    edge-index layout that ``precompute(pallas=True)`` attaches, in a mode
+    that takes kernels, sum and mean go through the segment-SpMM kernel
+    (K1), and max and min through the segment-max kernel (K6) when the
+    graph's edges are sorted by receiver (JAX's guard: its kernel needs each
+    receiver's edges in one run); an unsorted graph, and every other case,
+    takes the scatter path."""
     red = canonical_reduction(aggr)
-    if (red in ("sum", "mean") and "tcsr_edges" in g.cache
+    if (red in ("sum", "mean", "max", "min") and "tcsr_edges" in g.cache
             and isinstance(messages, torch.Tensor) and messages.dim() == 2):
-        from .spmm import kernel_available, get_spmm_mode, segment_sum_pallas
+        from .spmm import (get_spmm_mode, kernel_available,
+                           segment_max_pallas, segment_min_pallas,
+                           segment_sum_pallas)
 
         mode = get_spmm_mode()
         if mode == "pallas" or (mode == "auto" and kernel_available(messages)):
-            out = segment_sum_pallas(g, messages)
-            if red == "mean":
-                deg = g.cache["in_degree"].to(out.dtype)
-                out = out / deg.clamp_min(1.0)[:, None]
-            return out
+            if red in ("max", "min"):
+                if g.receivers_sorted:
+                    fn = (segment_max_pallas if red == "max"
+                          else segment_min_pallas)
+                    return fn(g, messages)
+            else:
+                out = segment_sum_pallas(g, messages)
+                if red == "mean":
+                    deg = g.cache["in_degree"].to(out.dtype)
+                    out = out / deg.clamp_min(1.0)[:, None]
+                return out
     return segment_reduce(messages, g.receivers, g.num_nodes, aggr)
 
 

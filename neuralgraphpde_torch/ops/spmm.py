@@ -7,7 +7,8 @@ Modes, as in the JAX package:
 - ``xla``    — gather + ``index_add_`` scatter; always available.
 - ``dense``  — precomputed dense adjacency ``A @ X``.
 - ``pallas`` — the receiver-sorted segment-SpMM kernel (K1,
-  ``kernels.segment_kernels``). The mode keeps its JAX name.
+  ``kernels.segment_kernels``; max/min aggregation takes its segment-max
+  kernel, K6). The mode keeps its JAX name.
 - ``bsr``    — the DIA stencil kernel (K2, ``kernels.dia_kernels``) on
   graphs that ``precompute`` found to be stencils.
 
@@ -30,7 +31,8 @@ from ..graph.gnngraph import GnnGraph
 from ..graph.transforms import (add_self_loops as _add_self_loops, csr_offsets,
                                 degree, sort_by_receiver, to_dense_adjacency)
 from ..kernels.dia_kernels import dia_spmm_stencil
-from ..kernels.segment_kernels import build_segment_csr, segment_spmm
+from ..kernels.segment_kernels import (build_segment_csr,
+                                       segment_max_aggregate, segment_spmm)
 from .bsr import host_edges, precompute_bsr
 from .dia import build_dia, transpose_dia
 
@@ -160,6 +162,19 @@ def segment_sum_pallas(g: GnnGraph, messages: torch.Tensor) -> torch.Tensor:
     """Receiver sum of per-edge messages through the segment kernel
     (requires ``precompute(g, pallas=True)``)."""
     return segment_spmm(messages, g.cache["tcsr_edges"])
+
+
+def segment_max_pallas(g: GnnGraph, messages: torch.Tensor) -> torch.Tensor:
+    """Receiver max of per-edge messages through the segment-max kernel
+    (K6; requires ``precompute(g, pallas=True)``). Empty receivers get
+    ``-inf``; every tied arg-max edge receives the full gradient."""
+    return segment_max_aggregate(messages, g.cache["tcsr_edges"],
+                                 g.receivers)
+
+
+def segment_min_pallas(g: GnnGraph, messages: torch.Tensor) -> torch.Tensor:
+    """Receiver min: the max kernel on negated messages."""
+    return -segment_max_pallas(g, -messages)
 
 
 def spmm_xla(g: GnnGraph, x: torch.Tensor,

@@ -11,8 +11,12 @@ device events: kernels, copies and sets.
   kernel and the two together, beside the plain forward and the plain
   training pair (the plain forward under autograd, then its backward). K3
   at the VMH mesh (3,000 nodes) and at 2^15 Delaunay points, widths
-  4→60→60→60 tanh; K5 at the GNO Darcy graph (32² grid, radius 0.08) and at
-  the 64² grid, K 128, IN = OUT = 64, with a bias.
+  4→60→60→60 tanh, at the MP-PDE ϕ on the Burgers chain (1,024 edges,
+  282→128 swish) and at 2^15 points with 4→128→128→128 tanh; K5 at the GNO
+  Darcy graph (32² grid, radius 0.08) and at the 64² grid, K 128, IN = OUT
+  = 64, with a bias. K6 (forward) at the ``rand`` shape (2^18 rows, 2^22
+  edges, F 128) and the Burgers chain, beside its plain version and
+  ``scatter_reduce_``.
 - GRAND: one GRAND forward under inference mode at the model's
   tolerances, as ``chip_smoke.py`` builds it: A, synthetic Cora on K1; B,
   the 512² 8-neighbour grid on the fused K2, then with ``gcn_fused=False``
@@ -21,6 +25,9 @@ device events: kernels, copies and sets.
   24 sims × 3,000 points).
 - GNO: one GNO Darcy Adam step (``train_gno_darcy`` defaults: a batch
   of 4 samples on the 32² grid, 4 convs, 16 K5 forwards and backwards).
+- MP-PDE (path E): one config-3 Adam step (``train_mppde_burgers``
+  defaults: 4 windows of one simulation, 2 model calls each, 6 convs: 48
+  K3 forwards and 48 backwards).
 
 Each path runs on its kernel path (``auto``), the ``xla`` path, then the
 kernel path again (B's plain-stencil path once, on ``auto``). Each run: one
@@ -124,8 +131,9 @@ def _put(rng, dev, *shape, scale=1.0):
         np.float32)).to(dev)
 
 
-def k3_times(dev, vmh_graph) -> dict:
-    """K3 and its plain versions at the VMH mesh and at 2^15 points."""
+def k3_times(dev, vmh_graph, mppde_graph) -> dict:
+    """K3 and its plain versions at the VMH mesh and at 2^15 points (VMH ϕ,
+    and ϕ at hidden 128), and at the MP-PDE ϕ on the Burgers chain."""
     from ..graph.builders import delaunay_graph
     from ..kernels import fused_mlp_kernels as K3
     from ..kernels.segment_kernels import build_segment_csr
@@ -136,27 +144,37 @@ def k3_times(dev, vmh_graph) -> dict:
     bench = build_segment_csr(np.arange(len(r)), r, BENCH_POINTS,
                               num_cols=len(r)).to(dev)
     rng = np.random.default_rng(3)
-    acts, dims = ("tanh", "tanh", "tanh"), (4, 60, 60, 60)
-    ws = [_put(rng, dev, a, b, scale=1 / np.sqrt(a))
-          for a, b in zip(dims[:-1], dims[1:])]
-    bs = [_put(rng, dev, 1, b, scale=1 / 3) for b in dims[1:]]
+    tanh3 = ("tanh", "tanh", "tanh")
     out = {}
-    for label, csr in (("VMH mesh", vmh_graph.cache["tcsr_edges"]),
-                       ("2^15 points", bench)):
+    for label, csr, acts, dims in (
+            ("VMH mesh", vmh_graph.cache["tcsr_edges"], tanh3,
+             (4, 60, 60, 60)),
+            ("2^15 points", bench, tanh3, (4, 60, 60, 60)),
+            ("MP-PDE phi, Burgers", mppde_graph.cache["tcsr_edges"],
+             ("swish",), (282, 128)),
+            ("2^15 points, hidden 128", bench, tanh3, (4, 128, 128, 128))):
+        n_layers = len(acts)
+        ws = [_put(rng, dev, a, b, scale=1 / np.sqrt(a))
+              for a, b in zip(dims[:-1], dims[1:])]
+        bs = [_put(rng, dev, 1, b, scale=1 / 3) for b in dims[1:]]
         feats = _put(rng, dev, csr.num_cols, dims[0])
         g = _put(rng, dev, csr.num_rows, dims[-1])
 
         def plain_train():
             leaves = [t.detach().requires_grad_() for t in (feats, *ws, *bs)]
-            y = K3.fused_mlp_plain(acts, csr, leaves[0], leaves[1:4],
-                                   leaves[4:])
+            y = K3.fused_mlp_plain(acts, csr, leaves[0],
+                                   leaves[1:n_layers + 1],
+                                   leaves[n_layers + 1:])
             return torch.autograd.grad(y, leaves, g)
 
         def kernel_train():
             K3.fused_mlp_fwd(acts, csr, feats, ws, bs)
             return K3.fused_mlp_bwd(acts, csr, feats, ws, bs, g)
 
-        head = f"K3 {label} (N={csr.num_rows}, E={csr.num_cols})"
+        head = (f"K3 {label} (N={csr.num_rows}, E={csr.num_cols}, "
+                f"{'-'.join(map(str, dims))}; "
+                f"{K3.fused_mlp_variant(dims)} forward, "
+                f"{K3.fused_mlp_variant(dims, backward=True)} backward)")
         out.update(per_calls(head, {
             "fwd kernel": lambda: K3.fused_mlp_fwd(acts, csr, feats, ws, bs),
             "fwd plain": lambda: K3.fused_mlp_plain(acts, csr, feats, ws, bs),
@@ -213,6 +231,41 @@ def k5_times(dev, gno_graph) -> dict:
             "fwd+bwd kernels": kernel_train,
             "fwd+bwd plain (autograd)": plain_train,
         }))
+    return out
+
+
+def k6_times(dev, mppde_graph) -> dict:
+    """K6, its plain version and ``scatter_reduce_`` at the ``rand`` shape
+    (the ``rand_graph(2^18, 2^22)`` edge-id layout) and the Burgers chain,
+    F = 128."""
+    from ..graph.builders import rand_graph
+    from ..kernels.segment_kernels import (build_segment_csr, segment_max,
+                                           segment_max_plain)
+    from ..ops.bsr import host_edges
+
+    _, r = host_edges(rand_graph(2 ** 18, 2 ** 22, seed=0))
+    rand = (build_segment_csr(np.arange(len(r)), r, 2 ** 18,
+                              num_cols=len(r)).to(dev),
+            torch.from_numpy(r).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+    for label, (csr, recv) in (
+            ("rand", rand),
+            ("Burgers", (mppde_graph.cache["tcsr_edges"],
+                         mppde_graph.receivers))):
+        m = torch.randn(csr.num_cols, 128, device=dev, generator=gen)
+        idx = recv.long().reshape(-1, 1).expand_as(m)
+
+        def library():
+            return torch.full((csr.num_rows, 128), float("-inf"),
+                              device=dev).scatter_reduce_(0, idx, m, "amax")
+
+        head = f"K6 {label} (N={csr.num_rows}, E={csr.num_cols}, F=128)"
+        out.update(per_calls(head, {
+            "fwd kernel": lambda: segment_max(m, csr),
+            "fwd plain": lambda: segment_max_plain(m, csr),
+            "scatter_reduce_": library}))
+        del m, idx
     return out
 
 
@@ -306,6 +359,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     from ..examples import train_gno_darcy as G
+    from ..examples import train_mppde_burgers as M
     from ..examples import train_vmh as T
     from ..train.loop import make_train_step
     from ..train.optim import adam
@@ -321,10 +375,14 @@ def main() -> int:
     vmh_model, vmh_u = T.setup(T.Config(), dev)
     gno_cfg = G.Config()
     gno_model, gno_a, gno_u = G.setup(gno_cfg, dev)
+    mppde_cfg = M.Config()
+    mppde_model, mppde_u = M.setup(mppde_cfg, dev)
     result = dict(card=card, torch=torch.__version__, kernels={}, paths=[])
 
-    result["kernels"].update(k3_times(dev, vmh_model.model.graph))
+    result["kernels"].update(k3_times(dev, vmh_model.model.graph,
+                                      mppde_model.graph))
     result["kernels"].update(k5_times(dev, gno_model.graph))
+    result["kernels"].update(k6_times(dev, mppde_model.graph))
 
     def vmh_epoch():
         loss, stats = T.full_batch_grad(vmh_model, vmh_u)
@@ -340,9 +398,22 @@ def main() -> int:
         loss, _ = step(gno_a[idx], gno_u[idx])
         return dict(loss=float(loss))
 
+    mppde_step = make_train_step(
+        lambda u_sim, s0s: M.batch_loss(mppde_model, u_sim, s0s),
+        adam(mppde_model.parameters(), mppde_cfg.lr))
+    starts = M.window_starts(mppde_cfg, mppde_u.shape[2])
+    s0s = np.random.default_rng(mppde_cfg.seed).choice(starts,
+                                                       size=M.SAMPLES)
+
+    def mppde_adam_step():
+        loss, _ = mppde_step(mppde_u[0], s0s)
+        return dict(loss=float(loss))
+
     both = ("auto", "xla", "auto")
     runs = grand_runs(dev) + [("VMH epoch gradient (K3)", both, vmh_epoch),
-                              ("GNO Adam step (K5)", both, gno_step)]
+                              ("GNO Adam step (K5)", both, gno_step),
+                              ("MP-PDE Adam step (E, K3)", both,
+                               mppde_adam_step)]
     for label, modes, fn in runs:
         for mode in modes:
             result["paths"].append(path_profile(label, mode, fn))

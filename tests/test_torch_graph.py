@@ -1,7 +1,8 @@
 """Graph layer of the port against the JAX package: builders, synthetic
-Cora, transforms, ``GnnGraph``, segment reductions, and ``precompute``'s
-cache and path choice. Host-built arrays must be identical; reductions
-agree to f32 rounding (rtol 1e-6, atol 1e-6)."""
+Cora, transforms, ``GnnGraph``, segment reductions, ``precompute``'s
+cache and path choice, and ``aggregate_neighbors``' max/min dispatch.
+Host-built arrays must be identical; reductions agree to f32 rounding
+(rtol 1e-6, atol 1e-6); a max or min is exact."""
 import importlib
 
 import numpy as np
@@ -48,6 +49,9 @@ def _same_coo(gj, gp):
     ("grid_graph_2d", (7, 5), dict()),
     ("grid_graph_2d", (6, 9), dict(diagonals=True)),
     ("grid_graph_2d", (8, 4), dict(periodic=True, diagonals=True)),
+    ("grid_graph_1d", (9,), dict()),
+    ("grid_graph_1d", (16,), dict(periodic=True, stencil=2)),
+    ("grid_graph_1d", (7,), dict(stencil=3)),
 ])
 def test_builders_identical(name, args, kw):
     _same_coo(getattr(J, name)(*args, **kw), getattr(P, name)(*args, **kw))
@@ -263,3 +267,48 @@ def test_precompute_weights_follow_the_receiver_sort():
                                              jnp.asarray(w)))
     got = port_spmm.spmm_pallas(cp, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want_spmm, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sort", [True, False])
+def test_aggregate_neighbors_max_min_matches_jax(monkeypatch, sort):
+    """In ``pallas`` mode max and min take the segment-max kernel (K6's
+    plain version on the CPU) on a receiver-sorted graph, and JAX's Pallas
+    kernel (interpret mode) on the same graph; both give the scatter
+    reference's values exactly, −inf / +inf on empty receivers included.
+    A graph whose edges are not sorted by receiver (``csr=False`` keeps the
+    builder's order) takes the scatter path in both packages (JAX's
+    guard)."""
+    rng = np.random.default_rng(2)
+    n, e, f = 64, 400, 12
+    s = rng.integers(0, n, e).astype(np.int32)
+    r = rng.integers(0, n - 4, e).astype(np.int32)  # 4+ empty receivers
+    kw = dict(dense=False, pallas=True, csr=sort)
+    gj = J.precompute(J.GnnGraph.from_coo(s, r, num_nodes=n), tn=8, te=64,
+                      **kw)
+    gp = P.precompute(P.GnnGraph.from_coo(s, r, num_nodes=n), **kw)
+    _same_coo(gj, gp)
+    assert gp.receivers_sorted == sort
+    monkeypatch.setattr(jax_spmm, "_pallas_available", lambda: True)
+    calls = []
+    orig = port_spmm.segment_max_aggregate
+
+    def spy(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(port_spmm, "segment_max_aggregate", spy)
+    m = rng.normal(size=(e, f)).astype(np.float32)
+    P.set_spmm_mode("pallas")
+    try:
+        for aggr in ("max", "min"):
+            with pltpu.force_tpu_interpret_mode():
+                want = np.asarray(J.aggregate_neighbors(gj, aggr,
+                                                        jnp.asarray(m)))
+            got = P.aggregate_neighbors(gp, aggr, torch.from_numpy(m))
+            ref = segment_reduce(torch.from_numpy(m), gp.receivers, n, aggr)
+            np.testing.assert_array_equal(got.numpy(), want)
+            np.testing.assert_array_equal(got.numpy(), ref.numpy())
+            assert np.isinf(got.numpy()[n - 4:]).all()
+    finally:
+        P.set_spmm_mode("auto")
+    assert len(calls) == (2 if sort else 0)

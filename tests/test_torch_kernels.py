@@ -1,16 +1,18 @@
-"""K1 (segment SpMM) and K2 (DIA stencil / fused GCN RHS): the port's plain
-versions against the JAX Pallas kernels in interpret mode on the CPU, and
-the CUDA kernels (K1, K2, K3 and K5 forward and backward) against the plain
-versions on a card. K3's CPU parity with JAX is in ``test_torch_vmh.py``,
-K5's in ``test_torch_gno.py``; here K5's plain forward is also held to a
-per-edge numpy loop.
+"""K1 (segment SpMM), K2 (DIA stencil / fused GCN RHS) and K6 (segment
+max): the port's plain versions against the JAX Pallas kernels in
+interpret mode on the CPU, and the CUDA kernels (K1, K2, K6, and K3 and K5
+forward and backward) against the plain versions on a card. K3's CPU
+parity with JAX is in ``test_torch_vmh.py``, K5's in ``test_torch_gno.py``;
+here K5's plain forward is also held to a per-edge numpy loop.
 
 Tolerances: f32 rtol 1e-5 / atol 1e-6 (the sums are taken in another order);
 bf16 2e-2 of the largest value (both sides read the same bf16 inputs; the
 output rounds to bf16). K3 on the card: max |kernel − plain| ≤ 1e-5 of the
 largest value for the forward and ``dfeats``, 1e-4 for ``dW``/``db``, which
 are sums over every edge taken in another order; K5 the same: 1e-5 for the
-forward, ``dph`` and ``dh``, 1e-4 for ``dWl``/``dbl``. JAX is imported inside the
+forward, ``dph`` and ``dh``, 1e-4 for ``dWl``/``dbl``. K6: exact equality
+everywhere (a max takes no rounding, whatever the order), and its backward
+equal to the plain backward's bits. JAX is imported inside the
 fixture and the card is looked for inside the test (the CUDA cases carry
 the ``cuda`` marker), so this file also runs where only one of the two
 exists: ``python -m pytest --noconftest tests/test_torch_kernels.py`` on a
@@ -32,7 +34,9 @@ from neuralgraphpde_torch.kernels import gno_kernels as K5  # noqa: E402
 from neuralgraphpde_torch.kernels.dia_kernels import (  # noqa: E402
     dia_gcn_rhs, dia_rhs_plain, dia_spmm_stencil)
 from neuralgraphpde_torch.kernels.segment_kernels import (  # noqa: E402
-    build_segment_csr, segment_spmm, segment_spmm_plain)
+    build_segment_csr, segment_max, segment_max_aggregate, segment_max_plain,
+    segment_spmm, segment_spmm_plain)
+from neuralgraphpde_torch.ops.scatter import segment_reduce  # noqa: E402
 from neuralgraphpde_torch.ops.dia import build_dia, transpose_dia  # noqa
 
 F32 = dict(rtol=1e-5, atol=1e-6)
@@ -194,6 +198,111 @@ def test_wrappers_check_inputs():
     # a tensor on neither the CPU nor the card takes no plain fallback
     with pytest.raises(RuntimeError, match="no kernel"):
         segment_spmm(torch.zeros(n, 4, device="meta"), csr)
+    edges = build_segment_csr(np.arange(len(r)), r, n, num_cols=len(r))
+    with pytest.raises(ValueError, match="must be"):
+        segment_max(torch.zeros(len(r) + 1, 4), edges)
+    with pytest.raises(TypeError, match="f32 only"):
+        segment_max(torch.zeros(len(r), 4, dtype=torch.bfloat16), edges)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        segment_max(torch.zeros(len(r), 4, device="meta"), edges)
+
+
+# ------------------------------------------------------------------- K6
+def _k6_case(n, e, f, seed=0):
+    """``tests/test_kernels.py``'s segment-max problem: sorted random
+    receivers (some rows receive none) and their edge-id layouts."""
+    rng = np.random.default_rng(seed)
+    r = np.sort(rng.integers(0, n, e))
+    m = rng.normal(size=(e, f)).astype(np.float32)
+    return r, m, build_segment_csr(np.arange(e), r, n, num_cols=e), rng
+
+
+@pytest.mark.parametrize("n,e,f,tn,te", [
+    (50, 300, 16, 8, 32), (96, 1000, 128, 16, 64), (33, 77, 24, 8, 16)])
+def test_k6_plain_matches_pallas(jx, n, e, f, tn, te):
+    """K6's plain version, which CPU tensors take, equals
+    ``_tiled_segment_max_fwd`` in interpret mode exactly, −inf on the rows
+    that receive no edge included."""
+    r, m, csr, _ = _k6_case(n, e, f)
+    tcsr = jx.sk.build_tiled_csr(np.arange(e), r, n, tn=tn, te=te)
+    want = np.asarray(jx.sk._tiled_segment_max_fwd(
+        tcsr, jx.jnp.asarray(m), interpret=True))[:n]
+    got = segment_max(torch.from_numpy(m), csr)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(np.isneginf(got.numpy()).all(1),
+                                  np.bincount(r, minlength=n) == 0)
+
+
+def test_k6_tie_gradients_match_jax(jx):
+    """Messages with ties (ReLU-like: many zeros, values on a 0.5 grid).
+    The kernel path (``segment_max_aggregate``) gives every tied arg-max
+    edge the full cotangent, as the JAX kernel's custom VJP does; the
+    scatter path (``segment_reduce``) splits it among the ties, as
+    ``jax.ops.segment_max``'s gradient does. Both equal JAX's exactly, and
+    they differ from each other."""
+    import jax
+
+    jnp = jx.jnp
+    n, e, f = 40, 200, 8
+    r, _, csr, rng = _k6_case(n, e, f, seed=1)
+    m = np.maximum(np.round(rng.normal(size=(e, f)) * 2) / 2, 0).astype(
+        np.float32)
+    g = rng.normal(size=(n, f)).astype(np.float32)
+    tcsr = jx.sk.build_tiled_csr(np.arange(e), r, n, tn=8, te=32)
+    recv = r.astype(np.int32)
+
+    def jax_loss(reduce):
+        def loss(mm):
+            out = reduce(mm)[:n]
+            return jnp.sum(jnp.where(jnp.isfinite(out), out, 0.0) * g)
+        return loss
+
+    with jx.pltpu.force_tpu_interpret_mode():
+        want_k = jax.grad(jax_loss(lambda mm: jx.sk.tiled_segment_max(
+            mm, tcsr, jnp.asarray(recv))))(jnp.asarray(m))
+    want_x = jax.grad(jax_loss(lambda mm: jax.ops.segment_max(
+        mm, jnp.asarray(recv), num_segments=n, indices_are_sorted=True)))(
+        jnp.asarray(m))
+    recv_t = torch.from_numpy(recv)
+    # the kernel path's rule copies cotangents: exact; the split divides
+    # by the tie count (g/k here, g·(1/k) in JAX): last-bit differences
+    for reduce, want, rtol in (
+            (lambda mm: segment_max_aggregate(mm, csr, recv_t), want_k, 0),
+            (lambda mm: segment_reduce(mm, recv_t, n, "max"), want_x, 1e-6)):
+        mt = torch.from_numpy(m).requires_grad_()
+        out = reduce(mt)
+        (torch.where(torch.isfinite(out), out, 0.0) * torch.from_numpy(g)
+         ).sum().backward()
+        np.testing.assert_allclose(mt.grad.numpy(), np.asarray(want),
+                                   rtol=rtol, atol=0)
+    assert np.abs(np.asarray(want_k) - np.asarray(want_x)).max() > 0.1
+
+
+def test_k6_reference_quirks(jx):
+    """Two points where the JAX kernel differs from a true segment max (a
+    reference fault, ROADMAP Queue 3); the port keeps the true value, as
+    the scatter path and ``jax.ops.segment_max`` do. (1) A row whose
+    maximum is ``finfo(float32).min`` comes out −inf: the kernel's empty
+    sentinel. (2) A NaN message reaches every row of its output tile
+    through the one-hot product (``0·NaN``), not only its own row."""
+    n, e, f = 33, 77, 24
+    r, m, csr, _ = _k6_case(n, e, f)
+    tcsr = jx.sk.build_tiled_csr(np.arange(e), r, n, tn=8, te=16)
+    row = r[5]
+    m_min = m.copy()
+    m_min[r == row] = np.finfo(np.float32).min
+    m_nan = m.copy()
+    m_nan[5, 0] = np.nan
+    for mm in (m_min, m_nan):
+        want = np.asarray(jx.sk._tiled_segment_max_fwd(
+            tcsr, jx.jnp.asarray(mm), interpret=True))[:n]
+        got = segment_max(torch.from_numpy(mm), csr).numpy()
+        true = segment_reduce(torch.from_numpy(mm), torch.from_numpy(r), n,
+                              "max").numpy()
+        np.testing.assert_array_equal(got, true)
+        assert not np.array_equal(got, want)
+    assert got[row, 0] != got[row, 0]  # NaN in the message's own row only
+    assert np.isnan(got).sum() == 1 and np.isnan(want).sum() > 1
 
 
 # ---------------------------------------------------------- on the card
@@ -241,6 +350,41 @@ def test_k2_kernel_matches_plain_cuda(cuda, act, has_w, dtype):
     torch.cuda.synchronize()
     bound = 1e-5 if dtype == torch.float32 else BF16
     assert _rel(got.cpu().float(), want.cpu().float()) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,f", [(3000, 40000, 128), (3000, 40000, 30),
+                                   (256, 1024, 128), (500, 3000, 3)])
+def test_k6_kernel_matches_plain_cuda(cuda, n, e, f):
+    """Forward (max, and min as −max(−m)) and backward equal the plain
+    versions bit for bit, on messages with ties (a third rounded to a
+    coarse grid, many zeros), rows that receive no edge, a NaN message and
+    a row whose maximum is ``finfo(float32).min``; F = 30 and 3 take the
+    scalar loads."""
+    r, m, csr, rng = _k6_case(n - 1, e, f, seed=15)  # row n − 1: no edge
+    csr = build_segment_csr(np.arange(e), r, n, num_cols=e).to(cuda)
+    tie = rng.random(e) < 0.3
+    m[tie] = np.maximum(np.round(m[tie] * 2) / 2, 0)
+    m[r == r[7]] = np.finfo(np.float32).min
+    m[11, f // 2] = np.nan
+    mt = torch.from_numpy(m).to(cuda)
+    recv = torch.from_numpy(r.astype(np.int32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(cuda)
+    launches = segment_max.launches
+    for sign in (1, -1):
+        got = sign * segment_max(sign * mt, csr)
+        want = sign * segment_max_plain(sign * mt, csr)
+        torch.cuda.synchronize()
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+        assert bool(torch.isinf(got[n - 1]).all())
+        leaf = mt.clone().requires_grad_()
+        (sign * segment_max_aggregate(sign * leaf, csr, recv)).backward(g)
+        out = segment_max_plain(sign * mt, csr)
+        want_g = sign * torch.where(sign * mt == out[recv.long()],
+                                    sign * g[recv.long()], 0.0)
+        assert torch.equal(leaf.grad, want_g)
+    assert segment_max.launches == launches + 4
 
 
 @pytest.mark.cuda
@@ -314,23 +458,72 @@ def test_k3_autograd_function_cuda(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("acts,dims,n,e,variants", [
+    # the MP-PDE ϕ as the kernel gets it (the last linear layer split off)
+    (("swish",), (282, 128), 256, 1024, ("streamed", "streamed")),
+    (("tanh", None), (4, 300, 300), 3000, 18000, ("streamed", "streamed")),
+    # VMH ϕ at hidden 128: the forward still fits the resident block
+    (("tanh",) * 3, (4, 128, 128, 128), 3000, 18000,
+     ("resident", "streamed")),
+    (("gelu", "relu", "sigmoid", None), (7, 1024, 33, 1024, 5), 200, 900,
+     ("streamed", "streamed")),
+    (("tanh",) * 3, (4, 60, 60, 60), 3000, 18000, ("resident", "resident"))])
+def test_k3_wide_variants_match_plain_cuda(cuda, acts, dims, n, e, variants):
+    """Each MLP runs the variant the launcher picks for its widths, and
+    matches the plain versions at the K3 bounds; the backward gives the same
+    bits on a second call."""
+    assert (K3.fused_mlp_variant(dims), K3.fused_mlp_variant(
+        dims, backward=True)) == variants
+    s, r, _, rng = _edges(n, e, 16)
+    csr = build_segment_csr(np.arange(e), r, n, num_cols=e).to(cuda)
+
+    def put(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(cuda)
+
+    feats = put(e, dims[0])
+    ws = [put(a, b, scale=1 / np.sqrt(a)) for a, b in zip(dims[:-1],
+                                                          dims[1:])]
+    bs = [put(1, b, scale=1 / 3) for b in dims[1:]]
+    g = put(n, dims[-1])
+    fwd0, bwd0 = K3.fused_mlp_fwd.launches, K3.fused_mlp_bwd.launches
+    got = K3.fused_mlp_fwd(acts, csr, feats, ws, bs)
+    kdf, kdw, kdb = K3.fused_mlp_bwd(acts, csr, feats, ws, bs, g)
+    torch.cuda.synchronize()
+    assert (K3.fused_mlp_fwd.launches, K3.fused_mlp_bwd.launches) == (
+        fwd0 + 1, bwd0 + 1)
+    with torch.no_grad():
+        want = K3.fused_mlp_plain(acts, csr, feats, ws, bs)
+    pdf, pdw, pdb = K3.fused_mlp_bwd_plain(acts, csr, feats, ws, bs, g)
+    assert _rel(got.cpu(), want.cpu()) <= 1e-5
+    assert _rel(kdf.cpu(), pdf.cpu()) <= 1e-5
+    for k, p in zip(kdw + kdb, pdw + pdb):
+        assert k.shape == p.shape
+        assert _rel(k.cpu(), p.cpu()) <= 1e-4
+    again = K3.fused_mlp_bwd(acts, csr, feats, ws, bs, g)
+    for a, b in zip((kdf,) + kdw + kdb, (again[0],) + again[1] + again[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_k3_envelope_raises_cuda(cuda):
-    """On the card the K3 wrappers raise outside the kernels' shared-memory
-    envelope (widths, more than 4 layers) and on bf16, with no launch and no
-    hand-off to the plain version."""
+    """On the card the K3 wrappers raise outside the kernels' envelope (a
+    width above 1,024, more than 4 layers) and on bf16, with no launch and
+    no hand-off to the plain version."""
     acts, dims = ("tanh",), (4, 8)
     csr, feats, ws, bs, g = _k3_case(cuda, acts, dims)
     with pytest.raises(TypeError, match="f32 only"):
         K3.fused_mlp_fwd(acts, csr, feats.to(torch.bfloat16), ws, bs)
     fwd0, bwd0 = K3.fused_mlp_fwd.launches, K3.fused_mlp_bwd.launches
-    for acts, dims in [(("tanh", None), (4, 300, 300)),
-                       (("tanh",) * 5, (4, 8, 8, 8, 8, 8)),
-                       (("tanh", "tanh", "tanh"), (4, 128, 128, 128))]:
+    for acts, dims in [(("tanh", None), (4, 1100, 8)),
+                       (("tanh",) * 5, (4, 8, 8, 8, 8, 8))]:
         csr, feats, ws, bs, g = _k3_case(cuda, acts, dims)
         with pytest.raises(ValueError, match="envelope"):
             K3.fused_mlp_fwd(acts, csr, feats, ws, bs)
         with pytest.raises(ValueError, match="envelope"):
             K3.fused_mlp_bwd(acts, csr, feats, ws, bs, g)
+        with pytest.raises(ValueError, match="envelope"):
+            K3.fused_mlp_variant(dims)
     assert K3.fused_mlp_fwd.launches == fwd0
     assert K3.fused_mlp_bwd.launches == bwd0
 
@@ -339,8 +532,8 @@ def test_k3_envelope_raises_cuda(cuda):
 @pytest.mark.parametrize("mode", ["auto", "pallas"])
 def test_vmhconv_outside_envelope_raises_cuda(cuda, mode):
     """``VMHConv``'s fused-ϕ gate has no width condition, as in JAX: ϕ at
-    hidden 128, depth 3 reaches K3 and raises on the card, while ϕ at the
-    VMH widths launches the kernel."""
+    the VMH widths and at hidden 128 launch the kernel, while a 1,100-wide
+    hidden layer reaches K3 and raises on the card."""
     from neuralgraphpde_torch import (MLP, VMHConv, GnnGraph, precompute,
                                       set_spmm_mode, update_graph)
 
@@ -352,7 +545,7 @@ def test_vmhconv_outside_envelope_raises_cuda(cuda, mode):
         cuda)
     set_spmm_mode(mode)
     try:
-        for hidden, fits in ((60, True), (128, False)):
+        for hidden, fits in ((60, True), (128, True), (1100, False)):
             gen = torch.Generator().manual_seed(0)
             layer = VMHConv(MLP((4, hidden, hidden, hidden, 40), "tanh",
                                 generator=gen, device=cuda),
