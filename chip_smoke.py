@@ -35,9 +35,20 @@ Phases, each fatal on failure:
    every 97th receiver dropped (empty rows), and on the Burgers chain
    (256 nodes, 1,024 edges, F = 128), messages with ties (a third rounded
    to a 0.5 grid, clamped at 0): equal to the plain versions bit for bit.
-4. GRAND forward A: full-size synthetic Cora on the segment kernel (K1).
-5. GRAND forward B: the 512×512 8-neighbour grid on the fused DIA kernel
-   (K2), then with ``gcn_fused=False`` on the plain DIA stencil.
+   The block-band kernels (K4 packed, K7 dense) at the scrambled-label
+   Delaunay meshes that ``precompute(add_self_loops=True, dense=False,
+   auto_reorder=True)`` relabels by RCM (``default_rng(0)`` points): K4 at
+   2^17 points (the JAX ``bench.py`` reord mesh; 512 × 128 packed blocks),
+   K7 at 3,000 and 12,000 points (256 × 256 dense bands), F = 128: the
+   SpMM and the fused right-hand side (tanh, W 128×128, b) in f32 (1e-5)
+   and in bf16 storage (1e-2), and the backward of each
+   ``autograd.Function`` against autograd through the plain version (``dx``
+   1e-5, ``dW``/``db`` 1e-4); times of the kernel, the plain version,
+   ``torch.sparse.mm`` on the same relabeled CSR, and K1 on that CSR (the
+   gather path that JAX's dispatch passes over here).
+4. GRAND A: full-size synthetic Cora on the segment kernel (K1).
+5. GRAND B: the 512×512 8-neighbour grid on the fused DIA kernel (K2),
+   then with ``gcn_fused=False`` on the plain DIA stencil.
    Each forward (at the model's tolerances, rtol = atol = 1e-3) must
    launch its kernels and give finite logits of the right shape. Parity:
    the same model at solver tolerance 1e-5 on the kernel path and with
@@ -46,7 +57,31 @@ Phases, each fatal on failure:
    so the order of the xla path's scatter-add (atomics: it changes from run
    to run) moves the step sizes, and the xla path differs from itself by up
    to ~1e-4; the script prints that spread and the kernel path's distance
-   at 1e-3 without gating on them.
+   at 1e-3 without gating on them. Then the gradient of the masked
+   cross-entropy on the kernel path (K1, the fused K2, the stencil K2, each
+   launched in the backward too) against the ``xla`` path run with
+   ``torch.use_deterministic_algorithms``, at the model's tolerances and at
+   solver tolerance 1e-5: loss rel ≤ 1e-4, every gradient within 1e-3 of
+   its own largest entry, the same accepted steps. The one exception is
+   counted, not assumed: where the encoder's ReLU output is zero in one run
+   and positive in the other (a pre-activation within rounding of 0, the
+   two paths summing in different orders), one node's term of the
+   encoder's gradients moves (1.35e-3 of the encoder weight's largest
+   entry on the 512² grid); then those gradients are held to 5e-3, and each
+   flipped entry must sit within 1e-5 of the largest output.
+   GRAND on the 2^17-point mesh (K4) and on the 12,000-point mesh (K7):
+   128 → 128 → 7, features, labels and a 10% train mask drawn by a seeded
+   numpy generator in the original numbering and permuted with
+   ``permute_nodes``: the forward parity as above, the gradient on the
+   fused right-hand side and on the plain SpMM (the graph without its
+   normalized storage) against ``xla``, with the peak memory, then 3 Adam
+   steps, each launching the fused kernel forward and in the backward.
+   Config 1: ``train_grand_cora`` with its defaults for 20 epochs (dense
+   adjacency, no kernel, as in JAX; validation accuracy ≥ 0.90), then 3
+   epochs on the pallas layout, K1 launched forward and backward. The
+   hybrid DIA: a GRAND forward on the 256² periodic 8-neighbour grid
+   (``dia`` + ``dia_rem``) on the stencil K2 plus the COO remainder, parity
+   as above.
 6. VMH training at the full configuration (24 sims × 3,000 points, ϕ
    4→60→60→60→40, γ 41→60→60→60→1, Tsit5 at rtol 1e-5 / atol 1e-3):
    the epoch-1 full-batch loss and gradients on the K3 path and on the
@@ -76,7 +111,10 @@ Phases, each fatal on failure:
    and 48 times backward (4 windows × 2 calls × 6 convs), with finite
    losses; the first simulation's rollout RMSE.
 
-The line before the last is ``{"kernels": [...]}``; the last is
+The line before the last is ``{"kernels": [...]}`` (twelve kernels, the
+K1, K2, K4 and K7 entries with their launches in each gradient run and the
+part of them made in the backward: the fused right-hand sides' backward
+launches are SpMM launches, counted on the SpMM); the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -110,6 +148,25 @@ GNO_GRAD_BOUND = 1e-4
 GNO_N_BENCH = 64  # the resolution-transfer grid
 MPPDE_LOSS_BOUND = 1e-5
 MPPDE_GRAD_BOUND = 1e-4
+# K4/K7 dW/db: sums over every node, taken in another order than the plain
+# version's
+BAND_PARAM_BOUND = 1e-4
+# GRAND gradients against the (deterministic) xla path: the VMH bounds, each
+# gradient over its own largest entry
+GRAND_LOSS_BOUND = 1e-4
+GRAND_GRAD_BOUND = 1e-3
+# the encoder's gradients when its ReLU output is zero in one run and not in
+# the other at some entry (a pre-activation within rounding of 0 moves one
+# node's term: 1.35e-3 of the encoder weight's largest entry on the 512²
+# grid, H100), and the level each such entry must sit at (its output over
+# the largest output)
+GRAND_FLIP_BOUND = 5e-3
+GRAND_FLIP_LEVEL = 1e-5
+REORD_POINTS = 1 << 17  # the JAX bench.py reord mesh
+K7_POINTS = (3000, 12000)
+HYBRID_GRID = 256
+CORA_EPOCHS = 20
+CORA_VAL_ACC = 0.90
 # H100 SXM (NVIDIA data sheet, 700 W): device-memory rate and the f32 rate
 # outside the tensor cores (every kernel here computes in true f32)
 HBM_BYTES_PER_S = 3.35e12
@@ -277,6 +334,365 @@ def kernel_checks(P, K, dev, grid_g, rand_edges):
                                     torch.bfloat16),
             BF16_BOUND)
     return records
+
+
+def scrambled_mesh(P, points: int, dev):
+    """The Delaunay mesh of ``points`` ``default_rng(0)`` points (their
+    order is random: scrambled labels) through ``precompute(
+    add_self_loops=True, dense=False, auto_reorder=True)``, on ``dev``;
+    prints the storage and the RCM (timed alone) and precompute seconds."""
+    from neuralgraphpde_torch.ops.bsr import host_edges
+
+    pts = np.random.default_rng(0).random((points, 2)).astype(np.float32)
+    t0 = time.perf_counter()
+    g = P.delaunay_graph(pts)
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    P.rcm_order(*host_edges(P.add_self_loops(g)), points)
+    rcm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gp = P.precompute(g, add_self_loops=True, dense=False, auto_reorder=True)
+    pre_s = time.perf_counter() - t0
+    gp = gp.to(dev)
+    kind = "pbanded" if "pbanded" in gp.cache else "banded"
+    st = gp.cache.get(kind)
+    check(st is not None and "node_order" in gp.cache
+          and kind + "_norm" in gp.cache, f"mesh {points}: no block bands")
+    print(f"  mesh {points} points: {g.num_edges} edges; {kind} blocks "
+          f"{tuple(st.blocks.shape)} (S={st.blocks.shape[0]}, nb={st.nb}, "
+          f"{st.row_height}x{st.tb}, {nbytes(st.blocks) / 1e9:.3f} GB a "
+          f"storage); Delaunay {mesh_s:.1f} s, RCM order alone {rcm_s:.1f} "
+          f"s, precompute (RCM, relabel, CSR layouts, 4 block storages) "
+          f"{pre_s:.1f} s")
+    return gp, kind
+
+
+def band_checks(K, dev, cases):
+    """Phase 3, K4 and K7: the SpMM and the fused right-hand side (tanh,
+    W 128×128, b) against their plain versions on each ``(label, graph,
+    kind, main_path)`` mesh, F = 128: forward in f32 and in bf16 storage,
+    and the backward of each ``autograd.Function`` against autograd
+    through the plain version. Times: kernel, plain, ``torch.sparse.mm``
+    on the same relabeled CSR (library) and K1 on that CSR. Returns the
+    JSON records of the main-path meshes."""
+    import dataclasses
+
+    rng = np.random.default_rng(7)
+    records = {}
+
+    def put(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(dev)
+
+    for label, g, kind, main_path in cases:
+        st, st_rev = g.cache[kind], g.cache[kind + "_rev"]
+        nrm, nrm_rev = g.cache[kind + "_norm"], g.cache[kind + "_norm_rev"]
+        spmm = (K.pbanded_spmm_pallas if kind == "pbanded"
+                else K.banded_spmm_pallas)
+        rhs = K.pbanded_gcn_rhs if kind == "pbanded" else K.banded_gcn_rhs
+        n, f = st.num_nodes, 128
+        S, nb, tbr, tb = st.blocks.shape[0], st.nb, st.row_height, st.tb
+        tag = "K4" if kind == "pbanded" else "K7"
+        shape = (f"{tag} {label} N={n} E={g.num_edges} S={S} nb={nb} "
+                 f"{tbr}x{tb} F={f}")
+        x, w, b, gy = put(n, f), put(f, f, scale=f ** -0.5), put(
+            1, f, scale=0.1), put(n, f)
+        csr = g.cache["tcsr"]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            a = torch.sparse_csr_tensor(csr.row_ptr, csr.col, csr.weight,
+                                        size=(n, n))
+        # the work the function needs: one multiply-add per nonzero and
+        # feature (the stored zeros of the blocks are not needed work) and
+        # the W epilogue's; the bytes are those of the storage the kernel is
+        # handed, zeros included
+        macs = float(csr.col.numel() * f)
+        out_bytes = 4 * n * f
+        forms = {
+            "spmm": (lambda: spmm(x, st),
+                     lambda: K.block_rhs_plain(st, x, None, None, None, False),
+                     (nbytes(st.blocks, st.cols, x) + out_bytes, 2 * macs)),
+            "gcn_rhs": (lambda: rhs("tanh", x, w, b, nrm),
+                        lambda: K.block_rhs_plain(nrm, x, w, b, "tanh", True),
+                        (nbytes(nrm.blocks, nrm.cols, x, w, b) + out_bytes,
+                         2 * macs + 2.0 * n * f * f))}
+        rec = {}
+        for what, (kern, plain, work) in forms.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            rel, diff = rel_err(got, want)
+            check(bool(torch.isfinite(got).all()), f"{shape} {what}: "
+                                                   f"non-finite")
+            check(rel <= F32_BOUND, f"{shape} {what}: rel {rel:.3e}")
+            ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+            b_ms, b_by = bound(*work)
+            rec[what] = dict(max_abs_err=diff, max_rel_err=rel, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None, shape=shape)
+            del got, want
+        lib_rel = rel_err(torch.sparse.mm(a, x), forms["spmm"][1]())[0]
+        rec["spmm"]["library_ms"] = cuda_ms(lambda: torch.sparse.mm(a, x))
+        k1_ms = cuda_ms(lambda: K.segment_spmm(x, csr))
+        rec["spmm"]["k1_same_csr_ms"] = rec["gcn_rhs"]["k1_same_csr_ms"] = \
+            k1_ms
+        # bf16 storage: bf16 blocks and x, f32 accumulation
+        field = "blocks" if kind == "pbanded" else "bands"
+        st16 = dataclasses.replace(st, **{field: st.blocks.to(torch.bfloat16)})
+        nrm16 = dataclasses.replace(nrm,
+                                    **{field: nrm.blocks.to(torch.bfloat16)})
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        rel16 = max(
+            rel_err(spmm(x, st16), K.block_rhs_plain(st16, xb, None, None,
+                                                     None, False))[0],
+            rel_err(rhs("tanh", x, w, b, nrm16),
+                    K.block_rhs_plain(nrm16, xb, wb, b, "tanh", True))[0])
+        check(rel16 <= BF16_BOUND, f"{shape} bf16: rel {rel16:.3e}")
+        del st16, nrm16, xb, wb
+        # backward: the autograd.Function vs autograd through the plain
+        leaves_k = [t.clone().requires_grad_() for t in (x, w, b)]
+        leaves_p = [t.clone().requires_grad_() for t in (x, w, b)]
+        rhs("tanh", *leaves_k, nrm, nrm_rev).backward(gy)
+        K.block_rhs_plain(nrm, *leaves_p, "tanh", True).backward(gy)
+        xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+        spmm(xk, st, st_rev).backward(gy)
+        K.block_rhs_plain(st, xp, None, None, None, False).backward(gy)
+        torch.cuda.synchronize()
+        dx_rel = max(rel_err(leaves_k[0].grad, leaves_p[0].grad)[0],
+                     rel_err(xk.grad, xp.grad)[0])
+        par_rel = max(rel_err(k.grad, p.grad)[0]
+                      for k, p in zip(leaves_k[1:], leaves_p[1:]))
+        check(dx_rel <= F32_BOUND, f"{shape} backward dx: rel {dx_rel:.3e}")
+        check(par_rel <= BAND_PARAM_BOUND, f"{shape} backward dW/db: rel "
+                                           f"{par_rel:.3e}")
+        del leaves_k, leaves_p, xk, xp
+
+        def pair(fn, *inputs):
+            def run():
+                leaves = [t.detach().requires_grad_() for t in inputs]
+                return torch.autograd.grad(fn(*leaves), leaves, gy)
+            return run
+
+        pairs = {
+            "spmm": (pair(lambda xx: spmm(xx, st, st_rev), x),
+                     pair(lambda xx: K.block_rhs_plain(
+                         st, xx, None, None, None, False), x)),
+            "gcn_rhs": (pair(lambda xx, ww, bb: rhs("tanh", xx, ww, bb, nrm,
+                                                    nrm_rev), x, w, b),
+                        pair(lambda xx, ww, bb: K.block_rhs_plain(
+                            nrm, xx, ww, bb, "tanh", True), x, w, b))}
+        for what, (kern, plain) in pairs.items():
+            rec[what]["training_pair"] = dict(
+                ms=cuda_ms(kern, reps=5, warmup=1),
+                plain_ms=cuda_ms(plain, reps=5, warmup=1),
+                max_rel_err_dx=dx_rel, max_rel_err_dw_db=par_rel)
+        for what in ("spmm", "gcn_rhs"):
+            r = rec[what]
+            print(f"  {shape} {what}: rel {r['max_rel_err']:.3e} (bound "
+                  f"{F32_BOUND:g}; bf16 {rel16:.3e}, bound {BF16_BOUND:g})  "
+                  f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                  + (f"  library {r['library_ms']:.4f} ms (rel "
+                     f"{lib_rel:.1e})" if r["library_ms"] is not None else "")
+                  + f"  K1 on the same CSR {k1_ms:.4f} ms\n"
+                  f"    fwd+bwd (training pair) kernels "
+                  f"{r['training_pair']['ms']:.4f} ms, plain under autograd "
+                  f"{r['training_pair']['plain_ms']:.4f} ms; backward dx rel "
+                  f"{dx_rel:.3e} (bound {F32_BOUND:g}), dW/db rel "
+                  f"{par_rel:.3e} (bound {BAND_PARAM_BOUND:g})")
+        if main_path:
+            records[f"{kind}_spmm"] = rec["spmm"]
+            records[f"{kind}_gcn_rhs"] = rec["gcn_rhs"]
+        del a, x, w, b, gy
+    return records
+
+
+def grand_grad(P, K, model, g, x, labels, mask, label, xla=None):
+    """The masked cross-entropy and its parameter gradients on the kernel
+    path (``auto``) against the ``xla`` path, at the model's tolerances
+    (the kernel run's launches are counted: the main path) and at solver
+    tolerance ``GRAND_PARITY_TOL``; each gated: loss rel ≤ 1e-4, every
+    gradient within 1e-3 of its own largest entry, the same accepted steps.
+    The encoder's ReLU has a kink: a pre-activation within rounding of 0
+    (among N × hidden of them) can be positive in one path and not in the
+    other, which moves one node's term of the encoder's gradients. So each
+    run keeps the encoder's output, the entries that are zero in one run
+    and positive in the other are counted, and where there are any the
+    encoder's gradients are held to ``GRAND_FLIP_BOUND`` instead, and each
+    such entry's output must be within ``GRAND_FLIP_LEVEL`` of the largest
+    output (rounding, not a wrong kernel). The ``xla`` reference runs with
+    ``torch.use_deterministic_algorithms``, so it is the same every run;
+    one run with its scatter-add's atomics is printed against it. ``xla``:
+    the references of an earlier call on the same model and inputs.
+    Returns (launch counts, the references)."""
+    params = list(model.parameters())
+    encoder = model.layer_1
+    enc_ids = {id(p) for p in encoder.parameters()}
+    enc_idx = [k for k, p in enumerate(params) if id(p) in enc_ids]
+    P.update_graph(model, g)
+    node = model.layer_2
+    tols = node.rtol, node.atol
+    kept = {}
+    hook = encoder.register_forward_hook(
+        lambda mod, inputs, out: kept.__setitem__("y", out.detach()))
+
+    def run(mode, tol=None, deterministic=False):
+        P.set_spmm_mode(mode)
+        torch.use_deterministic_algorithms(deterministic)
+        if tol is not None:
+            node.rtol = node.atol = tol
+        try:
+            model.zero_grad(set_to_none=True)
+            loss = P.masked_cross_entropy(model(x), labels, mask)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            P.set_spmm_mode("auto")
+            torch.use_deterministic_algorithms(False)
+            node.rtol, node.atol = tols
+        return (float(loss.detach()), [p.grad.clone() for p in params],
+                node.last_stats["accepted"], kept.pop("y"))
+
+    def dist(a, b):
+        """(loss rel, worst gradient error over its own largest entry
+        outside the encoder, the same in the encoder, the encoder outputs
+        zero in one run and positive in the other, the largest output at
+        such an entry over the largest output)"""
+        own = [rel_err(p, q)[0] for p, q in zip(a[1], b[1])]
+        flipped = (a[3] > 0) != (b[3] > 0)
+        flips = int(flipped.sum())
+        level = (float(torch.maximum(a[3], b[3])[flipped].max())
+                 / float(b[3].max()) if flips else 0.0)
+        return (abs(a[0] - b[0]) / abs(b[0]),
+                max(r for k, r in enumerate(own) if k not in enc_idx),
+                max(own[k] for k in enc_idx), flips, level)
+
+    def describe(d):
+        return (f"gradient error {d[1]:.3e} of its own largest entry "
+                f"outside the encoder, {d[2]:.3e} in the encoder; "
+                f"{d[3]} encoder outputs zero in one run only (largest "
+                f"{d[4]:.3e} of the largest output)")
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    loose = run("auto")
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS if fn.launches}
+    backward = {fn.__name__: fn.backward_launches for fn in K.KERNELS
+                if getattr(fn, "backward_launches", 0)}
+    spread = ""
+    if xla is None:
+        t0 = time.perf_counter()
+        xla = dict(loose=run("xla", deterministic=True))
+        xla_s = time.perf_counter() - t0
+        xla["tight"] = run("xla", GRAND_PARITY_TOL, deterministic=True)
+        atomics = dist(run("xla"), xla["loose"])
+        spread = (f"\n    xla path with atomics vs deterministic: loss rel "
+                  f"{atomics[0]:.3e}, {describe(atomics)} (not gated); xla "
+                  f"path {xla_s:.3f} s")
+    tight = run("auto", GRAND_PARITY_TOL)
+    hook.remove()
+    lines = []
+    for tol, got, ref in ((tols[0], loose, xla["loose"]),
+                          (GRAND_PARITY_TOL, tight, xla["tight"])):
+        d = dist(got, ref)
+        enc_bound = GRAND_FLIP_BOUND if d[3] else GRAND_GRAD_BOUND
+        lines.append(f"    at rtol=atol={tol:g}: loss {got[0]:.7f} vs xla "
+                     f"{ref[0]:.7f}, rel {d[0]:.3e} (bound "
+                     f"{GRAND_LOSS_BOUND:g}), {describe(d)}; bounds "
+                     f"{GRAND_GRAD_BOUND:g} and {enc_bound:g} in the "
+                     f"encoder; accepted steps {got[2]} (xla {ref[2]})")
+        check(d[0] <= GRAND_LOSS_BOUND, f"{label} at {tol:g}: loss rel "
+                                        f"{d[0]:.3e}")
+        check(d[1] <= GRAND_GRAD_BOUND, f"{label} at {tol:g}: gradient rel "
+                                        f"{d[1]:.3e}")
+        check(d[2] <= enc_bound, f"{label} at {tol:g}: encoder gradient rel "
+                                 f"{d[2]:.3e} ({d[3]} flipped outputs)")
+        check(d[4] <= GRAND_FLIP_LEVEL, f"{label} at {tol:g}: an encoder "
+                                        f"output {d[4]:.3e} of the largest "
+                                        f"is zero in one run only")
+        check(got[2] == ref[2], f"{label} at {tol:g}: accepted steps differ")
+    print(f"  {label}: {seconds:.3f} s at rtol=atol={tols[0]:g}, peak "
+          f"{peak / 1e9:.3f} GB ({(peak - resident) / 1e9:.3f} GB above the "
+          f"resident tensors); launches {launches}, of them in the backward "
+          f"{backward}\n" + "\n".join(lines) + spread)
+    check(all(bool(torch.isfinite(t).all()) for t in loose[1] + tight[1]),
+          f"{label}: non-finite gradient")
+    return dict(launches=launches, backward=backward), xla
+
+
+def grand_adam(P, K, model, x, labels, mask, label, rhs, spmm, steps=3):
+    """``steps`` Adam steps (lr 1e-2) on the masked cross-entropy, each
+    launching the fused ``rhs`` forward and ``spmm`` in its backward.
+    Returns the launch counts over the steps."""
+    step = P.make_train_step(
+        lambda: P.masked_cross_entropy(model(x), labels, mask),
+        P.adam(model.parameters(), 1e-2))
+    K.reset_launch_counts()
+    for i in range(1, steps + 1):
+        before = (rhs.launches, spmm.backward_launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = step()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        fwd = rhs.launches - before[0]
+        bwd = spmm.backward_launches - before[1]
+        print(f"  {label} Adam step {i}: loss {float(loss):.7f}, "
+              f"{seconds:.3f} s, {rhs.__name__} launches {fwd} forward, "
+              f"{spmm.__name__} {bwd} in its backward")
+        check(bool(torch.isfinite(loss)), f"{label} step {i}: non-finite loss")
+        check(fwd > 0 and bwd > 0, f"{label} step {i}: {rhs.__name__} not "
+                                   f"launched forward and backward")
+    return dict(launches={fn.__name__: fn.launches for fn in K.KERNELS},
+                backward={fn.__name__: fn.backward_launches for fn in K.KERNELS
+                          if getattr(fn, "backward_launches", 0)})
+
+
+def mesh_path(P, K, g, kind, label, seed):
+    """GRAND (128 → 128 → 7) on a relabeled mesh: the forward parity at
+    solver tolerance 1e-5, the gradient on the fused right-hand side and on
+    the plain SpMM (the graph without ``*_norm``) against ``xla``, then 3
+    Adam steps on the fused path. Features, labels and the 10% train mask
+    are seeded numpy draws in the original numbering, permuted with
+    ``permute_nodes``. Returns the launch counts of each run."""
+    n, dev = g.num_nodes, g.device
+    order = g.cache["node_order"].cpu().numpy()
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(n, 128)).astype(np.float32)
+    labels = rng.integers(0, 7, n)
+    mask = rng.random(n) < 0.1
+    x, y, m = (torch.from_numpy(P.permute_nodes(a, order)).to(dev)
+               for a in (feats, labels, mask))
+    model = P.grand_model(128, 128, 7, precomputed_self_loops=True,
+                          generator=torch.Generator().manual_seed(seed),
+                          device=dev)
+    rhs = K.pbanded_gcn_rhs if kind == "pbanded" else K.banded_gcn_rhs
+    spmm = (K.pbanded_spmm_pallas if kind == "pbanded"
+            else K.banded_spmm_pallas)
+    with torch.no_grad():
+        fwd, _, _ = grand_forward(P, model, g, x, f"{label} forward")
+    check(fwd[rhs.__name__] > 0, f"{label}: {rhs.__name__} not launched")
+    check(fwd["segment_spmm"] == 0, f"{label}: K1 launched on a mesh")
+    fused, xla = grand_grad(P, K, model, g, x, y, m, f"{label} gradient, "
+                            f"fused {rhs.__name__}")
+    check(fused["launches"].get(rhs.__name__, 0) > 0
+          and fused["backward"].get(spmm.__name__, 0) > 0,
+          f"{label}: no {rhs.__name__} launch, or no {spmm.__name__} launch "
+          f"in its backward")
+    plain_g = g.copy(cache={k: v for k, v in g.cache.items()
+                            if not k.startswith(kind + "_norm")})
+    unfused, _ = grand_grad(P, K, model, plain_g, x, y, m,
+                            f"{label} gradient, plain {spmm.__name__}",
+                            xla=xla)
+    check(unfused["backward"].get(spmm.__name__, 0) > 0,
+          f"{label}: no {spmm.__name__} launch in the backward")
+    P.update_graph(model, g)
+    adam = grand_adam(P, K, model, x, y, m, label, rhs, spmm)
+    return dict(forward=fwd, fused=fused, unfused=unfused, adam=adam)
 
 
 def k3_work(csr, dims, backward: bool) -> tuple:
@@ -871,6 +1287,7 @@ def main() -> int:
     import neuralgraphpde_torch as P
     from neuralgraphpde_torch import kernels as K
     from neuralgraphpde_torch.examples import train_gno_darcy as G
+    from neuralgraphpde_torch.examples import train_grand_cora as C
     from neuralgraphpde_torch.examples import train_mppde_burgers as M
     from neuralgraphpde_torch.examples import train_vmh as T
     from neuralgraphpde_torch.kernels import _build
@@ -920,6 +1337,14 @@ def main() -> int:
     print(f"MP-PDE Burgers dataset ({tuple(mppde_u.shape)} sims × nodes × "
           f"saves, RK4 on the card) and model: "
           f"{time.perf_counter() - t0:.2f} s")
+    print("scrambled-label Delaunay meshes, precompute(add_self_loops=True, "
+          "dense=False, auto_reorder=True):")
+    reord_g, kind = scrambled_mesh(P, REORD_POINTS, dev)
+    check(kind == "pbanded", f"2^17 mesh: {kind}, not packed bands")
+    k7_meshes = {}
+    for points in K7_POINTS:
+        k7_meshes[points], kind = scrambled_mesh(P, points, dev)
+        check(kind == "banded", f"{points} mesh: {kind}, not dense bands")
     rg = P.rand_graph(2 ** 18, 2 ** 22, seed=0)
     s, r = host_edges(rg)
     rand_edges = (s, r, rg.num_nodes)
@@ -954,26 +1379,39 @@ def main() -> int:
     records.update(k5_checks(K, dev, gno_cases))
     records.update(k6_checks(K, dev, k6_cases))
     del k6_cases
+    records.update(band_checks(K, dev, [
+        ("2^17 scrambled Delaunay", reord_g, "pbanded", True),
+        ("3,000 scrambled Delaunay", k7_meshes[3000], "banded", False),
+        ("12,000 scrambled Delaunay", k7_meshes[12000], "banded", True)]))
 
-    with torch.inference_mode():
-        print("GRAND A (synthetic Cora, K1):")
-        data = P.synthetic_cora()
-        g = P.precompute(data.graph, add_self_loops=True, dense=False,
-                         pallas=True).to(dev)
-        model = P.grand_model(1433, 64, 7, rtol=1e-3, atol=1e-3,
-                              precomputed_self_loops=True,
-                              generator=torch.Generator().manual_seed(0),
-                              device=dev)
-        x = torch.from_numpy(data.features).to(dev)
+    print("GRAND A (synthetic Cora, K1):")
+    data = P.synthetic_cora()
+    g = P.precompute(data.graph, add_self_loops=True, dense=False,
+                     pallas=True).to(dev)
+    model = P.grand_model(1433, 64, 7, rtol=1e-3, atol=1e-3,
+                          precomputed_self_loops=True,
+                          generator=torch.Generator().manual_seed(0),
+                          device=dev)
+    x = torch.from_numpy(data.features).to(dev)
+    with torch.no_grad():
         launches_a, _, _ = grand_forward(P, model, g, x, "A")
-        check(launches_a["segment_spmm"] > 0, "A: K1 not launched")
+    check(launches_a["segment_spmm"] > 0, "A: K1 not launched")
+    grad_a, _ = grand_grad(
+        P, K, model, g, x, torch.from_numpy(data.labels).to(dev),
+        torch.from_numpy(data.train_mask).to(dev), "A gradient (K1)")
+    check(grad_a["backward"].get("segment_spmm", 0) > 0,
+          "A: K1 not launched in the backward")
 
-        print("GRAND B (512² grid, K2):")
-        model = P.grand_model(128, 128, 7, precomputed_self_loops=True,
-                              generator=torch.Generator().manual_seed(1),
-                              device=dev)
-        xg = torch.from_numpy(np.random.default_rng(2).normal(
-            size=(grid.num_nodes, 128)).astype(np.float32)).to(dev)
+    print("GRAND B (512² grid, K2):")
+    model = P.grand_model(128, 128, 7, precomputed_self_loops=True,
+                          generator=torch.Generator().manual_seed(1),
+                          device=dev)
+    grid_rng = np.random.default_rng(2)
+    xg = torch.from_numpy(grid_rng.normal(
+        size=(grid.num_nodes, 128)).astype(np.float32)).to(dev)
+    yg = torch.from_numpy(grid_rng.integers(0, 7, grid.num_nodes)).to(dev)
+    mg = torch.from_numpy(grid_rng.random(grid.num_nodes) < 0.1).to(dev)
+    with torch.no_grad():
         launches_b, _, _ = grand_forward(P, model, grid_fused, xg,
                                          "B fused")
         check(launches_b["dia_gcn_rhs"] > 0, "B: fused K2 not launched")
@@ -987,8 +1425,72 @@ def main() -> int:
               f"({grid_fused.num_edges} edges incl. self-loops)")
         launches_c, _, _ = grand_forward(P, model, grid_plain, xg,
                                          "B gcn_fused=False")
-        check(launches_c["dia_spmm_stencil"] > 0,
-              "B unfused: stencil K2 not launched")
+    check(launches_c["dia_spmm_stencil"] > 0,
+          "B unfused: stencil K2 not launched")
+    grad_b, xla_b = grand_grad(P, K, model, grid_fused, xg, yg, mg,
+                               "B gradient, fused K2")
+    check(grad_b["launches"].get("dia_gcn_rhs", 0) > 0
+          and grad_b["backward"].get("dia_spmm_stencil", 0) > 0,
+          "B: fused K2 not launched, or the stencil not in its backward")
+    grad_c, _ = grand_grad(P, K, model, grid_plain, xg, yg, mg,
+                           "B gradient, gcn_fused=False (stencil K2)",
+                           xla=xla_b)
+    check(grad_c["backward"].get("dia_spmm_stencil", 0) > 0,
+          "B unfused: stencil K2 not launched in the backward")
+    del xla_b
+
+    print("GRAND on the 2^17-point scrambled Delaunay mesh (K4):")
+    k4 = mesh_path(P, K, reord_g, "pbanded", "K4 mesh", seed=3)
+    print("GRAND on the 12,000-point scrambled Delaunay mesh (K7):")
+    k7 = mesh_path(P, K, k7_meshes[12000], "banded", "K7 mesh", seed=4)
+
+    print(f"config 1: train_grand_cora defaults ({CORA_EPOCHS} epochs, "
+          f"dense adjacency, as in JAX), then 3 epochs on the pallas "
+          f"layout (K1):")
+    cfg = C.Config(epochs=CORA_EPOCHS)
+    cora_model, cora_data = C.setup(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = C.train(cora_model, cora_data, cfg).history[-1]
+    torch.cuda.synchronize()
+    print(f"  {CORA_EPOCHS} epochs in {time.perf_counter() - t0:.2f} s: "
+          f"train acc {last['train_acc']:.4f}, val acc {last['val_acc']:.4f} "
+          f"(gate {CORA_VAL_ACC:g})")
+    check(last["val_acc"] >= CORA_VAL_ACC,
+          f"config 1: val acc {last['val_acc']:.4f} < {CORA_VAL_ACC:g}")
+    cfg = C.Config(epochs=3)
+    cora_model, cora_data = C.setup(cfg, dev, dense=False, pallas=True)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    C.train(cora_model, cora_data, cfg)
+    torch.cuda.synchronize()
+    print(f"  3 epochs on K1 in {time.perf_counter() - t0:.2f} s: "
+          f"segment_spmm launches {K.segment_spmm.launches}, of them in the "
+          f"backward {K.segment_spmm.backward_launches}")
+    check(K.segment_spmm.backward_launches > 0
+          and K.segment_spmm.launches > K.segment_spmm.backward_launches,
+          "config 1 on K1: K1 not launched forward and backward")
+    del cora_model, cora_data
+
+    print(f"hybrid DIA ({HYBRID_GRID}² periodic 8-neighbour grid, stencil "
+          f"K2 + COO remainder):")
+    hyb = P.precompute(P.grid_graph_2d(HYBRID_GRID, HYBRID_GRID,
+                                       periodic=True, diagonals=True),
+                       add_self_loops=True).to(dev)
+    check({"dia", "dia_rev", "dia_rem"} <= set(hyb.cache)
+          and "dia_norm" not in hyb.cache, "hybrid grid: no dia + dia_rem")
+    print(f"  {hyb.num_nodes} nodes, {hyb.num_edges} edges, "
+          f"{len(hyb.cache['dia'].offsets)} diagonals, "
+          f"{hyb.cache['dia_rem'].senders.numel()} remainder edges")
+    model = P.grand_model(64, 64, 7, precomputed_self_loops=True,
+                          generator=torch.Generator().manual_seed(5),
+                          device=dev)
+    xh = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(hyb.num_nodes, 64)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        launches_h, _, _ = grand_forward(P, model, hyb, xh, "hybrid")
+    check(launches_h["dia_spmm_stencil"] > 0, "hybrid: stencil K2 not "
+                                              "launched")
 
     print("VMH training (24 sims x 3,000 points, K3):")
     launches_v = vmh_training(P, K, vmh_model, vmh_u)
@@ -1027,7 +1529,43 @@ def main() -> int:
         "segment_max": ("neuralgraphpde_torch/csrc/segment_max.cu",
                         "neuralgraphpde/kernels/segment_kernels.py:398",
                         launches_k6["segment_max"]),
+        # the mesh kernels' counts come from the fused main path: the
+        # fused right-hand side forward, the SpMM in its backward
+        "banded_spmm": ("neuralgraphpde_torch/csrc/banded.cu",
+                        "neuralgraphpde/kernels/banded_kernels.py:68",
+                        k7["fused"]["launches"].get("banded_spmm_pallas", 0)),
+        "pbanded_spmm": ("neuralgraphpde_torch/csrc/banded.cu",
+                         "neuralgraphpde/kernels/banded_kernels.py:181",
+                         k4["adam"]["launches"].get("pbanded_spmm_pallas", 0)),
+        "banded_gcn_rhs": ("neuralgraphpde_torch/csrc/banded.cu",
+                           "neuralgraphpde/kernels/banded_kernels.py:337",
+                           k7["fused"]["launches"].get("banded_gcn_rhs", 0)),
+        "pbanded_gcn_rhs": ("neuralgraphpde_torch/csrc/banded.cu",
+                            "neuralgraphpde/kernels/banded_kernels.py:434",
+                            k4["adam"]["launches"].get("pbanded_gcn_rhs", 0)),
     }
+    # each differentiable kernel's wrapper, its launches in the gradient
+    # runs and the part of them made in backward passes
+    runs = {
+        "segment_spmm": ("segment_spmm", [("GRAND A gradient", grad_a)]),
+        "dia_gcn_rhs": ("dia_gcn_rhs", [("GRAND B gradient", grad_b)]),
+        "dia_spmm_stencil": ("dia_spmm_stencil", [
+            ("GRAND B gradient", grad_b),
+            ("GRAND B gradient, gcn_fused=False", grad_c)]),
+        "banded_spmm": ("banded_spmm_pallas", [
+            ("K7 mesh gradient, fused", k7["fused"]),
+            ("K7 mesh gradient, plain SpMM", k7["unfused"])]),
+        "pbanded_spmm": ("pbanded_spmm_pallas", [
+            ("K4 mesh, 3 Adam steps", k4["adam"]),
+            ("K4 mesh gradient, fused", k4["fused"]),
+            ("K4 mesh gradient, plain SpMM", k4["unfused"])]),
+        "banded_gcn_rhs": ("banded_gcn_rhs", [
+            ("K7 mesh gradient, fused", k7["fused"])]),
+        "pbanded_gcn_rhs": ("pbanded_gcn_rhs", [
+            ("K4 mesh, 3 Adam steps", k4["adam"]),
+            ("K4 mesh gradient, fused", k4["fused"])])}
+    for name in ("banded_spmm", "pbanded_spmm"):
+        check(sources[name][2] > 0, f"{name}: no launch on the fused path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_rel_err", "shape")
     kernels = []
@@ -1048,6 +1586,15 @@ def main() -> int:
         if name == "segment_max":
             burgers = records["segment_max Burgers"]
             entry["other_shapes"] = [{k: burgers[k] for k in keys}]
+        if name in runs:
+            fn, counted = runs[name]
+            entry["runs"] = [
+                dict(run=run, launches=counts["launches"].get(fn, 0),
+                     backward_launches=counts["backward"].get(fn, 0))
+                for run, counts in counted]
+        for extra in ("k1_same_csr_ms", "training_pair"):
+            if extra in rec:
+                entry[extra] = rec[extra]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

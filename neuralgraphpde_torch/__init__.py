@@ -8,10 +8,11 @@ in ``csrc/``), each with a plain PyTorch version that CPU tensors take.
 This package imports neither ``jax`` nor ``neuralgraphpde``.
 """
 
-from .graph import (GnnGraph, add_self_loops, csr_offsets, degree,
+from .graph import (GnnGraph, add_self_loops, bandwidth, csr_offsets, degree,
                     delaunay_graph, empty_graph, grid_graph_1d, grid_graph_2d,
-                    radius_graph, rand_graph, sort_by_receiver,
-                    to_dense_adjacency)
+                    morton_order, permute_nodes, radius_graph, rand_graph,
+                    rcm_order, rcm_reorder, reorder_graph, sort_by_receiver,
+                    spatial_reorder, to_dense_adjacency, unpermute_nodes)
 from .ops import (aggregate_neighbors, apply_edges, copy_xj,
                   e_mul_xj, get_spmm_mode, precompute, propagate,
                   segment_reduce, set_spmm_mode, spmm, w_mul_xj)
@@ -22,9 +23,9 @@ from .utils import drop, update_graph, wrapgraph
 from .ode import NeuralGraphODE, odeint, odeint_grid
 from .models import GNOModel, MPPDESolver, grand_model, vmh_model
 from .data import (burgers_dataset, convection_diffusion_dataset,
-                   darcy_dataset, synthetic_cora)
-from .train import (MetricsLogger, Rprop, adam, make_train_step, mse,
-                    rollout_mse, rprop)
+                   cora_dataset, darcy_dataset, load_cora, synthetic_cora)
+from .train import (MetricsLogger, Rprop, accuracy, adam, make_train_step,
+                    masked_cross_entropy, mse, rollout_mse, rprop)
 from .interop import params_from_jax
 
 __version__ = "0.1.0"

@@ -1,4 +1,6 @@
-// Shared helpers for the port's kernels: f32/bf16 conversion.
+// Shared helpers for the port's kernels: f32/bf16 conversion, the GCN
+// epilogue activations, and the fused GCN epilogue that streams W through a
+// shared tile (used by the DIA stencil and the block-band kernels).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,6 +22,80 @@ __device__ __forceinline__ float from_f32<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as XLA's convert
+}
+
+// f32 value rounded through T (identity for f32)
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// GCN epilogue activations: 0 identity, 1 tanh, 2 relu, 3 sigmoid
+enum Act { kIdentity = 0, kTanh = 1, kRelu = 2, kSigmoid = 3 };
+
+template <int ACT>
+__device__ __forceinline__ float activate(float h) {
+  if (ACT == kTanh) return tanhf(h);
+  if (ACT == kRelu) return fmaxf(h, 0.f);
+  if (ACT == kSigmoid) return 1.f / (1.f + expf(-h));
+  return h;
+}
+
+constexpr int kEpiTileO = 64;  // output columns per W tile
+constexpr int kEpiTileF = 32;  // input features per W tile
+
+// out[i0 + r, :] = act(agg[r, :] @ W + b) for r < rows_valid.
+// agg: ROWS x Fp in shared memory (columns F..Fp zero, Fp a multiple of
+// kEpiTileF); w_tile: kEpiTileF x kEpiTileO shared floats; W (F, O) row-major
+// in T. THREADS / kEpiTileO row groups each hold ROWS / groups rows of one
+// output column in registers. Starts and ends with all threads in step.
+template <typename T, typename TO, int ACT, bool HAS_B, int ROWS, int THREADS>
+__device__ __forceinline__ void gcn_epilogue(
+    const float* agg, int Fp, float* w_tile, const T* __restrict__ w,
+    const float* __restrict__ b, TO* __restrict__ out, long long i0,
+    int rows_valid, int F, int O) {
+  constexpr int kGroups = THREADS / kEpiTileO;
+  constexpr int kPer = ROWS / kGroups;
+  const int tid = threadIdx.x;
+  const int oc = tid % kEpiTileO;
+  const int rg = tid / kEpiTileO;
+  for (int o0 = 0; o0 < O; o0 += kEpiTileO) {
+    float h[kPer];
+#pragma unroll
+    for (int rr = 0; rr < kPer; ++rr) h[rr] = 0.f;
+    for (int f0 = 0; f0 < Fp; f0 += kEpiTileF) {
+      for (int idx = tid; idx < kEpiTileF * kEpiTileO; idx += THREADS) {
+        const int kf = idx / kEpiTileO;
+        const int c = idx - kf * kEpiTileO;
+        const int f = f0 + kf;
+        const int o = o0 + c;
+        w_tile[idx] =
+            (f < F && o < O) ? to_f32(w[(long long)f * O + o]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kf = 0; kf < kEpiTileF; ++kf) {
+        const float wv = w_tile[kf * kEpiTileO + oc];
+#pragma unroll
+        for (int rr = 0; rr < kPer; ++rr)
+          h[rr] = fmaf(agg[(rg + kGroups * rr) * Fp + f0 + kf], wv, h[rr]);
+      }
+      __syncthreads();
+    }
+    const int o = o0 + oc;
+    if (o < O) {
+      const float bias = HAS_B ? b[o] : 0.f;
+#pragma unroll
+      for (int rr = 0; rr < kPer; ++rr) {
+        const int r = rg + kGroups * rr;
+        if (r < rows_valid) {
+          float v = h[rr];
+          if (HAS_B) v += bias;
+          out[(i0 + r) * O + o] = from_f32<TO>(activate<ACT>(v));
+        }
+      }
+    }
+  }
 }
 
 }  // namespace ngpde

@@ -12,39 +12,22 @@
 // fastest, so a warp reads contiguous x.
 // dia_gcn_rhs_kernel (with W): a block owns kRows output rows. Phase 1
 // writes the block's aggregated rows to shared memory (width padded to a
-// multiple of kTileF with zeros). Phase 2 walks the output in kTileO-wide
-// chunks; for each it streams W through a kTileF x kTileO shared tile, each
-// thread accumulating kRows/4 rows of one output column in registers, then
-// adds b, applies the activation and stores.
+// multiple of 32 with zeros). Phase 2 is the shared GCN epilogue of
+// common.cuh: it walks the output in 64-wide chunks, streams W through a
+// 32 x 64 shared tile, each thread accumulating kRows/4 rows of one output
+// column in registers, then adds b, applies the activation and stores.
 #include "common.cuh"
 
 namespace {
 
+using ngpde::activate;
 using ngpde::from_f32;
+using ngpde::round_to;
 using ngpde::to_f32;
 
 constexpr int kMaxDiags = 32;
 constexpr int kThreads = 256;
-constexpr int kRows = 32;     // rows per block in the fused kernel
-constexpr int kTileO = 64;    // output columns per W tile
-constexpr int kTileF = 32;    // input features per W tile
-constexpr int kRowGroups = kThreads / kTileO;  // 4
-constexpr int kRowsPerThread = kRows / kRowGroups;  // 8
-
-enum Act { kIdentity = 0, kTanh = 1, kRelu = 2, kSigmoid = 3 };
-
-template <int ACT>
-__device__ __forceinline__ float activate(float h) {
-  if (ACT == kTanh) return tanhf(h);
-  if (ACT == kRelu) return fmaxf(h, 0.f);
-  if (ACT == kSigmoid) return 1.f / (1.f + expf(-h));
-  return h;
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
+constexpr int kRows = 32;  // rows per block in the fused kernel
 
 template <typename T, typename TO, int ACT, bool HAS_B>
 __global__ void __launch_bounds__(kThreads)
@@ -80,7 +63,7 @@ __global__ void __launch_bounds__(kThreads)
                        int n, int F, int O, int Fp) {
   extern __shared__ float smem[];
   float* agg = smem;                  // kRows x Fp
-  float* w_tile = smem + kRows * Fp;  // kTileF x kTileO
+  float* w_tile = smem + kRows * Fp;  // kEpiTileF x kEpiTileO
   __shared__ int offs[kMaxDiags];
   const int tid = threadIdx.x;
   if (tid < K) offs[tid] = offsets[tid];
@@ -105,45 +88,9 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // phase 2: agg @ W, tiled over output columns and input features
-  const int oc = tid % kTileO;
-  const int rg = tid / kTileO;
-  for (int o0 = 0; o0 < O; o0 += kTileO) {
-    float h[kRowsPerThread];
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerThread; ++rr) h[rr] = 0.f;
-    for (int f0 = 0; f0 < Fp; f0 += kTileF) {
-      for (int idx = tid; idx < kTileF * kTileO; idx += kThreads) {
-        const int kf = idx / kTileO;
-        const int c = idx - kf * kTileO;
-        const int f = f0 + kf;
-        const int o = o0 + c;
-        w_tile[idx] = (f < F && o < O) ? to_f32(w[(long long)f * O + o]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kf = 0; kf < kTileF; ++kf) {
-        const float wv = w_tile[kf * kTileO + oc];
-#pragma unroll
-        for (int rr = 0; rr < kRowsPerThread; ++rr)
-          h[rr] = fmaf(agg[(rg + kRowGroups * rr) * Fp + f0 + kf], wv, h[rr]);
-      }
-      __syncthreads();
-    }
-    const int o = o0 + oc;
-    if (o < O) {
-      const float bias = HAS_B ? b[o] : 0.f;
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerThread; ++rr) {
-        const int i = i0 + rg + kRowGroups * rr;
-        if (i < n) {
-          float v = h[rr];
-          if (HAS_B) v += bias;
-          out[(long long)i * O + o] = from_f32<TO>(activate<ACT>(v));
-        }
-      }
-    }
-  }
+  // phase 2: agg @ W + b, activation, store
+  ngpde::gcn_epilogue<T, TO, ACT, HAS_B, kRows, kThreads>(
+      agg, Fp, w_tile, w, b, out, i0, min(kRows, n - i0), F, O);
 }
 
 template <typename T, typename TO, int ACT, bool HAS_B>
@@ -164,8 +111,10 @@ cudaError_t launch_gcn_rhs(const void* vals, const int* offsets, int K,
                            const void* x, const void* w, const float* b,
                            void* out, int n, int F, int O,
                            cudaStream_t stream) {
+  constexpr int kTileF = ngpde::kEpiTileF;
   const int Fp = (F + kTileF - 1) / kTileF * kTileF;
-  const size_t smem = sizeof(float) * ((size_t)kRows * Fp + kTileF * kTileO);
+  const size_t smem =
+      sizeof(float) * ((size_t)kRows * Fp + kTileF * ngpde::kEpiTileO);
   cudaError_t err = cudaFuncSetAttribute(
       dia_gcn_rhs_kernel<T, TO, ACT, HAS_B>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

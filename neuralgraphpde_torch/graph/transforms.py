@@ -11,6 +11,13 @@ import torch
 from .gnngraph import GnnGraph
 
 
+def host_edges(g: GnnGraph):
+    """``(senders, receivers)`` as numpy, from ``host_coo`` when kept."""
+    if g.host_coo is not None:
+        return g.host_coo
+    return g.senders.cpu().numpy(), g.receivers.cpu().numpy()
+
+
 def add_self_loops(g: GnnGraph) -> GnnGraph:
     """Append one ``i -> i`` edge per node, after the existing edges. Edge
     features are dropped."""

@@ -1,6 +1,9 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version. Importing this package builds nothing: the library is compiled at
 the first kernel launch (``kernels._build``)."""
+from .banded_kernels import (banded_gcn_rhs, banded_spmm_pallas,
+                             block_rhs_plain, pbanded_gcn_rhs,
+                             pbanded_spmm_pallas)
 from .dia_kernels import dia_gcn_rhs, dia_rhs_plain, dia_spmm_stencil
 from .fused_mlp_kernels import (fused_mlp_aggregate, fused_mlp_bwd,
                                 fused_mlp_bwd_plain, fused_mlp_fwd,
@@ -12,17 +15,25 @@ from .segment_kernels import (SegmentCSR, build_segment_csr, segment_max,
                               segment_max_aggregate, segment_max_plain,
                               segment_spmm, segment_spmm_plain)
 
-# every kernel wrapper, each counting its launches in ``.launches``
+# every kernel wrapper, each counting its launches in ``.launches`` (the
+# differentiable ones also count the part made in backward passes in
+# ``.backward_launches``)
 KERNELS = (segment_spmm, dia_spmm_stencil, dia_gcn_rhs, fused_mlp_fwd,
-           fused_mlp_bwd, fused_gno_fwd, fused_gno_bwd, segment_max)
+           fused_mlp_bwd, fused_gno_fwd, fused_gno_bwd, segment_max,
+           banded_spmm_pallas, pbanded_spmm_pallas, banded_gcn_rhs,
+           pbanded_gcn_rhs)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+        if hasattr(fn, "backward_launches"):
+            fn.backward_launches = 0
 
 
 __all__ = [
+    "banded_gcn_rhs", "banded_spmm_pallas", "block_rhs_plain",
+    "pbanded_gcn_rhs", "pbanded_spmm_pallas",
     "dia_gcn_rhs", "dia_rhs_plain", "dia_spmm_stencil", "fused_mlp_aggregate",
     "fused_mlp_bwd", "fused_mlp_bwd_plain", "fused_mlp_fwd",
     "fused_mlp_plain", "fused_mlp_variant", "fused_gno_aggregate", "fused_gno_bwd",

@@ -9,6 +9,11 @@ kernel behind ``dia_spmm_pallas`` and ``dia_gcn_rhs``). CUDA source:
   values (``cache['dia_norm']``): the whole GCN ODE right-hand side in one
   kernel; ``W`` and ``b`` may be None.
 
+Both are differentiable (``autograd.Function``s whose backward runs the
+stencil kernel on the transposed values, ``dia_rev`` / ``dia_norm_rev``, as
+the JAX package's custom VJPs do; those launches count on
+``dia_spmm_stencil`` as backward launches).
+
 What bounds it on the H100: the stencil reads x about once from device
 memory (the ±bandwidth rows a block touches stay in L2), K values per row
 and writes one output row: bytes, at a few flops per byte. The fused W
@@ -30,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from ..ops.dia import DiaMatrix, stencil_f32
+from ..ops.dia import DiaMatrix, stencil_f32, transpose_dia
 from . import _build
 from .segment_kernels import _check_cuda_inputs
 
@@ -70,9 +75,32 @@ def dia_rhs_plain(dm: DiaMatrix, x: torch.Tensor, w: Optional[torch.Tensor],
     return _ACTS[act](h).to(out_dtype)
 
 
+def act_grad_from_y(act, y: torch.Tensor):
+    """The activation's derivative from its output (the VJPs save only y):
+    tanh' = 1 − y², sigmoid' = y(1 − y), relu' = [y > 0]."""
+    if act in (None, "identity"):
+        return 1.0
+    if act == "tanh":
+        return 1.0 - y * y
+    if act == "sigmoid":
+        return y * (1.0 - y)
+    if act == "relu":
+        return (y > 0).to(y.dtype)
+    raise ValueError(act)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether a call must go through its ``autograd.Function``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _dia_rhs(dm: DiaMatrix, x: torch.Tensor, w: Optional[torch.Tensor],
              b: Optional[torch.Tensor], act, fused: bool,
-             out_dtype: torch.dtype) -> torch.Tensor:
+             out_dtype: torch.dtype, owner, backward: bool = False
+             ) -> torch.Tensor:
+    """One K2 call outside autograd, counted on ``owner`` (CPU tensors:
+    the plain version)."""
     n, K = dm.num_nodes, len(dm.offsets)
     if x.dim() != 2 or x.shape[0] != n:
         raise ValueError(f"x must be ({n}, F), got {tuple(x.shape)}")
@@ -83,7 +111,7 @@ def _dia_rhs(dm: DiaMatrix, x: torch.Tensor, w: Optional[torch.Tensor],
     vdt = dm.values.dtype
     if vdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"DIA values must be f32 or bf16, got {vdt}")
-    x = x.to(vdt)
+    x = x.to(vdt).contiguous()
     F = x.shape[1]
     out_w = F
     if fused:
@@ -94,10 +122,11 @@ def _dia_rhs(dm: DiaMatrix, x: torch.Tensor, w: Optional[torch.Tensor],
         if w is not None:
             if w.dim() != 2 or w.shape[0] != F:
                 raise ValueError(f"W must be ({F}, out), got {tuple(w.shape)}")
-            w = w.to(torch.bfloat16) if vdt == torch.bfloat16 else w.float()
+            w = (w.to(torch.bfloat16) if vdt == torch.bfloat16
+                 else w.float()).contiguous()
             out_w = w.shape[1]
         if b is not None:
-            b = b.float().reshape(-1)
+            b = b.float().reshape(-1).contiguous()
             if b.shape[0] != out_w:
                 raise ValueError(f"b must have {out_w} entries")
     if x.device.type == "cpu":
@@ -120,29 +149,98 @@ def _dia_rhs(dm: DiaMatrix, x: torch.Tensor, w: Optional[torch.Tensor],
             dm.values.data_ptr(), dm.offsets_t.data_ptr(), K, x.data_ptr(),
             w.data_ptr(), b_ptr, out.data_ptr(), n, F, out_w, code, in_bf16,
             out_bf16, stream)
-    _build.check(err, "dia_gcn_rhs" if fused else "dia_spmm_stencil")
+    _build.check(err, owner.__name__)
+    owner.launches += 1
+    owner.backward_launches += int(backward)
     return out
 
 
-def dia_spmm_stencil(x: torch.Tensor, dm: DiaMatrix) -> torch.Tensor:
+def _stencil(dm: DiaMatrix, x: torch.Tensor, owner,
+             backward: bool = False) -> torch.Tensor:
+    """``A @ x`` as f32 (the VJPs' products)."""
+    return _dia_rhs(dm, x, None, None, None, False, torch.float32, owner,
+                    backward)
+
+
+class _DiaSpmm(torch.autograd.Function):
+    """The plain stencil under autograd: the backward is the stencil on
+    ``dia_rev`` (Aᵀ), as ``_spmm_bwd`` in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, dm, dm_rev):
+        ctx.dm, ctx.dm_rev = dm, dm_rev
+        return _dia_rhs(dm, x, None, None, None, False, x.dtype,
+                        dia_spmm_stencil)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        dmt = ctx.dm_rev if ctx.dm_rev is not None else transpose_dia(ctx.dm)
+        return (_stencil(dmt, g, dia_spmm_stencil, True).to(g.dtype), None,
+                None)
+
+
+class _DiaGcnRhs(torch.autograd.Function):
+    """The fused right-hand side under autograd, the VJP of the JAX
+    package's ``_rhs_bwd``: ``dz = g · act'(y)``, ``db = Σ dz``, the
+    aggregate recomputed by the stencil kernel, ``dW = aggᵀ dz`` and
+    ``dz Wᵀ`` as f32 matrix products, then ``dx`` = the stencil on
+    ``dia_norm_rev``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, dm, dm_rev, act):
+        out_dtype = (torch.bfloat16 if x.dtype == torch.bfloat16
+                     else torch.float32)
+        y = _dia_rhs(dm, x, w, b, act, True, out_dtype, dia_gcn_rhs)
+        ctx.save_for_backward(x, w, b, y)
+        ctx.dm, ctx.dm_rev, ctx.act = dm, dm_rev, act
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w, b, y = ctx.saved_tensors
+        dm, act = ctx.dm, ctx.act
+        dz = g.float() * act_grad_from_y(act, y.float())
+        db = None if b is None else dz.sum(0).reshape(b.shape).to(b.dtype)
+        dw = None
+        gup = dz
+        # both products are stencil launches, counted on the stencil
+        if w is not None:
+            agg = _stencil(dm, x, dia_spmm_stencil, True)
+            dw = (agg.t() @ dz).to(w.dtype)
+            gup = dz @ w.float().t()
+        dmt = ctx.dm_rev if ctx.dm_rev is not None else transpose_dia(dm)
+        dx = _stencil(dmt, gup, dia_spmm_stencil, True).to(x.dtype)
+        return dx, dw, db, None, None, None
+
+
+def dia_spmm_stencil(x: torch.Tensor, dm: DiaMatrix,
+                     dm_rev: Optional[DiaMatrix] = None) -> torch.Tensor:
     """Stencil SpMM ``A @ x`` in x's dtype (f32 accumulation). CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
-    out = _dia_rhs(dm, x, None, None, None, fused=False, out_dtype=x.dtype)
-    if out.is_cuda:
-        dia_spmm_stencil.launches += 1
-    return out
+    take the plain version; CUDA tensors launch the kernel. Differentiable:
+    the backward is the stencil on ``dm_rev`` (Aᵀ; transposed on the fly
+    when None)."""
+    if needs_grad(x):
+        return _DiaSpmm.apply(x, dm, dm_rev)
+    return _dia_rhs(dm, x, None, None, None, False, x.dtype,
+                    dia_spmm_stencil)
 
 
 def dia_gcn_rhs(act, x: torch.Tensor, w: Optional[torch.Tensor],
-                b: Optional[torch.Tensor], dm: DiaMatrix) -> torch.Tensor:
+                b: Optional[torch.Tensor], dm: DiaMatrix,
+                dm_rev: Optional[DiaMatrix] = None) -> torch.Tensor:
     """Fused ``act((Ĉ x) · W + b)``; f32 out, or bf16 when x is bf16. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel.
+    Differentiable in x, W and b; ``dm_rev`` (``cache['dia_norm_rev']``)
+    is Ĉᵀ for the backward."""
+    if needs_grad(x, w, b):
+        return _DiaGcnRhs.apply(x, w, b, dm, dm_rev, act)
     out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    out = _dia_rhs(dm, x, w, b, act, fused=True, out_dtype=out_dtype)
-    if out.is_cuda:
-        dia_gcn_rhs.launches += 1
-    return out
+    return _dia_rhs(dm, x, w, b, act, True, out_dtype, dia_gcn_rhs)
 
 
 dia_spmm_stencil.launches = 0
+dia_spmm_stencil.backward_launches = 0
 dia_gcn_rhs.launches = 0
+dia_gcn_rhs.backward_launches = 0

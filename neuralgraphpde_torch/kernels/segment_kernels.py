@@ -4,7 +4,9 @@ K6: receiver segment-max ``out[i] = max_{e: r_e = i} m_e``.
 K1 replaces ``neuralgraphpde/kernels/segment_kernels.py::
 _tiled_segment_spmm_fwd`` (the Pallas one-hot MXU kernel behind
 ``tiled_segment_spmm``). CUDA source:
-``neuralgraphpde_torch/csrc/segment_spmm.cu``.
+``neuralgraphpde_torch/csrc/segment_spmm.cu``. ``segment_spmm`` is
+differentiable: its backward is the same kernel on the transposed layout
+(``_spmm_bwd`` in the JAX package).
 
 What bounds it on the H100: bytes. Each edge reads one sender row of x
 (F·itemsize bytes, a random row: the gather), its index and weight (8 bytes);
@@ -105,14 +107,10 @@ def segment_spmm_plain(x: torch.Tensor, csr: SegmentCSR) -> torch.Tensor:
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def segment_spmm(x: torch.Tensor, csr: SegmentCSR,
-                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``out[i] = Σ_{e in row i} w_e · x[col_e]`` as ``(num_rows, F)`` in
-    x's dtype. ``compute_dtype`` is the dtype x is read in (default: x's).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    out_dtype = x.dtype
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
+def _segment_spmm_launch(x: torch.Tensor, csr: SegmentCSR,
+                         out_dtype: torch.dtype,
+                         backward: bool = False) -> torch.Tensor:
+    """One K1 call outside autograd (CPU tensors: the plain version)."""
     if x.dim() != 2 or x.shape[0] != csr.num_cols:
         raise ValueError(f"x must be ({csr.num_cols}, F), got "
                          f"{tuple(x.shape)}")
@@ -135,10 +133,55 @@ def segment_spmm(x: torch.Tensor, csr: SegmentCSR,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "segment_spmm")
     segment_spmm.launches += 1
+    segment_spmm.backward_launches += int(backward)
     return out
 
 
+class _SegmentSpmm(torch.autograd.Function):
+    """K1 under autograd. The backward is K1 on the transposed layout
+    (``tcsr_rev``), as ``_spmm_bwd`` in the JAX package; without one (the
+    edge-id layout) it is the gather ``w_e · g[r_e]`` summed onto the
+    columns, which JAX also computes outside its kernel."""
+
+    @staticmethod
+    def forward(ctx, x, csr, csr_rev, compute_dtype):
+        ctx.csr, ctx.csr_rev = csr, csr_rev
+        return _segment_spmm_launch(x.to(compute_dtype or x.dtype), csr,
+                                    x.dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        csr, csr_rev = ctx.csr, ctx.csr_rev
+        g = g.contiguous()
+        if csr_rev is not None:
+            gx = _segment_spmm_launch(g, csr_rev, g.dtype, backward=True)
+        else:
+            msgs = g.index_select(0, csr.rows).float() * csr.weight[:, None]
+            gx = msgs.new_zeros((csr.num_cols, g.shape[1])).index_add_(
+                0, csr.col.to(torch.int64), msgs).to(g.dtype)
+        return gx, None, None, None
+
+
+def segment_spmm(x: torch.Tensor, csr: SegmentCSR,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 csr_rev: Optional[SegmentCSR] = None) -> torch.Tensor:
+    """``out[i] = Σ_{e in row i} w_e · x[col_e]`` as ``(num_rows, F)`` in
+    x's dtype. ``compute_dtype`` is the dtype x is read in (default: x's).
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Differentiable: when x requires grad the call is an
+    ``autograd.Function`` whose backward is K1 on ``csr_rev`` (the
+    transposed layout, ``cache['tcsr_rev']``)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SegmentSpmm.apply(x, csr, csr_rev, compute_dtype)
+    out_dtype = x.dtype
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    return _segment_spmm_launch(x, csr, out_dtype)
+
+
 segment_spmm.launches = 0
+segment_spmm.backward_launches = 0
 
 
 def segment_max_plain(m: torch.Tensor, csr: SegmentCSR) -> torch.Tensor:
@@ -217,7 +260,9 @@ def segment_max_aggregate(m: torch.Tensor, csr: SegmentCSR,
 
 def _check_cuda_inputs(x: torch.Tensor, *tensors: torch.Tensor) -> None:
     """A CUDA call takes contiguous tensors on one card, outside autograd
-    (K1 is forward-only; K6's autograd call runs it with grad off)."""
+    (each differentiable wrapper launches from an ``autograd.Function``,
+    whose forward runs with grad off; ``segment_max`` alone is
+    forward-only)."""
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     for t in (x,) + tensors:
@@ -226,5 +271,6 @@ def _check_cuda_inputs(x: torch.Tensor, *tensors: torch.Tensor) -> None:
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
         if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError("the CUDA kernels are forward-only: run under "
-                               "torch.no_grad() or torch.inference_mode()")
+            raise RuntimeError("this CUDA kernel wrapper is forward-only: "
+                               "call its autograd function, or run under "
+                               "torch.no_grad()")

@@ -11,6 +11,7 @@ from torch import nn
 
 from ..graph.transforms import add_self_loops as _add_self_loops
 from ..graph.transforms import degree as _degree
+from ..kernels.banded_kernels import banded_gcn_rhs, pbanded_gcn_rhs
 from ..kernels.dia_kernels import TF_MAX, dia_gcn_rhs, epilogue_supported
 from ..kernels.fused_mlp_kernels import (fused_mlp_aggregate,
                                          supported_activation)
@@ -26,6 +27,9 @@ from .gnn import (INPUT_KEY, AbstractGNNContainerLayer, AbstractGNNLayer,
                   wrap_input)
 
 Aggr = Union[str, Callable]
+# degree-normalized storage of the fused GCN right-hand side, in the JAX
+# gate's order
+_NORMALIZED = ("dia_norm", "pbanded_norm", "banded_norm")
 
 
 class GCNConv(AbstractGNNLayer):
@@ -33,9 +37,10 @@ class GCNConv(AbstractGNNLayer):
     with optional bias, self-loops and stored or runtime edge weights, and
     the multiply-before-aggregate order when ``out_chs < in_chs``.
 
-    Fused right-hand side: on graphs carrying the normalized stencil
-    (``precompute(..., add_self_loops=True)`` on a grid, ``dia_norm``), the
-    whole layer runs as one DIA kernel call when all of: no edge weights,
+    Fused right-hand side: on graphs carrying degree-normalized storage
+    (``precompute(..., add_self_loops=True)``: ``dia_norm`` on a grid,
+    ``pbanded_norm`` or ``banded_norm`` on a banded mesh), the whole layer
+    runs as one kernel call (K2, K4 or K7) when all of: no edge weights,
     2-D input, an activation the kernel applies (``epilogue_supported``),
     a kernel-side width (``out_chs`` if ``out_chs < in_chs``, else
     ``in_chs``) of at most 512, and a mode that takes kernels (``pallas``,
@@ -70,7 +75,7 @@ class GCNConv(AbstractGNNLayer):
                     f"got {edge_weight.shape[0]})")
 
         if self.add_self_loops and not looped:
-            if any(k in g.cache for k in ("adj", "tcsr", "dia")):
+            if any(k in g.cache for k in ("adj", "tcsr", "banded", "bsr")):
                 warnings.warn(
                     "GCNConv(add_self_loops=True) rebuilds the graph each "
                     "forward, discarding the SpMM structure attached by "
@@ -95,19 +100,23 @@ class GCNConv(AbstractGNNLayer):
 
         w, b = self.weight, self.bias
         premultiply = self.out_chs < self.in_chs
+        norm = next((k for k in _NORMALIZED if k in g.cache), None)
         if (edge_weight is None and not self.use_edge_weight
-                and "dia_norm" in g.cache and x.dim() == 2):
+                and norm is not None and x.dim() == 2):
             mode = get_spmm_mode()
             kernel_width = self.out_chs if premultiply else x.shape[1]
             if (epilogue_supported(self.activation)
                     and kernel_width <= TF_MAX
                     and (mode in ("pallas", "bsr")
                          or (mode == "auto" and kernel_available(x)))):
-                nrm = g.cache["dia_norm"]
+                rhs_fn = (dia_gcn_rhs if norm == "dia_norm" else
+                          pbanded_gcn_rhs if norm == "pbanded_norm" else
+                          banded_gcn_rhs)
+                nrm, nrm_rev = g.cache[norm], g.cache.get(norm + "_rev")
                 if premultiply:
-                    y = dia_gcn_rhs(self.activation, x @ w, None, b, nrm)
+                    y = rhs_fn(self.activation, x @ w, None, b, nrm, nrm_rev)
                 else:
-                    y = dia_gcn_rhs(self.activation, x, w, b, nrm)
+                    y = rhs_fn(self.activation, x, w, b, nrm, nrm_rev)
                 return y.to(x.dtype)
 
         if premultiply:

@@ -1,5 +1,6 @@
 """Scalar-diagonal (DIA / stencil) sparse storage (counterpart of
-``neuralgraphpde.ops.dia``, full DIA only).
+``neuralgraphpde.ops.dia``: full DIA, and the hybrid of DIA and a small COO
+remainder).
 
 A regular grid's adjacency has all nonzeros on a few scalar diagonals: the
 8-neighbour grid with self-loops has exactly 9 offsets. DIA stores one value
@@ -11,7 +12,7 @@ hold identical value sheets, padded to a multiple of 512 rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -122,6 +123,85 @@ def build_dia(
     return DiaMatrix(values=torch.from_numpy(vals).to(dtype),
                      offsets=tuple(int(o) for o in offsets),
                      num_nodes=num_nodes)
+
+
+class DiaRemainder(NamedTuple):
+    """The COO edges a hybrid DIA leaves out (``cache['dia_rem']``),
+    receiver-sorted: ``(senders, receivers, weights)``."""
+
+    senders: torch.Tensor  # (R,) int32
+    receivers: torch.Tensor  # (R,) int32
+    weights: torch.Tensor  # (R,) f32
+
+    def to(self, device) -> "DiaRemainder":
+        return DiaRemainder(*(t.to(device) for t in self))
+
+
+def build_dia_hybrid(
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    num_nodes: int,
+    *,
+    edge_weight: Optional[np.ndarray] = None,
+    max_diags: int = 32,
+    tile: int = 512,
+    dtype=torch.float32,
+    bw_limit: int = 8192,
+    min_fill: float = 0.25,
+    rem_frac: float = 0.05,
+):
+    """Almost-DIA graphs (a periodic grid: the stencil plus its wrap
+    edges): keep the populous diagonals the stencil kernel reaches (fill ≥
+    ``min_fill``·N, |offset| ≤ ``bw_limit``) and spill every other edge to a
+    receiver-sorted COO remainder. Returns ``(DiaMatrix, DiaRemainder)``, or
+    None when no diagonal is kept, nothing is left over, or the remainder
+    exceeds ``rem_frac``·E. The JAX package's numpy code, so the arrays are
+    identical."""
+    senders = np.asarray(senders, np.int64)
+    receivers = np.asarray(receivers, np.int64)
+    E = senders.shape[0]
+    if E == 0:
+        return None
+    w = (np.ones(E, np.float32) if edge_weight is None
+         else np.asarray(edge_weight, np.float32).reshape(-1))
+    d = senders - receivers
+    offsets, inv, counts = np.unique(d, return_inverse=True,
+                                     return_counts=True)
+    good = (np.abs(offsets) <= bw_limit) & (counts >= min_fill * num_nodes)
+    if good.sum() > max_diags:
+        # most populous first among the eligible
+        order = np.argsort(np.where(good, counts, -1))[::-1][:max_diags]
+        good = np.zeros_like(good)
+        good[order] = True
+    if not good.any():
+        return None
+    keep_edge = good[inv.reshape(-1)]
+    rem = ~keep_edge
+    n_rem = int(rem.sum())
+    if n_rem == 0 or n_rem > rem_frac * E:
+        return None
+    dm = build_dia(senders[keep_edge], receivers[keep_edge], num_nodes,
+                   edge_weight=w[keep_edge], max_diags=max_diags, tile=tile,
+                   dtype=dtype)
+    if dm is None:
+        return None
+    rs, rr, rw = senders[rem], receivers[rem], w[rem]
+    order = np.argsort(rr, kind="stable")
+    return dm, DiaRemainder(
+        torch.from_numpy(rs[order].astype(np.int32)),
+        torch.from_numpy(rr[order].astype(np.int32)),
+        torch.from_numpy(rw[order].astype(np.float32)))
+
+
+def dia_remainder_spmm(rem: DiaRemainder, x: torch.Tensor,
+                       num_nodes: int) -> torch.Tensor:
+    """The remainder term ``Σ_{e ∉ DIA} w_e · x[s_e] → r_e``: a gather and
+    an ``index_add_``, differentiated by autograd (JAX differentiates its
+    gather + segment-sum the same way)."""
+    rs, rr, rw = rem
+    msgs = rw[:, None].to(x.dtype) * x.index_select(0, rs)
+    out = msgs.new_zeros((num_nodes, x.shape[1]))
+    return out.index_add_(0, rr, msgs)
 
 
 def transpose_dia(dm: DiaMatrix) -> DiaMatrix:

@@ -9,13 +9,15 @@ Modes, as in the JAX package:
 - ``pallas`` — the receiver-sorted segment-SpMM kernel (K1,
   ``kernels.segment_kernels``; max/min aggregation takes its segment-max
   kernel, K6). The mode keeps its JAX name.
-- ``bsr``    — the DIA stencil kernel (K2, ``kernels.dia_kernels``) on
-  graphs that ``precompute`` found to be stencils.
+- ``bsr``    — structured storage that ``precompute`` found: the DIA
+  stencil kernel (K2, ``kernels.dia_kernels``, plus the hybrid's COO
+  remainder), the packed or dense block-band kernel (K4 / K7,
+  ``kernels.banded_kernels``), or block-sparse rows (plain torch).
 
-``auto`` picks dense if cached, else the stencil if cached, else the segment
-kernel when the features live on the card, else scatter. Each kernel
-wrapper takes its plain PyTorch version for CPU tensors, so a forced mode
-runs anywhere.
+``auto`` picks dense if cached, else structured storage if cached, else the
+segment kernel when the features live on the card, else scatter. Each
+kernel wrapper takes its plain PyTorch version for CPU tensors, so a forced
+mode runs anywhere. Every path is differentiable.
 
 ``precompute(g, ...)`` attaches the structure the fast paths need to
 ``g.cache`` once per graph, with the JAX package's gates.
@@ -28,16 +30,23 @@ import numpy as np
 import torch
 
 from ..graph.gnngraph import GnnGraph
+from ..graph.reorder import rcm_order, reorder_graph
 from ..graph.transforms import (add_self_loops as _add_self_loops, csr_offsets,
                                 degree, sort_by_receiver, to_dense_adjacency)
+from ..kernels.banded_kernels import banded_spmm_pallas, pbanded_spmm_pallas
 from ..kernels.dia_kernels import dia_spmm_stencil
 from ..kernels.segment_kernels import (build_segment_csr,
                                        segment_max_aggregate, segment_spmm)
-from .bsr import host_edges, precompute_bsr
-from .dia import build_dia, transpose_dia
+from .bsr import (DIA_MAX_BANDWIDTH, build_banded, build_packed_banded,
+                  bsr_spmm, dense_band_gate, host_edges, packed_gate,
+                  precompute_bsr)
+from .dia import build_dia, dia_remainder_spmm, plan_dia, transpose_dia
 
 _MODES = ("auto", "xla", "dense", "pallas", "bsr")
 _SPMM_MODE = "auto"
+# Band-count cap after an automatic reorder: RCM'd planar meshes at ~10^5
+# nodes land just past the dense-band builder's 16 (the JAX package's value).
+AUTO_REORDER_MAX_BANDS = 24
 
 
 def set_spmm_mode(mode: str) -> None:
@@ -59,6 +68,40 @@ def kernel_available(x: torch.Tensor) -> bool:
     return x.is_cuda
 
 
+def _structured(s, r, n, tb, max_bands: int) -> bool:
+    """Whether ``precompute_bsr`` finds DIA, packed or dense-band storage
+    for these edges (its own gates)."""
+    plan = plan_dia(s, r, n)
+    if plan is not None and (
+            (plan.full_ok and plan.full_bw <= DIA_MAX_BANDWIDTH)
+            or plan.hybrid_ok):
+        return True
+    return (dense_band_gate(s, r, n, tb, max_bands)[0]
+            or packed_gate(s, r, n)[0])
+
+
+def _try_auto_reorder(g: GnnGraph, tb: int):
+    """RCM-renumber ``g`` when, and only when, that unlocks a banded, DIA
+    or packed structure the graph does not have as labeled. Returns
+    ``(graph, order, edge_perm)``, ``order = None`` when nothing changed;
+    ``edge_perm`` is the receiver re-sort's edge permutation (new slot
+    ``k`` holds old edge ``edge_perm[k]``)."""
+    s, r = host_edges(g)
+    n = g.num_nodes
+    if n < 4 * tb or g.num_edges == 0:
+        return g, None, None
+    if _structured(s, r, n, tb, 16):
+        return g, None, None  # already structured
+    order = rcm_order(s, r, n)
+    inv = np.empty(n, np.int64)
+    inv[order] = np.arange(n, dtype=np.int64)
+    s2, r2 = inv[s.astype(np.int64)], inv[r.astype(np.int64)]
+    if not _structured(s2, r2, n, tb, AUTO_REORDER_MAX_BANDS):
+        return g, None, None  # expander-like: no narrow ordering exists
+    g2, eperm = reorder_graph(g, order, return_edge_perm=True)
+    return g2, order, eperm
+
+
 def precompute(
     g: GnnGraph,
     *,
@@ -73,6 +116,7 @@ def precompute(
     add_self_loops: bool = False,
     gcn_fused: Optional[bool] = None,
     dia: bool = True,
+    auto_reorder: bool = False,
 ) -> GnnGraph:
     """Attach SpMM structure to ``g.cache``; the result lives on ``g``'s
     device.
@@ -82,25 +126,33 @@ def precompute(
     - ``tcsr``/``tcsr_rev``/``tcsr_edges``: the segment kernel's CSR
       layouts (forward, transposed for the backward, and edge-indexed for
       per-edge messages); ``edge_weight`` is baked into the first two.
-    - ``dia``/``dia_rev``: full-DIA stencil storage, tried on graphs that
+    - structured storage (``ops.bsr.precompute_bsr``), tried on graphs that
       are not dense and have at least ``4 * bsr_tb`` nodes (or when
-      ``bsr=True``).
-    - ``dia_norm``/``dia_norm_rev``: the degree-normalized stencil
-      ``C·Ã·C`` for the fused GCN right-hand side, built by default when
-      ``add_self_loops=True`` (``gcn_fused``).
+      ``bsr=True``): hybrid DIA (``dia``/``dia_rev``/``dia_rem``), full DIA,
+      packed block bands (``pbanded``/``pbanded_rev``), dense block bands
+      (``banded``/``banded_rev``, at most ``max_bands`` = 16, or 24 after a
+      reorder) or block-sparse rows (``bsr``).
+    - the degree-normalized storage ``C·Ã·C`` for the fused GCN right-hand
+      side (``dia_norm``, ``pbanded_norm`` or ``banded_norm``, each with its
+      ``*_rev``), built by default when ``add_self_loops=True``
+      (``gcn_fused``), but not on hybrid graphs or with ``edge_weight``.
+
+    ``auto_reorder=True``: when the graph is not banded, DIA or packed as
+    labeled but an RCM renumbering makes it so (meshes with scrambled
+    labels), the nodes are relabeled first and ``cache['node_order']``
+    holds the old id of each new node. THE NODE IDS CHANGE: permute
+    per-node inputs with ``graph.reorder.permute_nodes(x, order)`` and map
+    outputs back with ``unpermute_nodes``.
 
     ``add_self_loops=True`` adds the loops first and marks the cache, so
-    ``GCNConv(add_self_loops=True)`` keeps the fast path. ``edge_weight``
-    is given in ``g``'s edge order (after the loops, if added).
+    ``GCNConv(add_self_loops=True)`` keeps the fast path; ``orig_edge_pos``
+    records where each original edge landed. ``edge_weight`` is given in
+    ``g``'s edge order (after the loops, if added).
     """
     device = g.device
     orig_edges = g.num_edges
     if add_self_loops:
         g = _add_self_loops(g)
-    if dense is None:
-        dense = g.num_nodes <= dense_threshold_nodes
-    if pallas is None:
-        pallas = not dense
     ew = None
     if edge_weight is not None:
         ew = np.asarray(torch.as_tensor(edge_weight).cpu(),
@@ -108,26 +160,42 @@ def precompute(
         if ew.shape[0] != g.num_edges:
             raise ValueError(f"edge_weight has {ew.shape[0]} entries, the "
                              f"graph {g.num_edges} edges")
+    node_order = edge_perm = None
+    if auto_reorder:
+        g, node_order, edge_perm = _try_auto_reorder(g, bsr_tb)
+        if edge_perm is not None and ew is not None:
+            ew = ew[edge_perm]
+    if dense is None:
+        dense = g.num_nodes <= dense_threshold_nodes
+    if pallas is None:
+        pallas = not dense
     perm = None
     if csr and not g.receivers_sorted:
         g, perm = sort_by_receiver(g, return_perm=True)
         if ew is not None:
             ew = ew[perm]
     cache = dict(g.cache)
+    if node_order is not None:
+        cache["node_order"] = torch.as_tensor(node_order, dtype=torch.int32)
     if add_self_loops:
         cache["self_looped"] = True
-        # where each original edge landed in the sorted edge order: runtime
+        # where each original edge landed in the final (reordered, sorted)
+        # edge order: slot k holds old edge edge_perm[perm[k]]; runtime
         # weights for the original edges are scattered there (loops get 1)
-        if perm is None:
+        comb = edge_perm
+        if perm is not None:
+            comb = perm if comb is None else np.asarray(comb)[perm]
+        if comb is None:
             pos = np.arange(orig_edges)
         else:
-            inv = np.empty(len(perm), np.int64)
-            inv[perm] = np.arange(len(perm))
+            inv = np.empty(len(comb), np.int64)
+            inv[comb] = np.arange(len(comb))
             pos = inv[:orig_edges]
         cache["orig_edge_pos"] = torch.as_tensor(pos, dtype=torch.int32)
     cache["in_degree"] = degree(
         g, torch.float32, direction="in",
-        edge_weight=None if ew is None else torch.from_numpy(ew).to(device))
+        edge_weight=None if ew is None else torch.from_numpy(ew).to(
+            g.device))
     if dense:
         cache["adj"] = to_dense_adjacency(g, dtype=adj_dtype)
     if csr:
@@ -142,20 +210,38 @@ def precompute(
             num_cols=g.num_edges)
     g = g.copy(cache=cache)
     if bsr or (bsr is None and not dense and g.num_nodes >= 4 * bsr_tb):
-        g = precompute_bsr(g, edge_weight=ew, dia=dia)
+        g = precompute_bsr(
+            g, tb=bsr_tb, edge_weight=ew, dia=dia,
+            max_bands=AUTO_REORDER_MAX_BANDS if node_order is not None else 16)
         if ((gcn_fused or (gcn_fused is None and add_self_loops))
-                and "dia" in g.cache and edge_weight is None):
-            # degree normalization baked into the stencil values, paid once
-            # here instead of twice per right-hand-side evaluation
-            d = g.cache["in_degree"].cpu().numpy().astype(np.float64)
-            c = np.where(d > 0, 1.0 / np.sqrt(np.maximum(d, 1e-30)), 0.0)
-            s, r = host_edges(g)
-            vals = (c[r] * c[s]).astype(np.float32)
-            dn = build_dia(s, r, g.num_nodes, edge_weight=vals,
-                           dtype=g.cache["dia"].values.dtype)
-            g = g.copy(cache={**g.cache, "dia_norm": dn,
-                              "dia_norm_rev": transpose_dia(dn)})
+                and any(k in g.cache for k in ("banded", "dia", "pbanded"))
+                and "dia_rem" not in g.cache and edge_weight is None):
+            g = g.copy(cache={**g.cache, **_normalized_storage(g, bsr_tb)})
     return g.to(device)
+
+
+def _normalized_storage(g: GnnGraph, tb: int) -> dict:
+    """The degree-normalized ``C·Ã·C`` (C = D^-1/2) of the structured
+    storage ``g`` carries, and its transpose: the two per-stage degree
+    scalings of the GCN right-hand side become stored values."""
+    d = g.cache["in_degree"].cpu().numpy().astype(np.float64)
+    c = np.where(d > 0, 1.0 / np.sqrt(np.maximum(d, 1e-30)), 0.0)
+    s, r = host_edges(g)
+    n = g.num_nodes
+    vals = (c[r] * c[s]).astype(np.float32)
+    if "dia" in g.cache:
+        dn = build_dia(s, r, n, edge_weight=vals,
+                       dtype=g.cache["dia"].values.dtype)
+        return {"dia_norm": dn, "dia_norm_rev": transpose_dia(dn)}
+    if "pbanded" in g.cache:
+        pb = g.cache["pbanded"]
+        kw = dict(tb=pb.tb, tb_rows=pb.row_height, edge_weight=vals,
+                  dtype=pb.blocks.dtype)
+        return {"pbanded_norm": build_packed_banded(s, r, n, **kw),
+                "pbanded_norm_rev": build_packed_banded(r, s, n, **kw)}
+    kw = dict(tb=tb, edge_weight=vals, dtype=g.cache["banded"].bands.dtype)
+    return {"banded_norm": build_banded(s, r, n, **kw),
+            "banded_norm_rev": build_banded(r, s, n, **kw)}
 
 
 def segment_sum_pallas(g: GnnGraph, messages: torch.Tensor) -> torch.Tensor:
@@ -193,7 +279,7 @@ def spmm_dense(g: GnnGraph, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmm_pallas(g: GnnGraph, x: torch.Tensor) -> torch.Tensor:
-    return segment_spmm(x, g.cache["tcsr"])
+    return segment_spmm(x, g.cache["tcsr"], csr_rev=g.cache.get("tcsr_rev"))
 
 
 def spmm_pallas_weighted(g: GnnGraph, x: torch.Tensor,
@@ -205,6 +291,26 @@ def spmm_pallas_weighted(g: GnnGraph, x: torch.Tensor,
     return segment_sum_pallas(g, m)
 
 
+_STRUCTURED = ("dia", "banded", "pbanded", "bsr")
+
+
+def spmm_structured(g: GnnGraph, x: torch.Tensor) -> torch.Tensor:
+    """The ``bsr`` mode, in the JAX package's order: DIA stencil (plus the
+    hybrid's COO remainder), packed block bands, dense block bands,
+    block-sparse rows."""
+    c = g.cache
+    if "dia" in c:
+        y = dia_spmm_stencil(x, c["dia"], c.get("dia_rev"))
+        if "dia_rem" in c:
+            y = y + dia_remainder_spmm(c["dia_rem"], x, g.num_nodes)
+        return y
+    if "pbanded" in c:
+        return pbanded_spmm_pallas(x, c["pbanded"], c.get("pbanded_rev"))
+    if "banded" in c:
+        return banded_spmm_pallas(x, c["banded"], c.get("banded_rev"))
+    return bsr_spmm(c["bsr"], x)
+
+
 def spmm(g: GnnGraph, x: torch.Tensor,
          edge_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Receiver sum of (optionally weighted) sender features, dispatched per
@@ -213,10 +319,11 @@ def spmm(g: GnnGraph, x: torch.Tensor,
     weighted = edge_weight is not None
     two_d = x.dim() == 2
     kernel = kernel_available(x)
+    structured = any(k in g.cache for k in _STRUCTURED)
     if mode == "auto":
         if "adj" in g.cache and not weighted:
             mode = "dense"
-        elif "dia" in g.cache and two_d and not weighted:
+        elif structured and two_d and not weighted:
             mode = "bsr"
         elif "tcsr" in g.cache and two_d and not weighted and kernel:
             mode = "pallas"
@@ -230,14 +337,14 @@ def spmm(g: GnnGraph, x: torch.Tensor,
             "tcsr_edges" not in g.cache if weighted
             else "tcsr" not in g.cache)):
         mode = "xla"
-    if mode == "bsr" and ("dia" not in g.cache or not two_d or weighted):
-        # runtime weights cannot ride the stored stencil values
+    if mode == "bsr" and (not structured or not two_d or weighted):
+        # runtime weights cannot ride the stored values
         mode = ("pallas" if weighted and "tcsr_edges" in g.cache and two_d
                 and kernel else "xla")
     if mode == "dense":
         return spmm_dense(g, x)
     if mode == "bsr":
-        return dia_spmm_stencil(x, g.cache["dia"])
+        return spmm_structured(g, x)
     if mode == "pallas":
         if weighted:
             return spmm_pallas_weighted(g, x, edge_weight)

@@ -28,6 +28,15 @@ device events: kernels, copies and sets.
 - MP-PDE (path E): one config-3 Adam step (``train_mppde_burgers``
   defaults: 4 windows of one simulation, 2 model calls each, 6 convs: 48
   K3 forwards and 48 backwards).
+- Path F: one GRAND Adam step (masked cross-entropy, lr 1e-2) on the
+  2^17-point scrambled-label Delaunay mesh after ``precompute(
+  add_self_loops=True, dense=False, auto_reorder=True)``: RCM, then packed
+  block bands, every GCN layer one fused K4 call forward and two K4 SpMMs
+  in the backward; ``xla`` is the gather/scatter path on the same
+  relabeled graph. Beside it, K4 and K7 (the 12,000-point mesh) per call:
+  the SpMM and the fused right-hand side, each forward and as a training
+  pair, against the plain versions, and K1 and ``torch.sparse.mm`` on the
+  same CSR.
 
 Each path runs on its kernel path (``auto``), the ``xla`` path, then the
 kernel path again (B's plain-stencil path once, on ``auto``). Each run: one
@@ -61,6 +70,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 KERNEL_REPS = 20
 BENCH_POINTS = 1 << 15
 GNO_N_BENCH = 64
+REORD_POINTS = 1 << 17  # the JAX bench.py reord mesh
+K7_POINTS = 12000
 
 
 def device_events(prof) -> list:
@@ -269,6 +280,104 @@ def k6_times(dev, mppde_graph) -> dict:
     return out
 
 
+def scrambled_mesh(points: int, dev):
+    """``precompute(add_self_loops=True, dense=False, auto_reorder=True)`` of
+    the Delaunay mesh of ``points`` ``default_rng(0)`` points, on ``dev``."""
+    from ..graph.builders import delaunay_graph
+    from ..ops.spmm import precompute
+
+    pts = np.random.default_rng(0).random((points, 2)).astype(np.float32)
+    return precompute(delaunay_graph(pts), add_self_loops=True, dense=False,
+                      auto_reorder=True).to(dev)
+
+
+def band_times(dev, meshes) -> dict:
+    """K4/K7 and their plain versions on each ``(label, graph, kind)``
+    mesh, F = 128 (the fused right-hand side: tanh, W 128×128, b), with K1
+    and ``torch.sparse.mm`` on the same relabeled CSR."""
+    import warnings
+
+    from ..kernels import banded_kernels as BK
+    from ..kernels.segment_kernels import segment_spmm
+
+    rng = np.random.default_rng(7)
+    out = {}
+    for label, g, kind in meshes:
+        st, st_rev = g.cache[kind], g.cache[kind + "_rev"]
+        nrm, nrm_rev = g.cache[kind + "_norm"], g.cache[kind + "_norm_rev"]
+        spmm = (BK.pbanded_spmm_pallas if kind == "pbanded"
+                else BK.banded_spmm_pallas)
+        rhs = BK.pbanded_gcn_rhs if kind == "pbanded" else BK.banded_gcn_rhs
+        n = st.num_nodes
+        x, gy = _put(rng, dev, n, 128), _put(rng, dev, n, 128)
+        w, b = _put(rng, dev, 128, 128, scale=128 ** -0.5), _put(
+            rng, dev, 1, 128, scale=0.1)
+        csr = g.cache["tcsr"]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            a = torch.sparse_csr_tensor(csr.row_ptr, csr.col, csr.weight,
+                                        size=(n, n))
+
+        def pair(fn, *inputs):
+            def run():
+                leaves = [t.detach().requires_grad_() for t in inputs]
+                return torch.autograd.grad(fn(*leaves), leaves, gy)
+            return run
+
+        head = (f"{'K4' if kind == 'pbanded' else 'K7'} {label} (N={n}, "
+                f"S={st.blocks.shape[0]}, nb={st.nb}, "
+                f"{st.row_height}x{st.tb}, F=128)")
+        out.update(per_calls(head, {
+            "spmm kernel": lambda: spmm(x, st),
+            "spmm plain": lambda: BK.block_rhs_plain(st, x, None, None, None,
+                                                     False),
+            "rhs kernel": lambda: rhs("tanh", x, w, b, nrm),
+            "rhs plain": lambda: BK.block_rhs_plain(nrm, x, w, b, "tanh",
+                                                    True),
+            "rhs fwd+bwd kernels": pair(lambda xx, ww, bb: rhs(
+                "tanh", xx, ww, bb, nrm, nrm_rev), x, w, b),
+            "rhs fwd+bwd plain (autograd)": pair(
+                lambda xx, ww, bb: BK.block_rhs_plain(nrm, xx, ww, bb,
+                                                      "tanh", True), x, w, b),
+            "spmm fwd+bwd kernels": pair(lambda xx: spmm(xx, st, st_rev), x),
+            "K1 on the same CSR": lambda: segment_spmm(x, csr),
+            "torch.sparse.mm on the same CSR": lambda: torch.sparse.mm(a, x),
+        }))
+        del a
+    return out
+
+
+def mesh_adam_step(dev, g):
+    """Path F: one GRAND (128 → 128 → 7) Adam step on the relabeled mesh
+    ``g``, features, labels and a 10% train mask drawn in the original
+    numbering and permuted with ``permute_nodes``."""
+    from ..graph.reorder import permute_nodes
+    from ..models.grand import grand_model
+    from ..train.loop import make_train_step
+    from ..train.losses import masked_cross_entropy
+    from ..train.optim import adam
+    from ..utils.state import update_graph
+
+    n = g.num_nodes
+    order = g.cache["node_order"].cpu().numpy()
+    rng = np.random.default_rng(3)
+    x, y, m = (torch.from_numpy(permute_nodes(a, order)).to(dev) for a in (
+        rng.normal(size=(n, 128)).astype(np.float32),
+        rng.integers(0, 7, n), rng.random(n) < 0.1))
+    model = grand_model(128, 128, 7, precomputed_self_loops=True,
+                        generator=torch.Generator().manual_seed(3),
+                        device=dev)
+    update_graph(model, g)
+    step = make_train_step(lambda: masked_cross_entropy(model(x), y, m),
+                           adam(model.parameters(), 1e-2))
+
+    def fn():
+        loss, _ = step()
+        st = model.layer_2.last_stats
+        return dict(loss=float(loss), nfe=st["nfe"], accepted=st["accepted"])
+    return fn
+
+
 def path_profile(label: str, mode: str, fn) -> dict:
     """One path in one mode: a warm-up run, a timed run, a profiled run.
     ``fn`` runs the path once and returns a dict of facts to record."""
@@ -383,6 +492,10 @@ def main() -> int:
                                       mppde_model.graph))
     result["kernels"].update(k5_times(dev, gno_model.graph))
     result["kernels"].update(k6_times(dev, mppde_model.graph))
+    reord = scrambled_mesh(REORD_POINTS, dev)
+    result["kernels"].update(band_times(dev, [
+        ("2^17 points", reord, "pbanded"),
+        (f"{K7_POINTS} points", scrambled_mesh(K7_POINTS, dev), "banded")]))
 
     def vmh_epoch():
         loss, stats = T.full_batch_grad(vmh_model, vmh_u)
@@ -413,7 +526,9 @@ def main() -> int:
     runs = grand_runs(dev) + [("VMH epoch gradient (K3)", both, vmh_epoch),
                               ("GNO Adam step (K5)", both, gno_step),
                               ("MP-PDE Adam step (E, K3)", both,
-                               mppde_adam_step)]
+                               mppde_adam_step),
+                              ("GRAND Adam step, 2^17 mesh (F, K4)", both,
+                               mesh_adam_step(dev, reord))]
     for label, modes, fn in runs:
         for mode in modes:
             result["paths"].append(path_profile(label, mode, fn))

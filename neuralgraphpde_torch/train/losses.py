@@ -1,8 +1,27 @@
-"""Loss functions for PDE training (counterparts of ``mse`` and
-``rollout_mse`` in ``neuralgraphpde.train.losses``)."""
+"""Loss functions (counterparts of ``neuralgraphpde.train.losses``): masked
+softmax cross-entropy and accuracy for node classification, MSE and rollout
+MSE for PDE training."""
 from __future__ import annotations
 
 import torch
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood over the masked nodes: logits ``(N,
+    C)``, integer labels ``(N,)``, boolean mask ``(N,)``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, labels.to(torch.int64)[:, None])[:, 0]
+    mask = mask.to(logits.dtype)
+    return -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    """Share of the masked nodes whose arg-max logit is their label."""
+    hit = (logits.argmax(-1) == labels).to(torch.float32)
+    mask = mask.to(torch.float32)
+    return (hit * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -145,7 +145,9 @@ def test_port_imports_no_jax():
     code = (
         "import sys; import neuralgraphpde_torch, chip_smoke; "
         "import neuralgraphpde_torch.examples.train_vmh, "
-        "neuralgraphpde_torch.examples.train_gno_darcy; "
+        "neuralgraphpde_torch.examples.train_gno_darcy, "
+        "neuralgraphpde_torch.examples.train_mppde_burgers, "
+        "neuralgraphpde_torch.examples.train_grand_cora; "
         "import neuralgraphpde_torch.tools.profile_paths, "
         "neuralgraphpde_torch.tools.time_build; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -1,7 +1,9 @@
 """K1 (segment SpMM), K2 (DIA stencil / fused GCN RHS) and K6 (segment
 max): the port's plain versions against the JAX Pallas kernels in
-interpret mode on the CPU, and the CUDA kernels (K1, K2, K6, and K3 and K5
-forward and backward) against the plain versions on a card. K3's CPU
+interpret mode on the CPU, and the CUDA kernels (K1, K2, K6, K4 and K7, and
+K3 and K5 forward and backward; K1, K2, K4 and K7 also under autograd)
+against the plain versions on a card. K4/K7's CPU parity with JAX is in
+``test_torch_banded.py``. K3's CPU
 parity with JAX is in ``test_torch_vmh.py``, K5's in ``test_torch_gno.py``;
 here K5's plain forward is also held to a per-edge numpy loop.
 
@@ -28,7 +30,9 @@ torch = pytest.importorskip("torch")
 # workers at once, and many small ops gain nothing from more threads
 torch.set_num_threads(1)
 
+import neuralgraphpde_torch as P  # noqa: E402
 from neuralgraphpde_torch import add_self_loops, grid_graph_2d  # noqa: E402
+from neuralgraphpde_torch.kernels import banded_kernels as BK  # noqa: E402
 from neuralgraphpde_torch.kernels import fused_mlp_kernels as K3  # noqa
 from neuralgraphpde_torch.kernels import gno_kernels as K5  # noqa: E402
 from neuralgraphpde_torch.kernels.dia_kernels import (  # noqa: E402
@@ -389,10 +393,187 @@ def test_k6_kernel_matches_plain_cuda(cuda, n, e, f):
 
 @pytest.mark.cuda
 def test_kernels_refuse_autograd_cuda(cuda):
+    """The forward-only K6 wrapper refuses a CUDA input that requires grad
+    (its autograd call is ``segment_max_aggregate``); K1 and K2 are
+    differentiable: their wrappers take such an input through their
+    ``autograd.Function`` and launch the kernel in the backward too."""
     s, r, n = _grid()
-    x = torch.zeros(n, 8, device=cuda, requires_grad=True)
+    edges = build_segment_csr(np.arange(len(r)), r, n,
+                              num_cols=len(r)).to(cuda)
+    m = torch.zeros(len(r), 8, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward-only"):
-        segment_spmm(x, build_segment_csr(s, r, n).to(cuda))
+        segment_max(m, edges)
+    x = torch.randn(n, 8, device=cuda, requires_grad=True)
+    launches = segment_spmm.launches
+    segment_spmm(x, build_segment_csr(s, r, n).to(cuda),
+                 csr_rev=build_segment_csr(r, s, n).to(cuda)).sum().backward()
+    assert segment_spmm.launches == launches + 2
+    assert torch.isfinite(x.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,dtype", [(64, torch.float32), (30, torch.float32),
+                                     (128, torch.bfloat16)])
+def test_k1_k2_backward_cuda(cuda, f, dtype):
+    """K1's backward (the kernel on the transposed CSR) and K2's (the
+    stencil on ``dia_rev``; the fused VJP with the aggregate recomputed and
+    ``dx`` on ``dia_norm_rev``) against autograd through the plain versions:
+    1e-5 (bf16: 2e-2) of the largest entry for ``dx``, 1e-4 for ``dW`` and
+    ``db``."""
+    s, r, w_e, rng = _edges(3000, 40000, 17)
+    csr = build_segment_csr(s, r, 3000, edge_weight=w_e).to(cuda)
+    csr_rev = build_segment_csr(r, s, 3000, edge_weight=w_e).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(3000, f)).astype(np.float32)).to(
+        cuda, dtype)
+    g = torch.randn(3000, f, device=cuda).to(dtype)
+    bound = 1e-5 if dtype == torch.float32 else BF16
+    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    segment_spmm(xk, csr, csr_rev=csr_rev).backward(g)
+    segment_spmm_plain(xp, csr).to(dtype).backward(g)
+    assert _rel(xk.grad.cpu().float(), xp.grad.cpu().float()) <= bound
+    gs, gr, gn = _grid()
+    dm = build_dia(gs, gr, gn, edge_weight=rng.random(len(gs)))
+    dm, dm_rev = dm.to(cuda), transpose_dia(dm).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(gn, 40)).astype(np.float32)).to(
+        cuda)
+    w = torch.from_numpy(rng.normal(size=(40, 70)).astype(np.float32) / 6
+                         ).to(cuda)
+    b = torch.randn(1, 70, device=cuda)
+    g = torch.randn(gn, 70, device=cuda)
+    leaves_k = [t.clone().requires_grad_() for t in (x, w, b)]
+    leaves_p = [t.clone().requires_grad_() for t in (x, w, b)]
+    fused0 = dia_gcn_rhs.launches
+    stencil0 = dia_spmm_stencil.backward_launches
+    dia_gcn_rhs("tanh", *leaves_k, dm, dm_rev).backward(g)
+    assert dia_gcn_rhs.launches == fused0 + 1
+    assert dia_spmm_stencil.backward_launches == stencil0 + 2
+    dia_rhs_plain(dm, leaves_p[0], leaves_p[1], leaves_p[2], "tanh", True,
+                  torch.float32).backward(g)
+    for k, p, bd in zip(leaves_k, leaves_p, (1e-5, 1e-4, 1e-4)):
+        assert _rel(k.grad.cpu(), p.grad.cpu()) <= bd
+    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    dia_spmm_stencil(xk, dm, dm_rev).backward(g[:, :40])
+    dia_rhs_plain(dm, xp, None, None, None, False,
+                  torch.float32).backward(g[:, :40])
+    assert _rel(xk.grad.cpu(), xp.grad.cpu()) <= 1e-5
+
+
+def _k4_k7_case(cuda, kind, dtype, seed=18):
+    """An RCM-relabeled Delaunay mesh of 3,000 points in packed (512 × 128)
+    or dense (256 × 256) block bands, with its transpose, on the card."""
+    from neuralgraphpde_torch.graph.reorder import rcm_order
+    from neuralgraphpde_torch.ops.bsr import (build_banded,
+                                              build_packed_banded)
+
+    rng = np.random.default_rng(seed)
+    g = P.delaunay_graph(rng.random((3000, 2)).astype(np.float32))
+    s, r = g.host_coo
+    order = rcm_order(s, r, 3000)
+    inv = np.empty(3000, np.int64)
+    inv[order] = np.arange(3000)
+    s, r = inv[s], inv[r]
+    w = rng.uniform(0.5, 1.5, len(s)).astype(np.float32)
+    if kind == "pbanded":
+        kw = dict(tb=128, tb_rows=512, edge_weight=w, dtype=dtype)
+        st, st_rev = (build_packed_banded(s, r, 3000, **kw),
+                      build_packed_banded(r, s, 3000, **kw))
+    else:
+        kw = dict(tb=256, edge_weight=w, dtype=dtype, max_bands=24)
+        st, st_rev = (build_banded(s, r, 3000, **kw),
+                      build_banded(r, s, 3000, **kw))
+    return st.to(cuda), st_rev.to(cuda), rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pbanded", "banded"])
+@pytest.mark.parametrize("f,dtype", [(128, torch.float32),
+                                     (40, torch.float32),
+                                     (300, torch.float32),
+                                     (128, torch.bfloat16)])
+def test_k4_k7_kernels_match_plain_cuda(cuda, kind, f, dtype):
+    """The SpMM and the fused right-hand side (tanh with W and b, relu with
+    W and no b, sigmoid with no W) against ``block_rhs_plain`` on the same
+    inputs: 1e-5 (bf16 storage: 2e-2) of the largest value; each call
+    launches once."""
+    st, _, rng = _k4_k7_case(cuda, kind, dtype)
+    spmm = (BK.pbanded_spmm_pallas if kind == "pbanded"
+            else BK.banded_spmm_pallas)
+    rhs = BK.pbanded_gcn_rhs if kind == "pbanded" else BK.banded_gcn_rhs
+    x = torch.from_numpy(rng.normal(size=(3000, f)).astype(np.float32)).to(
+        cuda)
+    w = torch.from_numpy((rng.normal(size=(f, 70)) / np.sqrt(f)).astype(
+        np.float32)).to(cuda)
+    b = torch.randn(1, 70, device=cuda)
+    wc = w.to(dtype)
+    xc = x.to(dtype)
+    bound = 1e-5 if dtype == torch.float32 else BF16
+    cases = [
+        (lambda: spmm(x, st), lambda: BK.block_rhs_plain(
+            st, xc, None, None, None, False), spmm),
+        (lambda: rhs("tanh", x, w, b, st), lambda: BK.block_rhs_plain(
+            st, xc, wc, b, "tanh", True), rhs),
+        (lambda: rhs("relu", x, w, None, st), lambda: BK.block_rhs_plain(
+            st, xc, wc, None, "relu", True), rhs),
+        (lambda: rhs("sigmoid", x, None, b[:, :1].expand(1, f).contiguous(),
+                     st),
+         lambda: BK.block_rhs_plain(st, xc, None, b[:, :1].expand(1, f),
+                                    "sigmoid", True), rhs)]
+    for kernel, plain, fn in cases:
+        launches = fn.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        assert fn.launches == launches + 1
+        want = plain()
+        assert got.shape == want.shape
+        assert _rel(got.cpu().float(), want.cpu().float()) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pbanded", "banded"])
+def test_k4_k7_autograd_cuda(cuda, kind):
+    """The VJPs on the card (the kernel on the transpose; the fused
+    right-hand side's aggregate recomputed for dW) against autograd through
+    the plain version: ``dx`` within 1e-5, ``dW``/``db`` within 1e-4 of
+    their largest entry; the fused call's backward launches the SpMM twice
+    (counted on the SpMM wrapper), the SpMM's once."""
+    st, st_rev, rng = _k4_k7_case(cuda, kind, torch.float32, seed=19)
+    spmm = (BK.pbanded_spmm_pallas if kind == "pbanded"
+            else BK.banded_spmm_pallas)
+    rhs = BK.pbanded_gcn_rhs if kind == "pbanded" else BK.banded_gcn_rhs
+
+    def put(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(cuda)
+
+    x, w, b, g = put(3000, 128), put(128, 128, scale=0.1), put(1, 128), put(
+        3000, 128)
+    leaves_k = [t.clone().requires_grad_() for t in (x, w, b)]
+    leaves_p = [t.clone().requires_grad_() for t in (x, w, b)]
+    fwd0, bwd0 = rhs.launches, spmm.backward_launches
+    rhs("tanh", *leaves_k, st, st_rev).backward(g)
+    assert rhs.launches == fwd0 + 1 and rhs.backward_launches == 0
+    assert spmm.backward_launches == bwd0 + 2
+    BK.block_rhs_plain(st, *leaves_p, "tanh", True).backward(g)
+    for k, p, bd in zip(leaves_k, leaves_p, (1e-5, 1e-4, 1e-4)):
+        assert _rel(k.grad.cpu(), p.grad.cpu()) <= bd
+    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    bwd0 = spmm.backward_launches
+    spmm(xk, st, st_rev).backward(g)
+    assert spmm.backward_launches == bwd0 + 1
+    BK.block_rhs_plain(st, xp, None, None, None, False).backward(g)
+    assert _rel(xk.grad.cpu(), xp.grad.cpu()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_k4_k7_envelope_raises_cuda(cuda):
+    """The fused kernel takes F ≤ 512: a wider input raises on the card,
+    with no launch and no plain version."""
+    st, _, rng = _k4_k7_case(cuda, "pbanded", torch.float32)
+    x = torch.zeros(3000, 513, device=cuda)
+    launches = BK.pbanded_gcn_rhs.launches
+    with pytest.raises(ValueError, match="F ≤ 512"):
+        BK.pbanded_gcn_rhs("tanh", x, None, None, st)
+    assert BK.pbanded_gcn_rhs.launches == launches
 
 
 def _k3_case(cuda, acts, dims, seed=9):
