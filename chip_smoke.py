@@ -13,8 +13,15 @@ Phases, each fatal on failure:
    computes the same function, of that call (``library``:
    ``torch.sparse.mm`` on the CSR for K1 and the plain DIA stencil,
    ``scatter_reduce_`` for K6), and the least time the card could take
-   (``bound``: the compulsory bytes over 3.35 TB/s or the f32 operations
-   over 67 TFLOP/s, whichever is larger; H100 SXM data sheet).
+   (``bound``: the compulsory bytes over 3.35 TB/s or the operations over
+   67 TFLOP/s in f32, 989 TFLOP/s where every operand is bf16, whichever
+   is larger; H100 SXM data sheet). K3, K5 and K6 also in their bf16
+   forms, each against its plain version fed the same operands: K3 with
+   bf16 weights and bf16 or f32 features, K5 with bf16 weights and ``ph``
+   and ``h`` in bf16 or f32 (the precision policy leaves f32 graph data
+   f32, so its features often stay f32), forward and every gradient within
+   1e-2 of its own largest entry, in the JAX kernels' output dtypes; K6 on
+   bf16 messages, forward and backward equal bit for bit.
    The fused edge-MLP kernels (K3) at the VMH mesh (3,000 nodes) and at
    2^15 Delaunay points, widths 4→60→60→60 tanh (the resident variant), at
    the MP-PDE ϕ on the Burgers chain (1,024 edges, 282→128 swish) and at
@@ -111,10 +118,35 @@ Phases, each fatal on failure:
    and 48 times backward (4 windows × 2 calls × 6 convs), with finite
    losses; the first simulation's rollout RMSE.
 
-The line before the last is ``{"kernels": [...]}`` (twelve kernels, the
-K1, K2, K4 and K7 entries with their launches in each gradient run and the
-part of them made in the backward: the fused right-hand sides' backward
-launches are SpMM launches, counted on the SpMM); the last is
+10. The bf16 precision policy on the paths above, each against the same
+   model on the ``xla`` path in bf16 (loss rel ≤ 1e-2, each gradient
+   within 5e-2 of its own largest entry; each kernel's bf16 launches
+   counted from 0 over the kernel-path run): ``bf16(VMHConv)`` at
+   ``bench.py``'s VMH case (2^15 Delaunay points, hidden 60, message 40;
+   forward and the gradient of ``sum(y²)``, K3 resident), timed beside the
+   f32 layer; ``NeuralGraphODE(bf16(VMHConv))`` at config 2 (the epoch-1
+   gradient with the accepted and rejected steps per sim of the bf16 K3,
+   bf16 xla and f32 runs, then one Rprop epoch); ``bf16(GNOModel)`` at
+   config 4 (batch-1 gradient, K5); ``bf16(MPPDEConv(aggr="max"))`` at the
+   config-3 widths with bf16 graph data (bf16 messages into K6: output and
+   gradients equal bit for bit to the same path with K6's plain version,
+   output equal to xla's; the gradient gap to xla's tie-splitting rule is
+   printed with the number of ties); ``bf16(MPPDESolver)`` at config 3
+   (step-1 gradient, K3 streamed).
+11. Config 2 in f32 with ``adjoint="backsolve"``: the epoch-1 gradient on
+   K3 (K3 forward and backward in each augmented evaluation) against the
+   xla path's backsolve: loss rel ≤ 1e-4, each gradient within 1e-3 of its
+   largest entry, the same accepted steps forward and backward per sim;
+   seconds and peak memory beside the checkpoint epoch.
+
+The line before the last is ``{"kernels": [...]}``: twelve kernels with
+their operand ``dtypes``, the K1, K2, K4 and K7 entries with their launches
+in each gradient run and the part of them made in the backward (the fused
+right-hand sides' backward launches are SpMM launches, counted on the
+SpMM), K3's with their launches in the backsolve gradient; then the five
+bf16 forms (K3 forward and backward, K5 forward and backward, K6), each at
+its bf16 path's shape and operand dtypes with its bf16 bound, library time
+and launches on that path, and every form's record. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -167,10 +199,21 @@ K7_POINTS = (3000, 12000)
 HYBRID_GRID = 256
 CORA_EPOCHS = 20
 CORA_VAL_ACC = 0.90
-# H100 SXM (NVIDIA data sheet, 700 W): device-memory rate and the f32 rate
-# outside the tensor cores (every kernel here computes in true f32)
+# bf16 paths (the precision policy) against the same model on the xla path
+# in bf16: the two round to bf16 at other places
+BF16_LOSS_BOUND = 1e-2
+BF16_GRAD_BOUND = 5e-2
+# the backsolve VMH gradient on K3 against the xla path's backsolve
+BACKSOLVE_LOSS_BOUND = 1e-4
+BACKSOLVE_GRAD_BOUND = 1e-3
+# H100 SXM (NVIDIA data sheet, 700 W): device-memory rate, the f32 rate
+# outside the tensor cores (every kernel here computes in true f32), and
+# the dense bf16 tensor-core rate (the bound of a function whose operands
+# are all bf16)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+BF16 = torch.bfloat16
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
@@ -204,12 +247,13 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
-def bound(n_bytes: float, ops: float) -> tuple:
+def bound(n_bytes: float, ops: float, rate: float = F32_FLOP_PER_S) -> tuple:
     """(ms, "bytes" or "operations"): the least time the card could take to
     move ``n_bytes`` (each input read once, each output written once) and
-    do ``ops`` f32 operations (an FMA is two)."""
+    do ``ops`` operations (an FMA is two) at ``rate`` (the f32 rate, or the
+    bf16 tensor-core rate where every operand is bf16)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -695,26 +739,103 @@ def mesh_path(P, K, g, kind, label, seed):
     return dict(forward=fwd, fused=fused, unfused=unfused, adam=adam)
 
 
-def k3_work(csr, dims, backward: bool) -> tuple:
-    """(bytes, operations) K3 needs on ``csr`` for an MLP of widths
-    ``dims``: the layout, feats, weights and biases (backward: and the
-    output cotangent, the slots' rows) read once, the output (backward:
-    dfeats, dW, db) written once; 2 operations per multiply-add of the
-    per-edge MLP, three products backward (recompute, dW, dh)."""
+def k3_work(csr, dims, backward: bool, fb: int = 4, wb: int = 4) -> tuple:
+    """(bytes, operations, rate) K3 needs on ``csr`` for an MLP of widths
+    ``dims``, with ``fb``-byte feats (output, cotangent, dfeats) and
+    ``wb``-byte weights: the layout, feats, weights and biases (backward:
+    and the output cotangent, the slots' rows) read once, the output
+    (backward: dfeats, dW, db) written once; 2 operations per multiply-add
+    of the per-edge MLP, three products backward (recompute, dW, dh), at the
+    bf16 rate where feats and weights are both bf16."""
     e, n = csr.num_cols, csr.num_rows
     params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
     macs = e * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
-    read = csr_bytes(csr) + 4 * (e * dims[0] + params)
+    rate = BF16_FLOP_PER_S if fb == wb == 2 else F32_FLOP_PER_S
+    read = csr_bytes(csr) + fb * e * dims[0] + wb * params
     if backward:
-        return (read + 4 * n * dims[-1] + 8 * e + 4 * (e * dims[0] + params),
-                6.0 * macs)
-    return read + 4 * n * dims[-1], 2.0 * macs
+        return (read + fb * n * dims[-1] + 8 * e + fb * e * dims[0]
+                + wb * params, 6.0 * macs, rate)
+    return read + fb * n * dims[-1], 2.0 * macs, rate
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def bf16_forms(kernel, plain, inputs, outputs_like, work, label,
+               library=None, exact=False):
+    """One bf16 form of a kernel pair against its plain versions fed the
+    same operands: ``kernel()`` and ``plain()`` return tuples of results
+    (forward, or the backward's gradients), each within 1e-2 of its own
+    largest entry (``exact``: equal bits) and in the dtype of the matching
+    ``outputs_like`` tensor. Times of kernel, plain and ``library``, and
+    the bound from these operands' bytes. Returns the JSON record."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    for a, b, like in zip(got, want, outputs_like):
+        check(a.dtype == b.dtype == like.dtype,
+              f"{label}: dtype {a.dtype}, plain {b.dtype}, want {like.dtype}")
+        if exact:  # infinities (empty rows) and NaN included
+            check(torch.equal(a.isnan(), b.isnan()) and torch.equal(
+                torch.nan_to_num(a), torch.nan_to_num(b)),
+                f"{label}: kernel != plain (bits)")
+        else:
+            check(bool(torch.isfinite(a.float()).all()),
+                  f"{label}: non-finite")
+    errs = ([(0.0, 0.0)] if exact
+            else [rel_err(a, b) for a, b in zip(got, want)])
+    rel = max(r for r, _ in errs)
+    check(rel <= BF16_BOUND, f"{label}: rel {rel:.3e} > {BF16_BOUND:g}")
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    lib_ms = None if library is None else cuda_ms(library)
+    b_ms, b_by = bound(*work)
+    print(f"  {label:<60} rel {rel:.3e} (bound "
+          f"{'bits' if exact else BF16_BOUND})  kernel {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms" + (f"  library {lib_ms:.4f} ms"
+                                  if library is not None else "")
+          + f"  bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=max(a for _, a in errs), max_rel_err=rel, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, shape=label,
+                dtypes={k: dtype_name(t.dtype) for k, t in inputs.items()})
+
+
+def k3_bf16(K, csr, acts, dims, feats, ws, bs, g, shape, variants):
+    """K3's two bf16 forms (bf16 weights; bf16 features, or f32 features
+    as the precision policy gives where the edge features concatenate f32
+    graph data), forward and backward. Returns ``{form: {fused_mlp_fwd:
+    record, fused_mlp_bwd: record}}``."""
+    out = {}
+    ws16 = [w.to(BF16) for w in ws]
+    bs16 = [b.to(BF16) for b in bs]
+    for form, fdt in (("bf16", BF16), ("f32 feats, bf16 weights",
+                                       torch.float32)):
+        x, gy = feats.to(fdt), g.to(fdt)
+        fb = x.element_size()
+        label = f"{shape} {form}"
+        fwd = bf16_forms(
+            lambda: (K.fused_mlp_fwd(acts, csr, x, ws16, bs16),),
+            lambda: (K.fused_mlp_plain(acts, csr, x, ws16, bs16).detach(),),
+            dict(feats=x, weights=ws16[0]), (x,),
+            k3_work(csr, dims, False, fb, 2), f"{label} fwd")
+        bwd = bf16_forms(
+            lambda: (lambda d: (d[0],) + d[1] + d[2])(
+                K.fused_mlp_bwd(acts, csr, x, ws16, bs16, gy)),
+            lambda: (lambda d: (d[0],) + d[1] + d[2])(
+                K.fused_mlp_bwd_plain(acts, csr, x, ws16, bs16, gy)),
+            dict(feats=x, weights=ws16[0], g_out=gy),
+            (x,) + tuple(ws16) + tuple(bs16),
+            k3_work(csr, dims, True, fb, 2), f"{label} bwd")
+        fwd["variant"], bwd["variant"] = variants
+        out[form] = dict(fused_mlp_fwd=fwd, fused_mlp_bwd=bwd)
+    return out
 
 
 def k3_checks(K, dev, cases):
     """Phase 3, K3: forward and backward against their plain versions on
-    each ``(label, csr, acts, dims, record)`` case. Returns the JSON
-    records of the cases with a ``record`` key."""
+    each ``(label, csr, acts, dims, record)`` case, in f32 and in the two
+    bf16 forms. Returns the JSON records of the cases with a ``record``
+    key."""
     rng = np.random.default_rng(3)
     records = {}
     for label, csr, acts, dims, record in cases:
@@ -747,6 +868,8 @@ def k3_checks(K, dev, cases):
         check(fwd_rel <= F32_BOUND, f"{shape} fwd: rel {fwd_rel:.3e}")
         check(df_rel <= F32_BOUND, f"{shape} dfeats: rel {df_rel:.3e}")
         check(par_rel <= K3_PARAM_BOUND, f"{shape} dW/db: rel {par_rel:.3e}")
+        bf16 = k3_bf16(K, csr, acts, dims, feats, ws, bs, g, shape[:-4],
+                       variants)
 
         def plain_train():
             leaves = [t.detach().requires_grad_() for t in (feats, *ws, *bs)]
@@ -788,8 +911,51 @@ def k3_checks(K, dev, cases):
                     variant=variants[1], max_abs_err=max(df_abs, par_abs),
                     max_rel_err=max(df_rel, par_rel), ms=ms_b,
                     plain_ms=plain_b, library_ms=None, bound_ms=bound_b,
-                    bound_by=by_b, shape=shape))
+                    bound_by=by_b, shape=shape),
+                bf16=bf16)
     return records
+
+
+def k5_bf16(K, csr, senders, ph, h, wl, bl, g, shape):
+    """K5's bf16 forms (bf16 ``Wl``/``bl``; ``ph`` and ``h`` in bf16, or f32
+    ``ph`` as ``bf16(GNOConv)`` gives where the edge features come from f32
+    graph data, or f32 ``ph`` and ``h`` as ``bf16(GNOModel)`` gives after
+    its f32 lift), forward and backward. Returns ``{form: {fused_gno_fwd:
+    record, fused_gno_bwd: record}}``."""
+    e, n = csr.num_cols, csr.num_rows
+    k, width = wl.shape[1], wl.shape[0]
+    reduce_macs = e * width * (k + 1)
+    product_macs = n * width * (k + 1) * width
+    wl16, bl16 = wl.to(BF16), bl.to(BF16)
+    out = {}
+    for form, pdt, hdt in (("bf16", BF16, BF16),
+                           ("f32 ph, bf16 h and weights", torch.float32,
+                            BF16),
+                           ("f32 ph and h, bf16 weights", torch.float32,
+                            torch.float32)):
+        x, hh, gy = ph.to(pdt), h.to(hdt), g.to(pdt)
+        args = (x, hh, wl16, bl16)
+        rate = BF16_FLOP_PER_S if pdt == hdt == BF16 else F32_FLOP_PER_S
+        inputs = csr_bytes(csr) + nbytes(senders, *args)
+        out_bytes = n * width * x.element_size()
+        grads_bytes = nbytes(x, hh, wl16, bl16)
+        label = f"{shape} {form}"
+        dtypes = dict(ph=x, h=hh, weights=wl16)
+        fwd = bf16_forms(
+            lambda: (K.fused_gno_fwd(csr, senders, *args),),
+            lambda: (K.fused_gno_plain(csr, senders, *args).detach(),),
+            dtypes, (x,),
+            (inputs + out_bytes, 2.0 * (reduce_macs + product_macs), rate),
+            f"{label} fwd")
+        bwd = bf16_forms(
+            lambda: K.fused_gno_bwd(csr, senders, *args, gy),
+            lambda: K.fused_gno_bwd_plain(csr, senders, *args, gy),
+            dict(dtypes, g_out=gy), args,
+            (inputs + out_bytes + grads_bytes,
+             2.0 * (3 * reduce_macs + 2 * product_macs), rate),
+            f"{label} bwd")
+        out[form] = dict(fused_gno_fwd=fwd, fused_gno_bwd=bwd)
+    return out
 
 
 def k5_checks(K, dev, cases):
@@ -867,6 +1033,8 @@ def k5_checks(K, dev, cases):
               f"    fwd+bwd (training pair)  kernels {ms_t:.4f} ms  plain "
               f"fwd under autograd + backward {plain_t:.4f} ms")
         if main_path:
+            records["gno_bf16"] = k5_bf16(K, csr, senders, ph, h, wl, bl,
+                                          g, shape[:-4])
             records["fused_gno_fwd"] = dict(
                 max_abs_err=fwd_abs, max_rel_err=fwd_rel, ms=ms_f,
                 plain_ms=plain_f, library_ms=None, bound_ms=bound_f,
@@ -895,7 +1063,8 @@ def k6_checks(K, dev, cases):
         recv64 = recv.long()
         idx = recv64.reshape(-1, 1).expand(e, f)
         empty = int((csr.row_ptr[1:] == csr.row_ptr[:-1]).sum())
-        shape = f"K6 {label} N={n} E={e} F={f} f32 ({empty} empty rows)"
+        base = f"K6 {label} N={n} E={e} F={f}"
+        shape = f"{base} f32 ({empty} empty rows)"
         for sign in (1.0, -1.0):
             got = sign * K.segment_max(sign * m, csr)
             want = sign * K.segment_max_plain(sign * m, csr)
@@ -931,11 +1100,39 @@ def k6_checks(K, dev, cases):
               f"(bits)  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"scatter_reduce_ {lib_ms:.4f} ms  bound {b_ms:.4f} ms "
               f"({b_by})")
+        # bf16 messages: compared in f32, written back in bf16, the same bits
+        # as the plain version; the backward keeps the tie rule in bf16
+        m16, g16 = m.to(BF16), g.to(BF16)
+        leaf = m16.clone().requires_grad_()
+        K.segment_max_aggregate(leaf, csr, recv).backward(g16)
+        want16 = K.segment_max_plain(m16, csr)
+        want_g = torch.where(m16 == want16[recv64], g16[recv64],
+                             torch.zeros((), dtype=BF16, device=dev))
+        check(torch.equal(leaf.grad, want_g),
+              f"{shape} bf16: gradient != plain")
+
+        def library16():
+            return torch.full((n, f), float("-inf"), dtype=BF16, device=dev
+                              ).scatter_reduce_(0, idx, m16, "amax")
+
+        check(torch.equal(library16(), want16),
+              f"{shape} bf16: scatter_reduce_ != plain")
+        check(torch.equal(-K.segment_max(-m16, csr),
+                          -K.segment_max_plain(-m16, csr)),
+              f"{shape} bf16 min: kernel != plain")
+        rec16 = bf16_forms(
+            lambda: (K.segment_max(m16, csr),),
+            lambda: (K.segment_max_plain(m16, csr),),
+            dict(messages=m16), (m16,),
+            (nbytes(m16, csr.row_ptr, csr.col) + 2 * n * f, float(e * f)),
+            f"{base} bf16 ({empty} empty rows; min and backward bits too)",
+            library=library16, exact=True)
         if record is not None:
             records[record] = dict(
                 max_abs_err=err, max_rel_err=0.0, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, shape=shape)
-        del m, g, idx
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, shape=shape,
+                bf16=rec16)
+        del m, g, idx, m16, g16, leaf
     return records
 
 
@@ -1210,6 +1407,357 @@ def vmh_training(P, K, model, u):
         check(launches["fused_mlp_fwd"] > 0 and launches["fused_mlp_bwd"] > 0,
               f"epoch {epoch}: K3 not launched")
     return {fn.__name__: fn.launches for fn in K.KERNELS}
+
+
+def worst_grad(a, b) -> float:
+    """The worst gradient error of ``a`` against ``b``, each over its own
+    largest entry."""
+    return max(rel_err(x, y)[0] for x, y in zip(a, b))
+
+
+def bf16_counts(K) -> dict:
+    """The launches that read a bf16 operand, per wrapper that counts them
+    (K3, K5, K6)."""
+    return {fn.__name__: fn.bf16_launches for fn in K.KERNELS
+            if hasattr(fn, "bf16_launches")}
+
+
+def in_mode(P, mode, fn):
+    """``fn()`` with the SpMM mode set to ``mode``, then ``auto`` again;
+    synchronised, with its host seconds: ``(result, seconds)``."""
+    P.set_spmm_mode(mode)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    finally:
+        P.set_spmm_mode("auto")
+
+
+def bf16_parity(label, kernel, xla):
+    """Gate a bf16 path's ``(loss, gradients)`` on the kernel path against
+    the xla path in bf16: loss rel ≤ 1e-2, every gradient within 5e-2 of
+    its own largest entry."""
+    loss_rel = abs(kernel[0] - xla[0]) / abs(xla[0])
+    grad_rel = worst_grad(kernel[1], xla[1])
+    check(all(bool(torch.isfinite(t).all()) for t in kernel[1]),
+          f"{label}: non-finite gradient")
+    check(loss_rel <= BF16_LOSS_BOUND, f"{label}: loss rel {loss_rel:.3e}")
+    check(grad_rel <= BF16_GRAD_BOUND, f"{label}: gradient rel "
+                                       f"{grad_rel:.3e}")
+    return (f"loss {kernel[0]:.7f} vs xla {xla[0]:.7f}, rel {loss_rel:.3e} "
+            f"(bound {BF16_LOSS_BOUND:g}), worst gradient rel "
+            f"{grad_rel:.3e} (bound {BF16_GRAD_BOUND:g})")
+
+
+def bf16_vmh_layer(P, K, dev, pts):
+    """bf16(VMHConv) at ``bench.py``'s VMH case: the 2^15-point Delaunay
+    mesh with its f32 positions in ``ndata``, ϕ 4→60→60→60→40 and γ
+    41→60→60→60→1 tanh: the gradient of ``sum(y²)`` (input and every
+    master parameter) on K3 (resident; f32 edge features, bf16 weights)
+    against the xla path in bf16, and its time beside the f32 layer's.
+    Returns the bf16 launches of the kernel-path run."""
+    g = P.precompute(P.delaunay_graph(pts, ndata={"x": torch.from_numpy(
+        pts)}), dense=False, pallas=True).to(dev)
+    gen = torch.Generator().manual_seed(12)
+    kw = dict(generator=gen, device=dev)
+    layer = P.VMHConv(P.MLP((4, 60, 60, 60, 40), "tanh", **kw),
+                      P.MLP((41, 60, 60, 60, 1), "tanh", **kw))
+    model = P.bf16(layer)
+    P.update_graph(model, g)
+    x = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(g.num_nodes, 1)).astype(np.float32)).to(dev)
+    params = list(layer.parameters())
+
+    def grad(m):
+        def run():
+            layer.zero_grad(set_to_none=True)
+            xl = x.clone().requires_grad_()
+            loss = (m(xl) ** 2).sum()
+            loss.backward()
+            return float(loss.detach()), [xl.grad] + [p.grad.clone() for p in params]
+        return run
+
+    times = {}
+    for name, m, mode in (("bf16 K3", model, "auto"),
+                          ("bf16 xla", model, "xla"),
+                          ("f32 K3", layer, "auto"),
+                          ("f32 xla", layer, "xla")):
+        in_mode(P, mode, grad(m))  # warm-up
+        if name == "bf16 K3":
+            K.reset_launch_counts()
+        out, times[name] = in_mode(P, mode, grad(m))
+        if name == "bf16 K3":
+            launches, kern = bf16_counts(K), out
+        elif name == "bf16 xla":
+            xla = out
+    line = bf16_parity("bf16 VMH layer", kern, xla)
+    print(f"  N={g.num_nodes} E={g.num_edges}: {line}; forward+gradient "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in times.items())
+          + f"; bf16 launches {launches}")
+    check(launches["fused_mlp_fwd"] > 0 and launches["fused_mlp_bwd"] > 0,
+          "bf16 VMH layer: K3 not launched in bf16")
+    return launches
+
+
+def vmh_grad_run(P, T, model, u, mode):
+    """The full-batch epoch gradient in ``mode``: ``((loss, gradients),
+    per-sim stats, seconds, peak GB above the resident tensors)``."""
+    params = list(model.parameters())
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (loss, stats), seconds = in_mode(P, mode,
+                                     lambda: T.full_batch_grad(model, u))
+    peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    return ((float(loss), [p.grad.clone() for p in params]), stats, seconds,
+            peak)
+
+
+def bf16_vmh_training(P, K, model_f32, u):
+    """``NeuralGraphODE(bf16(VMHConv))`` at config 2 (24 sims × 3,000
+    points; the solver state f32, the right-hand side in bf16): the epoch-1
+    gradient on K3 against the xla path in bf16, the accepted and rejected
+    steps of each beside the f32 model's, then one Rprop epoch on K3.
+    Returns the bf16 launches of the K3 epoch-1 gradient."""
+    import copy
+
+    from neuralgraphpde_torch.examples import train_vmh as T
+
+    f32 = copy.deepcopy(model_f32)
+    _, stats32, s32, _ = vmh_grad_run(P, T, f32, u, "auto")
+    del f32
+    model = copy.deepcopy(model_f32)
+    model.model = P.bf16(model.model)
+    K.reset_launch_counts()
+    kern, stats_k, sk, peak_k = vmh_grad_run(P, T, model, u, "auto")
+    launches = bf16_counts(K)
+    xla, stats_x, sx, _ = vmh_grad_run(P, T, model, u, "xla")
+    line = bf16_parity("bf16 VMH training", kern, xla)
+
+    def steps(stats):
+        accepted = sorted({st["accepted"] for st in stats})
+        rejected = sorted({st["steps"] - st["accepted"] for st in stats})
+        return (f"accepted {accepted}, rejected {rejected}, rhs evals "
+                f"{sum(st['nfe'] for st in stats)}")
+
+    print(f"  epoch-1 gradient: {line}\n"
+          f"    per sim, bf16 K3: {steps(stats_k)}; bf16 xla: "
+          f"{steps(stats_x)}; f32 K3: {steps(stats32)}\n"
+          f"    seconds: bf16 K3 {sk:.3f} ({peak_k:.4f} GB above resident), "
+          f"bf16 xla {sx:.3f}, f32 K3 {s32:.3f}; bf16 launches {launches}")
+    check(launches["fused_mlp_fwd"] > 0 and launches["fused_mlp_bwd"] > 0,
+          "bf16 VMH training: K3 not launched in bf16")
+    opt = P.rprop(model.parameters(), T.Config().lr,
+                  step_max=T.Config().step_max)
+    (loss, _), _, seconds, _ = vmh_grad_run(P, T, model, u, "auto")
+    opt.step()
+    print(f"  one Rprop epoch on K3: loss {loss:.7f}, {seconds:.3f} s")
+    check(np.isfinite(loss), "bf16 VMH: non-finite loss")
+    return launches
+
+
+def backsolve_vmh(P, K, model_f32, u):
+    """Config 2 in f32 with ``adjoint="backsolve"``: the epoch-1 gradient on
+    K3 (each augmented evaluation runs K3 forward and backward) against the
+    xla path's backsolve: loss rel ≤ 1e-4, each gradient within 1e-3 of its
+    largest entry, the same accepted steps forward and backward per sim;
+    its seconds and peak memory beside the checkpoint epoch's. Returns the
+    launches of the K3 run."""
+    import copy
+
+    from neuralgraphpde_torch.examples import train_vmh as T
+
+    model = copy.deepcopy(model_f32)
+    model.adjoint = "checkpoint"
+    _, _, s_chk, peak_chk = vmh_grad_run(P, T, model, u, "auto")
+    model.adjoint = "backsolve"
+    K.reset_launch_counts()
+    kern, stats_k, sk, peak_k = vmh_grad_run(P, T, model, u, "auto")
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    xla, stats_x, sx, _ = vmh_grad_run(P, T, model, u, "xla")
+    loss_rel = abs(kern[0] - xla[0]) / abs(xla[0])
+    grad_rel = worst_grad(kern[1], xla[1])
+
+    def steps(stats):
+        return [(st["accepted"], st["backward_accepted"]) for st in stats]
+
+    print(f"  epoch-1 gradient: loss {kern[0]:.7f} vs xla {xla[0]:.7f}, rel "
+          f"{loss_rel:.3e} (bound {BACKSOLVE_LOSS_BOUND:g}), worst gradient "
+          f"rel {grad_rel:.3e} (bound {BACKSOLVE_GRAD_BOUND:g}); accepted "
+          f"steps per sim (forward, backward) K3 "
+          f"{sorted(set(steps(stats_k)))}, xla {sorted(set(steps(stats_x)))}"
+          f"; backward rhs evals per sim "
+          f"{sorted({st['backward_nfe'] for st in stats_k})}\n"
+          f"    seconds: backsolve K3 {sk:.3f} ({peak_k:.4f} GB above "
+          f"resident), xla {sx:.3f}; checkpoint K3 {s_chk:.3f} "
+          f"({peak_chk:.4f} GB); launches {launches}")
+    check(loss_rel <= BACKSOLVE_LOSS_BOUND, f"backsolve VMH loss rel "
+                                            f"{loss_rel:.3e}")
+    check(grad_rel <= BACKSOLVE_GRAD_BOUND, f"backsolve VMH gradient rel "
+                                            f"{grad_rel:.3e}")
+    check(steps(stats_k) == steps(stats_x),
+          "backsolve VMH: accepted steps differ between paths")
+    check(launches["fused_mlp_fwd"] > 0 and launches["fused_mlp_bwd"] > 0,
+          "backsolve VMH: K3 not launched")
+    return launches
+
+
+def bf16_gno(P, K, model_f32, a, u):
+    """``bf16(GNOModel)`` at config 4: the batch-1 gradient on K5 (f32 ``ph``
+    and ``h`` after the f32 lift, bf16 weights) against the xla path in
+    bf16. Returns the bf16 launches of the K5 run."""
+    import copy
+
+    from neuralgraphpde_torch.examples import train_gno_darcy as T
+
+    cfg = T.Config()
+    model = P.bf16(copy.deepcopy(model_f32))
+    params = list(model.parameters())
+    idx = torch.from_numpy(np.random.default_rng(cfg.seed).permutation(
+        cfg.n_train)[:T.BATCH]).to(a.device)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss = T.batch_loss(model, a[idx], u[idx])
+        loss.backward()
+        return float(loss.detach()), [p.grad.clone() for p in params]
+
+    in_mode(P, "auto", run)  # warm-up
+    K.reset_launch_counts()
+    kern, sk = in_mode(P, "auto", run)
+    launches = bf16_counts(K)
+    xla, sx = in_mode(P, "xla", run)
+    line = bf16_parity("bf16 GNO", kern, xla)
+    print(f"  batch-1 gradient: {line}; K5 path {sk:.4f} s, xla {sx:.4f} s;"
+          f" bf16 launches {launches}")
+    check(launches["fused_gno_fwd"] > 0 and launches["fused_gno_bwd"] > 0,
+          "bf16 GNO: K5 not launched in bf16")
+    return launches
+
+
+def bf16_mppde(P, K, model_f32, u):
+    """``bf16(MPPDESolver)`` at config 3: the step-1 gradient on K3
+    (streamed; f32 edge features, bf16 weights) against the xla path in
+    bf16. Returns the bf16 launches of the K3 run."""
+    import copy
+
+    from neuralgraphpde_torch.examples import train_mppde_burgers as T
+
+    cfg = T.Config()
+    inner = copy.deepcopy(model_f32)
+    model = P.bf16(inner)
+    model.bundle = inner.bundle  # what batch_loss reads
+    params = list(model.parameters())
+    starts = T.window_starts(cfg, u.shape[2])
+    first = np.random.default_rng(cfg.seed).choice(starts, size=T.SAMPLES)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss = T.batch_loss(model, u[0], first, cfg.pushforward)
+        loss.backward()
+        return float(loss.detach()), [p.grad.clone() for p in params]
+
+    in_mode(P, "auto", run)  # warm-up
+    K.reset_launch_counts()
+    kern, sk = in_mode(P, "auto", run)
+    launches = bf16_counts(K)
+    xla, sx = in_mode(P, "xla", run)
+    line = bf16_parity("bf16 MP-PDE", kern, xla)
+    print(f"  step-1 gradient: {line}; K3 path {sk:.4f} s, xla {sx:.4f} s; "
+          f"bf16 launches {launches}")
+    check(launches["fused_mlp_fwd"] > 0 and launches["fused_mlp_bwd"] > 0,
+          "bf16 MP-PDE: K3 not launched in bf16")
+    return launches
+
+
+def bf16_mppde_layer_max(P, K, g, dev):
+    """``bf16(MPPDEConv(aggr="max"))`` at the config-3 widths on the
+    Burgers chain, its graph data given in bf16 so that the messages are
+    bf16: the K6 path (bf16 launches counted); the same layer with K6's
+    plain version in its place (the same tie rule: the output equal bit for
+    bit, the gradients within 5e-2 of their largest entry, since the
+    gather's backward adds its bf16 rows with atomics, in an order that
+    changes from run to run); the xla path (output equal: a max rounds
+    nothing; its gradient splits a tied maximum's cotangent, so the gap is
+    printed with the number of ties, not gated). Returns the bf16 launches
+    of the K6 run."""
+    import importlib
+
+    from neuralgraphpde_torch.examples import train_mppde_burgers as T
+
+    seg = importlib.import_module("neuralgraphpde_torch.kernels."
+                                  "segment_kernels")
+    cfg = T.Config()
+    H, KB = cfg.hidden, cfg.bundle
+    gen = torch.Generator().manual_seed(13)
+    kw = dict(activation="swish", generator=gen, device=dev)
+    layer = P.MPPDEConv(P.MLP((2 * H + KB + 1, H, H), **kw),
+                        P.MLP((2 * H, H, H), **kw), aggr="max")
+    model = P.bf16(layer)
+    rng = np.random.default_rng(13)
+    window = torch.from_numpy(rng.normal(size=(g.num_nodes, KB)).astype(
+        np.float32)).to(dev, BF16)
+    P.update_graph(model, g.copy(ndata={"u": window,
+                                        "x": g.ndata["x"].to(BF16)}))
+    x = torch.from_numpy(rng.normal(size=(g.num_nodes, H)).astype(
+        np.float32)).to(dev)
+    gy = torch.from_numpy(rng.normal(size=(g.num_nodes, H)).astype(
+        np.float32)).to(dev)
+    params = list(layer.parameters())
+    kept = {}
+    hook = layer.phi.register_forward_hook(
+        lambda mod, inputs, out: kept.__setitem__("m", out.detach()))
+
+    def run():
+        layer.zero_grad(set_to_none=True)
+        xl = x.clone().requires_grad_()
+        y = model(xl)
+        y.backward(gy)
+        return y.detach(), [xl.grad] + [p.grad.clone() for p in params]
+
+    in_mode(P, "auto", run)  # warm-up
+    K.reset_launch_counts()
+    (y_k, grads_k), sk = in_mode(P, "auto", run)
+    launches = bf16_counts(K)
+    messages = kept.pop("m")
+    kernel_wrapper = seg.segment_max
+    seg.segment_max = seg.segment_max_plain  # the plain version in its place
+    try:
+        (y_p, grads_p), _ = in_mode(P, "auto", run)
+    finally:
+        seg.segment_max = kernel_wrapper
+    (y_x, grads_x), sx = in_mode(P, "xla", run)
+    hook.remove()
+    recv = g.receivers.long()
+    top = K.segment_max_plain(messages, g.cache["tcsr_edges"])
+    ties = int((torch.zeros_like(top, dtype=torch.int32).index_add_(
+        0, recv, (messages == top[recv]).int()) > 1).sum())
+    xla_gap = worst_grad(grads_k, grads_x)
+    plain_gap = worst_grad(grads_k, grads_p)
+    print(f"  N={g.num_nodes} E={g.num_edges}, H {H}, K {KB}, bf16 messages "
+          f"({dtype_name(messages.dtype)}): output equal to the plain K6 "
+          f"path's bits: {torch.equal(y_k, y_p)}, gradients within "
+          f"{plain_gap:.3e} of their largest entry (bound "
+          f"{BF16_GRAD_BOUND:g}); output vs xla rel "
+          f"{rel_err(y_k, y_x)[0]:.3e} (bound {BF16_LOSS_BOUND:g}); "
+          f"gradients vs xla {xla_gap:.3e} of their largest entry with "
+          f"{ties} tied maxima (xla splits a tie's cotangent, K6 gives each "
+          f"tied edge all of it: not gated); K6 path {sk:.4f} s, xla "
+          f"{sx:.4f} s; bf16 launches {launches}")
+    check(messages.dtype == BF16, "bf16 MPPDEConv max: messages not bf16")
+    check(torch.equal(y_k, y_p), "bf16 MPPDEConv max: output != the plain "
+                                 "K6 path's")
+    check(plain_gap <= BF16_GRAD_BOUND, f"bf16 MPPDEConv max: gradient "
+                                        f"{plain_gap:.3e} from the plain K6 "
+                                        f"path's")
+    check(rel_err(y_k, y_x)[0] <= BF16_LOSS_BOUND,
+          "bf16 MPPDEConv max: output vs xla")
+    check(launches["segment_max"] > 0, "bf16 MPPDEConv max: K6 not launched "
+                                       "in bf16")
+    return launches
 
 
 def grand_forward(P, model, g, x, label):
@@ -1492,15 +2040,29 @@ def main() -> int:
     check(launches_h["dia_spmm_stencil"] > 0, "hybrid: stencil K2 not "
                                               "launched")
 
+    print("bf16 VMH layer (bf16(VMHConv) on the 2^15-point Delaunay mesh, "
+          "K3):")
+    launches_vl = bf16_vmh_layer(P, K, dev, pts.astype(np.float32))
+    print("bf16 VMH training (NeuralGraphODE(bf16(VMHConv)), config 2, K3):")
+    launches_vb = bf16_vmh_training(P, K, vmh_model, vmh_u)
+    print("backsolve VMH (config 2 in f32, adjoint='backsolve', K3):")
+    launches_bs = backsolve_vmh(P, K, vmh_model, vmh_u)
+
     print("VMH training (24 sims x 3,000 points, K3):")
     launches_v = vmh_training(P, K, vmh_model, vmh_u)
 
+    print("bf16 GNO (bf16(GNOModel), config 4, K5):")
+    launches_gb = bf16_gno(P, K, gno_model, gno_a, gno_u)
     print("GNO Darcy training (32 samples on the 32² grid, K5):")
     launches_g = gno_training(P, K, gno_model, gno_a, gno_u)
 
     print("MPPDEConv(aggr='max') at the config-3 widths (K6):")
     launches_k6 = mppde_layer_max(P, K, mppde_g, dev)
+    print("bf16 MPPDEConv(aggr='max') on bf16 graph data (K6):")
+    launches_k6b = bf16_mppde_layer_max(P, K, mppde_g, dev)
 
+    print("bf16 MP-PDE (bf16(MPPDESolver), config 3, K3 streamed):")
+    launches_mb = bf16_mppde(P, K, mppde_model, mppde_u)
     print("MP-PDE Burgers training (32 sims on the 256-node chain, K3):")
     launches_m = mppde_training(P, K, mppde_model, mppde_u)
 
@@ -1595,7 +2157,60 @@ def main() -> int:
         for extra in ("k1_same_csr_ms", "training_pair"):
             if extra in rec:
                 entry[extra] = rec[extra]
+        entry["dtypes"] = {"every operand": "float32"}
         kernels.append(entry)
+    # the backsolve VMH gradient: K3 forward and backward in every augmented
+    # evaluation
+    for entry in kernels:
+        if entry["name"] in ("fused_mlp_fwd", "fused_mlp_bwd"):
+            entry["runs"] = [dict(run="backsolve VMH epoch-1 gradient",
+                                  launches=launches_bs[entry["name"]])]
+    # the bf16 forms: each record at the shape and in the operand dtypes of
+    # its bf16 path (under the policy the features stay f32 where they
+    # concatenate f32 graph data), the path's bf16 launches, every form's
+    # record beside it
+    k3_vmh, k3_mp = k3_records["VMH"]["bf16"], k3_records["MP-PDE"]["bf16"]
+    mixed = "f32 feats, bf16 weights"
+    gno_form = "f32 ph and h, bf16 weights"
+    bf16_entries = {
+        "fused_mlp_fwd": (k3_vmh[mixed], launches_vb, "VMH training"),
+        "fused_mlp_bwd": (k3_vmh[mixed], launches_vb, "VMH training"),
+        "fused_gno_fwd": (records["gno_bf16"][gno_form], launches_gb,
+                          "GNO batch-1 gradient"),
+        "fused_gno_bwd": (records["gno_bf16"][gno_form], launches_gb,
+                          "GNO batch-1 gradient")}
+    for name, (form, launches, path) in bf16_entries.items():
+        rec = form[name]
+        source, replaces, _ = sources[name]
+        check(launches[name] > 0, f"{name} bf16: no launch on its path")
+        entry = dict(name=f"{name} bf16", route="cuda", source=source,
+                     replaces=replaces, launches=launches[name], path=path,
+                     **{k: rec[k] for k in keys + ("dtypes",)})
+        forms = (k3_vmh if name.startswith("fused_mlp")
+                 else records["gno_bf16"])
+        entry["forms"] = {f: {k: v[name][k] for k in keys + ("dtypes",)}
+                          for f, v in forms.items()}
+        if name.startswith("fused_mlp"):
+            entry["variants"] = [
+                dict(path="VMH training", variant=rec["variant"],
+                     launches=launches[name]),
+                dict(path="MP-PDE step-1 gradient",
+                     launches=launches_mb[name],
+                     **{k: k3_mp[mixed][name][k]
+                        for k in ("variant",) + keys + ("dtypes",)}),
+                dict(path="bf16 VMH layer (2^15 points)",
+                     launches=launches_vl[name])]
+        kernels.append(entry)
+    rec = records["segment_max Burgers"]["bf16"]
+    check(launches_k6b["segment_max"] > 0, "segment_max bf16: no launch")
+    kernels.append(dict(
+        name="segment_max bf16", route="cuda", source=sources[
+            "segment_max"][0], replaces=sources["segment_max"][1],
+        launches=launches_k6b["segment_max"],
+        path="bf16 MPPDEConv(aggr='max') on bf16 graph data",
+        **{k: rec[k] for k in keys + ("dtypes",)},
+        other_shapes=[{k: records["segment_max"]["bf16"][k]
+                       for k in keys + ("dtypes",)}]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,9 +18,9 @@ from .ops import (aggregate_neighbors, apply_edges, copy_xj,
                   segment_reduce, set_spmm_mode, spmm, w_mul_xj)
 from .nn import (MLP, AbstractGNNContainerLayer, AbstractGNNLayer, Chain,
                  ContainerLayer, Dense, ExplicitEdgeConv, GCNConv, GNOConv,
-                 Layer, MPPDEConv, VMHConv)
+                 Layer, MPPDEConv, Precision, VMHConv, bf16)
 from .utils import drop, update_graph, wrapgraph
-from .ode import NeuralGraphODE, odeint, odeint_grid
+from .ode import NeuralGraphODE, odeint, odeint_grid, solve_stats
 from .models import GNOModel, MPPDESolver, grand_model, vmh_model
 from .data import (burgers_dataset, convection_diffusion_dataset,
                    cora_dataset, darcy_dataset, load_cora, synthetic_cora)

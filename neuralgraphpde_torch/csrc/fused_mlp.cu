@@ -6,6 +6,14 @@
 // Replaces neuralgraphpde/kernels/fused_mlp_kernels.py::_fused_mlp_fwd and
 // ::_fused_mlp_bwd_pallas.
 //
+// Dtypes, as the TPU kernels take them: feats (and the output, g_out and
+// dfeats) in TF, the weights and biases (and dW, db) in TW, each f32 or
+// bf16. Every operand is converted to f32 as it is loaded; the shared tiles,
+// the accumulators and the per-block dW/db partials are f32, and each result
+// is rounded to its dtype once, when it is stored (dW/db after the partials
+// are summed). Under the precision policy TW is bf16 and TF is bf16, or f32
+// where the edge features concatenate f32 graph data.
+//
 // What bounds it on the H100: at the VMH widths (4 -> 60 -> 60 -> 60) an
 // edge costs ~7.4k FMAs forward and ~3x that backward, against 16 bytes of
 // input and a 240-byte output row per receiver: far above the ridge point
@@ -61,9 +69,13 @@
 //   The resident kernels share the input gather but keep plain loops for
 //   their weights and cotangent rows: batched there, the resident backward
 //   ran slower on the H100.
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
+
+using ngpde::from_f32;
+using ngpde::to_f32;
+using bf16 = __nv_bfloat16;
 
 constexpr int kMaxLayers = 4;
 constexpr int kMaxWidth = 1024;
@@ -83,14 +95,20 @@ enum Act {
 };
 
 struct Mlp {
-  const float* w[kMaxLayers];  // (dim[l], dim[l+1]) row-major
-  const float* b[kMaxLayers];  // (dim[l+1],)
+  const void* w[kMaxLayers];  // (dim[l], dim[l+1]) row-major, in TW
+  const void* b[kMaxLayers];  // (dim[l+1],), in TW
   int dim[kMaxLayers + 1];
   int act[kMaxLayers];
   int n;
 };
 
 __host__ __device__ __forceinline__ int pad4(int d) { return (d + 3) & ~3; }
+
+// element i of a device array of T, as f32
+template <typename T>
+__device__ __forceinline__ float ld(const void* p, long long i) {
+  return to_f32(static_cast<const T*>(p)[i]);
+}
 __host__ __device__ __forceinline__ int imax(int a, int b) {
   return a > b ? a : b;
 }
@@ -332,7 +350,9 @@ __device__ __forceinline__ void block_copy(int count, Load load,
   }
 }
 
-// weights and biases into shared memory, zero-padded; dW/db zeroed (bwd)
+// weights and biases into shared memory as f32, zero-padded; dW/db zeroed
+// (bwd)
+template <typename TW>
 __device__ void stage_weights(const Mlp& m, const Layout& L, float* sm,
                               bool bwd) {
   for (int l = 0; l < m.n; ++l) {
@@ -340,20 +360,22 @@ __device__ void stage_weights(const Mlp& m, const Layout& L, float* sm,
     const int pin = pad4(din), sw = pad4(dout) + 1;
     for (int i = threadIdx.x; i < pin * sw; i += kThreads) {
       const int k = i / sw, j = i % sw;
-      sm[L.w[l] + i] = (k < din && j < dout) ? m.w[l][k * dout + j] : 0.f;
+      sm[L.w[l] + i] =
+          (k < din && j < dout) ? ld<TW>(m.w[l], k * dout + j) : 0.f;
       if (bwd) sm[L.dw[l] + i] = 0.f;
     }
     for (int j = threadIdx.x; j < sw - 1; j += kThreads) {
-      sm[L.b[l] + j] = j < dout ? m.b[l][j] : 0.f;
+      sm[L.b[l] + j] = j < dout ? ld<TW>(m.b[l], j) : 0.f;
       if (bwd) sm[L.db[l] + j] = 0.f;
     }
   }
 }
 
-// the chunk's input rows feats[col[s]] into h (te rows of stride sh),
-// zero-padded
+// the chunk's input rows feats[col[s]] into h (te rows of stride sh) as
+// f32, zero-padded
+template <typename TF>
 __device__ void gather_inputs(const Mlp& m, const int* __restrict__ col,
-                              const float* __restrict__ feats, int c0, int c1,
+                              const TF* __restrict__ feats, int c0, int c1,
                               float* h, int sh, int te) {
   const int d0 = m.dim[0], p0 = pad4(d0);
   block_copy(
@@ -361,16 +383,18 @@ __device__ void gather_inputs(const Mlp& m, const int* __restrict__ col,
       [&](int i) {
         const int e = i / p0, k = i % p0;
         const int s = c0 + e;
-        return (s < c1 && k < d0) ? feats[(long long)col[s] * d0 + k] : 0.f;
+        return (s < c1 && k < d0) ? to_f32(feats[(long long)col[s] * d0 + k])
+                                  : 0.f;
       },
       [&](int i, float v) { h[(i / p0) * sh + i % p0] = v; });
 }
 
 // the chunk's output-gradient rows ew[s] * g_out[slot_row[s]] into d (te
 // rows of stride sd, pad4(dn) columns), zero-padded
+template <typename TF>
 __device__ void gather_cotangents(int dn, const float* __restrict__ ew,
                                   const long long* __restrict__ slot_row,
-                                  const float* __restrict__ g_out, int c0,
+                                  const TF* __restrict__ g_out, int c0,
                                   int c1, float* d, int sd, int te) {
   const int pn = pad4(dn);
   block_copy(
@@ -378,20 +402,22 @@ __device__ void gather_cotangents(int dn, const float* __restrict__ ew,
       [&](int i) {
         const int e = i / pn, j = i % pn;
         const int s = c0 + e;
-        return (s < c1 && j < dn) ? ew[s] * g_out[slot_row[s] * dn + j] : 0.f;
+        return (s < c1 && j < dn) ? ew[s] * to_f32(g_out[slot_row[s] * dn + j])
+                                  : 0.f;
       },
       [&](int i, float v) { d[(i / pn) * sd + i % pn] = v; });
 }
 
+template <typename TF, typename TW>
 __global__ void __launch_bounds__(kThreads)
     fused_mlp_fwd_kernel(Mlp m, const int* __restrict__ row_ptr,
                          const int* __restrict__ col,
                          const float* __restrict__ ew,
-                         const float* __restrict__ feats,
-                         float* __restrict__ out, int n_rows, int rows) {
+                         const TF* __restrict__ feats,
+                         TF* __restrict__ out, int n_rows, int rows) {
   extern __shared__ float sm[];
   const Layout L = make_layout(m, rows, false);
-  stage_weights(m, L, sm, false);
+  stage_weights<TW>(m, L, sm, false);
   const int r0 = blockIdx.x * rows;
   const int r1 = min(r0 + rows, n_rows);
   const int dn = m.dim[m.n], pn = pad4(dn);
@@ -432,23 +458,24 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int i = threadIdx.x; i < (r1 - r0) * dn; i += kThreads) {
     const int r = i / dn, j = i % dn;
-    out[(long long)(r0 + r) * dn + j] = acc[r * pn + j];
+    out[(long long)(r0 + r) * dn + j] = from_f32<TF>(acc[r * pn + j]);
   }
 }
 
+template <typename TF, typename TW>
 __global__ void __launch_bounds__(kThreads)
     fused_mlp_bwd_kernel(Mlp m, const int* __restrict__ row_ptr,
                          const int* __restrict__ col,
                          const float* __restrict__ ew,
                          const long long* __restrict__ slot_row,
-                         const float* __restrict__ feats,
-                         const float* __restrict__ g_out,
-                         float* __restrict__ dfeats,
+                         const TF* __restrict__ feats,
+                         const TF* __restrict__ g_out,
+                         TF* __restrict__ dfeats,
                          float* __restrict__ partial, int n_rows, int rows,
                          int n_params) {
   extern __shared__ float sm[];
   const Layout L = make_layout(m, rows, true);
-  stage_weights(m, L, sm, true);
+  stage_weights<TW>(m, L, sm, true);
   const int r0 = blockIdx.x * rows;
   const int r1 = min(r0 + rows, n_rows);
   const int e_begin = row_ptr[r0], e_end = row_ptr[r1];
@@ -482,7 +509,7 @@ __global__ void __launch_bounds__(kThreads)
         const int e = i / pn, j = i % pn;
         const int s = c0 + e;
         d[e * sd + j] = (s < c1 && j < dn)
-                            ? ew[s] * g_out[slot_row[s] * dn + j]
+                            ? ew[s] * to_f32(g_out[slot_row[s] * dn + j])
                             : 0.f;
       }
     }
@@ -521,7 +548,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = threadIdx.x; i < kTE * d0; i += kThreads) {
       const int e = i / d0, k = i % d0;
       const int s = c0 + e;
-      if (s < c1) dfeats[(long long)col[s] * d0 + k] = dh0[e * sd + k];
+      if (s < c1)
+        dfeats[(long long)col[s] * d0 + k] = from_f32<TF>(dh0[e * sd + k]);
     }
     __syncthreads();
   }
@@ -559,14 +587,22 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows [k0, k0 + kr) of layer l's W into the tile wt (row stride
-// pad4(dout) + 1), zero outside W, as one cp.async group
+// pad4(dout) + 1), zero outside W, as one cp.async group. A bf16 W is
+// converted on its way in, so its tile is loaded by plain loads and stores
+// (its group is empty): it lands before the tile's __syncthreads all the
+// same.
+template <typename TW>
 __device__ void load_w_tile(const Mlp& m, int l, int k0, int kr, float* wt) {
   const int din = m.dim[l], dout = m.dim[l + 1], sw = pad4(dout) + 1;
-  const float* w = m.w[l];
   for (int i = threadIdx.x; i < kr * sw; i += kThreads) {
     const int k = k0 + i / sw, j = i % sw;
     const bool in = k < din && j < dout;
-    cp_async4(wt + i, in ? w + (long long)k * dout + j : w, in);
+    if constexpr (sizeof(TW) == sizeof(float)) {
+      const float* w = static_cast<const float*>(m.w[l]);
+      cp_async4(wt + i, in ? w + (long long)k * dout + j : w, in);
+    } else {
+      wt[i] = in ? ld<TW>(m.w[l], (long long)k * dout + j) : 0.f;
+    }
   }
   cp_async_commit();
 }
@@ -575,16 +611,17 @@ __device__ void load_w_tile(const Mlp& m, int l, int k0, int kr, float* wt) {
 // total - k0), k0 = 0, kt, ... below total, in order. When body runs its
 // tile is in shared memory and the next tile's copy is in flight into the
 // other buffer. Starts and ends synchronised.
-template <typename Body>
+template <typename TW, typename Body>
 __device__ void for_w_tiles(const Mlp& m, int l, int total,
                             const StreamLayout& L, float* sm, Body body) {
   const int kt = L.kt;
   __syncthreads();  // no reader of either buffer is left
-  load_w_tile(m, l, 0, min(kt, total), sm + L.wt[0]);
+  load_w_tile<TW>(m, l, 0, min(kt, total), sm + L.wt[0]);
   for (int k0 = 0, t = 0; k0 < total; k0 += kt, ++t) {
     const int next = k0 + kt;
     if (next < total) {
-      load_w_tile(m, l, next, min(kt, total - next), sm + L.wt[(t + 1) & 1]);
+      load_w_tile<TW>(m, l, next, min(kt, total - next),
+                      sm + L.wt[(t + 1) & 1]);
       cp_async_wait<1>();  // this tile's copies are done, the next's not
     } else {
       cp_async_wait<0>();
@@ -600,18 +637,18 @@ __device__ void for_w_tiles(const Mlp& m, int l, int total,
 // beside them; with `z`, the pre-activation is kept there too (row stride
 // so). Padded columns (j >= dout) see zero weights and bias. Ends
 // synchronised.
+template <typename TW>
 __device__ void stream_dense(const Mlp& m, int l, const StreamLayout& L,
                              float* sm, const float* hin, int sin,
                              float* out, int so, float* z) {
   const int din = m.dim[l], dout = m.dim[l + 1];
   const int pout = pad4(dout), sw = pout + 1;
   float* bias = sm + L.bias;
-  const float* b = m.b[l];
   // the last reader of the bias (the previous layer) ended synchronised
   block_copy(
-      pout, [&](int j) { return j < dout ? b[j] : 0.f; },
+      pout, [&](int j) { return j < dout ? ld<TW>(m.b[l], j) : 0.f; },
       [&](int j, float v) { bias[j] = v; });
-  for_w_tiles(m, l, din, L, sm, [&](int k0, int kn, const float* wt) {
+  for_w_tiles<TW>(m, l, din, L, sm, [&](int k0, int kn, const float* wt) {
     const bool first = k0 == 0;
     // one owner per (e, j): the same tiling on every k-tile
     block_gemm(L.te, pout, kn, hin + k0, sin, 1, wt, sw, 1,
@@ -630,12 +667,13 @@ __device__ void stream_dense(const Mlp& m, int l, const StreamLayout& L,
   __syncthreads();
 }
 
+template <typename TF, typename TW>
 __global__ void __launch_bounds__(kThreads)
     fused_mlp_fwd_stream_kernel(Mlp m, const int* __restrict__ row_ptr,
                                 const int* __restrict__ col,
                                 const float* __restrict__ ew,
-                                const float* __restrict__ feats,
-                                float* __restrict__ out, int n_rows, int rows,
+                                const TF* __restrict__ feats,
+                                TF* __restrict__ out, int n_rows, int rows,
                                 int te, int kt) {
   extern __shared__ float sm[];
   const StreamLayout L = make_stream_layout(m, te, kt, rows, false);
@@ -651,8 +689,8 @@ __global__ void __launch_bounds__(kThreads)
     gather_inputs(m, col, feats, c0, c1, sm + L.h[0], sd, te);
     int cur = 0;
     for (int l = 0; l < m.n; ++l) {
-      stream_dense(m, l, L, sm, sm + L.h[cur], sd, sm + L.h[cur ^ 1], sd,
-                   nullptr);
+      stream_dense<TW>(m, l, L, sm, sm + L.h[cur], sd, sm + L.h[cur ^ 1], sd,
+                       nullptr);
       cur ^= 1;
     }
     const float* hn = sm + L.h[cur];
@@ -669,18 +707,19 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int i = threadIdx.x; i < (r1 - r0) * dn; i += kThreads) {
     const int r = i / dn, j = i % dn;
-    out[(long long)(r0 + r) * dn + j] = acc[r * pn + j];
+    out[(long long)(r0 + r) * dn + j] = from_f32<TF>(acc[r * pn + j]);
   }
 }
 
+template <typename TF, typename TW>
 __global__ void __launch_bounds__(kThreads)
     fused_mlp_bwd_stream_kernel(Mlp m, const int* __restrict__ row_ptr,
                                 const int* __restrict__ col,
                                 const float* __restrict__ ew,
                                 const long long* __restrict__ slot_row,
-                                const float* __restrict__ feats,
-                                const float* __restrict__ g_out,
-                                float* __restrict__ dfeats,
+                                const TF* __restrict__ feats,
+                                const TF* __restrict__ g_out,
+                                TF* __restrict__ dfeats,
                                 float* __restrict__ partial, int n_rows,
                                 int rows, int n_params, int te, int kt) {
   extern __shared__ float sm[];
@@ -708,8 +747,8 @@ __global__ void __launch_bounds__(kThreads)
     gather_inputs(m, col, feats, c0, c1, sm + L.h[0], pad4(d0) + 1, te);
     for (int l = 0; l < m.n; ++l) {
       const int so = pad4(m.dim[l + 1]) + 1;
-      stream_dense(m, l, L, sm, sm + L.h[l], pad4(m.dim[l]) + 1,
-                   sm + L.h[l + 1], so, sm + L.z[l]);
+      stream_dense<TW>(m, l, L, sm, sm + L.h[l], pad4(m.dim[l]) + 1,
+                       sm + L.h[l + 1], so, sm + L.z[l]);
     }
     gather_cotangents(dn, ew, slot_row, g_out, c0, c1, sm + L.d[0], sd, te);
     __syncthreads();
@@ -762,7 +801,7 @@ __global__ void __launch_bounds__(kThreads)
       // kr entries a tile, one per thread, each a dot product of length
       // pout (a warp reads one dz row and kr W rows of odd stride)
       float* dh = sm + L.d[cur ^ 1];
-      for_w_tiles(m, l, pin, L, sm, [&](int k0, int kr, const float* wt) {
+      for_w_tiles<TW>(m, l, pin, L, sm, [&](int k0, int kr, const float* wt) {
         for (int o = threadIdx.x; o < te * kr; o += kThreads) {
           const int e = o / kr, k = o % kr;
           float a = 0.f;
@@ -777,16 +816,18 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = threadIdx.x; i < te * d0; i += kThreads) {
       const int e = i / d0, k = i % d0;
       const int s = c0 + e;
-      if (s < c1) dfeats[(long long)col[s] * d0 + k] = dh0[e * sd + k];
+      if (s < c1)
+        dfeats[(long long)col[s] * d0 + k] = from_f32<TF>(dh0[e * sd + k]);
     }
     __syncthreads();
   }
 }
 
-// out[i] = sum over blocks b, in order, of partial[b, i]; kBatch loads in
-// flight at a time, added in block order
+// out[i] = sum over blocks b, in order, of partial[b, i], rounded to TW
+// once; kBatch loads in flight at a time, added in block order
+template <typename TW>
 __global__ void sum_partials_kernel(const float* __restrict__ partial,
-                                    float* __restrict__ out, int n_blocks,
+                                    TW* __restrict__ out, int n_blocks,
                                     int n_params) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_params) return;
@@ -801,7 +842,7 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
     for (int u = 0; u < kBatch; ++u) a += v[u];
   }
   for (; b < n_blocks; ++b) a += partial[(long long)b * n_params + i];
-  out[i] = a;
+  out[i] = from_f32<TW>(a);
 }
 
 // host: the MLP's widths; 0 or kOutsideEnvelope. K3's envelope: 1 to
@@ -833,10 +874,17 @@ int make_mlp(int n, const int* dims, const int* acts, const void* const* w,
     if (acts[l] < kIdentity || acts[l] > kSwish)
       return static_cast<int>(cudaErrorInvalidValue);
     m->act[l] = acts[l];
-    m->w[l] = static_cast<const float*>(w[l]);
-    m->b[l] = static_cast<const float*>(b[l]);
+    m->w[l] = w[l];
+    m->b[l] = b[l];
   }
   return 0;
+}
+
+// f(TF(), TW()) for the dtypes the flags pick (bf16 if set, else f32)
+template <typename F>
+int with_dtypes(int feats_bf16, int w_bf16, F f) {
+  if (feats_bf16) return w_bf16 ? f(bf16(), bf16()) : f(bf16(), 0.f);
+  return w_bf16 ? f(0.f, bf16()) : f(0.f, 0.f);
 }
 
 }  // namespace
@@ -851,16 +899,18 @@ int ngpde_fused_mlp_variant(int n, const int* dims, int bwd) {
   return resident_fits(m, bwd != 0) ? kResident : kStreamed;
 }
 
-// out (n_rows, dims[n]) f32. dims: n + 1 widths; acts: n activation codes;
-// w, b: n device pointers each; rows: receiver rows per block (the streamed
-// variant may take fewer); slots: the edge slots a block holds on average
-// (the streamed variant's chunk is at most the power of two above it).
-// Returns a cudaError_t, or kOutsideEnvelope (-1).
+// out (n_rows, dims[n]) in feats' dtype. dims: n + 1 widths; acts: n
+// activation codes; w, b: n device pointers each; feats_bf16 / w_bf16: the
+// dtypes of feats (and out) and of every w and b (bf16 if set, else f32);
+// rows: receiver rows per block (the streamed variant may take fewer);
+// slots: the edge slots a block holds on average (the streamed variant's
+// chunk is at most the power of two above it). Returns a cudaError_t, or
+// kOutsideEnvelope (-1).
 int ngpde_fused_mlp_fwd(const int* row_ptr, const int* col, const float* ew,
-                        const float* feats, float* out, int n_rows, int rows,
+                        const void* feats, void* out, int n_rows, int rows,
                         int slots, int n, const int* dims, const int* acts,
                         const void* const* w, const void* const* b,
-                        void* stream_ptr) {
+                        int feats_bf16, int w_bf16, void* stream_ptr) {
   Mlp m;
   const int bad = make_mlp(n, dims, acts, w, b, &m);
   if (bad != 0) return bad;
@@ -868,41 +918,48 @@ int ngpde_fused_mlp_fwd(const int* row_ptr, const int* col, const float* ew,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err;
-  if (resident_fits(m, false)) {
-    const int smem = make_layout(m, rows, false).total * (int)sizeof(float);
-    err = cudaFuncSetAttribute(fused_mlp_fwd_kernel,
+  return with_dtypes(feats_bf16, w_bf16, [&](auto tf, auto tw) {
+    using TF = decltype(tf);
+    using TW = decltype(tw);
+    const TF* x = static_cast<const TF*>(feats);
+    TF* y = static_cast<TF*>(out);
+    cudaError_t err;
+    if (resident_fits(m, false)) {
+      const int smem = make_layout(m, rows, false).total * (int)sizeof(float);
+      err = cudaFuncSetAttribute(fused_mlp_fwd_kernel<TF, TW>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const int blocks = (n_rows + rows - 1) / rows;
+      fused_mlp_fwd_kernel<TF, TW><<<blocks, kThreads, smem, stream>>>(
+          m, row_ptr, col, ew, x, y, n_rows, rows);
+      return static_cast<int>(cudaGetLastError());
+    }
+    StreamPlan p;
+    if (!plan_stream(m, rows, slots, false, &p)) return kOutsideEnvelope;
+    err = cudaFuncSetAttribute(fused_mlp_fwd_stream_kernel<TF, TW>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+                               p.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int blocks = (n_rows + rows - 1) / rows;
-    fused_mlp_fwd_kernel<<<blocks, kThreads, smem, stream>>>(
-        m, row_ptr, col, ew, feats, out, n_rows, rows);
+    const int blocks = (n_rows + p.rows - 1) / p.rows;
+    fused_mlp_fwd_stream_kernel<TF, TW><<<blocks, kThreads, p.smem, stream>>>(
+        m, row_ptr, col, ew, x, y, n_rows, p.rows, p.te, p.kt);
     return static_cast<int>(cudaGetLastError());
-  }
-  StreamPlan p;
-  if (!plan_stream(m, rows, slots, false, &p)) return kOutsideEnvelope;
-  err = cudaFuncSetAttribute(fused_mlp_fwd_stream_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             p.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n_rows + p.rows - 1) / p.rows;
-  fused_mlp_fwd_stream_kernel<<<blocks, kThreads, p.smem, stream>>>(
-      m, row_ptr, col, ew, feats, out, n_rows, p.rows, p.te, p.kt);
-  return static_cast<int>(cudaGetLastError());
+  });
 }
 
-// dfeats (E, dims[0]); grads: the n_params = sum_l dims[l]*dims[l+1] +
-// dims[l+1] weight and bias gradients, concatenated per layer; partial:
-// scratch of ceil(n_rows / rows) * n_params floats; slots as for the
+// dfeats (E, dims[0]) in feats' dtype (g_out's too); grads: the n_params
+// = sum_l dims[l]*dims[l+1] + dims[l+1] weight and bias gradients in the
+// weights' dtype, concatenated per layer; partial: scratch of
+// ceil(n_rows / rows) * n_params floats; dtypes and slots as for the
 // forward.
 int ngpde_fused_mlp_bwd(const int* row_ptr, const int* col, const float* ew,
-                        const long long* slot_row, const float* feats,
-                        const float* g_out, float* dfeats, float* grads,
+                        const long long* slot_row, const void* feats,
+                        const void* g_out, void* dfeats, void* grads,
                         float* partial, int n_rows, int rows, int slots, int n,
                         const int* dims, const int* acts,
                         const void* const* w, const void* const* b,
-                        void* stream_ptr) {
+                        int feats_bf16, int w_bf16, void* stream_ptr) {
   Mlp m;
   const int bad = make_mlp(n, dims, acts, w, b, &m);
   if (bad != 0) return bad;
@@ -911,34 +968,43 @@ int ngpde_fused_mlp_bwd(const int* row_ptr, const int* col, const float* ew,
   for (int l = 0; l < n; ++l) n_params += dims[l] * dims[l + 1] + dims[l + 1];
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int blocks = n_rows == 0 ? 0 : (n_rows + rows - 1) / rows;
-  if (blocks > 0) {
-    cudaError_t err;
-    if (resident_fits(m, true)) {
-      const int smem = make_layout(m, rows, true).total * (int)sizeof(float);
-      err = cudaFuncSetAttribute(fused_mlp_bwd_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
+  return with_dtypes(feats_bf16, w_bf16, [&](auto tf, auto tw) {
+    using TF = decltype(tf);
+    using TW = decltype(tw);
+    const TF* x = static_cast<const TF*>(feats);
+    const TF* g = static_cast<const TF*>(g_out);
+    TF* dx = static_cast<TF*>(dfeats);
+    if (blocks > 0) {
+      cudaError_t err;
+      if (resident_fits(m, true)) {
+        const int smem =
+            make_layout(m, rows, true).total * (int)sizeof(float);
+        err = cudaFuncSetAttribute(fused_mlp_bwd_kernel<TF, TW>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        fused_mlp_bwd_kernel<TF, TW><<<blocks, kThreads, smem, stream>>>(
+            m, row_ptr, col, ew, slot_row, x, g, dx, partial, n_rows, rows,
+            n_params);
+      } else {
+        StreamPlan p;
+        if (!plan_stream(m, rows, slots, true, &p)) return kOutsideEnvelope;
+        err = cudaFuncSetAttribute(fused_mlp_bwd_stream_kernel<TF, TW>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   p.smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        fused_mlp_bwd_stream_kernel<TF, TW>
+            <<<blocks, kThreads, p.smem, stream>>>(
+                m, row_ptr, col, ew, slot_row, x, g, dx, partial, n_rows,
+                rows, n_params, p.te, p.kt);
+      }
+      err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
-      fused_mlp_bwd_kernel<<<blocks, kThreads, smem, stream>>>(
-          m, row_ptr, col, ew, slot_row, feats, g_out, dfeats, partial,
-          n_rows, rows, n_params);
-    } else {
-      StreamPlan p;
-      if (!plan_stream(m, rows, slots, true, &p)) return kOutsideEnvelope;
-      err = cudaFuncSetAttribute(fused_mlp_bwd_stream_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 p.smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      fused_mlp_bwd_stream_kernel<<<blocks, kThreads, p.smem, stream>>>(
-          m, row_ptr, col, ew, slot_row, feats, g_out, dfeats, partial,
-          n_rows, rows, n_params, p.te, p.kt);
     }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  sum_partials_kernel<<<(n_params + 255) / 256, 256, 0, stream>>>(
-      partial, grads, blocks, n_params);
-  return static_cast<int>(cudaGetLastError());
+    sum_partials_kernel<TW><<<(n_params + 255) / 256, 256, 0, stream>>>(
+        partial, static_cast<TW*>(grads), blocks, n_params);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // extern "C"

@@ -23,6 +23,13 @@
 // onto the senders outside the kernel (index_add_), as the JAX package's
 // segment_sum does.
 //
+// Dtypes, as the TPU kernels take them: ph (with out, g and dph) in TP, h
+// in TH, Wl' (with dWl') in TW, each f32 or bf16. Every operand is
+// converted to f32 as it is loaded; S, dS, the per-edge dh_e, the products'
+// accumulators and split partials stay f32, and each result is rounded to
+// its dtype once, when it is stored (dh_e after the sum onto the senders).
+// Under the precision policy TW is bf16, and TP and TH are bf16 or f32.
+//
 // What bounds it on the H100: at those widths the two products (541 M
 // multiply-adds each) and the reduce (158 M) are far above the ridge point
 // against the 34 MB of S written and read, so the limit is the CUDA cores'
@@ -45,9 +52,13 @@
 //   (dph' = hw . dS[n] and dh_e = ph' . dS[n]^T) read it with 16-byte loads
 //   across consecutive threads. Every edge id appears once in `col`, so dph
 //   and dh_e rows are written directly, with no scatter.
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
+
+using ngpde::from_f32;
+using ngpde::to_f32;
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kTE = 32;  // edge slots per chunk
@@ -80,19 +91,20 @@ __host__ __device__ inline int edge_bwd_smem_floats(const Gno& p) {
 }
 
 // The chunk [c0, c1) of slots: w[s] * h[snd_s] rows into hw (kTE x inp) and
-// ph'[e_s] rows into pp (kTE x kp), zero-padded.
+// ph'[e_s] rows into pp (kTE x kp), as f32, zero-padded.
+template <typename TP, typename TH>
 __device__ void gather_chunk(const Gno& p, const int* __restrict__ col,
                              const float* __restrict__ ew,
                              const int* __restrict__ senders,
-                             const float* __restrict__ ph,
-                             const float* __restrict__ h, int c0, int c1,
+                             const TP* __restrict__ ph,
+                             const TH* __restrict__ h, int c0, int c1,
                              float* hw, float* pp) {
   for (int idx = threadIdx.x; idx < kTE * p.inp; idx += kThreads) {
     const int e = idx / p.inp, i = idx % p.inp;
     const int s = c0 + e;
     float v = 0.f;
     if (s < c1 && i < p.in)
-      v = ew[s] * h[(long long)senders[col[s]] * p.in + i];
+      v = ew[s] * to_f32(h[(long long)senders[col[s]] * p.in + i]);
     hw[idx] = v;
   }
   for (int idx = threadIdx.x; idx < kTE * p.kp; idx += kThreads) {
@@ -101,7 +113,7 @@ __device__ void gather_chunk(const Gno& p, const int* __restrict__ col,
     float v = 0.f;
     if (s < c1) {
       if (k < p.k)
-        v = ph[(long long)col[s] * p.k + k];
+        v = to_f32(ph[(long long)col[s] * p.k + k]);
       else if (k < p.kb)
         v = 1.f;  // the bias column of ph'
     }
@@ -129,14 +141,15 @@ __device__ __forceinline__ float4 column(const float4 (&a)[4], int q) {
   return make_float4(at(a[0]), at(a[1]), at(a[2]), at(a[3]));
 }
 
-// S[r, i, k] for one receiver row r per block, stored (N, in, kb).
+// S[r, i, k] for one receiver row r per block, stored (N, in, kb) in f32.
+template <typename TP, typename TH>
 __global__ void __launch_bounds__(kThreads)
     gno_reduce_kernel(Gno p, const int* __restrict__ row_ptr,
                       const int* __restrict__ col,
                       const float* __restrict__ ew,
                       const int* __restrict__ senders,
-                      const float* __restrict__ ph,
-                      const float* __restrict__ h, float* __restrict__ s_out) {
+                      const TP* __restrict__ ph,
+                      const TH* __restrict__ h, float* __restrict__ s_out) {
   extern __shared__ float4 sm4[];
   float* hw = reinterpret_cast<float*>(sm4);
   float* pp = hw + kTE * p.inp;
@@ -180,13 +193,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // C[m, n] = sum_k A(m, k) B(k, n) with A(m, k) = A[m*am + k*ak] and
-// B(k, n) = B[k*bk + n*bn], for m < M, n < N. Block z of the grid's third
-// dimension takes the inner range [z*kc, min((z+1)*kc, K)) and writes the
-// (M, N) slab C + z*M*N (zeros for an empty range).
+// B(k, n) = B[k*bk + n*bn], for m < M, n < N, in f32. Block z of the grid's
+// third dimension takes the inner range [z*kc, min((z+1)*kc, K)) and writes
+// the (M, N) slab C + z*M*N (zeros for an empty range).
+template <typename TA, typename TB, typename TC>
 __global__ void __launch_bounds__(kThreads)
-    gemm_kernel(int M, int N, int K, int kc, const float* __restrict__ A,
-                long long am, long long ak, const float* __restrict__ B,
-                long long bk, long long bn, float* __restrict__ C) {
+    gemm_kernel(int M, int N, int K, int kc, const TA* __restrict__ A,
+                long long am, long long ak, const TB* __restrict__ B,
+                long long bk, long long bn, TC* __restrict__ C) {
   __shared__ __align__(16) float As[kBK][kBM + 4];
   __shared__ __align__(16) float Bs[kBK][kBN + 4];
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
@@ -211,7 +225,7 @@ __global__ void __launch_bounds__(kThreads)
         m = idx % kBM;
       }
       const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < kend) ? A[gm * am + gk * ak] : 0.f;
+      As[k][m] = (gm < M && gk < kend) ? to_f32(A[gm * am + gk * ak]) : 0.f;
     }
     for (int idx = threadIdx.x; idx < kBK * kBN; idx += kThreads) {
       int k, n;
@@ -223,7 +237,7 @@ __global__ void __launch_bounds__(kThreads)
         k = idx % kBK;
       }
       const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < kend && gn < N) ? B[gk * bk + gn * bn] : 0.f;
+      Bs[k][n] = (gk < kend && gn < N) ? to_f32(B[gk * bk + gn * bn]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -232,37 +246,41 @@ __global__ void __launch_bounds__(kThreads)
              *reinterpret_cast<const float4*>(&Bs[k][tx * 4]));
     __syncthreads();
   }
-  float* c = C + (long long)blockIdx.z * M * N;
+  TC* c = C + (long long)blockIdx.z * M * N;
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int gm = m0 + ty * 4 + r, gn = n0 + tx * 4 + q;
-      if (gm < M && gn < N) c[(long long)gm * N + gn] = acc[r][q];
+      if (gm < M && gn < N) c[(long long)gm * N + gn] = from_f32<TC>(acc[r][q]);
     }
 }
 
-// out[i] = sum over splits z, in order, of partial[z * n + i]
+// out[i] = sum over splits z, in order, of partial[z * n + i], rounded to
+// TC once
+template <typename TC>
 __global__ void sum_splits_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ out, int splits,
+                                  TC* __restrict__ out, int splits,
                                   long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float a = 0.f;
   for (int z = 0; z < splits; ++z) a += partial[z * n + i];
-  out[i] = a;
+  out[i] = from_f32<TC>(a);
 }
 
-// dph' and dh_e of one receiver row per block, from dS stored (N, in, kb).
+// dph' (in TP) and dh_e (f32) of one receiver row per block, from dS
+// stored (N, in, kb).
+template <typename TP, typename TH>
 __global__ void __launch_bounds__(kThreads)
     gno_edge_bwd_kernel(Gno p, const int* __restrict__ row_ptr,
                         const int* __restrict__ col,
                         const float* __restrict__ ew,
                         const int* __restrict__ senders,
-                        const float* __restrict__ ph,
-                        const float* __restrict__ h,
+                        const TP* __restrict__ ph,
+                        const TH* __restrict__ h,
                         const float* __restrict__ ds,
-                        float* __restrict__ dph,
+                        TP* __restrict__ dph,
                         float* __restrict__ dh_edge) {
   extern __shared__ float4 sm4[];
   float* dsm = reinterpret_cast<float*>(sm4);  // (inp, kp): dS[r]
@@ -312,7 +330,7 @@ __global__ void __launch_bounds__(kThreads)
         const long long e = col[s];
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          if (k0 + c < p.k) dph[e * p.k + k0 + c] = acc[a][c];
+          if (k0 + c < p.k) dph[e * p.k + k0 + c] = from_f32<TP>(acc[a][c]);
       }
     }
     // dh_e[e, i] = w[s] sum_k ph'[e, k] dS[i, k]
@@ -373,50 +391,72 @@ int make_gno(int k, int in, int out, int has_bias, Gno* p) {
 
 // C = A . B as gemm_kernel describes it; with splits > 1 through `partial`
 // (splits * M * N floats) and sum_splits_kernel.
-cudaError_t launch_gemm(int M, int N, int K, int splits, const float* A,
-                        long long am, long long ak, const float* B,
-                        long long bk, long long bn, float* C, float* partial,
+template <typename TA, typename TB, typename TC>
+cudaError_t launch_gemm(int M, int N, int K, int splits, const TA* A,
+                        long long am, long long ak, const TB* B,
+                        long long bk, long long bn, TC* C, float* partial,
                         cudaStream_t stream) {
   if (M == 0 || N == 0) return cudaSuccess;
   const int per = (K + splits - 1) / splits;
   const int kc = (per + kBK - 1) / kBK * kBK;
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, splits);
-  gemm_kernel<<<grid, kThreads, 0, stream>>>(M, N, K, kc, A, am, ak, B, bk,
-                                             bn, splits == 1 ? C : partial);
+  if (splits == 1) {
+    gemm_kernel<TA, TB, TC><<<grid, kThreads, 0, stream>>>(
+        M, N, K, kc, A, am, ak, B, bk, bn, C);
+    return cudaGetLastError();
+  }
+  gemm_kernel<TA, TB, float><<<grid, kThreads, 0, stream>>>(
+      M, N, K, kc, A, am, ak, B, bk, bn, partial);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
+  if (err != cudaSuccess) return err;
   const long long n = (long long)M * N;
-  sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+  sum_splits_kernel<TC><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       partial, C, splits, n);
   return cudaGetLastError();
 }
 
+template <typename TP, typename TH>
 cudaError_t launch_reduce(const Gno& p, const int* row_ptr, const int* col,
-                          const float* ew, const int* senders,
-                          const float* ph, const float* h, float* s_buf,
-                          int n_rows, cudaStream_t stream) {
+                          const float* ew, const int* senders, const TP* ph,
+                          const TH* h, float* s_buf, int n_rows,
+                          cudaStream_t stream) {
   const int smem = reduce_smem_floats(p) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      gno_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      gno_reduce_kernel<TP, TH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  gno_reduce_kernel<<<n_rows, kThreads, smem, stream>>>(
+  gno_reduce_kernel<TP, TH><<<n_rows, kThreads, smem, stream>>>(
       p, row_ptr, col, ew, senders, ph, h, s_buf);
   return cudaGetLastError();
+}
+
+// f(TP(), TH(), TW()) for the dtypes the flags pick (bf16 if set, else f32)
+template <typename F>
+int with_dtypes(int ph_bf16, int h_bf16, int w_bf16, F f) {
+  auto pick_w = [&](auto tp, auto th) {
+    return w_bf16 ? f(tp, th, bf16()) : f(tp, th, 0.f);
+  };
+  auto pick_h = [&](auto tp) {
+    return h_bf16 ? pick_w(tp, bf16()) : pick_w(tp, 0.f);
+  };
+  return ph_bf16 ? pick_h(bf16()) : pick_h(0.f);
 }
 
 }  // namespace
 
 extern "C" {
 
-// out (n_rows, out_chs) f32. ph (E, k); h (nodes, in); wlb (in, kb, out_chs)
-// = [Wl; bl] along k (kb = k + has_bias); s_buf: n_rows * in * kb floats of
-// scratch; partial: splits * n_rows * out_chs floats when splits > 1.
-// Returns a cudaError_t, or kOutsideEnvelope (-1).
+// out (n_rows, out_chs) in ph's dtype. ph (E, k); h (nodes, in); wlb (in,
+// kb, out_chs) = [Wl; bl] along k (kb = k + has_bias); ph_bf16, h_bf16,
+// w_bf16: the dtypes of ph, h and wlb (bf16 if set, else f32); s_buf:
+// n_rows * in * kb floats of scratch; partial: splits * n_rows * out_chs
+// floats when splits > 1. Returns a cudaError_t, or kOutsideEnvelope (-1).
 int ngpde_gno_fwd(const int* row_ptr, const int* col, const float* ew,
-                  const int* senders, const float* ph, const float* h,
-                  const float* wlb, float* out, float* s_buf, float* partial,
+                  const int* senders, const void* ph, const void* h,
+                  const void* wlb, void* out, float* s_buf, float* partial,
                   int n_rows, int k, int in, int out_chs, int has_bias,
-                  int splits, void* stream_ptr) {
+                  int splits, int ph_bf16, int h_bf16, int w_bf16,
+                  void* stream_ptr) {
   Gno p;
   const int bad = make_gno(k, in, out_chs, has_bias, &p);
   if (bad != 0) return bad;
@@ -424,25 +464,34 @@ int ngpde_gno_fwd(const int* row_ptr, const int* col, const float* ew,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err = launch_reduce(p, row_ptr, col, ew, senders, ph, h, s_buf,
-                                  n_rows, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int j = in * p.kb;
-  return static_cast<int>(launch_gemm(n_rows, out_chs, j, splits, s_buf, j, 1,
-                                      wlb, out_chs, 1, out, partial, stream));
+  return with_dtypes(ph_bf16, h_bf16, w_bf16, [&](auto tp, auto th, auto tw) {
+    using TP = decltype(tp);
+    using TH = decltype(th);
+    using TW = decltype(tw);
+    cudaError_t err = launch_reduce(
+        p, row_ptr, col, ew, senders, static_cast<const TP*>(ph),
+        static_cast<const TH*>(h), s_buf, n_rows, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int j = in * p.kb;
+    return static_cast<int>(launch_gemm(
+        n_rows, out_chs, j, splits, s_buf, j, 1, static_cast<const TW*>(wlb),
+        out_chs, 1, static_cast<TP*>(out), partial, stream));
+  });
 }
 
-// For the cotangent g_out (n_rows, out_chs): dph (E, k) and dh_edge (E, in),
-// one row per edge, written for every edge in `col` (the wrapper zeroes
-// them first); dwlb (in, kb, out_chs) = [dWl; dbl]. s_buf and ds_buf:
-// n_rows * in * kb floats each; partial: splits * in * kb * out_chs floats
-// when splits > 1 (the split of S^T . g along the receivers).
+// For the cotangent g_out (n_rows, out_chs) in ph's dtype: dph (E, k) in
+// ph's dtype and dh_edge (E, in) in f32, one row per edge, written for every
+// edge in `col` (the wrapper zeroes them first); dwlb (in, kb, out_chs) =
+// [dWl; dbl] in wlb's dtype. s_buf and ds_buf: n_rows * in * kb floats
+// each; partial: splits * in * kb * out_chs floats when splits > 1 (the
+// split of S^T . g along the receivers); dtype flags as for the forward.
 int ngpde_gno_bwd(const int* row_ptr, const int* col, const float* ew,
-                  const int* senders, const float* ph, const float* h,
-                  const float* wlb, const float* g_out, float* dph,
-                  float* dh_edge, float* dwlb, float* s_buf, float* ds_buf,
+                  const int* senders, const void* ph, const void* h,
+                  const void* wlb, const void* g_out, void* dph,
+                  float* dh_edge, void* dwlb, float* s_buf, float* ds_buf,
                   float* partial, int n_rows, int k, int in, int out_chs,
-                  int has_bias, int splits, void* stream_ptr) {
+                  int has_bias, int splits, int ph_bf16, int h_bf16,
+                  int w_bf16, void* stream_ptr) {
   Gno p;
   const int bad = make_gno(k, in, out_chs, has_bias, &p);
   if (bad != 0) return bad;
@@ -450,28 +499,38 @@ int ngpde_gno_bwd(const int* row_ptr, const int* col, const float* ew,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int j = in * p.kb;
-  cudaError_t err;
-  if (n_rows > 0) {
-    err = launch_reduce(p, row_ptr, col, ew, senders, ph, h, s_buf, n_rows,
-                        stream);
+  return with_dtypes(ph_bf16, h_bf16, w_bf16, [&](auto tp, auto th, auto tw) {
+    using TP = decltype(tp);
+    using TH = decltype(th);
+    using TW = decltype(tw);
+    const TP* php = static_cast<const TP*>(ph);
+    const TH* hp = static_cast<const TH*>(h);
+    const TW* wp = static_cast<const TW*>(wlb);
+    const TP* gp = static_cast<const TP*>(g_out);
+    cudaError_t err;
+    if (n_rows > 0) {
+      err = launch_reduce(p, row_ptr, col, ew, senders, php, hp, s_buf,
+                          n_rows, stream);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      // dS = g . Wl'^T: B(k = o, n = j) = wlb[j * out + o]
+      err = launch_gemm(n_rows, j, out_chs, 1, gp, out_chs, 1, wp, 1,
+                        out_chs, ds_buf, nullptr, stream);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    // dWl' = S^T . g: A(m = j, k = n) = S[n * J + j] (zeros without rows)
+    err = launch_gemm(j, out_chs, n_rows, splits, s_buf, 1, j, gp, out_chs,
+                      1, static_cast<TW*>(dwlb), partial, stream);
+    if (err != cudaSuccess || n_rows == 0) return static_cast<int>(err);
+    const int smem = edge_bwd_smem_floats(p) * (int)sizeof(float);
+    err = cudaFuncSetAttribute(gno_edge_bwd_kernel<TP, TH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    // dS = g . Wl'^T: B(k = o, n = j) = wlb[j * out + o]
-    err = launch_gemm(n_rows, j, out_chs, 1, g_out, out_chs, 1, wlb, 1,
-                      out_chs, ds_buf, nullptr, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  // dWl' = S^T . g: A(m = j, k = n) = S[n * J + j] (zeros without rows)
-  err = launch_gemm(j, out_chs, n_rows, splits, s_buf, 1, j, g_out, out_chs,
-                    1, dwlb, partial, stream);
-  if (err != cudaSuccess || n_rows == 0) return static_cast<int>(err);
-  const int smem = edge_bwd_smem_floats(p) * (int)sizeof(float);
-  err = cudaFuncSetAttribute(gno_edge_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gno_edge_bwd_kernel<<<n_rows, kThreads, smem, stream>>>(
-      p, row_ptr, col, ew, senders, ph, h, ds_buf, dph, dh_edge);
-  return static_cast<int>(cudaGetLastError());
+    gno_edge_bwd_kernel<TP, TH><<<n_rows, kThreads, smem, stream>>>(
+        p, row_ptr, col, ew, senders, php, hp, ds_buf,
+        static_cast<TP*>(dph), dh_edge);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // extern "C"

@@ -9,7 +9,10 @@ MSE, one adaptive solve per simulation.
 
 On the card the VMH right-hand side runs the fused edge-MLP kernel (K3)
 forward, and its backward kernel in the backward pass. ``--device cuda``
-without a card raises; nothing falls back to the CPU.
+without a card raises; nothing falls back to the CPU. ``--adjoint
+backsolve`` takes the continuous adjoint instead of the checkpoint one (as
+the JAX script's flag): the backward integrates the augmented system, and
+each of its right-hand-side evaluations runs K3 forward and backward.
 """
 from __future__ import annotations
 
@@ -122,20 +125,29 @@ def main(cfg: Config, device="cuda") -> List[float]:
     return train(*setup(cfg, device), cfg)
 
 
-if __name__ == "__main__":
+def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser()
     p.add_argument("--device", default="cuda")
     p.add_argument("--sims", type=int, default=24)
     p.add_argument("--points", type=int, default=3000)
     p.add_argument("--epochs", type=int, default=200)
     p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--adjoint", default="checkpoint",
+                   choices=("checkpoint", "backsolve"))
     p.add_argument("--ckpt-steps", type=int, default=128)
     p.add_argument("--rtol", type=float, default=1e-5)
     p.add_argument("--atol", type=float, default=1e-3)
     p.add_argument("--max-steps", type=int, default=10_000)
-    args = p.parse_args()
-    main(Config(num_sims=args.sims, num_points=args.points,
-                epochs=args.epochs, log_every=args.log_every,
-                checkpoint_steps=args.ckpt_steps, rtol=args.rtol,
-                atol=args.atol, max_steps=args.max_steps),
-         device=args.device)
+    return p.parse_args(argv)
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    return Config(num_sims=args.sims, num_points=args.points,
+                  epochs=args.epochs, log_every=args.log_every,
+                  adjoint=args.adjoint, checkpoint_steps=args.ckpt_steps,
+                  rtol=args.rtol, atol=args.atol, max_steps=args.max_steps)
+
+
+if __name__ == "__main__":
+    args = parse_args()
+    main(config_from_args(args), device=args.device)

@@ -17,7 +17,8 @@ from .segment_kernels import (SegmentCSR, build_segment_csr, segment_max,
 
 # every kernel wrapper, each counting its launches in ``.launches`` (the
 # differentiable ones also count the part made in backward passes in
-# ``.backward_launches``)
+# ``.backward_launches``; K3, K5 and K6 count the launches that read a bf16
+# operand in ``.bf16_launches``)
 KERNELS = (segment_spmm, dia_spmm_stencil, dia_gcn_rhs, fused_mlp_fwd,
            fused_mlp_bwd, fused_gno_fwd, fused_gno_bwd, segment_max,
            banded_spmm_pallas, pbanded_spmm_pallas, banded_gcn_rhs,
@@ -27,8 +28,9 @@ KERNELS = (segment_spmm, dia_spmm_stencil, dia_gcn_rhs, fused_mlp_fwd,
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
-        if hasattr(fn, "backward_launches"):
-            fn.backward_launches = 0
+        for count in ("backward_launches", "bf16_launches"):
+            if hasattr(fn, count):
+                setattr(fn, count, 0)
 
 
 __all__ = [

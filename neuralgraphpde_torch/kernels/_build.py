@@ -31,17 +31,17 @@ _I = ctypes.c_int
 # C entry point -> argument types; every one returns a cudaError_t as int
 _SIGNATURES = {
     "ngpde_segment_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "ngpde_segment_max": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "ngpde_segment_max": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ngpde_dia_stencil": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ngpde_dia_gcn_rhs": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _P),
     "ngpde_fused_mlp_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                            _P, _P),
+                            _P, _I, _I, _P),
     "ngpde_fused_mlp_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _P, _P, _P, _P, _P),
+                            _I, _P, _P, _P, _P, _I, _I, _P),
     "ngpde_fused_mlp_variant": (_I, _P, _I),
-    "ngpde_gno_fwd": (_P,) * 10 + (_I,) * 6 + (_P,),
-    "ngpde_gno_bwd": (_P,) * 14 + (_I,) * 6 + (_P,),
+    "ngpde_gno_fwd": (_P,) * 10 + (_I,) * 9 + (_P,),
+    "ngpde_gno_bwd": (_P,) * 14 + (_I,) * 9 + (_P,),
     "ngpde_block_spmm": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I,
                          _P),
     "ngpde_block_gcn_rhs": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I,

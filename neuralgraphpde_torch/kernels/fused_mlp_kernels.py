@@ -11,20 +11,26 @@ The layout is the ``tcsr_edges`` ``SegmentCSR`` that ``precompute``
 attaches: receiver-sorted, ``col`` holding edge ids, each edge once. The
 MLP has at most four Dense layers with activations from ``supported_
 activation`` (the JAX kernel's set; ``gelu`` is the tanh form, as
-``jax.nn.gelu``'s default), in true f32.
+``jax.nn.gelu``'s default), computed in true f32.
+
+Dtypes, as the JAX kernels take them: feats in f32 or bf16, the weights and
+biases in one of the two (the precision policy gives bf16 weights, and bf16
+or f32 features). Every operand is read as f32; the forward's output and
+``dfeats`` come back in feats' dtype, ``dW`` and ``db`` in the weights'
+(summed in f32, rounded once). The output cotangent has the output's dtype.
 
 - ``fused_mlp_fwd`` / ``fused_mlp_bwd``: the kernels (the backward returns
   ``dfeats``, ``dW`` and ``db`` of every layer for an output cotangent).
   CPU tensors take the plain versions; CUDA tensors launch the kernel or
-  raise. Both take f32 only. On the card both hold the MLP to the kernels'
+  raise, whatever the dtypes. On the card both hold the MLP to the kernels'
   envelope (1 to 4 layers of widths 1 to 1024, worked out by the CUDA
   source) and raise ``ValueError`` outside it. Inside it the CUDA launcher
   picks one of two variants from the widths: ``resident`` (every weight in
   shared memory) where that fits, else ``streamed`` (W through a shared
   tile); ``fused_mlp_variant`` says which.
 - ``fused_mlp_plain`` / ``fused_mlp_bwd_plain``: the plain PyTorch versions,
-  a per-edge MLP then ``index_add_``, and autograd through it (the saved-
-  activation path, the JAX package's ``xla`` backend).
+  a per-edge MLP in f32 then ``index_add_``, and autograd through it (the
+  saved-activation path, the JAX package's ``xla`` backend).
 - ``fused_mlp_aggregate``: the differentiable call. On the card it is a
   ``torch.autograd.Function`` whose forward and backward are the two
   kernels; on the CPU it is the plain forward under autograd.
@@ -40,6 +46,8 @@ import torch.nn.functional as F
 
 from . import _build
 from .segment_kernels import SegmentCSR
+
+_DTYPES = (torch.float32, torch.bfloat16)
 
 # activation name -> the kernel's code (csrc/fused_mlp.cu ``Act``)
 _ACT_CODES = {
@@ -99,11 +107,12 @@ def _check(acts, csr: SegmentCSR, feats, ws, bs) -> None:
         width = w.shape[1]
         if b.numel() != width:
             raise ValueError(f"bias of {b.numel()} entries for width {width}")
-    for t in (feats, *ws, *bs):
-        if t.dtype != torch.float32:
-            raise TypeError(f"the fused MLP kernels take f32 only, got "
-                            f"{t.dtype}: bf16 waits for the precision "
-                            "policy; cast explicitly")
+    if feats.dtype not in _DTYPES or ws[0].dtype not in _DTYPES:
+        raise TypeError(f"the fused MLP kernels take f32 or bf16, got feats "
+                        f"{feats.dtype}, weights {ws[0].dtype}")
+    if any(t.dtype != ws[0].dtype for t in (*ws, *bs)):
+        raise TypeError("the fused MLP kernels take every weight and bias "
+                        f"in one dtype, got {[t.dtype for t in (*ws, *bs)]}")
 
 
 def _check_launch(err: int, what: str, dims) -> None:
@@ -130,15 +139,17 @@ def fused_mlp_variant(dims: Sequence[int], backward: bool = False) -> str:
 def fused_mlp_plain(acts, csr: SegmentCSR, feats: torch.Tensor,
                     ws: Sequence[torch.Tensor],
                     bs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Plain PyTorch version of the forward: the MLP on every edge slot,
-    weighted, ``index_add_`` onto the rows; ``(num_rows, K_n)``, under
-    autograd."""
-    h = feats.index_select(0, csr.col)
+    """Plain PyTorch version of the forward: the MLP on every edge slot in
+    f32, weighted, ``index_add_`` onto the rows; ``(num_rows, K_n)`` in
+    feats' dtype, under autograd (the casts' VJPs round each gradient to
+    its input's dtype once)."""
+    h = feats.float().index_select(0, csr.col)
     for w, b, act in zip(ws, bs, acts):
-        h = _PLAIN_ACTS[_act_name(act)](h @ w + b.reshape(1, -1))
+        h = _PLAIN_ACTS[_act_name(act)](h @ w.float()
+                                        + b.float().reshape(1, -1))
     msgs = h * csr.weight[:, None]
     out = msgs.new_zeros((csr.num_rows, msgs.shape[1]))
-    return out.index_add_(0, csr.rows, msgs)
+    return out.index_add_(0, csr.rows, msgs).to(feats.dtype)
 
 
 def fused_mlp_bwd_plain(acts, csr: SegmentCSR, feats, ws, bs,
@@ -199,48 +210,58 @@ def _block_rows(csr: SegmentCSR, dims, backward: bool, dev) -> tuple:
     return rows, max(1, math.ceil(avg_degree * rows))
 
 
+def _bf16_flags(feats: torch.Tensor, ws) -> tuple:
+    return int(feats.dtype == torch.bfloat16), int(ws[0].dtype ==
+                                                   torch.bfloat16)
+
+
 def fused_mlp_fwd(acts, csr: SegmentCSR, feats: torch.Tensor,
                   ws: Sequence[torch.Tensor],
                   bs: Sequence[torch.Tensor]) -> torch.Tensor:
     """``out[i] = Σ_{s in row i} w_s · MLP(feats[col_s])`` as
-    ``(num_rows, K_n)`` f32, outside autograd. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    ``(num_rows, K_n)`` in feats' dtype, outside autograd. CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
     _check(acts, csr, feats, ws, bs)
     if feats.device.type == "cpu":
         with torch.no_grad():
             return fused_mlp_plain(acts, csr, feats, ws, bs)
     dims = _dims(feats, ws)
     _check_cuda(csr, feats, *ws, *bs)
-    out = torch.empty((csr.num_rows, dims[-1]), dtype=torch.float32,
+    out = torch.empty((csr.num_rows, dims[-1]), dtype=feats.dtype,
                       device=feats.device)
     rows, slots = _block_rows(csr, dims, False, feats.device)
+    flags = _bf16_flags(feats, ws)
     lib = _build.library()
     err = lib.ngpde_fused_mlp_fwd(
         csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.weight.data_ptr(),
         feats.data_ptr(), out.data_ptr(), csr.num_rows, rows, slots,
-        *_layer_args(acts, dims, ws, bs),
+        *_layer_args(acts, dims, ws, bs), *flags,
         torch.cuda.current_stream(feats.device).cuda_stream)
     _check_launch(err, "fused_mlp_fwd", dims)
     fused_mlp_fwd.launches += 1
+    fused_mlp_fwd.bf16_launches += int(any(flags))
     return out
 
 
 fused_mlp_fwd.launches = 0
+fused_mlp_fwd.bf16_launches = 0
 
 
 def fused_mlp_bwd(acts, csr: SegmentCSR, feats: torch.Tensor,
                   ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
                   g_out: torch.Tensor):
     """VJP of ``fused_mlp_fwd`` for the cotangent ``g_out``
-    ``(num_rows, K_n)``: ``(dfeats, dws, dbs)``, each bias gradient shaped
-    like its bias. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (and the small kernel that adds its per-block dW/db)."""
+    ``(num_rows, K_n)`` in feats' dtype: ``(dfeats, dws, dbs)`` in the
+    dtypes of feats and the weights, each bias gradient shaped like its
+    bias. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (and the small kernel that adds its per-block dW/db)."""
     _check(acts, csr, feats, ws, bs)
     dims = _dims(feats, ws)
     if (tuple(g_out.shape) != (csr.num_rows, dims[-1])
-            or g_out.dtype != torch.float32):
-        raise ValueError(f"g_out must be ({csr.num_rows}, {dims[-1]}) f32, "
-                         f"got {tuple(g_out.shape)} {g_out.dtype}")
+            or g_out.dtype != feats.dtype):
+        raise ValueError(f"g_out must be ({csr.num_rows}, {dims[-1]}) "
+                         f"{feats.dtype}, got {tuple(g_out.shape)} "
+                         f"{g_out.dtype}")
     if feats.device.type == "cpu":
         return fused_mlp_bwd_plain(acts, csr, feats, ws, bs, g_out)
     _check_cuda(csr, feats, g_out, *ws, *bs)
@@ -250,18 +271,20 @@ def fused_mlp_bwd(acts, csr: SegmentCSR, feats: torch.Tensor,
     sizes = [(dims[l], dims[l + 1]) for l in range(len(ws))]
     n_params = sum(a * b + b for a, b in sizes)
     dfeats = torch.zeros_like(feats)
-    grads = torch.empty(n_params, dtype=torch.float32, device=dev)
+    grads = torch.empty(n_params, dtype=ws[0].dtype, device=dev)
     partial = torch.empty((max(blocks, 1), n_params), dtype=torch.float32,
                           device=dev)
+    flags = _bf16_flags(feats, ws)
     lib = _build.library()
     err = lib.ngpde_fused_mlp_bwd(
         csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.weight.data_ptr(),
         csr.rows.data_ptr(), feats.data_ptr(), g_out.data_ptr(),
         dfeats.data_ptr(), grads.data_ptr(), partial.data_ptr(),
-        csr.num_rows, rows, slots, *_layer_args(acts, dims, ws, bs),
+        csr.num_rows, rows, slots, *_layer_args(acts, dims, ws, bs), *flags,
         torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(err, "fused_mlp_bwd", dims)
     fused_mlp_bwd.launches += 1
+    fused_mlp_bwd.bf16_launches += int(any(flags))
     dws, dbs, off = [], [], 0
     for (a, b), bias in zip(sizes, bs):
         dws.append(grads[off:off + a * b].view(a, b))
@@ -272,6 +295,7 @@ def fused_mlp_bwd(acts, csr: SegmentCSR, feats: torch.Tensor,
 
 
 fused_mlp_bwd.launches = 0
+fused_mlp_bwd.bf16_launches = 0
 
 
 class _FusedMLP(torch.autograd.Function):

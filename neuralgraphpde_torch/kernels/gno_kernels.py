@@ -12,18 +12,26 @@ The layout is the ``tcsr_edges`` ``SegmentCSR`` that ``precompute``
 attaches (receiver-sorted, ``col`` holding edge ids, each edge once) plus
 the graph's ``senders``: edge ``e`` reads ``ph[e]`` and ``h[senders[e]]``.
 ``wl`` is ϕ's last Dense weight in the kernel's ``(IN, K, OUT)`` layout and
-``bl`` its bias as ``(IN, 1, OUT)`` or None (``pack_last_layer``), in true
-f32.
+``bl`` its bias as ``(IN, 1, OUT)`` or None (``pack_last_layer``); the
+kernels compute in true f32.
+
+Dtypes, as the JAX kernels take them: ``ph``, ``h`` and the pair ``wl``/
+``bl`` each in f32 or bf16 (the precision policy gives bf16 weights, and
+bf16 or f32 activations). Every operand is read as f32; the forward's
+output comes back in ph's dtype, and ``dph``, ``dh``, ``dwl`` and ``dbl``
+each in its input's (summed in f32, rounded once). The output cotangent has
+the output's dtype.
 
 - ``fused_gno_fwd`` / ``fused_gno_bwd``: the kernels (the backward returns
   ``dph``, ``dh``, ``dwl`` and ``dbl`` for an output cotangent). CPU tensors
-  take the plain versions; CUDA tensors launch the kernels or raise. On the
-  card both hold the widths to the kernels' envelope (worked out by the CUDA
-  source) and raise ``ValueError`` outside it.
+  take the plain versions; CUDA tensors launch the kernels or raise,
+  whatever the dtypes. On the card both hold the widths to the kernels'
+  envelope (worked out by the CUDA source) and raise ``ValueError`` outside
+  it.
 - ``fused_gno_plain`` / ``fused_gno_bwd_plain``: the plain PyTorch versions,
   the per-edge kernel matrices ``ph @ W + b`` as one ``(E, IN, OUT)``
-  tensor, the per-edge matvec, then ``index_add_`` (the JAX package's
-  ``xla`` formulation), and autograd through it.
+  tensor, the per-edge matvec, then ``index_add_``, all in f32 (the JAX
+  package's ``xla`` formulation), and autograd through it.
 - ``fused_gno_aggregate``: the differentiable call. On the card it is a
   ``torch.autograd.Function`` whose forward and backward are the two
   kernels; on the CPU it is the plain forward under autograd.
@@ -37,6 +45,8 @@ import torch
 
 from . import _build
 from .segment_kernels import SegmentCSR
+
+_DTYPES = (torch.float32, torch.bfloat16)
 
 # what the CUDA launchers return for widths outside the envelope
 _OUTSIDE_ENVELOPE = -1
@@ -75,11 +85,13 @@ def _check(csr: SegmentCSR, senders, ph, h, wl, bl) -> None:
     if bl is not None and tuple(bl.shape) != (wl.shape[0], 1, wl.shape[2]):
         raise ValueError(f"bl {tuple(bl.shape)} must be ({wl.shape[0]}, 1, "
                          f"{wl.shape[2]})")
-    for t in (ph, h, wl) + (() if bl is None else (bl,)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"the GNO kernels take f32 only, got {t.dtype}: "
-                            "bf16 waits for the precision policy; cast "
-                            "explicitly")
+    for t in (ph, h, wl):
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"the GNO kernels take f32 or bf16, got "
+                            f"{t.dtype}")
+    if bl is not None and bl.dtype != wl.dtype:
+        raise TypeError(f"bl ({bl.dtype}) must have wl's dtype "
+                        f"({wl.dtype})")
 
 
 def _check_cuda(csr: SegmentCSR, *tensors: torch.Tensor) -> None:
@@ -132,19 +144,20 @@ def fused_gno_plain(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
                     bl: Optional[torch.Tensor]) -> torch.Tensor:
     """Plain PyTorch version of the forward: every edge slot's kernel matrix
     ``ph_e @ W + b`` as an ``(E, IN, OUT)`` tensor, the matvec with
-    ``h[s_e]``, weighted, ``index_add_`` onto the rows; ``(num_rows, OUT)``,
-    under autograd."""
+    ``h[s_e]``, weighted, ``index_add_`` onto the rows, all in f32;
+    ``(num_rows, OUT)`` in ph's dtype, under autograd (the casts' VJPs
+    round each gradient to its input's dtype once)."""
     in_chs, k, out_chs = wl.shape
     eid = csr.col.long()
-    php = ph.index_select(0, eid)
-    hs = h.index_select(0, senders.long().index_select(0, eid))
-    w = (php @ wl.permute(1, 0, 2).reshape(k, in_chs * out_chs)).reshape(
-        -1, in_chs, out_chs)
+    php = ph.float().index_select(0, eid)
+    hs = h.float().index_select(0, senders.long().index_select(0, eid))
+    w = (php @ wl.float().permute(1, 0, 2).reshape(
+        k, in_chs * out_chs)).reshape(-1, in_chs, out_chs)
     if bl is not None:
-        w = w + bl.reshape(1, in_chs, out_chs)
+        w = w + bl.float().reshape(1, in_chs, out_chs)
     msgs = torch.einsum("sio,si->so", w, hs) * csr.weight[:, None]
     out = msgs.new_zeros((csr.num_rows, out_chs))
-    return out.index_add_(0, csr.rows, msgs)
+    return out.index_add_(0, csr.rows, msgs).to(ph.dtype)
 
 
 def fused_gno_bwd_plain(csr: SegmentCSR, senders, ph, h, wl, bl,
@@ -161,6 +174,10 @@ def fused_gno_bwd_plain(csr: SegmentCSR, senders, ph, h, wl, bl,
     return grads[0], grads[1], grads[2], (None if bl is None else grads[3])
 
 
+def _bf16_flags(ph, h, wlb) -> tuple:
+    return tuple(int(t.dtype == torch.bfloat16) for t in (ph, h, wlb))
+
+
 def _launch_fwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
                 h: torch.Tensor, wlb: torch.Tensor, k: int,
                 has_bias: bool) -> torch.Tensor:
@@ -170,7 +187,8 @@ def _launch_fwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
     in_chs, kb, out_chs = wlb.shape
     n, j = csr.num_rows, in_chs * kb
     splits = _splits(n, out_chs, j, dev)
-    out = torch.empty((n, out_chs), dtype=torch.float32, device=dev)
+    flags = _bf16_flags(ph, h, wlb)
+    out = torch.empty((n, out_chs), dtype=ph.dtype, device=dev)
     s_buf = torch.empty((n, j), dtype=torch.float32, device=dev)
     partial = torch.empty((splits * n * out_chs if splits > 1 else 0,),
                           dtype=torch.float32, device=dev)
@@ -178,10 +196,11 @@ def _launch_fwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
         csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.weight.data_ptr(),
         senders.data_ptr(), ph.data_ptr(), h.data_ptr(), wlb.data_ptr(),
         out.data_ptr(), s_buf.data_ptr(), partial.data_ptr(), n, k, in_chs,
-        out_chs, int(has_bias), splits,
+        out_chs, int(has_bias), splits, *flags,
         torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(err, "fused_gno_fwd", (k, in_chs, out_chs))
     fused_gno_fwd.launches += 1
+    fused_gno_fwd.bf16_launches += int(any(flags))
     return out
 
 
@@ -189,16 +208,18 @@ def _launch_bwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
                 h: torch.Tensor, wlb: torch.Tensor, k: int, has_bias: bool,
                 g_out: torch.Tensor):
     """K5 backward on the card, from the packed ``Wl'``: ``(dph, dh,
-    dWl')``, the per-edge ``dh`` rows summed onto the senders."""
+    dWl')``, the per-edge ``dh`` rows summed onto the senders in f32, then
+    rounded to h's dtype."""
     _check_cuda(csr, ph, senders, h, wlb, g_out)
     dev = ph.device
     in_chs, kb, out_chs = wlb.shape
     n, j = csr.num_rows, in_chs * kb
     splits = _splits(j, out_chs, n, dev)
+    flags = _bf16_flags(ph, h, wlb)
     f32 = dict(dtype=torch.float32, device=dev)
     dph = torch.zeros_like(ph)
     dh_edge = torch.zeros((csr.num_cols, in_chs), **f32)
-    dwlb = torch.empty((in_chs, kb, out_chs), **f32)
+    dwlb = torch.empty((in_chs, kb, out_chs), dtype=wlb.dtype, device=dev)
     s_buf = torch.empty((n, j), **f32)
     ds_buf = torch.empty((n, j), **f32)
     partial = torch.empty((splits * j * out_chs if splits > 1 else 0,),
@@ -209,26 +230,30 @@ def _launch_bwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
         g_out.data_ptr(), dph.data_ptr(), dh_edge.data_ptr(),
         dwlb.data_ptr(), s_buf.data_ptr(), ds_buf.data_ptr(),
         partial.data_ptr(), n, k, in_chs, out_chs, int(has_bias),
-        splits, torch.cuda.current_stream(dev).cuda_stream)
+        splits, *flags, torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(err, "fused_gno_bwd", (k, in_chs, out_chs))
     fused_gno_bwd.launches += 1
-    dh = torch.zeros_like(h).index_add_(0, senders.long(), dh_edge)
-    return dph, dh, dwlb
+    fused_gno_bwd.bf16_launches += int(any(flags))
+    dh = torch.zeros((h.shape[0], in_chs), **f32).index_add_(
+        0, senders.long(), dh_edge)
+    return dph, dh.to(h.dtype), dwlb
 
 
-def _check_g_out(csr: SegmentCSR, wl: torch.Tensor, g_out: torch.Tensor):
+def _check_g_out(csr: SegmentCSR, ph: torch.Tensor, wl: torch.Tensor,
+                 g_out: torch.Tensor):
     if (tuple(g_out.shape) != (csr.num_rows, wl.shape[2])
-            or g_out.dtype != torch.float32):
+            or g_out.dtype != ph.dtype):
         raise ValueError(f"g_out must be ({csr.num_rows}, {wl.shape[2]}) "
-                         f"f32, got {tuple(g_out.shape)} {g_out.dtype}")
+                         f"{ph.dtype}, got {tuple(g_out.shape)} "
+                         f"{g_out.dtype}")
 
 
 def fused_gno_fwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
                   h: torch.Tensor, wl: torch.Tensor,
                   bl: Optional[torch.Tensor]) -> torch.Tensor:
     """``out[n] = Σ_{e→n} w_e · (ph_e Wl + bl)ᵀ h[s_e]`` as
-    ``(num_rows, OUT)`` f32, outside autograd. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    ``(num_rows, OUT)`` in ph's dtype, outside autograd. CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
     _check(csr, senders, ph, h, wl, bl)
     if ph.device.type == "cpu":
         with torch.no_grad():
@@ -238,6 +263,7 @@ def fused_gno_fwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
 
 
 fused_gno_fwd.launches = 0
+fused_gno_fwd.bf16_launches = 0
 
 
 def fused_gno_bwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
@@ -249,7 +275,7 @@ def fused_gno_bwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
     tensors launch the kernel, and the per-edge ``dh`` rows go onto the
     senders with ``index_add_``."""
     _check(csr, senders, ph, h, wl, bl)
-    _check_g_out(csr, wl, g_out)
+    _check_g_out(csr, ph, wl, g_out)
     if ph.device.type == "cpu":
         return fused_gno_bwd_plain(csr, senders, ph, h, wl, bl, g_out)
     k = wl.shape[1]
@@ -259,6 +285,7 @@ def fused_gno_bwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
 
 
 fused_gno_bwd.launches = 0
+fused_gno_bwd.bf16_launches = 0
 
 
 class _FusedGNO(torch.autograd.Function):

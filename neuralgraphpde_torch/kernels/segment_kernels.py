@@ -194,31 +194,37 @@ def segment_max_plain(m: torch.Tensor, csr: SegmentCSR) -> torch.Tensor:
 
 
 def segment_max(m: torch.Tensor, csr: SegmentCSR) -> torch.Tensor:
-    """``out[i] = max_{s in row i} m[col_s]`` as ``(num_rows, F)`` f32 over
+    """``out[i] = max_{s in row i} m[col_s]`` as ``(num_rows, F)`` in m's
+    dtype (f32 or bf16: bf16 messages are compared in f32, exactly) over
     the edge-id layout ``csr``, outside autograd; ``-inf`` for a row with
     no slot. CPU tensors take the plain version; CUDA tensors launch the
     kernel."""
     if m.dim() != 2 or m.shape[0] != csr.num_cols:
         raise ValueError(f"m must be ({csr.num_cols}, F), got "
                          f"{tuple(m.shape)}")
-    if m.dtype != torch.float32:
-        raise TypeError(f"segment_max takes f32 only, got {m.dtype}")
+    if m.dtype not in _DTYPES:
+        raise TypeError(f"segment_max takes f32 or bf16, got {m.dtype}")
     if m.device.type == "cpu":
         return segment_max_plain(m, csr)
     _check_cuda_inputs(m, csr.row_ptr, csr.col)
     F = m.shape[1]
-    out = torch.empty((csr.num_rows, F), dtype=torch.float32, device=m.device)
-    vec = 4 if F % 4 == 0 and m.data_ptr() % 16 == 0 else 1
+    out = torch.empty((csr.num_rows, F), dtype=m.dtype, device=m.device)
+    vec = 16 // m.element_size()
+    if F % vec or m.data_ptr() % 16:
+        vec = 1
+    bf16 = m.dtype == torch.bfloat16
     err = _build.library().ngpde_segment_max(
         csr.row_ptr.data_ptr(), csr.col.data_ptr(), m.data_ptr(),
-        out.data_ptr(), csr.num_rows, F, vec,
+        out.data_ptr(), csr.num_rows, F, int(bf16), vec,
         torch.cuda.current_stream(m.device).cuda_stream)
     _build.check(err, "segment_max")
     segment_max.launches += 1
+    segment_max.bf16_launches += int(bf16)
     return out
 
 
 segment_max.launches = 0
+segment_max.bf16_launches = 0
 
 
 def segment_max_bwd(m: torch.Tensor, out: torch.Tensor,

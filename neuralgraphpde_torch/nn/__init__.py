@@ -4,10 +4,12 @@ from .basic import (MLP, Chain, Dense, glorot_normal, glorot_uniform,
 from .gnn import (INPUT_KEY, AbstractGNNContainerLayer, AbstractGNNLayer,
                   wrap_input)
 from .conv import ExplicitEdgeConv, GCNConv, GNOConv, MPPDEConv, VMHConv
+from .precision import Precision, bf16
 
 __all__ = [
     "Layer", "ContainerLayer", "Dense", "Chain", "MLP", "glorot_normal",
     "glorot_uniform", "zeros_init", "resolve_activation", "INPUT_KEY",
     "wrap_input", "AbstractGNNLayer", "AbstractGNNContainerLayer", "GCNConv",
-    "ExplicitEdgeConv", "VMHConv", "MPPDEConv", "GNOConv",
+    "ExplicitEdgeConv", "VMHConv", "MPPDEConv", "GNOConv", "Precision",
+    "bf16",
 ]

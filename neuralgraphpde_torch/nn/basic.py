@@ -46,6 +46,17 @@ _ACTIVATIONS = {
 }
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the dtype the two promote to, returned in ``x``'s dtype
+    (the JAX package's ``jnp.dot(x, w, preferred_element_type=x.dtype)``):
+    under the precision policy an f32 activation meets bf16 weights and
+    stays f32."""
+    if x.dtype == w.dtype:
+        return x @ w
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    return (x.to(dtype) @ w.to(dtype)).to(x.dtype)
+
+
 def resolve_activation(act: Union[None, str, Callable]) -> Callable:
     if act is None:
         return _ACTIVATIONS["identity"]
@@ -84,7 +95,7 @@ class Dense(Layer):
                     generator, device, dtype)
 
     def forward(self, x):
-        y = x @ self.weight
+        y = matmul(x, self.weight)
         if self.bias is not None:
             y = y + self.bias
         return resolve_activation(self.activation)(y)

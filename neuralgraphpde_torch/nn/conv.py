@@ -22,7 +22,7 @@ from ..ops.scatter import canonical_reduction
 from ..ops.spmm import get_spmm_mode, kernel_available
 from ..utils.state import drop
 from .basic import (Chain, Dense, glorot_normal, glorot_uniform,
-                    make_params, resolve_activation, zeros_init)
+                    make_params, matmul, resolve_activation, zeros_init)
 from .gnn import (INPUT_KEY, AbstractGNNContainerLayer, AbstractGNNLayer,
                   wrap_input)
 
@@ -114,13 +114,14 @@ class GCNConv(AbstractGNNLayer):
                           banded_gcn_rhs)
                 nrm, nrm_rev = g.cache[norm], g.cache.get(norm + "_rev")
                 if premultiply:
-                    y = rhs_fn(self.activation, x @ w, None, b, nrm, nrm_rev)
+                    y = rhs_fn(self.activation, matmul(x, w), None, b, nrm,
+                               nrm_rev)
                 else:
                     y = rhs_fn(self.activation, x, w, b, nrm, nrm_rev)
                 return y.to(x.dtype)
 
         if premultiply:
-            x = x @ w
+            x = matmul(x, w)
         if edge_weight is not None:
             dw = edge_weight
         elif self.use_edge_weight:
@@ -142,7 +143,7 @@ class GCNConv(AbstractGNNLayer):
             x = propagate(copy_xj, g, "sum", xj=x)
         x = x * c[:, None]
         if not premultiply:
-            x = x @ w
+            x = matmul(x, w)
         if b is not None:
             x = x + b
         return resolve_activation(self.activation)(x)
@@ -202,12 +203,12 @@ def fused_phi_post(reduced, post, deg, red):
                 if red == "mean" else reduced)
     w, b = post
     if red == "mean":
-        m = (reduced / deg.clamp_min(1.0)[:, None]) @ w
+        m = matmul(reduced / deg.clamp_min(1.0)[:, None], w)
         if b is not None:
             m = m + b
         # empty receivers stay 0 (segment-mean convention), not the bias
         return torch.where(deg[:, None] > 0, m, torch.zeros_like(m))
-    m = reduced @ w
+    m = matmul(reduced, w)
     if b is not None:
         m = m + deg[:, None] * b
     return m
@@ -469,10 +470,12 @@ class GNOConv(AbstractGNNContainerLayer):
                                                           self.out_chs)
 
             def message(xi, xj, e):
-                return torch.einsum("eio,ei->eo", w, xj)
+                # in the dtype the two promote to, as jnp.einsum's
+                dtype = torch.promote_types(w.dtype, xj.dtype)
+                return torch.einsum("eio,ei->eo", w.to(dtype), xj.to(dtype))
 
             m = propagate(message, g, self.aggr, xj=x)
-        y = x @ self.linear.weight + m
+        y = matmul(x, self.linear.weight) + m
         if self.linear.bias is not None:
             y = y + self.linear.bias
         return resolve_activation(self.activation)(y)

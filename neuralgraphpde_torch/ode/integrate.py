@@ -10,19 +10,31 @@ Time, step size, error ratio and the controller's arithmetic stay float32
 0-d CPU tensors, as they are in the JAX package (which runs with x64 off),
 so both accept the same steps.
 
-Gradients. The JAX package's checkpoint adjoint is the exact gradient of
-the discrete solve with every step time and size held constant: it replays
-the accepted steps and takes one VJP per step. Autograd through the forward
-loop gives the same numbers as long as the controller stays out of the
-graph, so the error ratio, the initial step size, ``dt`` and ``t`` are
-computed under ``torch.no_grad()`` from detached values. A rejected step is
-then referenced by nothing once the next attempt starts, and its stages are
-freed. Every accepted step's stages stay alive until the backward pass
-(memory grows with the accepted steps; the JAX adjoint replays instead).
+Gradients, as in the JAX package, by one of two adjoints:
+
+- ``backsolve`` (``odeint``'s default): the continuous adjoint. The forward
+  solve runs outside autograd and keeps only the saves; the backward
+  integrates the augmented state ``[y, ȳ, t̄, θ̄]`` backwards in ``s = −t``
+  between the saves with the same tableau and tolerances (steps clamped to
+  the save points), one ``torch.autograd.grad`` of the right-hand side per
+  evaluation. Memory is O(1) in steps. ``θ`` are the tensors the
+  right-hand side is differentiated in: those of ``args`` that require
+  grad, and the leaves it closes over (``jax.closure_convert``'s part),
+  found by walking the graph of one recorded evaluation.
+- ``checkpoint``: the exact gradient of the discrete solve with every step
+  time and size held constant, which the JAX package gets by replaying the
+  accepted steps with one VJP per step. Autograd through the forward loop
+  gives the same numbers as long as the controller stays out of the graph,
+  so the error ratio, the initial step size, ``dt`` and ``t`` are computed
+  under ``torch.no_grad()`` from detached values. A rejected step is then
+  referenced by nothing once the next attempt starts, and its stages are
+  freed. Every accepted step's stages stay alive until the backward pass
+  (memory grows with the accepted steps; the JAX adjoint replays instead).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+from typing import Any, Callable, List, Optional
 
 import torch
 
@@ -155,18 +167,21 @@ class _NanGrad(torch.autograd.Function):
 
 
 def _odeint_adaptive(rhs, tab: Tableau, rtol, atol, max_steps, chk_steps,
-                     y0, ts, args, interpolate: bool, stats: dict):
+                     y0, ts, args, interpolate: bool, stats: dict, f0=None):
     """Adaptive solve. ``interpolate=True``: free stepping, saves read off
     the cubic Hermite interpolant of the last accepted step (the JAX
     package's ``hermite``); ``False``: steps clamped to land on each save
-    point (``tstop``).
+    point (``tstop``). ``f0``: ``rhs(ts[0], y0)`` if already evaluated.
+    With an ``attempts`` list in ``stats``, each interval's attempted steps
+    are appended to it.
 
     Gradients are NaN, as in the JAX checkpoint adjoint, when its replay
     could not have reproduced the solve: with Hermite saves, more than
     ``chk_steps`` accepted steps or ``max_steps`` attempts over the whole
     span, or a span not reached; with tstop saves, more than ``chk_steps``
     accepted steps in one interval, or an interval not reached."""
-    f0 = rhs(ts[0], y0, args)
+    if f0 is None:
+        f0 = rhs(ts[0], y0, args)
     dt = _initial_step_size(rhs, ts[0], y0, f0, args, tab.order, rtol, atol)
     tp, yp, fp = ts[0], y0, f0
     t, y, f = ts[0], y0, f0
@@ -187,6 +202,8 @@ def _odeint_adaptive(rhs, tab: Tableau, rtol, atol, max_steps, chk_steps,
                 accepted += 1
             dt = _optimal_dt(h, ratio, tab.order)
             n += 1
+        if "attempts" in stats:
+            stats["attempts"].append(n)
         if interpolate:
             ys.append(_hermite_eval(tp, yp, fp, t, y, f, target))
         else:
@@ -201,10 +218,203 @@ def _odeint_adaptive(rhs, tab: Tableau, rtol, atol, max_steps, chk_steps,
     return out
 
 
+def _flatten(tree):
+    """Leaves of ``tree`` (nested tuples, lists and dicts; anything else is
+    a leaf) and a function that rebuilds it from a list of leaves."""
+    if isinstance(tree, (tuple, list)):
+        parts = [_flatten(v) for v in tree]
+    elif isinstance(tree, dict):
+        parts = [_flatten(v) for v in tree.values()]
+    else:
+        return [tree], lambda leaves: leaves[0]
+    sizes = [len(leaves) for leaves, _ in parts]
+    leaves = [leaf for part, _ in parts for leaf in part]
+
+    def rebuild(new):
+        out, off = [], 0
+        for (_, fn), n in zip(parts, sizes):
+            out.append(fn(new[off:off + n]))
+            off += n
+        if isinstance(tree, dict):
+            return dict(zip(tree.keys(), out))
+        return type(tree)(out)
+
+    return leaves, rebuild
+
+
+def _closed_over_leaves(out: torch.Tensor, floor: int, own) -> List:
+    """The leaves that require grad in the autograd graph of ``out``, other
+    than ``own``, in the order a walk from ``out`` meets them. ``floor`` is
+    the sequence number of a node made just before ``out``'s evaluation:
+    a node below it is a tensor computed before the evaluation that the
+    right-hand side closes over, whose gradient the adjoint cannot route,
+    so it raises."""
+    found, seen, stack = [], set(), [out.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        var = getattr(node, "variable", None)
+        if var is not None:  # AccumulateGrad: a leaf
+            if not any(var is t for t in own + found):
+                found.append(var)
+            continue
+        if node._sequence_nr() < floor:
+            raise ValueError(
+                "the right-hand side closes over a tensor that requires "
+                f"grad and is not a leaf (its graph reaches {node.name()} "
+                "from before the solve): pass it through args, or detach "
+                "it")
+        stack.extend(fn for fn, _ in reversed(node.next_functions))
+    return found
+
+
+@dataclasses.dataclass(eq=False)
+class _BacksolveRun:
+    """One backsolve solve: what its forward and backward need."""
+
+    rhs: Callable  # counts into ``stats['nfe']``: the forward's
+    raw_rhs: Callable
+    tab: Tableau
+    rtol: float
+    atol: float
+    max_steps: int
+    ts: torch.Tensor
+    args: Any
+    rebuild: Callable  # args from their leaves
+    arg_leaves: list
+    diff_pos: List[int]  # positions in arg_leaves of the args that need grad
+    interpolate: bool
+    stats: dict
+    f0: Optional[torch.Tensor]
+
+    def args_with(self, diff_args):
+        leaves = list(self.arg_leaves)
+        for pos, a in zip(self.diff_pos, diff_args):
+            leaves[pos] = a
+        return self.rebuild(leaves)
+
+    def forward(self, y0):
+        f0, self.f0 = self.f0, None
+        return _odeint_adaptive(self.rhs, self.tab, self.rtol, self.atol,
+                                self.max_steps, 0, y0, self.ts, self.args,
+                                self.interpolate, self.stats, f0=f0)
+
+    def backward(self, ys, g, params):
+        """JAX ``_bwd``: for each save interval, last to first, integrate
+        ``[y, ȳ, t̄, θ̄]`` from ``s = −t_i`` to ``−t_{i−1}`` (steps clamped
+        to the span's end), then add ``g[i−1]`` to ``ȳ``. ``t̄`` carries the
+        save times' cotangents: it is not returned (the times are not
+        tensors of the caller's), but its entry counts in the error norm
+        as JAX's does. Returns ``(ȳ_0, *θ̄)`` for ``params`` (the args that
+        need grad, then the closed-over leaves)."""
+        n_diff = len(self.diff_pos)
+        dev = ys.device
+        pieces = [ys[0], ys[0], torch.zeros((), device=dev)] + list(params)
+        sizes = [p.numel() for p in pieces]
+        dtype = ys.dtype
+        for p in pieces:
+            dtype = torch.promote_types(dtype, p.dtype)
+
+        def pack(parts):
+            return torch.cat([p.reshape(-1).to(dev, dtype) for p in parts])
+
+        def unpack(flat):
+            return [piece.reshape(like.shape).to(like.dtype) for piece, like
+                    in zip(torch.split(flat, sizes), pieces)]
+
+        def aug_rhs(s, aug, _):
+            y, y_bar = unpack(aug)[:2]
+            with torch.enable_grad():
+                t = (-s).detach().requires_grad_()
+                y = y.detach().requires_grad_()
+                diff = [params[k].detach().requires_grad_()
+                        for k in range(n_diff)]
+                dy = rhs(t, y, self.args_with(diff))
+                wrt = [y, t] + diff + list(params[n_diff:])
+                grads = torch.autograd.grad(dy, wrt, y_bar.to(dy.dtype),
+                                            allow_unused=True)
+            grads = [torch.zeros_like(w) if gr is None else gr
+                     for gr, w in zip(grads, wrt)]
+            return pack([-dy.detach(), grads[0], -grads[1]] + grads[2:])
+
+        counts = dict(nfe=0, steps=0, accepted=0)
+
+        def rhs(t, y, a):
+            counts["nfe"] += 1
+            return self.raw_rhs(t, y, a)
+
+        y_bar = g[-1]
+        t_bar = torch.zeros((), device=dev)
+        p_bar = [torch.zeros_like(p) for p in params]
+        for i in range(len(self.ts) - 1, 0, -1):
+            with torch.no_grad():
+                f_i = rhs(self.ts[i], ys[i], self.args)
+                t_bar = t_bar - torch.sum(g[i] * f_i)
+            span = torch.stack([-self.ts[i], -self.ts[i - 1]])
+            aug = _odeint_adaptive(
+                aug_rhs, self.tab, self.rtol, self.atol, self.max_steps, 0,
+                pack([ys[i], y_bar, t_bar] + p_bar), span, None,
+                interpolate=False, stats=counts)[-1]
+            _, y_bar, t_bar, *p_bar = unpack(aug)
+            y_bar = y_bar + g[i - 1]
+        self.stats.update(backward_nfe=counts["nfe"],
+                          backward_steps=counts["steps"],
+                          backward_accepted=counts["accepted"])
+        return (y_bar, *p_bar)
+
+
+class _Backsolve(torch.autograd.Function):
+    """The solve under autograd: forward outside autograd, the continuous
+    adjoint backward (``_BacksolveRun.backward``)."""
+
+    @staticmethod
+    def forward(ctx, run: _BacksolveRun, y0, *params):
+        ys = run.forward(y0)
+        ctx.run = run
+        ctx.save_for_backward(ys, *params)
+        return ys
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        ys, *params = ctx.saved_tensors
+        return (None,) + ctx.run.backward(ys, g.contiguous(), params)
+
+
+def _backsolve(rhs, raw_rhs, tab, rtol, atol, max_steps, y0, ts, args,
+               interpolate, stats) -> torch.Tensor:
+    """The adaptive solve with the backsolve adjoint (``_Backsolve``), or
+    the plain solve when nothing in it requires grad. One recorded
+    evaluation of ``rhs`` at ``(ts[0], y0)`` (its value is the solve's
+    first) finds the closed-over leaves."""
+    arg_leaves, rebuild = _flatten(args)
+    diff_pos = [k for k, a in enumerate(arg_leaves)
+                if isinstance(a, torch.Tensor) and a.requires_grad]
+    diff = [arg_leaves[k].detach().requires_grad_() for k in diff_pos]
+    run = _BacksolveRun(rhs, raw_rhs, tab, rtol, atol, max_steps, ts, args,
+                        rebuild, arg_leaves, diff_pos, interpolate, stats,
+                        None)
+    with torch.enable_grad():
+        # every autograd node made from here on has a larger sequence number
+        probe = torch.zeros((), requires_grad=True) * 1
+        floor = probe.grad_fn._sequence_nr()
+        y = y0.detach().requires_grad_(y0.requires_grad)
+        f0 = rhs(ts[0], y, run.args_with(diff))
+    theta = ([] if f0.grad_fn is None
+             else _closed_over_leaves(f0, floor, [y] + diff))
+    run.f0 = f0.detach()
+    if not (y0.requires_grad or diff or theta):
+        return run.forward(y0)
+    params = [arg_leaves[k] for k in diff_pos] + theta
+    return _Backsolve.apply(run, y0, *params)
+
+
 def odeint(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
            solver="tsit5", rtol: float = 1e-6, atol: float = 1e-6,
            max_steps: int = 10_000, interpolation: str = "hermite",
-           adjoint: str = "checkpoint", checkpoint_steps: int = 128,
+           adjoint: str = "backsolve", checkpoint_steps: int = 128,
            stats: Optional[dict] = None) -> torch.Tensor:
     """Adaptive solve saving at ``ts`` (``ts[0]`` is the initial time).
 
@@ -212,16 +422,27 @@ def odeint(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
     comes from the cubic Hermite dense output of the step that crosses it.
     ``"tstop"``: steps are clamped to land on every save point.
 
-    Gradients flow by autograd through the accepted steps and equal the JAX
-    package's ``adjoint="checkpoint"`` (the exact discrete gradient);
-    ``checkpoint_steps`` bounds accepted steps as its replay buffer does
-    (over the whole span for Hermite saves, per interval for tstop), and a
-    solve beyond it returns NaN gradients with unchanged values. The
-    continuous ``"backsolve"`` adjoint is not ported: it runs the same
-    forward, and raises once the solve would record a graph.
+    Adjoints, as in the JAX package:
+
+    - ``"backsolve"`` (the default): the continuous adjoint, O(1) memory in
+      steps. Its gradient is not the discrete solve's exact gradient, and
+      since it integrates the state backwards it is exponentially unstable
+      when the dynamics are dissipative over long spans (diffusion). The
+      right-hand side is differentiated in the tensors of ``args`` that
+      require grad and in the leaves it closes over (a module's
+      parameters); a closed-over tensor that requires grad but is not a
+      leaf raises ``ValueError`` (pass it through ``args``).
+    - ``"checkpoint"``: autograd through the accepted steps, equal to the
+      JAX package's checkpoint adjoint (the exact discrete gradient);
+      ``checkpoint_steps`` bounds accepted steps as its replay buffer does
+      (over the whole span for Hermite saves, per interval for tstop), and
+      a solve beyond it returns NaN gradients with unchanged values.
 
     ``stats``, if given, receives ``nfe`` (right-hand-side evaluations),
-    ``steps`` (attempted) and ``accepted``.
+    ``steps`` (attempted) and ``accepted``; a backsolve's backward adds
+    ``backward_nfe`` (its right-hand-side evaluations: one per augmented
+    evaluation, one per save), ``backward_steps`` and
+    ``backward_accepted`` to the same dict.
     """
     if interpolation not in ("hermite", "tstop"):
         raise ValueError("interpolation must be 'hermite' or 'tstop'")
@@ -232,21 +453,33 @@ def odeint(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
         raise ValueError(
             f"solver {tab.name!r} has no embedded error estimate; use "
             "odeint_grid for fixed-step solvers")
-    counts = dict(nfe=0, steps=0, accepted=0)
+    counts = {} if stats is None else stats
+    counts.update(nfe=0, steps=0, accepted=0)
 
     def counted(t, y, a):
         counts["nfe"] += 1
-        dy = rhs(t, y, a)
-        if adjoint == "backsolve" and dy.requires_grad:
-            raise NotImplementedError(
-                "the backsolve adjoint is not ported: differentiate with "
-                "adjoint='checkpoint', or solve under torch.no_grad()")
-        return dy
+        return rhs(t, y, a)
 
-    ys = _odeint_adaptive(counted, tab, rtol, atol, max_steps,
-                          checkpoint_steps, y0, _times(ts), args,
-                          interpolate=interpolation == "hermite",
-                          stats=counts)
-    if stats is not None:
-        stats.update(counts)
-    return ys
+    interpolate = interpolation == "hermite"
+    if adjoint == "backsolve" and torch.is_grad_enabled():
+        return _backsolve(counted, rhs, tab, rtol, atol, max_steps, y0,
+                          _times(ts), args, interpolate, counts)
+    return _odeint_adaptive(counted, tab, rtol, atol, max_steps,
+                            checkpoint_steps, y0, _times(ts), args,
+                            interpolate=interpolate, stats=counts)
+
+
+@torch.no_grad()
+def solve_stats(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
+                solver="tsit5", rtol: float = 1e-6, atol: float = 1e-6,
+                max_steps: int = 10_000):
+    """Diagnostic forward solve with steps clamped to the save points
+    (tstop), as the JAX package's: ``(ys, attempts)``, ``attempts`` the
+    accepted and rejected steps of each save interval as a ``(T − 1,)``
+    int64 tensor (each attempt is a right-hand-side evaluation per
+    stage)."""
+    tab = get_tableau(solver)
+    counts = dict(nfe=0, steps=0, accepted=0, attempts=[])
+    ys = _odeint_adaptive(rhs, tab, rtol, atol, max_steps, 0, y0,
+                          _times(ts), args, interpolate=False, stats=counts)
+    return ys, torch.tensor(counts["attempts"], dtype=torch.int64)

@@ -20,9 +20,13 @@ class NeuralGraphODE(ContainerLayer):
     error control (``interpolation`` as in ``odeint``); ``adjoint='grid'``
     or a fixed-step tableau takes ``steps_per_interval`` equal steps per
     save interval. Gradients of an adaptive solve are those of the JAX
-    package's ``adjoint='checkpoint'``, with ``checkpoint_steps`` bounding
-    the accepted steps (``odeint``). After each call ``last_stats`` holds
-    the adaptive solver's counts (``nfe``, ``steps``, ``accepted``).
+    package's ``adjoint='checkpoint'`` (the default here, as in JAX), with
+    ``checkpoint_steps`` bounding the accepted steps, or of its continuous
+    ``adjoint='backsolve'`` (``odeint``); the wrapped model's parameters
+    reach the right-hand side as the leaves it closes over. After each call
+    ``last_stats`` holds the adaptive solver's counts (``nfe``, ``steps``,
+    ``accepted``; after a backsolve's backward also ``backward_nfe``,
+    ``backward_steps``, ``backward_accepted``).
     """
 
     layer_names = ("model",)

@@ -28,6 +28,19 @@ device events: kernels, copies and sets.
 - MP-PDE (path E): one config-3 Adam step (``train_mppde_burgers``
   defaults: 4 windows of one simulation, 2 model calls each, 6 convs: 48
   K3 forwards and 48 backwards).
+- bf16 (the precision policy, ``bf16(...)``): the kernels' bf16 forms at
+  the shapes their bf16 paths give them (K3 at the VMH mesh with bf16
+  weights and f32 or bf16 features, and at the MP-PDE ϕ with f32
+  features; K5 at Darcy 32² with bf16 weights and f32 or bf16 ``ph``/``h``;
+  K6 on bf16 messages at ``rand`` beside ``scatter_reduce_``), and the
+  paths: ``bf16(VMHConv)``'s forward and gradient of ``sum(y²)`` at
+  ``bench.py``'s VMH case (2^15 Delaunay points, hidden 60, message 40;
+  the counterparts of its ``vmh/fused_grad_bf16`` and ``vmh/xla_grad_bf16``
+  cells) beside the f32 layer's, the VMH epoch gradient with
+  ``NeuralGraphODE(bf16(VMHConv))``, one GNO Adam step of
+  ``bf16(GNOModel)`` and one MP-PDE Adam step of ``bf16(MPPDESolver)``.
+- Backsolve: the VMH epoch gradient with ``adjoint="backsolve"`` (its f32
+  checkpoint counterpart is the VMH path above).
 - Path F: one GRAND Adam step (masked cross-entropy, lr 1e-2) on the
   2^17-point scrambled-label Delaunay mesh after ``precompute(
   add_self_loops=True, dense=False, auto_reorder=True)``: RCM, then packed
@@ -54,6 +67,7 @@ JSON object.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -280,6 +294,124 @@ def k6_times(dev, mppde_graph) -> dict:
     return out
 
 
+def bf16_kernel_times(dev, vmh_graph, mppde_graph, gno_graph) -> dict:
+    """The bf16 forms of K3, K5 and K6 and their plain versions, device ms
+    per call, at their bf16 paths' shapes."""
+    from ..graph.builders import rand_graph
+    from ..kernels import fused_mlp_kernels as K3
+    from ..kernels import gno_kernels as K5
+    from ..kernels.segment_kernels import (build_segment_csr, segment_max,
+                                           segment_max_plain)
+    from ..ops.bsr import host_edges
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(13)
+    out = {}
+    for label, csr, acts, dims, forms in (
+            ("VMH mesh", vmh_graph.cache["tcsr_edges"], ("tanh",) * 3,
+             (4, 60, 60, 60), (torch.float32, bf)),
+            ("MP-PDE phi, Burgers", mppde_graph.cache["tcsr_edges"],
+             ("swish",), (282, 128), (torch.float32,))):
+        ws = [_put(rng, dev, a, b, scale=1 / np.sqrt(a)).to(bf)
+              for a, b in zip(dims[:-1], dims[1:])]
+        bs = [_put(rng, dev, 1, b, scale=1 / 3).to(bf) for b in dims[1:]]
+        for fdt in forms:
+            feats = _put(rng, dev, csr.num_cols, dims[0]).to(fdt)
+            g = _put(rng, dev, csr.num_rows, dims[-1]).to(fdt)
+            head = (f"K3 bf16 weights, {str(fdt)[6:]} feats, {label} "
+                    f"(N={csr.num_rows}, E={csr.num_cols}, "
+                    f"{'-'.join(map(str, dims))})")
+            out.update(per_calls(head, {
+                "fwd kernel": lambda: K3.fused_mlp_fwd(acts, csr, feats, ws,
+                                                       bs),
+                "fwd plain": lambda: K3.fused_mlp_plain(acts, csr, feats, ws,
+                                                        bs),
+                "bwd kernel": lambda: K3.fused_mlp_bwd(acts, csr, feats, ws,
+                                                       bs, g),
+                "bwd plain": lambda: K3.fused_mlp_bwd_plain(acts, csr, feats,
+                                                            ws, bs, g)}))
+    csr, senders = gno_graph.cache["tcsr_edges"], gno_graph.senders
+    k, width = 128, 64
+    wl, bl = (t.to(bf) for t in K5.pack_last_layer(
+        _put(rng, dev, k, width * width, scale=1 / np.sqrt(k)),
+        _put(rng, dev, 1, width * width, scale=0.1), width, width))
+    for pdt in (torch.float32, bf):
+        ph = _put(rng, dev, csr.num_cols, k).to(pdt)
+        h = _put(rng, dev, csr.num_rows, width).to(pdt)
+        g = _put(rng, dev, csr.num_rows, width).to(pdt)
+        head = (f"K5 bf16 weights, {str(pdt)[6:]} ph and h, Darcy 32² "
+                f"(N={csr.num_rows}, E={csr.num_cols})")
+        out.update(per_calls(head, {
+            "fwd kernel": lambda: K5.fused_gno_fwd(csr, senders, ph, h, wl,
+                                                   bl),
+            "fwd plain": lambda: K5.fused_gno_plain(csr, senders, ph, h, wl,
+                                                    bl),
+            "bwd kernel": lambda: K5.fused_gno_bwd(csr, senders, ph, h, wl,
+                                                   bl, g),
+            "bwd plain": lambda: K5.fused_gno_bwd_plain(csr, senders, ph, h,
+                                                        wl, bl, g)}))
+    _, r = host_edges(rand_graph(2 ** 18, 2 ** 22, seed=0))
+    for label, csr, recv in (
+            ("rand", build_segment_csr(np.arange(len(r)), r, 2 ** 18,
+                                       num_cols=len(r)).to(dev),
+             torch.from_numpy(r).to(dev)),
+            ("Burgers", mppde_graph.cache["tcsr_edges"],
+             mppde_graph.receivers)):
+        m = _put(rng, dev, csr.num_cols, 128).to(bf)
+        idx = recv.long().reshape(-1, 1).expand_as(m)
+
+        def library():
+            return torch.full((csr.num_rows, 128), float("-inf"), dtype=bf,
+                              device=dev).scatter_reduce_(0, idx, m, "amax")
+
+        head = (f"K6 bf16 {label} (N={csr.num_rows}, E={csr.num_cols}, "
+                f"F=128)")
+        out.update(per_calls(head, {
+            "fwd kernel": lambda: segment_max(m, csr),
+            "fwd plain": lambda: segment_max_plain(m, csr),
+            "scatter_reduce_": library}))
+        del m, idx
+    return out
+
+
+def bf16_vmh_layer(dev):
+    """``(label, modes, fn)`` of the VMH layer's forward and gradient of
+    ``sum(y²)`` at ``bench.py``'s VMH case, in bf16 (``bf16(VMHConv)``) and
+    in f32."""
+    from ..graph.builders import delaunay_graph
+    from ..nn.basic import MLP
+    from ..nn.conv import VMHConv
+    from ..nn.precision import bf16
+    from ..ops.spmm import precompute
+    from ..utils.state import update_graph
+
+    pts = np.random.default_rng(0).random((BENCH_POINTS, 2)).astype(
+        np.float32)
+    g = precompute(delaunay_graph(pts, ndata={"x": torch.from_numpy(pts)}),
+                   dense=False, pallas=True).to(dev)
+    gen = torch.Generator().manual_seed(12)
+    kw = dict(generator=gen, device=dev)
+    layer = VMHConv(MLP((4, 60, 60, 60, 40), "tanh", **kw),
+                    MLP((41, 60, 60, 60, 1), "tanh", **kw))
+    update_graph(layer, g)
+    x = _put(np.random.default_rng(12), dev, g.num_nodes, 1)
+
+    def grad(model):
+        def fn():
+            layer.zero_grad(set_to_none=True)
+            xl = x.clone().requires_grad_()
+            loss = (model(xl) ** 2).sum()
+            loss.backward()
+            return dict(loss=float(loss.detach()))
+        return fn
+
+    modes = ("auto", "xla")
+    return [("bf16 VMH layer gradient, 2^15 points (K3)", modes,
+             grad(bf16(layer))),
+            ("f32 VMH layer gradient, 2^15 points (K3)", modes,
+             grad(layer))]
+
+
 def scrambled_mesh(points: int, dev):
     """``precompute(add_self_loops=True, dense=False, auto_reorder=True)`` of
     the Delaunay mesh of ``points`` ``default_rng(0)`` points, on ``dev``."""
@@ -470,6 +602,7 @@ def main() -> int:
     from ..examples import train_gno_darcy as G
     from ..examples import train_mppde_burgers as M
     from ..examples import train_vmh as T
+    from ..nn.precision import bf16
     from ..train.loop import make_train_step
     from ..train.optim import adam
 
@@ -497,38 +630,72 @@ def main() -> int:
         ("2^17 points", reord, "pbanded"),
         (f"{K7_POINTS} points", scrambled_mesh(K7_POINTS, dev), "banded")]))
 
-    def vmh_epoch():
-        loss, stats = T.full_batch_grad(vmh_model, vmh_u)
-        return dict(loss=float(loss),
-                    accepted=sorted({st["accepted"] for st in stats}))
+    result["kernels"].update(bf16_kernel_times(
+        dev, vmh_model.model.graph, mppde_model.graph, gno_model.graph))
 
-    step = make_train_step(lambda a_b, u_b: G.batch_loss(gno_model, a_b, u_b),
-                           adam(gno_model.parameters(), gno_cfg.lr))
+    def epoch(model):
+        def fn():
+            loss, stats = T.full_batch_grad(model, vmh_u)
+            rec = dict(loss=float(loss),
+                       accepted=sorted({st["accepted"] for st in stats}),
+                       rejected=sorted({st["steps"] - st["accepted"]
+                                        for st in stats}))
+            if "backward_accepted" in stats[0]:
+                rec["backward_accepted"] = sorted(
+                    {st["backward_accepted"] for st in stats})
+            return rec
+        return fn
+
+    vmh_epoch = epoch(vmh_model)
+    # the bf16 and backsolve variants on copies of the models, before any
+    # step of the f32 paths moves their weights
+    vmh_bf16 = copy.deepcopy(vmh_model)
+    vmh_bf16.model = bf16(vmh_bf16.model)
+    vmh_backsolve = copy.deepcopy(vmh_model)
+    vmh_backsolve.adjoint = "backsolve"
+    gno_bf16 = bf16(copy.deepcopy(gno_model))
+    mppde_inner = copy.deepcopy(mppde_model)
+    mppde_bf16 = bf16(mppde_inner)
+    mppde_bf16.bundle = mppde_inner.bundle  # what batch_loss reads
+
     idx = torch.from_numpy(np.random.default_rng(gno_cfg.seed).permutation(
         gno_cfg.n_train)[:G.BATCH]).to(dev)
 
-    def gno_step():
-        loss, _ = step(gno_a[idx], gno_u[idx])
-        return dict(loss=float(loss))
+    def gno_step(model):
+        step = make_train_step(lambda a_b, u_b: G.batch_loss(model, a_b, u_b),
+                               adam(model.parameters(), gno_cfg.lr))
 
-    mppde_step = make_train_step(
-        lambda u_sim, s0s: M.batch_loss(mppde_model, u_sim, s0s),
-        adam(mppde_model.parameters(), mppde_cfg.lr))
+        def fn():
+            loss, _ = step(gno_a[idx], gno_u[idx])
+            return dict(loss=float(loss))
+        return fn
+
     starts = M.window_starts(mppde_cfg, mppde_u.shape[2])
     s0s = np.random.default_rng(mppde_cfg.seed).choice(starts,
                                                        size=M.SAMPLES)
 
-    def mppde_adam_step():
-        loss, _ = mppde_step(mppde_u[0], s0s)
-        return dict(loss=float(loss))
+    def mppde_adam_step(model):
+        step = make_train_step(
+            lambda u_sim, s0s: M.batch_loss(model, u_sim, s0s),
+            adam(model.parameters(), mppde_cfg.lr))
+
+        def fn():
+            loss, _ = step(mppde_u[0], s0s)
+            return dict(loss=float(loss))
+        return fn
 
     both = ("auto", "xla", "auto")
-    runs = grand_runs(dev) + [("VMH epoch gradient (K3)", both, vmh_epoch),
-                              ("GNO Adam step (K5)", both, gno_step),
-                              ("MP-PDE Adam step (E, K3)", both,
-                               mppde_adam_step),
-                              ("GRAND Adam step, 2^17 mesh (F, K4)", both,
-                               mesh_adam_step(dev, reord))]
+    pair = ("auto", "xla")
+    runs = grand_runs(dev) + [
+        ("VMH epoch gradient (K3)", both, vmh_epoch),
+        ("GNO Adam step (K5)", both, gno_step(gno_model)),
+        ("MP-PDE Adam step (E, K3)", both, mppde_adam_step(mppde_model)),
+        ("GRAND Adam step, 2^17 mesh (F, K4)", both,
+         mesh_adam_step(dev, reord))] + bf16_vmh_layer(dev) + [
+        ("bf16 VMH epoch gradient (K3)", pair, epoch(vmh_bf16)),
+        ("bf16 GNO Adam step (K5)", pair, gno_step(gno_bf16)),
+        ("bf16 MP-PDE Adam step (K3)", pair, mppde_adam_step(mppde_bf16)),
+        ("backsolve VMH epoch gradient (K3)", pair, epoch(vmh_backsolve))]
     for label, modes, fn in runs:
         for mode in modes:
             result["paths"].append(path_profile(label, mode, fn))

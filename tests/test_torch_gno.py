@@ -223,14 +223,17 @@ def test_k5_plain_autograd_equals_plain_vjp():
 
 
 def test_k5_wrappers_refuse():
-    """bf16, mismatched shapes and a device with no kernel raise; nothing
+    """A dtype other than f32 and bf16, a bias in another dtype than its
+    weight, mismatched shapes and a device with no kernel raise; nothing
     falls back. (The envelope is the CUDA kernel's and raises on the card:
     ``tests/test_torch_kernels.py``.)"""
     s, _, tp, ph, h, w, b, g, n, i, o = _k5_problem(4)
     sp = torch.from_numpy(s)
     wl, bl = PK.pack_last_layer(_t(w), _t(b), i, o)
-    with pytest.raises(TypeError, match="f32 only"):
-        PK.fused_gno_fwd(tp, sp, _t(ph).to(torch.bfloat16), _t(h), wl, bl)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        PK.fused_gno_fwd(tp, sp, _t(ph).to(torch.float16), _t(h), wl, bl)
+    with pytest.raises(TypeError, match="wl's dtype"):
+        PK.fused_gno_fwd(tp, sp, _t(ph), _t(h), wl, bl.to(torch.bfloat16))
     with pytest.raises(ValueError, match="ph must be"):
         PK.fused_gno_fwd(tp, sp, _t(ph)[1:], _t(h), wl, bl)
     with pytest.raises(ValueError, match="wl"):

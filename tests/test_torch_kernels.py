@@ -205,8 +205,8 @@ def test_wrappers_check_inputs():
     edges = build_segment_csr(np.arange(len(r)), r, n, num_cols=len(r))
     with pytest.raises(ValueError, match="must be"):
         segment_max(torch.zeros(len(r) + 1, 4), edges)
-    with pytest.raises(TypeError, match="f32 only"):
-        segment_max(torch.zeros(len(r), 4, dtype=torch.bfloat16), edges)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        segment_max(torch.zeros(len(r), 4, dtype=torch.float16), edges)
     with pytest.raises(RuntimeError, match="no kernel"):
         segment_max(torch.zeros(len(r), 4, device="meta"), edges)
 
@@ -689,12 +689,12 @@ def test_k3_wide_variants_match_plain_cuda(cuda, acts, dims, n, e, variants):
 @pytest.mark.cuda
 def test_k3_envelope_raises_cuda(cuda):
     """On the card the K3 wrappers raise outside the kernels' envelope (a
-    width above 1,024, more than 4 layers) and on bf16, with no launch and
-    no hand-off to the plain version."""
+    width above 1,024, more than 4 layers) and on a dtype other than f32
+    and bf16, with no launch and no hand-off to the plain version."""
     acts, dims = ("tanh",), (4, 8)
     csr, feats, ws, bs, g = _k3_case(cuda, acts, dims)
-    with pytest.raises(TypeError, match="f32 only"):
-        K3.fused_mlp_fwd(acts, csr, feats.to(torch.bfloat16), ws, bs)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        K3.fused_mlp_fwd(acts, csr, feats.to(torch.float16), ws, bs)
     fwd0, bwd0 = K3.fused_mlp_fwd.launches, K3.fused_mlp_bwd.launches
     for acts, dims in [(("tanh", None), (4, 1100, 8)),
                        (("tanh",) * 5, (4, 8, 8, 8, 8, 8))]:
@@ -844,10 +844,11 @@ def test_k5_autograd_function_cuda(cuda):
 def test_k5_envelope_raises_cuda(cuda):
     """On the card the K5 wrappers raise outside the kernels' envelope
     (here K = 2048: the per-edge backward block would need ~330 KB of
-    shared memory) and on bf16, with no launch and no plain version."""
+    shared memory) and on a dtype other than f32 and bf16, with no launch
+    and no plain version."""
     csr, senders, ph, h, wl, bl, g = _k5_case(cuda, 16, 8, 8, n=200, e=900)
-    with pytest.raises(TypeError, match="f32 only"):
-        K5.fused_gno_fwd(csr, senders, ph.to(torch.bfloat16), h, wl, bl)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        K5.fused_gno_fwd(csr, senders, ph.to(torch.float16), h, wl, bl)
     fwd0, bwd0 = K5.fused_gno_fwd.launches, K5.fused_gno_bwd.launches
     csr, senders, ph, h, wl, bl, g = _k5_case(cuda, 2048, 8, 8, n=200, e=900)
     with pytest.raises(ValueError, match="envelope"):
@@ -892,3 +893,247 @@ def test_gnoconv_outside_envelope_raises_cuda(cuda, mode):
                 assert K5.fused_gno_fwd.launches == fwd0
     finally:
         set_spmm_mode("auto")
+
+
+# ------------------------------------------------ the bf16 forms (K3, K5, K6)
+# Plain versions against the JAX kernels in interpret mode on the CPU, and
+# the CUDA kernels against the plain versions on the card. bf16 operands are
+# read as f32 and everything accumulates in f32: the results differ only
+# where they are rounded to bf16 (and by the sums' order), so each is held
+# to 1e-2 of its own largest entry. K6 takes a maximum, which rounds
+# nothing: exact equality.
+def _bf(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+
+def _dtype_pair(jnp, bf16):
+    """(torch dtype, jnp dtype): bf16 or f32."""
+    return ((torch.bfloat16, jnp.bfloat16) if bf16
+            else (torch.float32, jnp.float32))
+
+
+@pytest.mark.parametrize("n,e,f,tn,te", [
+    (50, 300, 16, 8, 32), (96, 1000, 128, 16, 64), (33, 77, 24, 8, 16)])
+def test_k6_bf16_matches_pallas(jx, n, e, f, tn, te):
+    """bf16 messages: JAX's ``_tiled_segment_max_fwd`` gives a bf16 result;
+    the port's ``segment_max`` gives the same bits in bf16 (a max of bf16
+    values is one of them), −inf on the empty rows, and the gradient of its
+    autograd call equals JAX's custom VJP's in bf16 (ties, which bf16
+    rounding makes common, each get the full cotangent)."""
+    import jax
+
+    jnp = jx.jnp
+    r, m, csr, rng = _k6_case(n, e, f, seed=2)
+    m16 = jnp.asarray(m).astype(jnp.bfloat16)
+    tcsr = jx.sk.build_tiled_csr(np.arange(e), r, n, tn=tn, te=te)
+    want = jx.sk._tiled_segment_max_fwd(tcsr, m16, interpret=True)
+    got = segment_max(_bf(m), csr)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32)[:n])
+    g = rng.normal(size=(n, f)).astype(np.float32)
+    recv = r.astype(np.int32)
+
+    def jax_loss(mm):
+        out = jx.sk.tiled_segment_max(mm, tcsr, jnp.asarray(recv))[:n]
+        out = jnp.where(jnp.isfinite(out), out, 0.0).astype(jnp.float32)
+        return jnp.sum(out * g)
+
+    with jx.pltpu.force_tpu_interpret_mode():
+        want_g = jax.grad(jax_loss)(m16)
+    leaf = _bf(m).requires_grad_()
+    out = segment_max_aggregate(leaf, csr, torch.from_numpy(recv))
+    (torch.where(torch.isfinite(out), out, 0.0).float()
+     * torch.from_numpy(g)).sum().backward()
+    assert leaf.grad.dtype == torch.bfloat16 and want_g.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(leaf.grad.float().numpy(),
+                                  np.asarray(want_g, np.float32))
+
+
+@pytest.mark.parametrize("feats_bf16", [True, False])
+@pytest.mark.parametrize("acts", [("tanh", "tanh", None), ("swish",)])
+def test_k3_bf16_plain_matches_pallas(jx, feats_bf16, acts):
+    """bf16 weights and biases, with bf16 features (every operand bf16) or
+    f32 features (what the precision policy gives where the edge features
+    concatenate f32 graph data): forward and VJP against
+    ``_fused_mlp_fwd`` / ``_fused_mlp_bwd_pallas`` in interpret mode; the
+    output and ``dfeats`` in the features' dtype, ``dW``/``db`` in the
+    weights'."""
+    import neuralgraphpde as J
+    from neuralgraphpde.kernels import fused_mlp_kernels as JK
+
+    jnp, pltpu = jx.jnp, jx.pltpu
+
+    rng = np.random.default_rng(4)
+    n, e = 50, 300
+    gj = J.precompute(J.rand_graph(n, e, seed=7), dense=False, pallas=True,
+                      tn=8, te=64)
+    gp = P.precompute(P.rand_graph(n, e, seed=7), dense=False, pallas=True)
+    tj, tp = gj.cache["tcsr_edges"], gp.cache["tcsr_edges"]
+    dims = (4, 16, 16, 8)[:len(acts) + 1]
+    feats = rng.normal(size=(e, 4)).astype(np.float32)
+    ws = [(rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [(rng.normal(size=(1, b)) / 3).astype(np.float32) for b in dims[1:]]
+    g = rng.normal(size=(n, dims[-1])).astype(np.float32)
+    dt, jdt = _dtype_pair(jnp, feats_bf16)
+    jw = tuple(jnp.asarray(w).astype(jnp.bfloat16) for w in ws)
+    jb = tuple(jnp.asarray(b).astype(jnp.bfloat16) for b in bs)
+    jf = jnp.asarray(feats).astype(jdt)
+    gpad = np.zeros((tj.num_tiles * tj.tn, g.shape[1]), np.float32)
+    gpad[:n] = g
+    with pltpu.force_tpu_interpret_mode():
+        want = JK._fused_mlp_fwd(acts, tj, jf, jw, jb, interpret=True)
+        wdf, wdw, wdb = JK._fused_mlp_bwd_pallas(
+            acts, tj, jf, jw, jb, jnp.asarray(gpad).astype(jdt),
+            interpret=True)
+    pf = torch.from_numpy(feats).to(dt)
+    pw, pb = [_bf(w) for w in ws], [_bf(b) for b in bs]
+    got = K3.fused_mlp_fwd(acts, tp, pf, pw, pb)
+    assert got.dtype == dt and want.dtype == jdt
+    assert _rel(got.float(), np.asarray(want, np.float32)[:n]) <= 1e-2
+    gdf, gdw, gdb = K3.fused_mlp_bwd(acts, tp, pf, pw, pb,
+                                     torch.from_numpy(g).to(dt))
+    assert gdf.dtype == dt and wdf.dtype == jdt
+    for a, b in zip((gdf,) + gdw + gdb, (wdf,) + wdw + wdb):
+        assert tuple(a.shape) == tuple(b.shape)
+        assert a.dtype == (dt if a is gdf else torch.bfloat16)
+        assert _rel(a.float(), np.asarray(b, np.float32)) <= 1e-2
+
+
+@pytest.mark.parametrize("ph_bf16,h_bf16", [(True, True), (False, True),
+                                            (False, False)])
+def test_k5_bf16_plain_matches_pallas(jx, ph_bf16, h_bf16):
+    """bf16 weight and bias with ``ph``/``h`` in bf16 or f32 (the policy
+    gives f32 ``ph`` where the edge features come from f32 graph data):
+    forward and ``jax.grad`` of ``fused_gno_aggregate`` in interpret mode;
+    each result in its input's dtype."""
+    import jax
+
+    from neuralgraphpde.kernels import gno_kernels as JK
+
+    jnp, pltpu = jx.jnp, jx.pltpu
+
+    csr, senders, ph, h, wl, bl, g = _k5_case("cpu", 8, 3, 5, n=24, e=90,
+                                              seed=17)
+    r = np.empty(90, np.int64)  # each edge's receiver
+    r[csr.col.numpy()] = csr.rows.numpy()
+    tj = jx.sk.build_tiled_csr(np.arange(90), r, 24, tn=8, te=16)
+    pdt, jpdt = _dtype_pair(jnp, ph_bf16)
+    hdt, jhdt = _dtype_pair(jnp, h_bf16)
+    jph = jnp.asarray(ph.numpy()).astype(jpdt)
+    jh = jnp.asarray(h.numpy()).astype(jhdt)
+    jwl = jnp.asarray(wl.numpy()).astype(jnp.bfloat16)
+    jbl = jnp.asarray(bl.numpy()).astype(jnp.bfloat16)
+    js = jnp.asarray(senders.numpy())
+    want = JK._fused_gno_fwd(tj, js, jph, jh, jwl, jbl, interpret=True)
+    gj = jnp.asarray(g.numpy()).astype(jpdt)
+
+    def loss(*a):
+        out = JK.fused_gno_aggregate(*a, tj, js)[:24]
+        return jnp.sum(out.astype(jnp.float32) * gj.astype(jnp.float32))
+
+    with pltpu.force_tpu_interpret_mode():
+        wgrads = jax.grad(loss, argnums=(0, 1, 2, 3))(jph, jh, jwl, jbl)
+    args = (ph.to(pdt), h.to(hdt), wl.to(torch.bfloat16),
+            bl.to(torch.bfloat16))
+    got = K5.fused_gno_fwd(csr, senders, *args)
+    assert got.dtype == pdt and want.dtype == jpdt
+    assert _rel(got.float(), np.asarray(want, np.float32)[:24]) <= 1e-2
+    grads = K5.fused_gno_bwd(csr, senders, *args, g.to(pdt))
+    for a, b, arg in zip(grads, wgrads, args):
+        assert a.dtype == arg.dtype and tuple(a.shape) == tuple(b.shape)
+        assert _rel(a.float(), np.asarray(b, np.float32)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feats_bf16", [True, False])
+@pytest.mark.parametrize("acts,dims,variants", [
+    (("tanh",) * 3, (4, 60, 60, 60), ("resident", "resident")),
+    (("swish",), (282, 128), ("streamed", "streamed"))])
+def test_k3_bf16_kernels_match_plain_cuda(cuda, feats_bf16, acts, dims,
+                                          variants):
+    """K3's bf16 forms in both variants (bf16 weights; bf16 or f32
+    features): forward, ``dfeats``, ``dW`` and ``db`` each within 1e-2 of
+    its own largest entry of the plain versions fed the same operands, in
+    the JAX kernels' output dtypes, counted as bf16 launches."""
+    assert (K3.fused_mlp_variant(dims),
+            K3.fused_mlp_variant(dims, backward=True)) == variants
+    csr, feats, ws, bs, g = _k3_case(cuda, acts, dims, seed=21)
+    dt = torch.bfloat16 if feats_bf16 else torch.float32
+    feats, g = feats.to(dt), g.to(dt)
+    ws = [w.to(torch.bfloat16) for w in ws]
+    bs = [b.to(torch.bfloat16) for b in bs]
+    n16 = (K3.fused_mlp_fwd.bf16_launches, K3.fused_mlp_bwd.bf16_launches)
+    got = K3.fused_mlp_fwd(acts, csr, feats, ws, bs)
+    kdf, kdw, kdb = K3.fused_mlp_bwd(acts, csr, feats, ws, bs, g)
+    torch.cuda.synchronize()
+    assert (K3.fused_mlp_fwd.bf16_launches,
+            K3.fused_mlp_bwd.bf16_launches) == (n16[0] + 1, n16[1] + 1)
+    with torch.no_grad():
+        want = K3.fused_mlp_plain(acts, csr, feats, ws, bs)
+    pdf, pdw, pdb = K3.fused_mlp_bwd_plain(acts, csr, feats, ws, bs, g)
+    assert got.dtype == kdf.dtype == dt
+    assert _rel(got.cpu().float(), want.cpu().float()) <= BF16 / 2
+    for k, p in zip((kdf,) + kdw + kdb, (pdf,) + pdw + pdb):
+        assert k.shape == p.shape and k.dtype == p.dtype
+        assert _rel(k.cpu().float(), p.cpu().float()) <= BF16 / 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ph_bf16,h_bf16", [(True, True), (False, True),
+                                            (False, False)])
+def test_k5_bf16_kernels_match_plain_cuda(cuda, ph_bf16, h_bf16):
+    """K5's bf16 forms at the GNO Darcy widths (bf16 ``Wl``/``bl``; ``ph``
+    and ``h`` in bf16 or f32): forward, ``dph``, ``dh``, ``dWl`` and
+    ``dbl`` each within 1e-2 of its own largest entry of the plain
+    versions, each in its input's dtype."""
+    csr, senders, ph, h, wl, bl, g = _k5_case(cuda, 128, 64, 64, seed=22)
+    pdt = torch.bfloat16 if ph_bf16 else torch.float32
+    args = (ph.to(pdt), h.to(torch.bfloat16 if h_bf16 else torch.float32),
+            wl.to(torch.bfloat16), bl.to(torch.bfloat16))
+    n16 = (K5.fused_gno_fwd.bf16_launches, K5.fused_gno_bwd.bf16_launches)
+    got = K5.fused_gno_fwd(csr, senders, *args)
+    kern = K5.fused_gno_bwd(csr, senders, *args, g.to(pdt))
+    torch.cuda.synchronize()
+    assert (K5.fused_gno_fwd.bf16_launches,
+            K5.fused_gno_bwd.bf16_launches) == (n16[0] + 1, n16[1] + 1)
+    with torch.no_grad():
+        want = K5.fused_gno_plain(csr, senders, *args)
+    plain = K5.fused_gno_bwd_plain(csr, senders, *args, g.to(pdt))
+    assert got.dtype == pdt
+    assert _rel(got.cpu().float(), want.cpu().float()) <= BF16 / 2
+    for a, p, arg in zip(kern, plain, args):
+        assert a.shape == p.shape and a.dtype == p.dtype == arg.dtype
+        assert _rel(a.cpu().float(), p.cpu().float()) <= BF16 / 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,f", [(3000, 40000, 128), (256, 1024, 128),
+                                   (500, 3000, 3)])
+def test_k6_bf16_kernel_matches_plain_cuda(cuda, n, e, f):
+    """K6 on bf16 messages (16-byte loads of 8 at F = 128, scalar loads at
+    F = 3): the forward and the backward's bits equal the plain versions',
+    in bf16, with ties, empty rows and a NaN."""
+    r, m, csr, rng = _k6_case(n - 1, e, f, seed=23)
+    csr = build_segment_csr(np.arange(e), r, n, num_cols=e).to(cuda)
+    tie = rng.random(e) < 0.3
+    m[tie] = np.maximum(np.round(m[tie] * 2) / 2, 0)
+    m[11, f // 2] = np.nan
+    mt = _bf(m).to(cuda)
+    recv = torch.from_numpy(r.astype(np.int32)).to(cuda)
+    g = _bf(rng.normal(size=(n, f))).to(cuda)
+    launches = segment_max.bf16_launches
+    got = segment_max(mt, csr)
+    want = segment_max_plain(mt, csr)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    leaf = mt.clone().requires_grad_()
+    segment_max_aggregate(leaf, csr, recv).backward(g)
+    want_g = torch.where(mt == want[recv.long()], g[recv.long()],
+                         torch.zeros((), dtype=torch.bfloat16, device=cuda))
+    assert leaf.grad.dtype == torch.bfloat16
+    assert torch.equal(leaf.grad, want_g)
+    assert segment_max.bf16_launches == launches + 2

@@ -123,12 +123,12 @@ def _grad_problem(interpolation, checkpoint_steps=128, seed=1):
     y0 = rng.normal(size=(20, 6)).astype(np.float32)
     wt = rng.normal(size=(len(TS), 20, 6)).astype(np.float32)
     kw = dict(rtol=1e-5, atol=1e-5, interpolation=interpolation,
-              checkpoint_steps=checkpoint_steps)
+              adjoint="checkpoint", checkpoint_steps=checkpoint_steps)
 
     def jax_loss(y, A):
         ys = jax_int.odeint(
             lambda t, v, m: 0.1 * (jnp.tanh(v @ m) - 0.3 * v), y,
-            jnp.asarray(TS), A, adjoint="checkpoint", **kw)
+            jnp.asarray(TS), A, **kw)
         return jnp.sum(ys * wt), ys
 
     (_, ys_j), (dy_j, da_j) = jax.value_and_grad(
@@ -189,7 +189,8 @@ def test_odeint_controller_stays_out_of_autograd(monkeypatch):
     a = torch.from_numpy(np.eye(6, dtype=np.float32)).requires_grad_()
     stats = {}
     ys = odeint(lambda t, v, _: torch.tanh(v @ a) - 20.0 * v,
-                torch.from_numpy(y0), TS, rtol=1e-6, atol=1e-6, stats=stats)
+                torch.from_numpy(y0), TS, rtol=1e-6, atol=1e-6, stats=stats,
+                adjoint="checkpoint")
     assert ys.requires_grad
     assert stats["steps"] > stats["accepted"], "no step was rejected"
     names = {name for name, _ in seen}

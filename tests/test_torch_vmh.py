@@ -164,14 +164,18 @@ def test_k3_plain_autograd_equals_plain_vjp():
 
 
 def test_k3_wrappers_refuse():
-    """bf16, unsupported activations, mismatched widths and a device with
-    no kernel raise; nothing falls back. (The shared-memory envelope is the
-    CUDA kernels' and raises on the card: ``test_torch_kernels.py``.)"""
+    """A dtype other than f32 and bf16, weights in two dtypes, unsupported
+    activations, mismatched widths and a device with no kernel raise;
+    nothing falls back. (The shared-memory envelope is the CUDA kernels'
+    and raises on the card: ``test_torch_kernels.py``.)"""
     acts = ("tanh", None)
     _, tp, feats, ws, bs, _ = _k3_inputs(acts)
     pw, pb = list(map(_t, ws)), list(map(_t, bs))
-    with pytest.raises(TypeError, match="f32 only"):
-        PK.fused_mlp_fwd(acts, tp, _t(feats).to(torch.bfloat16), pw, pb)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        PK.fused_mlp_fwd(acts, tp, _t(feats).to(torch.float16), pw, pb)
+    with pytest.raises(TypeError, match="one dtype"):
+        PK.fused_mlp_fwd(acts, tp, _t(feats), pw,
+                         [pb[0].to(torch.bfloat16), pb[1]])
     with pytest.raises(ValueError, match="does not take width"):
         PK.fused_mlp_fwd(acts, tp, _t(feats), pw[::-1], pb)
     with pytest.raises(ValueError, match="no kernel form"):
