@@ -50,9 +50,14 @@ Phases, each fatal on failure:
    SpMM and the fused right-hand side (tanh, W 128×128, b) in f32 (1e-5)
    and in bf16 storage (1e-2), and the backward of each
    ``autograd.Function`` against autograd through the plain version (``dx``
-   1e-5, ``dW``/``db`` 1e-4); times of the kernel, the plain version,
-   ``torch.sparse.mm`` on the same relabeled CSR, and K1 on that CSR (the
-   gather path that JAX's dispatch passes over here).
+   1e-5, ``dW``/``db`` 1e-4); times of the kernel (by events and on the
+   device, ``torch.profiler``), the plain version, ``torch.sparse.mm`` on
+   the same relabeled CSR, and K1 on that CSR (the gather path that JAX's
+   dispatch passes over here). Their bound is the function's on its
+   nonzeros, K1's on that CSR; the occupied 32 × 32 sub-tiles the kernel
+   walks and the bytes it reads are printed beside it.
+   Any kernel timed below its bound (by events or on the device) fails
+   the run: no card beats its bound.
 4. GRAND A: full-size synthetic Cora on the segment kernel (K1).
 5. GRAND B: the 512×512 8-neighbour grid on the fused DIA kernel (K2),
    then with ``gcn_fused=False`` on the plain DIA stencil.
@@ -140,7 +145,7 @@ Phases, each fatal on failure:
    seconds and peak memory beside the checkpoint epoch.
 
 The line before the last is ``{"kernels": [...]}``: twelve kernels with
-their operand ``dtypes``, the K1, K2, K4 and K7 entries with their launches
+their operand ``dtypes`` (K4 and K7 also with their ``device_ms``), the K1, K2, K4 and K7 entries with their launches
 in each gradient run and the part of them made in the backward (the fused
 right-hand sides' backward launches are SpMM launches, counted on the
 SpMM), K3's with their launches in the backsolve gradient; then the five
@@ -262,6 +267,24 @@ def csr_bytes(csr) -> int:
     return nbytes(csr.row_ptr, csr.col, csr.weight)
 
 
+def check_bounds(records, where: str = "kernels") -> None:
+    """Fail when a record's time (``ms`` by events, ``device_ms``) is below
+    its ``bound_ms``: no card beats its bound, so such a time or such a
+    bound is wrong. Walks nested records."""
+    if isinstance(records, dict):
+        b_ms = records.get("bound_ms")
+        for key in ("ms", "device_ms"):
+            t = records.get(key)
+            if b_ms is not None and t is not None:
+                check(t >= b_ms, f"{where}: {key} {t:.4f} below its bound "
+                                 f"{b_ms:.4f} ms")
+        for key, value in records.items():
+            check_bounds(value, f"{where}/{records.get('name', key)}")
+    elif isinstance(records, list):
+        for value in records:
+            check_bounds(value, where)
+
+
 def kernel_checks(P, K, dev, grid_g, rand_edges):
     """Phase 3, K1 and K2: kernels vs plain versions. Returns the JSON
     records of the main-path shapes."""
@@ -289,6 +312,7 @@ def kernel_checks(P, K, dev, grid_g, rand_edges):
             b_ms, b_by = bound(*work)
             line += f"  bound {b_ms:.4f} ms ({b_by})"
         print(line)
+        check_bounds(dict(ms=ms, bound_ms=b_ms), label)
         check(bool(torch.isfinite(got.float()).all()), f"{label}: non-finite")
         check(rel <= bound_to, f"{label}: rel error {rel:.3e} > "
                                f"{bound_to:g}")
@@ -411,15 +435,33 @@ def scrambled_mesh(P, points: int, dev):
     return gp, kind
 
 
+def subtile_bytes(st, f: int) -> tuple:
+    """(occupied sub-tiles, bytes) of what the block-band kernel reads for
+    ``A @ x`` at ``f`` features: the listed sub-tiles of the blocks, the
+    index and the cols table, one x chunk per listed sub-tile and feature
+    tile (each tile loads its own), out written once."""
+    idx = st.tiles
+    m = idx.ent.numel()
+    es = st.blocks.element_size()
+    return m, (m * idx.rows * idx.cols * es
+               + nbytes(idx.ptr, idx.ent, st.cols) + m * idx.cols * f * es
+               + 4 * st.num_nodes * f)
+
+
 def band_checks(K, dev, cases):
     """Phase 3, K4 and K7: the SpMM and the fused right-hand side (tanh,
     W 128×128, b) against their plain versions on each ``(label, graph,
     kind, main_path)`` mesh, F = 128: forward in f32 and in bf16 storage,
     and the backward of each ``autograd.Function`` against autograd
-    through the plain version. Times: kernel, plain, ``torch.sparse.mm``
-    on the same relabeled CSR (library) and K1 on that CSR. Returns the
-    JSON records of the main-path meshes."""
+    through the plain version. Times: kernel (by events and device),
+    plain, ``torch.sparse.mm`` on the same relabeled CSR (library) and K1
+    on that CSR. The bound is the function's, on its nonzeros (K1's on
+    the same CSR); the bytes the kernel's design reads, counted from the
+    occupied sub-tiles it walks (not measured), are printed beside it.
+    Returns the JSON records of the main-path meshes."""
     import dataclasses
+
+    from neuralgraphpde_torch.tools.profile_paths import device_per_call
 
     rng = np.random.default_rng(7)
     records = {}
@@ -446,22 +488,22 @@ def band_checks(K, dev, cases):
             warnings.simplefilter("ignore", UserWarning)
             a = torch.sparse_csr_tensor(csr.row_ptr, csr.col, csr.weight,
                                         size=(n, n))
-        # the work the function needs: one multiply-add per nonzero and
-        # feature (the stored zeros of the blocks are not needed work) and
-        # the W epilogue's; the bytes are those of the storage the kernel is
-        # handed, zeros included
+        # the work the function needs, whatever computes it (K1's on the
+        # same CSR): one multiply-add per nonzero and feature and the W
+        # epilogue's; the nonzeros' values and columns, the row offsets, x
+        # read once, out written once (and W, b)
         macs = float(csr.col.numel() * f)
-        out_bytes = 4 * n * f
+        fn_bytes = csr_bytes(csr) + nbytes(x) + 4 * n * f
         forms = {
             "spmm": (lambda: spmm(x, st),
                      lambda: K.block_rhs_plain(st, x, None, None, None, False),
-                     (nbytes(st.blocks, st.cols, x) + out_bytes, 2 * macs)),
+                     (fn_bytes, 2 * macs), st),
             "gcn_rhs": (lambda: rhs("tanh", x, w, b, nrm),
                         lambda: K.block_rhs_plain(nrm, x, w, b, "tanh", True),
-                        (nbytes(nrm.blocks, nrm.cols, x, w, b) + out_bytes,
-                         2 * macs + 2.0 * n * f * f))}
-        rec = {}
-        for what, (kern, plain, work) in forms.items():
+                        (fn_bytes + nbytes(w, b), 2 * macs + 2.0 * n * f * f),
+                        nrm)}
+        rec, subtiles = {}, {}
+        for what, (kern, plain, work, store) in forms.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
             rel, diff = rel_err(got, want)
@@ -470,9 +512,17 @@ def band_checks(K, dev, cases):
             check(rel <= F32_BOUND, f"{shape} {what}: rel {rel:.3e}")
             ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
             b_ms, b_by = bound(*work)
+            occupied, own_bytes = subtile_bytes(store, f)
+            subtiles[what] = dict(
+                occupied=occupied, rows=store.tiles.rows,
+                cols=store.tiles.cols, of=store.blocks.numel() // (
+                    store.tiles.rows * store.tiles.cols),
+                kernel_bytes=own_bytes, stored_bytes=nbytes(store.blocks))
             rec[what] = dict(max_abs_err=diff, max_rel_err=rel, ms=ms,
+                             device_ms=device_per_call(kern)[0],
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=None, shape=shape)
+            check_bounds(rec[what], f"{shape} {what}")
             del got, want
         lib_rel = rel_err(torch.sparse.mm(a, x), forms["spmm"][1]())[0]
         rec["spmm"]["library_ms"] = cuda_ms(lambda: torch.sparse.mm(a, x))
@@ -531,10 +581,17 @@ def band_checks(K, dev, cases):
                 max_rel_err_dx=dx_rel, max_rel_err_dw_db=par_rel)
         for what in ("spmm", "gcn_rhs"):
             r = rec[what]
+            sub = subtiles[what]
             print(f"  {shape} {what}: rel {r['max_rel_err']:.3e} (bound "
                   f"{F32_BOUND:g}; bf16 {rel16:.3e}, bound {BF16_BOUND:g})  "
-                  f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                  f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  "
+                  f"plain {r['plain_ms']:.4f} ms  "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, on the "
+                  f"nonzeros)\n    occupied {sub['rows']}x{sub['cols']} "
+                  f"sub-tiles {sub['occupied']} of {sub['of']}: the kernel "
+                  f"reads {sub['kernel_bytes'] / 1e6:.1f} MB by its design's "
+                  f"count, not measured (the storage "
+                  f"holds {sub['stored_bytes'] / 1e6:.1f} MB)"
                   + (f"  library {r['library_ms']:.4f} ms (rel "
                      f"{lib_rel:.1e})" if r["library_ms"] is not None else "")
                   + f"  K1 on the same CSR {k1_ms:.4f} ms\n"
@@ -2154,7 +2211,7 @@ def main() -> int:
                 dict(run=run, launches=counts["launches"].get(fn, 0),
                      backward_launches=counts["backward"].get(fn, 0))
                 for run, counts in counted]
-        for extra in ("k1_same_csr_ms", "training_pair"):
+        for extra in ("k1_same_csr_ms", "training_pair", "device_ms"):
             if extra in rec:
                 entry[extra] = rec[extra]
         entry["dtypes"] = {"every operand": "float32"}
@@ -2211,6 +2268,7 @@ def main() -> int:
         **{k: rec[k] for k in keys + ("dtypes",)},
         other_shapes=[{k: records["segment_max"]["bf16"][k]
                        for k in keys + ("dtypes",)}]))
+    check_bounds(kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-// Shared helpers for the port's kernels: f32/bf16 conversion, the GCN
-// epilogue activations, and the fused GCN epilogue that streams W through a
-// shared tile (used by the DIA stencil and the block-band kernels).
+// Shared helpers for the port's kernels: f32/bf16 conversion, cp.async
+// copies, the GCN epilogue activations, and the fused GCN epilogue that
+// streams W through a shared tile (used by the DIA stencil and the
+// block-band kernels).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,6 +29,26 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
+}
+
+// 16 bytes from device memory into shared memory without passing through
+// registers; the bytes past src_bytes (all 16 when it is 0: src is then not
+// read) are zero-filled. dst and src 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // GCN epilogue activations: 0 identity, 1 tanh, 2 relu, 3 sigmoid

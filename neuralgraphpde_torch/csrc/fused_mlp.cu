@@ -73,6 +73,8 @@
 
 namespace {
 
+using ngpde::cp_async_commit;
+using ngpde::cp_async_wait;
 using ngpde::from_f32;
 using ngpde::to_f32;
 using bf16 = __nv_bfloat16;
@@ -574,16 +576,6 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's cp.async groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // rows [k0, k0 + kr) of layer l's W into the tile wt (row stride

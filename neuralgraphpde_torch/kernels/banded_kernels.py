@@ -6,7 +6,9 @@ block diagonals, K7) and ``_pbanded_spmm_fwd`` and ``_pbanded_rhs_fwd``
 (packed block bands, K4). They differ only in where a slot's x block comes
 from (the diagonal ``clip(i + offsets[k])`` or the packed ``cols[i, s]``);
 both storages carry a ``cols`` table here (``ops/bsr.py``), so one CUDA
-source serves all four: ``neuralgraphpde_torch/csrc/banded.cu``.
+body serves all four: ``neuralgraphpde_torch/csrc/banded.cu``. It walks the
+storage's ``SubTileIndex`` (``st.tiles``), its occupied 32 × 32 sub-tiles
+only; a CUDA storage without one raises.
 
 - ``banded_spmm_pallas`` / ``pbanded_spmm_pallas``: ``A @ x`` in x's
   dtype.
@@ -59,6 +61,22 @@ def block_rhs_plain(st, x: torch.Tensor, w: Optional[torch.Tensor],
     return _ACTS[act](h)
 
 
+def _check_index(st, idx) -> None:
+    """Raise unless ``idx`` has the shape of an index of ``st``'s blocks
+    (O(1): the kernel reads ``ptr`` at every output tile and takes each
+    entry as a slot and chunk of these blocks)."""
+    S, nb, tbr, tb = st.blocks.shape
+    tiles = -(-tbr // idx.rows)
+    listable = nb * tiles * S * -(-tb // idx.cols)
+    if (idx.ptr.dtype != torch.int32 or idx.ent.dtype != torch.int32
+            or idx.ptr.shape != (nb * tiles + 1,)
+            or idx.ent.dim() != 1 or idx.ent.numel() > listable):
+        raise ValueError(
+            f"sub-tile index (ptr {tuple(idx.ptr.shape)}, ent "
+            f"{tuple(idx.ent.shape)}) was not made for blocks "
+            f"{tuple(st.blocks.shape)}")
+
+
 def _block_call(st, x: torch.Tensor, w: Optional[torch.Tensor],
                 b: Optional[torch.Tensor], act, fused: bool, owner,
                 backward: bool = False) -> torch.Tensor:
@@ -88,27 +106,33 @@ def _block_call(st, x: torch.Tensor, w: Optional[torch.Tensor],
             b = b.float().reshape(-1).contiguous()
             if b.shape[0] != out_w:
                 raise ValueError(f"b must have {out_w} entries")
+    idx = st.tiles
+    if idx is not None:
+        _check_index(st, idx)
     if x.device.type == "cpu":
         return block_rhs_plain(st, x, w, b, act, fused)
-    _check_cuda_inputs(x, st.blocks, st.cols,
+    if idx is None:
+        raise ValueError("block-band storage without its sub-tile index "
+                         "(tiles): make it with ops.bsr.build_banded, "
+                         "build_packed_banded or transpose_banded")
+    _check_cuda_inputs(x, st.blocks, st.cols, idx.ptr, idx.ent,
                        *[t for t in (w, b) if t is not None])
     out = torch.empty((n, out_w), dtype=torch.float32, device=x.device)
-    S, nb = st.blocks.shape[0], st.nb
+    band = (st.blocks.data_ptr(), st.cols.data_ptr(), idx.ptr.data_ptr(),
+            idx.ent.data_ptr(), idx.rows, idx.cols, st.blocks.shape[0], st.nb,
+            st.row_height, st.tb, x.data_ptr())
     code = _ACT_CODES[act] if fused else 0
     bf16 = int(bdt == torch.bfloat16)
     b_ptr = None if b is None else b.data_ptr()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _build.library()
     if w is None:
-        err = lib.ngpde_block_spmm(
-            st.blocks.data_ptr(), st.cols.data_ptr(), S, nb, st.row_height,
-            st.tb, x.data_ptr(), n, F, b_ptr, out.data_ptr(), code, bf16,
-            stream)
+        err = lib.ngpde_block_spmm(*band, n, F, b_ptr, out.data_ptr(), code,
+                                   bf16, stream)
     else:
-        err = lib.ngpde_block_gcn_rhs(
-            st.blocks.data_ptr(), st.cols.data_ptr(), S, nb, st.row_height,
-            st.tb, x.data_ptr(), w.data_ptr(), b_ptr, out.data_ptr(), n, F,
-            out_w, code, bf16, stream)
+        err = lib.ngpde_block_gcn_rhs(*band, w.data_ptr(), b_ptr,
+                                      out.data_ptr(), n, F, out_w, code, bf16,
+                                      stream)
     _build.check(err, owner.__name__)
     owner.launches += 1
     owner.backward_launches += int(backward)

@@ -15,8 +15,10 @@ numpy code, so the arrays are bit-equal to its CPU build.
 Both are ``blocks (S, nb, tbr, tb)`` with a ``cols (nb, S)`` table of x
 blocks (for dense bands ``cols[i, k] = clip(i + offsets[k], 0, nb − 1)``;
 the clipped slots hold zero blocks), so one kernel
-(``kernels/banded_kernels.py``) reads both. ``bsr_spmm`` stays plain torch:
-the JAX package computes it outside any Pallas kernel.
+(``kernels/banded_kernels.py``) reads both. Each also carries the
+``SubTileIndex`` of its occupied sub-tiles, the list that kernel walks
+(the JAX package's storages have no such field). ``bsr_spmm`` stays plain
+torch: the JAX package computes it outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -36,6 +38,10 @@ DIA_MAX_BANDWIDTH = 8192
 PACKED_TB, PACKED_TB_ROWS, PACKED_MAX_SLOTS = 128, 512, 32
 # Nominal feature width of the packed-vs-dense traffic rule.
 F_NOM = 128
+# The block-band kernel's sub-tile: rows of an output tile × columns of a
+# chunk (x rows). ``csrc/banded.cu`` is built for these and raises on an
+# index made for others.
+SUBTILE_ROWS, SUBTILE_COLS = 32, 32
 
 
 def _weights(edge_weight, E: int) -> np.ndarray:
@@ -116,6 +122,55 @@ def bsr_spmm(bsr: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------- block bands
 @dataclasses.dataclass(frozen=True, eq=False)
+class SubTileIndex:
+    """The occupied sub-tiles of a block-band storage ``(S, nb, tbr, tb)``:
+    a CSR over its output tiles (block-row ``i``, rows ``[t·rows, (t + 1)·
+    rows)`` is tile ``i·ceil(tbr / rows) + t``) listing, in ascending order,
+    each ``(slot s, column chunk k)`` whose ``rows × cols`` sub-tile holds a
+    stored nonzero, as ``s·ceil(tb / cols) + k``.
+
+    It describes the storage's sparsity pattern: ``dataclasses.replace``
+    on a storage may change the dtype of its blocks (a value rounded to
+    zero only leaves a listed sub-tile that costs work), never where its
+    nonzeros are; a nonzero outside the listed sub-tiles is left out of
+    the kernel's sum. The wrapper checks only the index's shape."""
+
+    ptr: torch.Tensor  # (nb·tiles + 1,) int32
+    ent: torch.Tensor  # (occupied sub-tiles,) int32
+    rows: int = SUBTILE_ROWS
+    cols: int = SUBTILE_COLS
+
+    def to(self, device) -> "SubTileIndex":
+        return dataclasses.replace(self, ptr=self.ptr.to(device),
+                                   ent=self.ent.to(device))
+
+
+def subtile_index(shape, flat: torch.Tensor) -> SubTileIndex:
+    """The ``SubTileIndex`` of a storage of ``shape (S, nb, tbr, tb)``
+    whose stored nonzeros sit at the flat positions ``flat`` (int64, any
+    order, repeats allowed), on ``flat``'s device."""
+    S, nb, tbr, tb = shape
+    tiles = -(-tbr // SUBTILE_ROWS)
+    chunks = -(-tb // SUBTILE_COLS)
+    rest, c = flat // tb, flat % tb
+    rest, r = rest // tbr, rest % tbr
+    s, i = rest // nb, rest % nb
+    per_tile = max(S * chunks, 1)  # entries a tile can list
+    tile = i * tiles + r // SUBTILE_ROWS
+    key = torch.unique(tile * per_tile + s * chunks + c // SUBTILE_COLS)
+    counts = torch.bincount(key // per_tile, minlength=nb * tiles)
+    ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return SubTileIndex(ptr=ptr.to(torch.int32),
+                        ent=(key % per_tile).to(torch.int32))
+
+
+def _host_index(host: np.ndarray, shape, flat: np.ndarray) -> SubTileIndex:
+    """The index of a host-built storage from its edges' flat positions
+    (those whose summed value is zero left out)."""
+    return subtile_index(shape, torch.from_numpy(flat[host[flat] != 0]))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class BandedMatrix:
     """Dense block-diagonal storage: band ``k`` holds block ``(i, i +
     offsets[k])`` of every block-row ``i`` (zero where absent)."""
@@ -127,6 +182,7 @@ class BandedMatrix:
     num_nodes: int
     # (nb, n_bands) int32: x block of each band, clip(i + d, 0, nb − 1)
     cols: Optional[torch.Tensor] = None
+    tiles: Optional[SubTileIndex] = None  # the occupied sub-tiles
 
     def __post_init__(self):
         if self.cols is None:
@@ -142,8 +198,9 @@ class BandedMatrix:
     num_col_blocks = property(lambda self: self.nb)
 
     def to(self, device) -> "BandedMatrix":
-        return dataclasses.replace(self, bands=self.bands.to(device),
-                                   cols=self.cols.to(device))
+        return dataclasses.replace(
+            self, bands=self.bands.to(device), cols=self.cols.to(device),
+            tiles=None if self.tiles is None else self.tiles.to(device))
 
 
 def build_banded(senders, receivers, num_nodes: int, *, tb: int = 256,
@@ -169,7 +226,8 @@ def build_banded(senders, receivers, num_nodes: int, *, tb: int = 256,
     np.add.at(host, flat, w)
     return BandedMatrix(bands=_store(host, shape, dtype),
                         offsets=tuple(int(d) for d in offsets),
-                        nb=nb, tb=tb, num_nodes=num_nodes)
+                        nb=nb, tb=tb, num_nodes=num_nodes,
+                        tiles=_host_index(host, shape, flat))
 
 
 def transpose_banded(bm: BandedMatrix) -> BandedMatrix:
@@ -187,9 +245,11 @@ def transpose_banded(bm: BandedMatrix) -> BandedMatrix:
         tr.append(blk)
     offsets = tuple(-d for d in bm.offsets)
     order = sorted(range(len(offsets)), key=lambda i: offsets[i])
-    return BandedMatrix(bands=torch.stack([tr[i] for i in order]).contiguous(),
-                        offsets=tuple(offsets[i] for i in order),
-                        nb=bm.nb, tb=bm.tb, num_nodes=bm.num_nodes)
+    bands = torch.stack([tr[i] for i in order]).contiguous()
+    return BandedMatrix(
+        bands=bands, offsets=tuple(offsets[i] for i in order), nb=bm.nb,
+        tb=bm.tb, num_nodes=bm.num_nodes, tiles=subtile_index(
+            bands.shape, torch.nonzero(bands.reshape(-1)).reshape(-1)))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -204,6 +264,7 @@ class PackedBanded:
     tb: int  # block column width (x block height)
     num_nodes: int
     tb_rows: int = 0  # block row height; 0 = square (tb)
+    tiles: Optional[SubTileIndex] = None  # the occupied sub-tiles
 
     @property
     def row_height(self) -> int:
@@ -214,8 +275,9 @@ class PackedBanded:
         return -(-self.num_nodes // self.tb)
 
     def to(self, device) -> "PackedBanded":
-        return dataclasses.replace(self, blocks=self.blocks.to(device),
-                                   cols=self.cols.to(device))
+        return dataclasses.replace(
+            self, blocks=self.blocks.to(device), cols=self.cols.to(device),
+            tiles=None if self.tiles is None else self.tiles.to(device))
 
 
 def build_packed_banded(senders, receivers, num_nodes: int, *, tb: int = 128,
@@ -260,7 +322,8 @@ def build_packed_banded(senders, receivers, num_nodes: int, *, tb: int = 128,
     np.add.at(host, flat, w)
     return PackedBanded(blocks=_store(host, shape, dtype),
                         cols=torch.from_numpy(cols.astype(np.int32)),
-                        nb=nb, tb=tb, num_nodes=num_nodes, tb_rows=tbr)
+                        nb=nb, tb=tb, num_nodes=num_nodes, tb_rows=tbr,
+                        tiles=_host_index(host, shape, flat))
 
 
 def block_spmm_f32(st, x: torch.Tensor) -> torch.Tensor:

@@ -133,19 +133,24 @@ def profile(fn, reps: int = 1):
     return device_events(prof), seconds
 
 
+def device_per_call(fn, reps: int = KERNEL_REPS) -> tuple:
+    """(device ms, device kernels) per call of ``fn``: ``reps`` calls under
+    the profiler after 3 warm-up calls (build, caches, allocator)."""
+    for _ in range(3):
+        fn()
+    events, _ = profile(fn, reps)
+    return (sum(e[2] for e in events) / reps / 1e3,
+            sum(e[3] == "kernel" for e in events) / reps)
+
+
 def per_calls(head: str, fns: dict) -> dict:
-    """Device ms and device kernels per call of each of ``fns``, after 3
-    warm-up calls (build, caches, allocator), keyed ``"head what"``."""
+    """Device ms and device kernels per call of each of ``fns``
+    (``device_per_call``), keyed ``"head what"``."""
     out = {}
     for what, fn in fns.items():
-        for _ in range(3):
-            fn()
-        events, _ = profile(fn, KERNEL_REPS)
+        ms, kernels = device_per_call(fn)
         key = f"{head} {what}"
-        out[key] = rec = dict(
-            device_ms_per_call=sum(e[2] for e in events) / KERNEL_REPS / 1e3,
-            kernels_per_call=sum(e[3] == "kernel" for e in events)
-            / KERNEL_REPS)
+        out[key] = rec = dict(device_ms_per_call=ms, kernels_per_call=kernels)
         print(f"{key}: {rec['device_ms_per_call']:.4f} device ms/call, "
               f"{rec['kernels_per_call']:g} kernels/call", flush=True)
     return out

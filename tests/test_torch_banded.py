@@ -10,6 +10,7 @@ otherwise, forward within rtol 1e-5 (sums in another order); the VJPs of
 the port's ``autograd.Function``s against ``jax.vjp`` of the JAX custom
 VJPs within 1e-4 of each gradient's largest entry.
 """
+import dataclasses
 import importlib
 
 import numpy as np
@@ -451,3 +452,141 @@ def test_structured_spmm_matches_jax(graph):
     xr = torch.from_numpy(x).requires_grad_()
     port_spmm.spmm_xla(cp, xr).backward(gy)
     assert _rel(xt.grad.numpy(), xr.grad.numpy()) <= GRAD
+
+
+# ------------------------------------------------------- sub-tile index
+def _index_case(case):
+    """A port storage with its sub-tile index: packed (``tb`` 32 square and
+    512 × 128 tall, whose block-rows use fewer slots than S) and dense
+    bands on the RCM mesh, the dense bands' on-the-fly transpose, a bf16
+    copy made with ``dataclasses.replace``, storages with no empty slot (a
+    periodic chain packed, a block-diagonal graph banded), and storages
+    with all-empty tiles (200 isolated nodes in the middle of the mesh)."""
+    s, r, n, w, _ = _rcm_mesh()
+    if case == "isolated_packed" or case == "isolated_banded":
+        s, r, n = s + 200 * (s >= 300), r + 200 * (r >= 300), n + 200
+    if case == "ring_packed":
+        n = 2048
+        i = np.arange(n)
+        s = np.concatenate([i, i, (i + 1) % n])
+        r = np.concatenate([i, (i + 1) % n, i])
+        w = np.linspace(0.5, 1.5, len(s)).astype(np.float32)
+    if case == "blockdiag_banded":
+        n = 256
+        i = np.arange(n)
+        s = np.concatenate([i, i ^ 1, i ^ 7])
+        r = np.concatenate([i, i, i])
+        w = np.linspace(0.5, 1.5, len(s)).astype(np.float32)
+    if case in ("packed", "isolated_packed", "ring_packed"):
+        return pbsr.build_packed_banded(s, r, n, tb=32, edge_weight=w)
+    if case == "packed_tall":
+        n = 2000
+        s, r, n, w, _ = _rcm_mesh(n=n)
+        return pbsr.build_packed_banded(s, r, n, tb=128, tb_rows=512,
+                                        edge_weight=w)
+    bm = pbsr.build_banded(s, r, n, tb=64, edge_weight=w, max_bands=24)
+    if case == "transposed":
+        return pbsr.transpose_banded(bm)
+    if case == "bf16":
+        return dataclasses.replace(bm, bands=bm.bands.to(torch.bfloat16))
+    return bm
+
+
+_INDEX_CASES = ["packed", "packed_tall", "banded", "transposed", "bf16",
+                "ring_packed", "blockdiag_banded", "isolated_packed",
+                "isolated_banded"]
+
+
+def _occupied(st):
+    """(S, nb, tiles, chunks) bool: which sub-tiles hold a nonzero."""
+    S, nb, tbr, tb = st.blocks.shape
+    R, C = st.tiles.rows, st.tiles.cols
+    tiles, chunks = -(-tbr // R), -(-tb // C)
+    nz = torch.nn.functional.pad(st.blocks.float() != 0,
+                                 (0, chunks * C - tb, 0, tiles * R - tbr))
+    return nz.reshape(S, nb, tiles, R, chunks, C).any(5).any(3).numpy()
+
+
+@pytest.mark.parametrize("case", _INDEX_CASES)
+def test_subtile_index_lists_exactly_the_occupied(case):
+    """Every stored nonzero lies in a listed sub-tile, no listed sub-tile is
+    all zero, and each tile's entries ascend."""
+    st = _index_case(case)
+    idx = st.tiles
+    assert (idx.rows, idx.cols) == (pbsr.SUBTILE_ROWS, pbsr.SUBTILE_COLS)
+    assert idx.ptr.dtype == idx.ent.dtype == torch.int32
+    occ = _occupied(st)
+    S, nb, tiles, chunks = occ.shape
+    ptr, ent = idx.ptr.numpy(), idx.ent.numpy()
+    assert ptr.shape == (nb * tiles + 1,) and ptr[0] == 0
+    assert ptr[-1] == len(ent) and (np.diff(ptr) >= 0).all()
+    listed = np.zeros_like(occ)
+    for t in range(nb * tiles):
+        row = ent[ptr[t]:ptr[t + 1]]
+        assert (np.diff(row) > 0).all()
+        listed[row // chunks, t // tiles, t % tiles, row % chunks] = True
+    np.testing.assert_array_equal(listed, occ)
+    if case.startswith("isolated"):
+        assert (np.diff(ptr) == 0).any()  # an all-empty tile
+    empty_slots = ~(st.blocks.float() != 0).any(-1).any(-1).numpy()
+    assert empty_slots.any() == (case not in ("ring_packed",
+                                              "blockdiag_banded"))
+
+
+def _walk_subtiles(st, x):
+    """The kernel's walk in torch: each tile sums its listed sub-tiles'
+    products with their x chunks, in list order; f32."""
+    S, nb, tbr, tb = st.blocks.shape
+    R, C = st.tiles.rows, st.tiles.cols
+    tiles, chunks = -(-tbr // R), -(-tb // C)
+    cdt = torch.bfloat16 if st.blocks.dtype == torch.bfloat16 else x.dtype
+    xp = torch.nn.functional.pad(x.to(cdt).float(),
+                                 (0, 0, 0, st.num_col_blocks * tb + C))
+    out = torch.zeros(nb * tbr, x.shape[1])
+    ptr, ent = st.tiles.ptr.tolist(), st.tiles.ent.tolist()
+    for t in range(nb * tiles):
+        i, r0 = t // tiles, (t % tiles) * R
+        for e in ent[ptr[t]:ptr[t + 1]]:
+            s, c0 = e // chunks, (e % chunks) * C
+            a = st.blocks[s, i, r0:r0 + R, c0:c0 + C].float()
+            x0 = int(st.cols[i, s]) * tb + c0
+            out[i * tbr + r0:i * tbr + r0 + a.shape[0]] += a @ xp[
+                x0:x0 + a.shape[1]]
+    return out[:st.num_nodes]
+
+
+@pytest.mark.parametrize("case", _INDEX_CASES)
+def test_listed_subtiles_sum_to_block_spmm(case):
+    """The listed sub-tiles' products alone give the plain version's
+    ``A @ x`` (within 1e-6 of its largest entry): what the index leaves out
+    is all zero."""
+    st = _index_case(case)
+    x = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(st.num_nodes, 5)).astype(np.float32))
+    want = pbsr.block_spmm_f32(st, x)
+    assert _rel(_walk_subtiles(st, x).numpy(), want.numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("wrong", ["other_storage", "ptr_int64",
+                                   "ent_too_long"])
+@pytest.mark.parametrize("kind", ["packed", "banded"])
+def test_block_call_refuses_an_index_made_for_other_blocks(kind, wrong):
+    """The K4/K7 wrappers check the index's shape against the blocks before
+    any product (on the CPU too), and count no launch."""
+    st = _index_case(kind)
+    other = _index_case("packed_tall" if kind == "packed" else "transposed")
+    idx = st.tiles
+    bad = {"other_storage": other.tiles if kind == "packed" else
+           dataclasses.replace(idx, ptr=idx.ptr[:-1]),
+           "ptr_int64": dataclasses.replace(idx, ptr=idx.ptr.long()),
+           "ent_too_long": dataclasses.replace(idx, ent=torch.zeros(
+               st.blocks.numel(), dtype=torch.int32))}[wrong]
+    bad_st = dataclasses.replace(st, tiles=bad)
+    spmm = (pbk.pbanded_spmm_pallas if kind == "packed"
+            else pbk.banded_spmm_pallas)
+    x = torch.ones(st.num_nodes, 4)
+    before = spmm.launches
+    torch.testing.assert_close(spmm(x, st), pbsr.block_spmm_f32(st, x))
+    with pytest.raises(ValueError, match="not made for blocks"):
+        spmm(x, bad_st)
+    assert spmm.launches == before

@@ -458,9 +458,11 @@ def test_k1_k2_backward_cuda(cuda, f, dtype):
     assert _rel(xk.grad.cpu(), xp.grad.cpu()) <= 1e-5
 
 
-def _k4_k7_case(cuda, kind, dtype, seed=18):
+def _k4_k7_case(cuda, kind, dtype, seed=18, isolated=False):
     """An RCM-relabeled Delaunay mesh of 3,000 points in packed (512 × 128)
-    or dense (256 × 256) block bands, with its transpose, on the card."""
+    or dense (256 × 256) block bands, with its transpose, on the card. With
+    ``isolated``, 300 isolated nodes sit in the middle of the numbering
+    (3,300 nodes): their 64-row tiles list no sub-tile."""
     from neuralgraphpde_torch.graph.reorder import rcm_order
     from neuralgraphpde_torch.ops.bsr import (build_banded,
                                               build_packed_banded)
@@ -472,15 +474,22 @@ def _k4_k7_case(cuda, kind, dtype, seed=18):
     inv = np.empty(3000, np.int64)
     inv[order] = np.arange(3000)
     s, r = inv[s], inv[r]
+    n = 3000
+    if isolated:
+        s, r, n = s + 300 * (s >= 1500), r + 300 * (r >= 1500), 3300
     w = rng.uniform(0.5, 1.5, len(s)).astype(np.float32)
     if kind == "pbanded":
         kw = dict(tb=128, tb_rows=512, edge_weight=w, dtype=dtype)
-        st, st_rev = (build_packed_banded(s, r, 3000, **kw),
-                      build_packed_banded(r, s, 3000, **kw))
+        st, st_rev = (build_packed_banded(s, r, n, **kw),
+                      build_packed_banded(r, s, n, **kw))
     else:
         kw = dict(tb=256, edge_weight=w, dtype=dtype, max_bands=24)
-        st, st_rev = (build_banded(s, r, 3000, **kw),
-                      build_banded(r, s, 3000, **kw))
+        st, st_rev = (build_banded(s, r, n, **kw),
+                      build_banded(r, s, n, **kw))
+    # what the cases are for: a block-row slot holding only zeros, and (with
+    # isolated nodes) a tile listing no sub-tile
+    assert not (st.blocks != 0).any(-1).any(-1).all()
+    assert not isolated or bool((torch.diff(st.tiles.ptr) == 0).any())
     return st.to(cuda), st_rev.to(cuda), rng
 
 
@@ -494,38 +503,41 @@ def test_k4_k7_kernels_match_plain_cuda(cuda, kind, f, dtype):
     """The SpMM and the fused right-hand side (tanh with W and b, relu with
     W and no b, sigmoid with no W) against ``block_rhs_plain`` on the same
     inputs: 1e-5 (bf16 storage: 2e-2) of the largest value; each call
-    launches once."""
-    st, _, rng = _k4_k7_case(cuda, kind, dtype)
+    launches once. On the mesh (block-rows with empty slots) and on the
+    mesh with isolated nodes (tiles with no sub-tile)."""
     spmm = (BK.pbanded_spmm_pallas if kind == "pbanded"
             else BK.banded_spmm_pallas)
     rhs = BK.pbanded_gcn_rhs if kind == "pbanded" else BK.banded_gcn_rhs
-    x = torch.from_numpy(rng.normal(size=(3000, f)).astype(np.float32)).to(
-        cuda)
-    w = torch.from_numpy((rng.normal(size=(f, 70)) / np.sqrt(f)).astype(
-        np.float32)).to(cuda)
-    b = torch.randn(1, 70, device=cuda)
-    wc = w.to(dtype)
-    xc = x.to(dtype)
     bound = 1e-5 if dtype == torch.float32 else BF16
-    cases = [
-        (lambda: spmm(x, st), lambda: BK.block_rhs_plain(
-            st, xc, None, None, None, False), spmm),
-        (lambda: rhs("tanh", x, w, b, st), lambda: BK.block_rhs_plain(
-            st, xc, wc, b, "tanh", True), rhs),
-        (lambda: rhs("relu", x, w, None, st), lambda: BK.block_rhs_plain(
-            st, xc, wc, None, "relu", True), rhs),
-        (lambda: rhs("sigmoid", x, None, b[:, :1].expand(1, f).contiguous(),
-                     st),
-         lambda: BK.block_rhs_plain(st, xc, None, b[:, :1].expand(1, f),
-                                    "sigmoid", True), rhs)]
-    for kernel, plain, fn in cases:
-        launches = fn.launches
-        got = kernel()
-        torch.cuda.synchronize()
-        assert fn.launches == launches + 1
-        want = plain()
-        assert got.shape == want.shape
-        assert _rel(got.cpu().float(), want.cpu().float()) <= bound
+    for isolated in (False, True):
+        st, _, rng = _k4_k7_case(cuda, kind, dtype, isolated=isolated)
+        n = st.num_nodes
+        x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(
+            cuda)
+        w = torch.from_numpy((rng.normal(size=(f, 70)) / np.sqrt(f)).astype(
+            np.float32)).to(cuda)
+        b = torch.randn(1, 70, device=cuda)
+        wc = w.to(dtype)
+        xc = x.to(dtype)
+        bf = b[:, :1].expand(1, f).contiguous()
+        cases = [
+            (lambda: spmm(x, st), lambda: BK.block_rhs_plain(
+                st, xc, None, None, None, False), spmm),
+            (lambda: rhs("tanh", x, w, b, st), lambda: BK.block_rhs_plain(
+                st, xc, wc, b, "tanh", True), rhs),
+            (lambda: rhs("relu", x, w, None, st), lambda: BK.block_rhs_plain(
+                st, xc, wc, None, "relu", True), rhs),
+            (lambda: rhs("sigmoid", x, None, bf, st),
+             lambda: BK.block_rhs_plain(st, xc, None, bf, "sigmoid", True),
+             rhs)]
+        for kernel, plain, fn in cases:
+            launches = fn.launches
+            got = kernel()
+            torch.cuda.synchronize()
+            assert fn.launches == launches + 1
+            want = plain()
+            assert got.shape == want.shape
+            assert _rel(got.cpu().float(), want.cpu().float()) <= bound
 
 
 @pytest.mark.cuda
@@ -535,33 +547,41 @@ def test_k4_k7_autograd_cuda(cuda, kind):
     right-hand side's aggregate recomputed for dW) against autograd through
     the plain version: ``dx`` within 1e-5, ``dW``/``db`` within 1e-4 of
     their largest entry; the fused call's backward launches the SpMM twice
-    (counted on the SpMM wrapper), the SpMM's once."""
-    st, st_rev, rng = _k4_k7_case(cuda, kind, torch.float32, seed=19)
+    (counted on the SpMM wrapper), the SpMM's once. On the mesh and on the
+    mesh with isolated nodes."""
     spmm = (BK.pbanded_spmm_pallas if kind == "pbanded"
             else BK.banded_spmm_pallas)
     rhs = BK.pbanded_gcn_rhs if kind == "pbanded" else BK.banded_gcn_rhs
+    for isolated in (False, True):
+        st, st_rev, rng = _k4_k7_case(cuda, kind, torch.float32, seed=19,
+                                      isolated=isolated)
+        n = st.num_nodes
 
-    def put(*shape, scale=1.0):
-        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
-            np.float32)).to(cuda)
+        def put(*shape, scale=1.0):
+            return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+                np.float32)).to(cuda)
 
-    x, w, b, g = put(3000, 128), put(128, 128, scale=0.1), put(1, 128), put(
-        3000, 128)
-    leaves_k = [t.clone().requires_grad_() for t in (x, w, b)]
-    leaves_p = [t.clone().requires_grad_() for t in (x, w, b)]
-    fwd0, bwd0 = rhs.launches, spmm.backward_launches
-    rhs("tanh", *leaves_k, st, st_rev).backward(g)
-    assert rhs.launches == fwd0 + 1 and rhs.backward_launches == 0
-    assert spmm.backward_launches == bwd0 + 2
-    BK.block_rhs_plain(st, *leaves_p, "tanh", True).backward(g)
-    for k, p, bd in zip(leaves_k, leaves_p, (1e-5, 1e-4, 1e-4)):
-        assert _rel(k.grad.cpu(), p.grad.cpu()) <= bd
-    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
-    bwd0 = spmm.backward_launches
-    spmm(xk, st, st_rev).backward(g)
-    assert spmm.backward_launches == bwd0 + 1
-    BK.block_rhs_plain(st, xp, None, None, None, False).backward(g)
-    assert _rel(xk.grad.cpu(), xp.grad.cpu()) <= 1e-5
+        x, w, b, g = put(n, 128), put(128, 128, scale=0.1), put(1, 128), put(
+            n, 128)
+        leaves_k = [t.clone().requires_grad_() for t in (x, w, b)]
+        leaves_p = [t.clone().requires_grad_() for t in (x, w, b)]
+        fwd0, bwd0 = rhs.launches, spmm.backward_launches
+        rhs("tanh", *leaves_k, st, st_rev).backward(g)
+        assert rhs.launches == fwd0 + 1 and rhs.backward_launches == 0
+        assert spmm.backward_launches == bwd0 + 2
+        BK.block_rhs_plain(st, *leaves_p, "tanh", True).backward(g)
+        for k, p, bd in zip(leaves_k, leaves_p, (1e-5, 1e-4, 1e-4)):
+            assert _rel(k.grad.cpu(), p.grad.cpu()) <= bd
+        xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+        bwd0 = spmm.backward_launches
+        spmm(xk, st, st_rev).backward(g)
+        assert spmm.backward_launches == bwd0 + 1
+        BK.block_rhs_plain(st, xp, None, None, None, False).backward(g)
+        assert _rel(xk.grad.cpu(), xp.grad.cpu()) <= 1e-5
+        if kind == "banded":  # the transpose and its index built on the card
+            xt = x.clone().requires_grad_()
+            spmm(xt, st, None).backward(g)
+            assert _rel(xt.grad.cpu(), xp.grad.cpu()) <= 1e-5
 
 
 @pytest.mark.cuda
@@ -574,6 +594,83 @@ def test_k4_k7_envelope_raises_cuda(cuda):
     with pytest.raises(ValueError, match="F ≤ 512"):
         BK.pbanded_gcn_rhs("tanh", x, None, None, st)
     assert BK.pbanded_gcn_rhs.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pbanded", "banded"])
+def test_k4_k7_without_index_raises_cuda(cuda, kind):
+    """A CUDA storage whose sub-tile index is removed raises (no launch, no
+    plain version), and so do one whose index was made for other
+    sub-tiles than the kernel's (32 × 32; the kernel refuses it) and one
+    whose index does not fit its blocks (the wrapper refuses it)."""
+    import dataclasses
+
+    st, st_rev, rng = _k4_k7_case(cuda, kind, torch.float32)
+    spmm = (BK.pbanded_spmm_pallas if kind == "pbanded"
+            else BK.banded_spmm_pallas)
+    rhs = BK.pbanded_gcn_rhs if kind == "pbanded" else BK.banded_gcn_rhs
+    x = torch.from_numpy(rng.normal(size=(3000, 16)).astype(np.float32)).to(
+        cuda)
+    w = torch.ones(16, 8, device=cuda)
+    counts = [(f.launches, f.backward_launches) for f in (spmm, rhs)]
+    bare = dataclasses.replace(st, tiles=None)
+    with pytest.raises(ValueError, match="sub-tile index"):
+        spmm(x, bare)
+    with pytest.raises(ValueError, match="sub-tile index"):
+        rhs("tanh", x, w, None, bare)
+    other = dataclasses.replace(st, tiles=dataclasses.replace(
+        st.tiles, rows=2 * st.tiles.rows, ptr=st.tiles.ptr[::2].contiguous()))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        spmm(x, other)
+    misfit = dataclasses.replace(st, tiles=dataclasses.replace(
+        st.tiles, ptr=st.tiles.ptr[:-1]))
+    with pytest.raises(ValueError, match="not made for blocks"):
+        spmm(x, misfit)
+    assert counts == [(f.launches, f.backward_launches) for f in (spmm, rhs)]
+    # the backward on a transpose without its index
+    y = spmm(x.clone().requires_grad_(), st,
+             dataclasses.replace(st_rev, tiles=None))
+    bwd = spmm.backward_launches
+    with pytest.raises(ValueError, match="sub-tile index"):
+        y.sum().backward()
+    assert spmm.backward_launches == bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pbanded", "banded"])
+def test_k4_k7_nonfinite_x_stays_in_its_rows_cuda(cuda, kind):
+    """A NaN row and an inf row of x reach only the output rows with a
+    nonzero on their columns, as K1 and ``torch.sparse.mm`` give (the plain
+    ``bmm``, the full walk and the TPU kernel spread them through stored
+    zeros, 0·inf); every other row equals the plain version on x with those
+    rows zeroed, within 1e-5."""
+    st, _, rng = _k4_k7_case(cuda, kind, torch.float32)
+    spmm = (BK.pbanded_spmm_pallas if kind == "pbanded"
+            else BK.banded_spmm_pallas)
+    rhs = BK.pbanded_gcn_rhs if kind == "pbanded" else BK.banded_gcn_rhs
+    x = torch.from_numpy(rng.normal(size=(3000, 128)).astype(np.float32)).to(
+        cuda)
+    w = torch.from_numpy((rng.normal(size=(128, 64)) / 11).astype(
+        np.float32)).to(cuda)
+    b = torch.randn(1, 64, device=cuda)
+    bad = [700, 2100]
+    hit = torch.zeros(3000, 2, device=cuda)
+    hit[bad, [0, 1]] = 1.0
+    rows = (BK.block_rhs_plain(st, hit, None, None, None, False) != 0).any(1)
+    assert 0 < int(rows.sum()) < 100
+    clean = x.clone()
+    clean[bad] = 0.0
+    x[bad[0]] = float("nan")
+    x[bad[1]] = float("inf")
+    for got, want in (
+            (spmm(x, st), BK.block_rhs_plain(st, clean, None, None, None,
+                                             False)),
+            (rhs("tanh", x, w, b, st), BK.block_rhs_plain(st, clean, w, b,
+                                                          "tanh", True))):
+        torch.cuda.synchronize()
+        assert not torch.isfinite(got[rows]).any(1).any()
+        assert torch.isfinite(got[~rows]).all()
+        assert _rel(got[~rows].cpu(), want[~rows].cpu()) <= 1e-5
 
 
 def _k3_case(cuda, acts, dims, seed=9):
