@@ -5,7 +5,8 @@
 Phases, each fatal on failure:
 
 1. Versions, the card (``nvidia-smi`` name and power limit), TF32 off.
-2. Build the CUDA kernels from ``neuralgraphpde_torch/csrc`` (nvcc, sm_90a).
+2. Build the CUDA kernels from ``neuralgraphpde_torch/csrc`` (nvcc, sm_90a);
+   ptxas must report no spill in ``dia_stencil.cu`` (K2).
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: max relative error ``max|k − p| / max|p|``
    (bound 1e-5 in f32, 1e-2 in bf16 against a plain version fed the same
@@ -57,7 +58,10 @@ Phases, each fatal on failure:
    nonzeros, K1's on that CSR; the occupied 32 × 32 sub-tiles the kernel
    walks and the bytes it reads are printed beside it.
    Any kernel timed below its bound (by events or on the device) fails
-   the run: no card beats its bound.
+   the run: no card beats its bound. The fused K2 (tanh, W 128×128, b) is
+   also timed against its unfused composition on the same inputs (the
+   stencil kernel, ``torch.addmm``, ``tanh``: ``unfused_ms``, three calls,
+   so not a library time), which says whether the fusion pays.
 4. GRAND A: full-size synthetic Cora on the segment kernel (K1).
 5. GRAND B: the 512×512 8-neighbour grid on the fused DIA kernel (K2),
    then with ``gcn_fused=False`` on the plain DIA stencil.
@@ -145,7 +149,8 @@ Phases, each fatal on failure:
    seconds and peak memory beside the checkpoint epoch.
 
 The line before the last is ``{"kernels": [...]}``: twelve kernels with
-their operand ``dtypes`` (K4 and K7 also with their ``device_ms``), the K1, K2, K4 and K7 entries with their launches
+their operand ``dtypes`` (K4 and K7 also with their ``device_ms``, the fused K2
+with its ``unfused_ms``), the K1, K2, K4 and K7 entries with their launches
 in each gradient run and the part of them made in the backward (the fused
 right-hand sides' backward launches are SpMM launches, counted on the
 SpMM), K3's with their launches in the backsolve gradient; then the five
@@ -296,18 +301,22 @@ def kernel_checks(P, K, dev, grid_g, rand_edges):
     records = {}
 
     def compare(label, kernel, plain, bound_to, record=None, library=None,
-                work=None):
+                work=None, unfused=None):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         rel, diff = rel_err(got, want)
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
         lib_ms = None if library is None else cuda_ms(library)
+        unfused_ms = None if unfused is None else cuda_ms(unfused)
         b_ms = b_by = None
         line = (f"  {label:<44} rel {rel:.3e} (bound {bound_to:g})  kernel "
                 f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
         if library is not None:
             lib_rel = rel_err(library(), want)[0]
             line += f"  library {lib_ms:.4f} ms (rel {lib_rel:.1e})"
+        if unfused is not None:
+            unf_rel = rel_err(unfused(), want)[0]
+            line += f"  unfused {unfused_ms:.4f} ms (rel {unf_rel:.1e})"
         if work is not None:
             b_ms, b_by = bound(*work)
             line += f"  bound {b_ms:.4f} ms ({b_by})"
@@ -320,6 +329,8 @@ def kernel_checks(P, K, dev, grid_g, rand_edges):
             records[record] = dict(max_abs_err=diff, max_rel_err=rel, ms=ms,
                                    plain_ms=plain_ms, library_ms=lib_ms,
                                    bound_ms=b_ms, bound_by=b_by, shape=label)
+            if unfused is not None:
+                records[record]["unfused_ms"] = unfused_ms
 
     def normal(*shape):
         return torch.from_numpy(
@@ -382,13 +393,18 @@ def kernel_checks(P, K, dev, grid_g, rand_edges):
                                     torch.bfloat16),
             BF16_BOUND)
     for act in ("tanh", "relu", None):
+        # the yardstick of the fusion: the stencil kernel, then addmm and
+        # tanh, on the same inputs (three calls, so not a library time)
         compare(f"{label} fused {act} W b f32",
                 lambda: K.dia_gcn_rhs(act, x, w, b, dn),
                 lambda: K.dia_rhs_plain(dn, x, w, b, act, True,
                                         torch.float32),
                 F32_BOUND, record="dia_gcn_rhs" if act == "tanh" else None,
                 work=(nbytes(x, x, dn.values, w, b),
-                      2.0 * e * 128 + 2.0 * n * 128 * 128))
+                      2.0 * e * 128 + 2.0 * n * 128 * 128),
+                unfused=(lambda: torch.tanh(torch.addmm(
+                    b, K.dia_spmm_stencil(x, dn), w))) if act == "tanh"
+                else None)
     compare(f"{label} fused tanh b (w=None) f32",
             lambda: K.dia_gcn_rhs("tanh", x, None, b, dn),
             lambda: K.dia_rhs_plain(dn, x, None, b.reshape(-1), "tanh", True,
@@ -1900,11 +1916,21 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     _build.library()
-    regs = [line.strip() for line in _build.build_info["ptxas"].splitlines()
-            if "spill" in line and ("0 bytes spill" not in line)]
     info = _build.build_info
+
+    def spills(log):
+        return [line.strip() for line in log.splitlines()
+                if "spill" in line and ("0 bytes spill" not in line)]
+
     print(f"build: {info['seconds']:.1f} s (built={info['built']}) -> "
-          f"{info['path']}; ptxas lines with spills: {regs or 'none'}")
+          f"{info['path']}; ptxas lines with spills: "
+          f"{spills(info['ptxas']) or 'none'}")
+    # K2 (csrc/dia_stencil.cu) is built to spill nothing
+    k2_log = info["ptxas_by_source"].get("dia_stencil.cu", "")
+    check("dia_stencil_kernel" in k2_log and "dia_gcn_rhs_kernel" in k2_log,
+          "build: no ptxas report for dia_stencil.cu")
+    check(not spills(k2_log), f"build: dia_stencil.cu spills: "
+                              f"{spills(k2_log)}")
 
     t0 = time.perf_counter()
     grid = P.grid_graph_2d(512, 512, diagonals=True)
@@ -2211,7 +2237,8 @@ def main() -> int:
                 dict(run=run, launches=counts["launches"].get(fn, 0),
                      backward_launches=counts["backward"].get(fn, 0))
                 for run, counts in counted]
-        for extra in ("k1_same_csr_ms", "training_pair", "device_ms"):
+        for extra in ("k1_same_csr_ms", "training_pair", "device_ms",
+                      "unfused_ms"):
             if extra in rec:
                 entry[extra] = rec[extra]
         entry["dtypes"] = {"every operand": "float32"}

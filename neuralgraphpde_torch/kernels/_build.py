@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -28,13 +29,15 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
 # C entry point -> argument types; every one returns a cudaError_t as int
 _SIGNATURES = {
     "ngpde_segment_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ngpde_segment_max": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "ngpde_dia_stencil": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "ngpde_dia_gcn_rhs": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "ngpde_dia_stencil": (_P, _P, _I, _IP, _I, _P, _P, _P, _I, _I, _I, _I,
                           _I, _P),
+    "ngpde_dia_gcn_rhs": (_P, _P, _I, _IP, _I, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _P),
     "ngpde_fused_mlp_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                             _P, _I, _I, _P),
     "ngpde_fused_mlp_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -50,6 +53,7 @@ _SIGNATURES = {
 
 _lib = None
 # what the last build did: seconds, library path, nvcc's -Xptxas -v report
+# (also by source; kept beside the library, so a cached one has it too)
 build_info: dict = {}
 
 
@@ -77,9 +81,10 @@ def library() -> ctypes.CDLL:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     so = BUILD_DIR / f"libngpde_torch_{digest.hexdigest()[:16]}.so"
+    report = so.with_suffix(".ptxas.json")  # nvcc's report, by source
     t0 = time.perf_counter()
-    log = ""
-    if not so.exists():
+    built = not so.exists()
+    if built:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tag = f"{so.stem}.{os.getpid()}"
         nvcc = _nvcc()
@@ -107,7 +112,11 @@ def library() -> ctypes.CDLL:
         finally:
             for obj in objs:  # a failed build leaves no objects behind
                 obj.unlink(missing_ok=True)
-        log = "".join(outs)
+        by_source = {src.name: out for src, out in zip(
+            (p for p in sources if p.suffix == ".cu"), outs)}
+        tmp_report = report.with_name(f"{tag}.json")
+        tmp_report.write_text(json.dumps(by_source))
+        os.replace(tmp_report, report)
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
@@ -116,8 +125,11 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.ngpde_error_string.argtypes = (ctypes.c_int,)
     lib.ngpde_error_string.restype = ctypes.c_char_p
+    by_source = (json.loads(report.read_text()) if report.exists()
+                 else {})
     build_info.update(seconds=time.perf_counter() - t0, path=str(so),
-                      built=bool(log), ptxas=log)
+                      built=built, ptxas="".join(by_source.values()),
+                      ptxas_by_source=by_source)
     _lib = lib
     return lib
 

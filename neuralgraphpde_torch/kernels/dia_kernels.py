@@ -21,9 +21,14 @@ product adds 2·F·out flops per row on the CUDA cores (f32: the tensor cores
 would round to TF32). The TPU kernel assembled a VMEM window of x from
 halo blocks and relied on zero-padded values at the boundary; here each
 block reads x in place and masks neighbours outside ``[0, N)`` itself, so x
-is never padded or copied. The fused form keeps the aggregated rows of a
-32-row block in shared memory and streams W through a shared tile, so the
-aggregate never goes to device memory.
+is never padded or copied. A thread aggregates a few consecutive rows (4
+in the stencil, 8 in the fused form) of one 16-byte feature vector, and
+loads the x rows of each run of consecutive offsets (``offset_runs``) once
+for all of them. The fused form is
+persistent: each block stages W once in shared memory (or streams it in
+k-tiles when it does not fit), aggregates 64-row tiles into shared memory
+and multiplies them by W with 8 × 8 outputs a thread, so the aggregate
+never goes to device memory.
 
 bf16 follows the TPU kernel: x is read in the values' dtype, W is cast to
 bf16 when the values are bf16, the f32 accumulator is rounded to bf16 before
@@ -31,6 +36,8 @@ the W product, and the output is bf16 when the caller's x is bf16.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -39,9 +46,10 @@ from ..ops.dia import DiaMatrix, stencil_f32, transpose_dia
 from . import _build
 from .segment_kernels import _check_cuda_inputs
 
-TF_MAX = 512  # widest fused input the shared-memory row block holds
+TF_MAX = 512  # widest fused input (a 64-row tile of it in shared memory)
 MAX_DIAGS = 32
 MAX_BANDWIDTH = 8192
+RUN_MAX = 4  # longest offset run the kernel reads at once (kLmax there)
 
 _ACTS = {
     None: lambda h: h,
@@ -57,6 +65,29 @@ def epilogue_supported(act) -> bool:
     """Activations the fused kernel applies (a callable takes the exact
     path)."""
     return act is None or (isinstance(act, str) and act in _ACT_CODES)
+
+
+def offset_runs(offsets, max_len: int = RUN_MAX) -> tuple:
+    """Cut the offsets into runs of consecutive values, each at most
+    ``max_len`` long, in their order: ``((k0, length), ...)``, run ``q``
+    covering ``offsets[k0 : k0 + length]``. An offset with no neighbour in
+    its run is a run of length 1. The 8-neighbour grid's 9 offsets make 3
+    runs: (−w−1, −w, −w+1), (−1, 0, 1), (w−1, w, w+1)."""
+    runs = []
+    for k, d in enumerate(offsets):
+        if runs and d == offsets[k - 1] + 1 and runs[-1][1] < max_len:
+            runs[-1][1] += 1
+        else:
+            runs.append([k, 1])
+    return tuple(tuple(run) for run in runs)
+
+
+@functools.lru_cache(maxsize=256)
+def _runs_arg(offsets: tuple):
+    """``offset_runs`` as the kernel's host argument: a C int array of
+    (k0, length) pairs and their count."""
+    flat = [v for run in offset_runs(offsets) for v in run]
+    return (ctypes.c_int * max(len(flat), 1))(*flat), len(flat) // 2
 
 
 def dia_rhs_plain(dm: DiaMatrix, x: torch.Tensor, w: Optional[torch.Tensor],
@@ -140,15 +171,17 @@ def _dia_rhs(dm: DiaMatrix, x: torch.Tensor, w: Optional[torch.Tensor],
     out_bf16 = int(out_dtype == torch.bfloat16)
     b_ptr = None if b is None else b.data_ptr()
     code = _ACT_CODES[act] if fused else 0
+    runs, n_runs = _runs_arg(dm.offsets)
     if w is None:
         err = lib.ngpde_dia_stencil(
-            dm.values.data_ptr(), dm.offsets_t.data_ptr(), K, x.data_ptr(),
-            b_ptr, out.data_ptr(), n, F, code, in_bf16, out_bf16, stream)
+            dm.values.data_ptr(), dm.offsets_t.data_ptr(), K, runs, n_runs,
+            x.data_ptr(), b_ptr, out.data_ptr(), n, F, code, in_bf16,
+            out_bf16, stream)
     else:
         err = lib.ngpde_dia_gcn_rhs(
-            dm.values.data_ptr(), dm.offsets_t.data_ptr(), K, x.data_ptr(),
-            w.data_ptr(), b_ptr, out.data_ptr(), n, F, out_w, code, in_bf16,
-            out_bf16, stream)
+            dm.values.data_ptr(), dm.offsets_t.data_ptr(), K, runs, n_runs,
+            x.data_ptr(), w.data_ptr(), b_ptr, out.data_ptr(), n, F, out_w,
+            code, in_bf16, out_bf16, stream)
     _build.check(err, owner.__name__)
     owner.launches += 1
     owner.backward_launches += int(backward)

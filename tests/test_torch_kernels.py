@@ -36,12 +36,13 @@ from neuralgraphpde_torch.kernels import banded_kernels as BK  # noqa: E402
 from neuralgraphpde_torch.kernels import fused_mlp_kernels as K3  # noqa
 from neuralgraphpde_torch.kernels import gno_kernels as K5  # noqa: E402
 from neuralgraphpde_torch.kernels.dia_kernels import (  # noqa: E402
-    dia_gcn_rhs, dia_rhs_plain, dia_spmm_stencil)
+    RUN_MAX, dia_gcn_rhs, dia_rhs_plain, dia_spmm_stencil, offset_runs)
 from neuralgraphpde_torch.kernels.segment_kernels import (  # noqa: E402
     build_segment_csr, segment_max, segment_max_aggregate, segment_max_plain,
     segment_spmm, segment_spmm_plain)
 from neuralgraphpde_torch.ops.scatter import segment_reduce  # noqa: E402
-from neuralgraphpde_torch.ops.dia import build_dia, transpose_dia  # noqa
+from neuralgraphpde_torch.ops.dia import (  # noqa: E402
+    build_dia, build_dia_hybrid, stencil_f32, transpose_dia)
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 BF16 = 2e-2
@@ -82,6 +83,27 @@ def _edges(n, e, seed):
 def _grid():
     g = add_self_loops(grid_graph_2d(20, 12, diagonals=True))
     return g.host_coo[0], g.host_coo[1], g.num_nodes
+
+
+def _dia_graph(kind, weights=None, dtype=torch.float32):
+    """K2's storages: ``grid`` (``_grid()``, 240 nodes), ``grid4`` (its
+    4-neighbour form), ``large`` (a 161 × 130 8-neighbour grid: 20,930
+    nodes, more 64-row tiles than a persistent grid has blocks) and
+    ``periodic`` (the DIA part of the hybrid on a 32² periodic 8-neighbour
+    grid). ``weights(E)`` gives the edge weights."""
+    if kind == "grid":
+        s, r, n = _grid()
+    else:
+        shape, extra = {"grid4": ((20, 12), dict(diagonals=False)),
+                        "large": ((161, 130), dict(diagonals=True)),
+                        "periodic": ((32, 32), dict(diagonals=True,
+                                                    periodic=True))}[kind]
+        g = add_self_loops(grid_graph_2d(*shape, **extra))
+        (s, r), n = g.host_coo, g.num_nodes
+    w = None if weights is None else weights(len(s))
+    if kind == "periodic":
+        return build_dia_hybrid(s, r, n, edge_weight=w, dtype=dtype)[0]
+    return build_dia(s, r, n, edge_weight=w, dtype=dtype)
 
 
 # ------------------------------------------------------------------- K1
@@ -187,6 +209,68 @@ def test_k2_bf16_matches_pallas(jx, fused):
             got = dia_spmm_stencil(xp, dp)
     assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
     assert _rel(got.float(), np.asarray(want, np.float32)) < BF16
+
+
+@pytest.mark.parametrize("kind", ["grid", "grid4", "periodic", "lone",
+                                  "seven", "empty"])
+def test_offset_runs(kind):
+    """Every offset lies in one run, in ascending order; each run holds
+    consecutive values, at most ``RUN_MAX`` of them. The grids' 9 offsets
+    make three runs of 3."""
+    offsets = {"grid": lambda: _dia_graph("grid").offsets,
+               "grid4": lambda: _dia_graph("grid4").offsets,
+               "periodic": lambda: _dia_graph("periodic").offsets,
+               "lone": lambda: (5,), "seven": lambda: tuple(range(-3, 4)),
+               "empty": lambda: ()}[kind]()
+    runs = offset_runs(offsets)
+    covered = [k for k0, length in runs for k in range(k0, k0 + length)]
+    assert covered == list(range(len(offsets)))
+    for k0, length in runs:
+        assert 1 <= length <= RUN_MAX
+        assert list(offsets[k0:k0 + length]) == list(
+            range(offsets[k0], offsets[k0] + length))
+    want = {"grid": ((0, 3), (3, 3), (6, 3)),
+            "periodic": ((0, 3), (3, 3), (6, 3)),
+            "grid4": ((0, 1), (1, 3), (4, 1)), "lone": ((0, 1),),
+            "seven": ((0, 4), (4, 3)), "empty": ()}[kind]
+    assert runs == want
+
+
+def _run_schedule(dm, x, rows, max_len):
+    """The kernel's aggregation schedule in torch: ``rows`` consecutive
+    rows at a time; for each offset run, the ``rows + L − 1`` x rows it
+    reads loaded once (zero outside ``[0, n)``), then ``vals[i, k] ·
+    x[i + o_k]`` added for each row in ascending k."""
+    n, F = x.shape
+    vals = dm.values[:n].float()
+    xf = x.float()
+    out = torch.zeros(n, F)
+    for row0 in range(0, n, rows):
+        acc = torch.zeros(rows, F)
+        for k0, length in offset_runs(dm.offsets, max_len):
+            j = row0 + dm.offsets[k0] + torch.arange(rows + length - 1)
+            ok = (j >= 0) & (j < n)
+            xs = torch.where(ok[:, None], xf[j.clamp(0, n - 1)], 0.0)
+            for r in range(min(rows, n - row0)):
+                for ell in range(length):
+                    acc[r] += vals[row0 + r, k0 + ell] * xs[r + ell]
+        out[row0:row0 + rows] = acc[:n - row0]
+    return out
+
+
+@pytest.mark.parametrize("kind", ["grid", "grid4"])
+@pytest.mark.parametrize("rows,max_len", [(4, RUN_MAX), (8, RUN_MAX),
+                                          (7, RUN_MAX), (9, 2)])
+def test_run_schedule_matches_stencil(kind, rows, max_len):
+    """The run schedule equals ``stencil_f32`` within 1e-6 (n = 240 is not
+    a multiple of 7 or 9)."""
+    rng = np.random.default_rng(21)
+    dm = _dia_graph(kind, lambda e: rng.random(e).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(dm.num_nodes, 6)).astype(
+        np.float32))
+    np.testing.assert_allclose(_run_schedule(dm, x, rows, max_len).numpy(),
+                               stencil_f32(dm, x).numpy(), rtol=1e-6,
+                               atol=1e-6)
 
 
 def test_wrappers_check_inputs():
@@ -329,21 +413,32 @@ def test_k1_kernel_matches_plain_cuda(cuda, dtype, f):
     assert _rel(got.cpu().float(), want.cpu().float()) <= bound
 
 
+# K2 shapes on the card: (storage, F, W's output width). W 128 × 128 is
+# staged whole; W 512 × 96 passes in k-tiles; F 300 is not a multiple of the
+# 16-byte vector (plain loads); 240 and 20,930 nodes are not multiples of
+# the 64-row tile
+_K2_CASES = [("grid", 40, 70), ("grid", 128, 128), ("grid", 300, 96),
+             ("grid", 512, 96), ("grid4", 128, 128), ("periodic", 128, 128),
+             ("large", 128, 128)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,f,o", _K2_CASES)
 @pytest.mark.parametrize("act,has_w,dtype", [
     (False, False, torch.float32), ("tanh", True, torch.float32),
     ("relu", True, torch.float32), ("sigmoid", False, torch.float32),
     ("tanh", True, torch.bfloat16)])
-def test_k2_kernel_matches_plain_cuda(cuda, act, has_w, dtype):
-    s, r, n = _grid()
+def test_k2_kernel_matches_plain_cuda(cuda, act, has_w, dtype, kind, f, o):
     rng = np.random.default_rng(8)
-    dm = build_dia(s, r, n, edge_weight=rng.random(len(s)),
-                   dtype=dtype).to(cuda)
-    x = torch.from_numpy(rng.normal(size=(n, 40)).astype(np.float32))
+    dm = _dia_graph(kind, rng.random, dtype).to(cuda)
+    n = dm.num_nodes
+    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32))
     x = x.to(cuda, dtype)
-    w = torch.from_numpy(rng.normal(size=(40, 70)).astype(np.float32) / 6)
+    w = torch.from_numpy(rng.normal(size=(f, o)).astype(np.float32)
+                         / np.sqrt(f))
     w = w.to(cuda) if has_w else None
-    b = torch.randn(1, 70 if has_w else 40).to(cuda)
+    b = torch.randn(1, o if has_w else f).to(cuda)
+    launches = (dia_spmm_stencil.launches, dia_gcn_rhs.launches)
     if act is False:
         got = dia_spmm_stencil(x, dm)
         want = dia_rhs_plain(dm, x, None, None, None, False, dtype)
@@ -352,8 +447,57 @@ def test_k2_kernel_matches_plain_cuda(cuda, act, has_w, dtype):
         wc = None if w is None else w.to(dtype)
         want = dia_rhs_plain(dm, x, wc, b, act, True, dtype)
     torch.cuda.synchronize()
+    assert (dia_spmm_stencil.launches - launches[0]
+            + dia_gcn_rhs.launches - launches[1]) == 1
     bound = 1e-5 if dtype == torch.float32 else BF16
     assert _rel(got.cpu().float(), want.cpu().float()) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_nan_pattern_and_bits_cuda(cuda, dtype):
+    """A NaN in x reaches the same outputs as in ``stencil_f32``: the rows
+    with a stored value on its column, zeros at the grid's row ends
+    included (0 · NaN, as in JAX), and through W the whole row of the fused
+    form. Two runs give the same bits, and so does an x that is not 16-byte
+    aligned (the same schedule with plain loads)."""
+    rng = np.random.default_rng(23)
+    dm = _dia_graph("grid", rng.random, dtype).to(cuda)
+    n, f = dm.num_nodes, 128
+    xs = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32))
+    # node 24 starts the grid's third row: the row ends before it (node 23,
+    # 11, 35) hold stored zeros at its offset
+    xs[24, 5] = float("nan")
+    x = xs.to(cuda, dtype)
+    w = torch.from_numpy(rng.normal(size=(f, f)).astype(np.float32)
+                         / np.sqrt(f)).to(cuda)
+    b = torch.randn(1, f, device=cuda)
+    shifted = torch.empty(n * f + 1, device=cuda, dtype=dtype)[1:]
+    x_odd = shifted.view(n, f).copy_(x)
+    assert x_odd.data_ptr() % 16 != 0
+    for kernel, plain in (
+            (lambda xx: dia_spmm_stencil(xx, dm),
+             lambda: stencil_f32(dm, x)),
+            (lambda xx: dia_gcn_rhs("tanh", xx, w, b, dm),
+             lambda: dia_rhs_plain(dm, x, w.to(dtype), b, "tanh", True,
+                                   dtype))):
+        got, again, odd = kernel(x), kernel(x), kernel(x_odd)
+        want = plain()
+        torch.cuda.synchronize()
+        assert torch.equal(got.isnan(), want.isnan())
+        assert int(got.isnan().sum()) > 0
+        assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                    else torch.int32),
+                           again.view(torch.int16 if dtype == torch.bfloat16
+                                      else torch.int32))
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(odd))
+        bound = 1e-5 if dtype == torch.float32 else BF16
+        assert _rel(torch.nan_to_num(got).cpu().float(),
+                    torch.nan_to_num(want).cpu().float()) <= bound
+    # the row ends' stored zeros read the NaN: out[23] is 0 · x[24]
+    k_right = dm.offsets.index(1)
+    assert float(dm.values[23, k_right]) == 0.0
+    assert bool(dia_spmm_stencil(x, dm)[23, 5].isnan())
 
 
 @pytest.mark.cuda
@@ -412,14 +556,15 @@ def test_kernels_refuse_autograd_cuda(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,f2,o", _K2_CASES[:-1])
 @pytest.mark.parametrize("f,dtype", [(64, torch.float32), (30, torch.float32),
                                      (128, torch.bfloat16)])
-def test_k1_k2_backward_cuda(cuda, f, dtype):
+def test_k1_k2_backward_cuda(cuda, f, dtype, kind, f2, o):
     """K1's backward (the kernel on the transposed CSR) and K2's (the
     stencil on ``dia_rev``; the fused VJP with the aggregate recomputed and
     ``dx`` on ``dia_norm_rev``) against autograd through the plain versions:
     1e-5 (bf16: 2e-2) of the largest entry for ``dx``, 1e-4 for ``dW`` and
-    ``db``."""
+    ``db``. K2 in f32 at each storage and width of ``_K2_CASES``."""
     s, r, w_e, rng = _edges(3000, 40000, 17)
     csr = build_segment_csr(s, r, 3000, edge_weight=w_e).to(cuda)
     csr_rev = build_segment_csr(r, s, 3000, edge_weight=w_e).to(cuda)
@@ -431,15 +576,15 @@ def test_k1_k2_backward_cuda(cuda, f, dtype):
     segment_spmm(xk, csr, csr_rev=csr_rev).backward(g)
     segment_spmm_plain(xp, csr).to(dtype).backward(g)
     assert _rel(xk.grad.cpu().float(), xp.grad.cpu().float()) <= bound
-    gs, gr, gn = _grid()
-    dm = build_dia(gs, gr, gn, edge_weight=rng.random(len(gs)))
+    dm = _dia_graph(kind, rng.random)
     dm, dm_rev = dm.to(cuda), transpose_dia(dm).to(cuda)
-    x = torch.from_numpy(rng.normal(size=(gn, 40)).astype(np.float32)).to(
+    gn = dm.num_nodes
+    x = torch.from_numpy(rng.normal(size=(gn, f2)).astype(np.float32)).to(
         cuda)
-    w = torch.from_numpy(rng.normal(size=(40, 70)).astype(np.float32) / 6
-                         ).to(cuda)
-    b = torch.randn(1, 70, device=cuda)
-    g = torch.randn(gn, 70, device=cuda)
+    w = torch.from_numpy(rng.normal(size=(f2, o)).astype(np.float32)
+                         / np.sqrt(f2)).to(cuda)
+    b = torch.randn(1, o, device=cuda)
+    g = torch.randn(gn, o, device=cuda)
     leaves_k = [t.clone().requires_grad_() for t in (x, w, b)]
     leaves_p = [t.clone().requires_grad_() for t in (x, w, b)]
     fused0 = dia_gcn_rhs.launches
@@ -451,10 +596,11 @@ def test_k1_k2_backward_cuda(cuda, f, dtype):
                   torch.float32).backward(g)
     for k, p, bd in zip(leaves_k, leaves_p, (1e-5, 1e-4, 1e-4)):
         assert _rel(k.grad.cpu(), p.grad.cpu()) <= bd
+    gx = torch.randn(gn, f2, device=cuda)
     xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
-    dia_spmm_stencil(xk, dm, dm_rev).backward(g[:, :40])
+    dia_spmm_stencil(xk, dm, dm_rev).backward(gx)
     dia_rhs_plain(dm, xp, None, None, None, False,
-                  torch.float32).backward(g[:, :40])
+                  torch.float32).backward(gx)
     assert _rel(xk.grad.cpu(), xp.grad.cpu()) <= 1e-5
 
 
