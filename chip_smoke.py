@@ -6,7 +6,11 @@ Phases, each fatal on failure:
 
 1. Versions, the card (``nvidia-smi`` name and power limit), TF32 off.
 2. Build the CUDA kernels from ``neuralgraphpde_torch/csrc`` (nvcc, sm_90a);
-   ptxas must report no spill in ``dia_stencil.cu`` (K2).
+   ptxas must report no spill in ``dia_stencil.cu`` (K2), and neither a
+   spill nor a stack frame in any instantiation of K3's streamed backward
+   (``fused_mlp_bwd_stream_kernel`` in ``fused_mlp.cu``, each report line
+   attributed to the function ptxas names before it); the functions of
+   ``fused_mlp.cu`` that spill, if any, are printed.
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: max relative error ``max|k − p| / max|p|``
    (bound 1e-5 in f32, 1e-2 in bf16 against a plain version fed the same
@@ -29,7 +33,8 @@ Phases, each fatal on failure:
    2^15 points with 4→128→128→128 tanh (the streamed variant, or resident
    forward and streamed backward): forward and ``dfeats`` within 1e-5,
    ``dW``/``db`` within 1e-4 (sums over every edge in another order); the
-   backward is timed against autograd through the plain forward, and the
+   backward is timed (by events and on the device, ``torch.profiler``)
+   against autograd through the plain forward, and the
    training pair (forward + backward) against the plain forward under
    autograd plus its backward.
    The GNO kernels (K5) at the config-4 Darcy graph (32² grid, radius
@@ -163,6 +168,7 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -288,6 +294,31 @@ def check_bounds(records, where: str = "kernels") -> None:
     elif isinstance(records, list):
         for value in records:
             check_bounds(value, where)
+
+
+def spills(log: str) -> list:
+    """ptxas lines of ``log`` that report a spill."""
+    return [line.strip() for line in log.splitlines()
+            if "spill" in line and "0 bytes spill" not in line]
+
+
+def ptxas_by_function(log: str) -> dict:
+    """ptxas's report ``log`` by function: ``{mangled name: (spill lines,
+    stack frame bytes)}`` for every function it compiled (ptxas names a
+    function, then reports its stack frame and spills on a line of its
+    own)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        for mark in ("Compiling entry function '", "Function properties for "):
+            if mark in line:
+                name = line.split(mark, 1)[1].split("'")[0].strip()
+                out.setdefault(name, ([], [0]))
+        if name is not None:
+            out[name][0].extend(spills(line))
+            frame = re.search(r"(\d+) bytes stack frame", line)
+            if frame:
+                out[name][1][0] = int(frame[1])
+    return {f: (lines, frame[0]) for f, (lines, frame) in out.items()}
 
 
 def kernel_checks(P, K, dev, grid_g, rand_edges):
@@ -907,8 +938,10 @@ def k3_bf16(K, csr, acts, dims, feats, ws, bs, g, shape, variants):
 def k3_checks(K, dev, cases):
     """Phase 3, K3: forward and backward against their plain versions on
     each ``(label, csr, acts, dims, record)`` case, in f32 and in the two
-    bf16 forms. Returns the JSON records of the cases with a ``record``
-    key."""
+    bf16 forms; the f32 backward also by device time (``torch.profiler``).
+    Returns the JSON records of the cases with a ``record`` key."""
+    from neuralgraphpde_torch.tools.profile_paths import device_per_call
+
     rng = np.random.default_rng(3)
     records = {}
     for label, csr, acts, dims, record in cases:
@@ -958,6 +991,8 @@ def k3_checks(K, dev, cases):
         ms_f = cuda_ms(lambda: K.fused_mlp_fwd(acts, csr, feats, ws, bs))
         plain_f = cuda_ms(lambda: K.fused_mlp_plain(acts, csr, feats, ws, bs))
         ms_b = cuda_ms(lambda: K.fused_mlp_bwd(acts, csr, feats, ws, bs, g))
+        dev_b = device_per_call(
+            lambda: K.fused_mlp_bwd(acts, csr, feats, ws, bs, g))[0]
         plain_b = cuda_ms(lambda: K.fused_mlp_bwd_plain(acts, csr, feats, ws,
                                                          bs, g))
         ms_t, plain_t = cuda_ms(kernel_train), cuda_ms(plain_train)
@@ -969,7 +1004,8 @@ def k3_checks(K, dev, cases):
               f"ms ({by_f})\n"
               f"    bwd    dfeats rel {df_rel:.3e} (bound {F32_BOUND:g}), "
               f"dW/db rel {par_rel:.3e} (bound {K3_PARAM_BOUND:g})  kernel "
-              f"{ms_b:.4f} ms  autograd through plain {plain_b:.4f} ms  "
+              f"{ms_b:.4f} ms (device {dev_b:.4f} ms)  autograd through "
+              f"plain {plain_b:.4f} ms  "
               f"bound {bound_b:.4f} ms ({by_b})\n"
               f"    fwd+bwd (training pair)  kernels {ms_t:.4f} ms  plain "
               f"fwd under autograd + backward {plain_t:.4f} ms")
@@ -983,8 +1019,8 @@ def k3_checks(K, dev, cases):
                 fused_mlp_bwd=dict(
                     variant=variants[1], max_abs_err=max(df_abs, par_abs),
                     max_rel_err=max(df_rel, par_rel), ms=ms_b,
-                    plain_ms=plain_b, library_ms=None, bound_ms=bound_b,
-                    bound_by=by_b, shape=shape),
+                    device_ms=dev_b, plain_ms=plain_b, library_ms=None,
+                    bound_ms=bound_b, bound_by=by_b, shape=shape),
                 bf16=bf16)
     return records
 
@@ -1918,10 +1954,6 @@ def main() -> int:
     _build.library()
     info = _build.build_info
 
-    def spills(log):
-        return [line.strip() for line in log.splitlines()
-                if "spill" in line and ("0 bytes spill" not in line)]
-
     print(f"build: {info['seconds']:.1f} s (built={info['built']}) -> "
           f"{info['path']}; ptxas lines with spills: "
           f"{spills(info['ptxas']) or 'none'}")
@@ -1931,6 +1963,24 @@ def main() -> int:
           "build: no ptxas report for dia_stencil.cu")
     check(not spills(k2_log), f"build: dia_stencil.cu spills: "
                               f"{spills(k2_log)}")
+    # K3's streamed backward (csrc/fused_mlp.cu) is built to spill nothing
+    # and to keep no local array (a stack frame of 0 bytes), in all four
+    # dtype instantiations
+    k3_funcs = ptxas_by_function(info["ptxas_by_source"].get(
+        "fused_mlp.cu", ""))
+    k3_spilling = {f: lines for f, (lines, _) in k3_funcs.items() if lines}
+    print(f"build: fused_mlp.cu functions that spill: "
+          f"{k3_spilling or 'none'}")
+    k3_bwd = {f: r for f, r in k3_funcs.items()
+              if "fused_mlp_bwd_stream_kernel" in f}
+    check(len(k3_bwd) == 4, f"build: {len(k3_bwd)} instantiations of "
+                            f"fused_mlp_bwd_stream_kernel in ptxas's report")
+    check(not any(lines for lines, _ in k3_bwd.values()),
+          f"build: fused_mlp_bwd_stream_kernel spills: "
+          f"{ {f: lines for f, (lines, _) in k3_bwd.items() if lines} }")
+    check(not any(frame for _, frame in k3_bwd.values()),
+          f"build: fused_mlp_bwd_stream_kernel keeps a stack frame: "
+          f"{ {f: frame for f, (_, frame) in k3_bwd.items() if frame} }")
 
     t0 = time.perf_counter()
     grid = P.grid_graph_2d(512, 512, diagonals=True)
@@ -2001,7 +2051,7 @@ def main() -> int:
         ("MP-PDE phi, Burgers", mppde_g.cache["tcsr_edges"], ("swish",),
          (2 * mppde_model.hidden + mppde_model.bundle + 1,
           mppde_model.hidden), "MP-PDE"),
-        (label_bench, csr_bench, tanh3, (4, 128, 128, 128), None)]
+        (label_bench, csr_bench, tanh3, (4, 128, 128, 128), "hidden 128")]
 
     print("kernel vs plain on the card:")
     records = kernel_checks(P, K, dev, grid_fused, rand_edges)
@@ -2227,7 +2277,16 @@ def main() -> int:
                      launches=launches, ms=rec["ms"], shape=rec["shape"]),
                 dict(path="MP-PDE training", launches=launches_m[name],
                      **{k: k3_records["MP-PDE"][name][k]
+                        for k in ("variant",) + keys}),
+                # on no model path yet (the VMH ϕ at hidden 128, 2^15
+                # points), so no run of a path counts its launches
+                dict(path="none (VMH phi at hidden 128)", launches=None,
+                     **{k: k3_records["hidden 128"][name][k]
                         for k in ("variant",) + keys})]
+            if name == "fused_mlp_bwd":
+                for v, run in zip(entry["variants"],
+                                  ("VMH", "MP-PDE", "hidden 128")):
+                    v["device_ms"] = k3_records[run][name]["device_ms"]
         if name == "segment_max":
             burgers = records["segment_max Burgers"]
             entry["other_shapes"] = [{k: burgers[k] for k in keys}]

@@ -58,13 +58,13 @@
 //   layers of 1024 take te = 4). W is read once per chunk whatever a
 //   block's size, so the wrapper spreads a small graph's rows over about
 //   one block per SM and the launcher sizes the chunk to the average slots
-//   per block. The chunk is shallow (te slots) and a W tile narrow (kt
-//   rows), so the backward's dW = h^T dz and dh = dz W^T products give each
-//   thread whole dot products: dW entries in memory order (coalesced
-//   stores), dh entries along a tile's rows (conflict-free shared reads).
-// - the streamed block's other copies from device memory (biases, gathered
-//   inputs, cotangent rows, dW partials) issue kBatch loads per thread
-//   before their first store: a plain loop waits out each load's latency,
+//   per block. The streamed backward runs kBwdThreads threads a block and
+//   computes its recompute, dW = h^T dz and dh = dz W^T as register tiles
+//   (see its section below).
+// - the streamed blocks' other copies from device memory (the forward's
+//   biases and gathered inputs, the backward's gathered inputs and
+//   cotangent rows) issue kBatch loads per thread before their first
+//   store: a plain loop waits out each load's latency,
 //   since the compiler cannot move a load above a store that may alias it.
 //   The resident kernels share the input gather but keep plain loops for
 //   their weights and cotangent rows: batched there, the resident backward
@@ -82,6 +82,9 @@ using bf16 = __nv_bfloat16;
 constexpr int kMaxLayers = 4;
 constexpr int kMaxWidth = 1024;
 constexpr int kThreads = 128;
+// the streamed backward's block: 8 warps, so that each SM scheduler has two
+// to switch between (scripts/fused_mlp_variants.py times 128, 256 and 384)
+constexpr int kBwdThreads = 256;
 constexpr int kTE = 32;  // edge slots per chunk
 constexpr int kKT = 64;  // W rows per streamed tile, at most
 constexpr int kBatch = 8;  // loads in flight per thread in block_copy
@@ -169,7 +172,11 @@ __host__ __device__ inline Layout make_layout(const Mlp& m, int rows,
 
 // float offsets into the dynamic shared memory of a streamed block: two W
 // tiles, the bias, then the chunk buffers of te slots (bwd: h[0..n],
-// z[0..n-1], d[0..1]; fwd: h[0..1] and the block's `rows` output sums)
+// z[0..n-1], d[0..1]; fwd: h[0..1] and the block's `rows` output sums).
+// The forward's chunk rows have odd strides; the backward's are multiples
+// of 4 floats (h[l] and z[l] pad4 of their width, d[0..1] the widest), so
+// its float4 loads are aligned: its lanes read along a row, or all read
+// one address, so no stride of theirs conflicts.
 struct StreamLayout {
   int wt[2], bias, h[kMaxLayers + 1], z[kMaxLayers], d[2], acc;
   int sd;  // row stride of h[0..1] (fwd) and d[0..1]
@@ -183,7 +190,7 @@ __host__ __device__ inline StreamLayout make_stream_layout(const Mlp& m,
   StreamLayout L{};
   int off = 0, pmax = 0;
   for (int l = 0; l <= m.n; ++l) pmax = imax(pmax, pad4(m.dim[l]));
-  L.sd = pmax + 1;
+  L.sd = bwd ? pmax : pmax + 1;
   L.te = te;
   L.kt = kt;
   for (int t = 0; t < 2; ++t) {
@@ -193,13 +200,18 @@ __host__ __device__ inline StreamLayout make_stream_layout(const Mlp& m,
   L.bias = off;
   off += pmax;
   if (bwd) {
-    for (int l = 0; l <= m.n; ++l) {
+    // unrolled to kMaxLayers, so that L stays in registers on the device
+#pragma unroll
+    for (int l = 0; l <= kMaxLayers; ++l) {
+      if (l > m.n) break;
       L.h[l] = off;
-      off += te * (pad4(m.dim[l]) + 1);
+      off += te * pad4(m.dim[l]);
     }
-    for (int l = 0; l < m.n; ++l) {
+#pragma unroll
+    for (int l = 0; l < kMaxLayers; ++l) {
+      if (l >= m.n) break;
       L.z[l] = off;
-      off += te * (pad4(m.dim[l + 1]) + 1);
+      off += te * pad4(m.dim[l + 1]);
     }
     L.d[0] = off;
     off += te * L.sd;
@@ -391,25 +403,6 @@ __device__ void gather_inputs(const Mlp& m, const int* __restrict__ col,
       [&](int i, float v) { h[(i / p0) * sh + i % p0] = v; });
 }
 
-// the chunk's output-gradient rows ew[s] * g_out[slot_row[s]] into d (te
-// rows of stride sd, pad4(dn) columns), zero-padded
-template <typename TF>
-__device__ void gather_cotangents(int dn, const float* __restrict__ ew,
-                                  const long long* __restrict__ slot_row,
-                                  const TF* __restrict__ g_out, int c0,
-                                  int c1, float* d, int sd, int te) {
-  const int pn = pad4(dn);
-  block_copy(
-      te * pn,
-      [&](int i) {
-        const int e = i / pn, j = i % pn;
-        const int s = c0 + e;
-        return (s < c1 && j < dn) ? ew[s] * to_f32(g_out[slot_row[s] * dn + j])
-                                  : 0.f;
-      },
-      [&](int i, float v) { d[(i / pn) * sd + i % pn] = v; });
-}
-
 template <typename TF, typename TW>
 __global__ void __launch_bounds__(kThreads)
     fused_mlp_fwd_kernel(Mlp m, const int* __restrict__ row_ptr,
@@ -583,10 +576,10 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
 // converted on its way in, so its tile is loaded by plain loads and stores
 // (its group is empty): it lands before the tile's __syncthreads all the
 // same.
-template <typename TW>
+template <typename TW, int NT = kThreads>
 __device__ void load_w_tile(const Mlp& m, int l, int k0, int kr, float* wt) {
   const int din = m.dim[l], dout = m.dim[l + 1], sw = pad4(dout) + 1;
-  for (int i = threadIdx.x; i < kr * sw; i += kThreads) {
+  for (int i = threadIdx.x; i < kr * sw; i += NT) {
     const int k = k0 + i / sw, j = i % sw;
     const bool in = k < din && j < dout;
     if constexpr (sizeof(TW) == sizeof(float)) {
@@ -603,23 +596,26 @@ __device__ void load_w_tile(const Mlp& m, int l, int k0, int kr, float* wt) {
 // total - k0), k0 = 0, kt, ... below total, in order. When body runs its
 // tile is in shared memory and the next tile's copy is in flight into the
 // other buffer. Starts and ends synchronised.
-template <typename TW, typename Body>
+template <typename TW, int NT = kThreads, typename Body>
 __device__ void for_w_tiles(const Mlp& m, int l, int total,
                             const StreamLayout& L, float* sm, Body body) {
   const int kt = L.kt;
+  // the buffers as two scalars, chosen by a select (no indexed local)
+  float* const w0 = sm + L.wt[0];
+  float* const w1 = sm + L.wt[1];
   __syncthreads();  // no reader of either buffer is left
-  load_w_tile<TW>(m, l, 0, min(kt, total), sm + L.wt[0]);
+  load_w_tile<TW, NT>(m, l, 0, min(kt, total), w0);
   for (int k0 = 0, t = 0; k0 < total; k0 += kt, ++t) {
     const int next = k0 + kt;
     if (next < total) {
-      load_w_tile<TW>(m, l, next, min(kt, total - next),
-                      sm + L.wt[(t + 1) & 1]);
+      load_w_tile<TW, NT>(m, l, next, min(kt, total - next),
+                          (t & 1) ? w0 : w1);
       cp_async_wait<1>();  // this tile's copies are done, the next's not
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // every thread's copies of this tile have landed
-    body(k0, min(kt, total - k0), sm + L.wt[t & 1]);
+    body(k0, min(kt, total - k0), (t & 1) ? w1 : w0);
     __syncthreads();  // the buffer is free for the tile after next
   }
 }
@@ -703,9 +699,230 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------- streamed backward (H100)
+// A block of kBwdThreads threads. Every product of a chunk is a register
+// tile with inner loops of compile-time trip count (4-wide along the sum),
+// each output owned by one thread, the same one on every chunk:
+// - recompute z = h W + b per W k-tile: a warp task is tr chunk rows x 128
+//   columns, each lane 4 columns 32 apart (conflict-free scalar reads of
+//   the odd-stride W tile), h rows read as broadcast float4;
+// - dW += h^T dz: a thread tile is 4 k-rows x 4 consecutive columns, te
+//   slots summed in ascending order in 16 registers, then one 16-byte
+//   read-modify-write per tile row of the block's partial row (consecutive
+//   threads on consecutive column groups: coalesced), 4-byte accesses
+//   where the row is not 16-byte aligned;
+// - dh = dz W^T per W k-tile: a warp task is tr chunk rows x 64 W rows,
+//   each lane 2 rows 32 apart (odd stride: conflict-free), dz rows read as
+//   broadcast float4.
+// Layer offsets are carried from layer to layer (no runtime-indexed local
+// array), and the MLP stays in parameter space (__grid_constant__).
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// component u (0..3, known at compile time) of v
+__device__ __forceinline__ float part(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// dst[e * sdst + k] = load(e, k) for e < te, k < p: one warp a row (lanes
+// along the row, coalesced), kBatch loads in flight per lane. No divide
+// per element: 3-4% faster than block_copy on the H100 at both timed
+// shapes (scripts/fused_mlp_variants.py)
+template <int NT, typename Load>
+__device__ __forceinline__ void chunk_rows(int te, int p, float* dst,
+                                           int sdst, Load load) {
+  const int lane = threadIdx.x & 31;
+  for (int e = threadIdx.x >> 5; e < te; e += NT / 32) {
+    for (int k0 = lane; k0 < p; k0 += 32 * kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int k = k0 + 32 * u;
+        v[u] = k < p ? load(e, k) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int k = k0 + 32 * u;
+        if (k < p) dst[e * sdst + k] = v[u];
+      }
+    }
+  }
+}
+
+// chunk rows per warp task: the largest of 4, 2, 1 that still gives every
+// warp a task (te / tr * groups >= warps), else 1
+template <int NT>
+__device__ __forceinline__ int task_rows(int te, int groups) {
+  int tr = 4;
+  while (tr > 1 && (te / tr) * groups < NT / 32) tr >>= 1;
+  return tr;
+}
+
+// one recompute task on W tile rows [0, kr) (kr a multiple of 4): rows
+// e0..e0+TR-1 of hin (already offset to the tile's first k) times the tile,
+// columns j0 + lane + 32c (c < 4) below pout. The first k-tile stores, later
+// ones add; the last adds the bias, keeps the pre-activation in z and the
+// activation in out (both of row stride so).
+template <int TR>
+__device__ __forceinline__ void recompute_task(
+    const float* hin, int sin, const float* wt, int sw, int kr, int e0,
+    int j0, int pout, float* out, float* z, int so, const float* bias,
+    int act, bool first, bool last) {
+  const int lane = threadIdx.x & 31;
+  bool in[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) in[c] = j0 + lane + 32 * c < pout;
+  float acc[TR][4];
+#pragma unroll
+  for (int r = 0; r < TR; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  const float* w = wt + j0 + lane;
+  for (int k = 0; k < kr; k += 4) {
+    float4 a[TR];
+#pragma unroll
+    for (int r = 0; r < TR; ++r) a[r] = ld4(hin + (e0 + r) * sin + k);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float b[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        b[c] = in[c] ? w[(k + u) * sw + 32 * c] : 0.f;
+#pragma unroll
+      for (int r = 0; r < TR; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[r][c] = fmaf(part(a[r], u), b[c], acc[r][c]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < TR; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!in[c]) continue;
+      const int j = j0 + lane + 32 * c, q = (e0 + r) * so + j;
+      const float v = first ? acc[r][c] : out[q] + acc[r][c];
+      if (last) {
+        const float zz = v + bias[j];
+        z[q] = zz;
+        out[q] = act_fwd(act, zz);
+      } else {
+        out[q] = v;
+      }
+    }
+}
+
+// one dh task on a W tile of kr rows: dh[e, k] = sum_{j < pout} dz[e, j]
+// W[k, j] for rows e0..e0+TR-1 and k = lane + 32c (c < 2) below kr, j in
+// ascending order; dh already offset to the tile's first k
+template <int TR>
+__device__ __forceinline__ void dh_task(const float* dz, int sd,
+                                        const float* wt, int sw, int kr,
+                                        int pout, int e0, float* dh) {
+  const int lane = threadIdx.x & 31;
+  const bool in0 = lane < kr, in1 = lane + 32 < kr;
+  const float* w0 = wt + lane * sw;
+  const float* w1 = wt + (lane + 32) * sw;
+  float acc[TR][2];
+#pragma unroll
+  for (int r = 0; r < TR; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int j = 0; j < pout; j += 4) {
+    float4 a[TR];
+#pragma unroll
+    for (int r = 0; r < TR; ++r) a[r] = ld4(dz + (e0 + r) * sd + j);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float b0 = in0 ? w0[j + u] : 0.f;
+      const float b1 = in1 ? w1[j + u] : 0.f;
+#pragma unroll
+      for (int r = 0; r < TR; ++r) {
+        acc[r][0] = fmaf(part(a[r], u), b0, acc[r][0]);
+        acc[r][1] = fmaf(part(a[r], u), b1, acc[r][1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    if (in0) dh[(e0 + r) * sd + lane] = acc[r][0];
+    if (in1) dh[(e0 + r) * sd + lane + 32] = acc[r][1];
+  }
+}
+
+// dW[k, j] (k < din, j < dout) of one layer from the chunk: h (te rows of
+// stride pin) and dz (stride sd), into the block's partial row pw (row
+// stride dout): stored on the first chunk, added to after. Tiles of 4 k x
+// 4 j, column groups fastest over the threads.
+template <int NT>
+__device__ __forceinline__ void dw_tiles(const float* h, int pin,
+                                         const float* dz, int sd, int te,
+                                         int din, int dout, float* pw,
+                                         bool vec, bool first) {
+  const int ncg = pad4(dout) >> 2, nkg = pin >> 2;
+  const int step_k = NT / ncg, step_j = NT % ncg;  // once per layer
+  int kg = threadIdx.x / ncg, jg = threadIdx.x % ncg;
+  while (kg < nkg) {
+    const int k0 = kg << 2, j0 = jg << 2;
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    for (int e = 0; e < te; e += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 a = ld4(h + (e + u) * pin + k0);
+        const float4 b = ld4(dz + (e + u) * sd + j0);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[r][c] = fmaf(part(a, r), part(b, c), acc[r][c]);
+      }
+    }
+    if (vec) {  // dout and the row's offset are multiples of 4
+      float4 old[4] = {};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (!first && k0 + r < din)
+          old[r] = *reinterpret_cast<const float4*>(
+              pw + (long long)(k0 + r) * dout + j0);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (k0 + r >= din) continue;
+        float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        if (!first) {
+          v.x = old[r].x + v.x;
+          v.y = old[r].y + v.y;
+          v.z = old[r].z + v.z;
+          v.w = old[r].w + v.w;
+        }
+        *reinterpret_cast<float4*>(pw + (long long)(k0 + r) * dout + j0) = v;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (k0 + r >= din || j0 + c >= dout) continue;
+          float* q = pw + (long long)(k0 + r) * dout + j0 + c;
+          *q = first ? acc[r][c] : *q + acc[r][c];
+        }
+    }
+    kg += step_k;
+    jg += step_j;
+    if (jg >= ncg) {
+      jg -= ncg;
+      ++kg;
+    }
+  }
+}
+
 template <typename TF, typename TW>
-__global__ void __launch_bounds__(kThreads)
-    fused_mlp_bwd_stream_kernel(Mlp m, const int* __restrict__ row_ptr,
+__global__ void __launch_bounds__(kBwdThreads)
+    fused_mlp_bwd_stream_kernel(const __grid_constant__ Mlp m,
+                                const int* __restrict__ row_ptr,
                                 const int* __restrict__ col,
                                 const float* __restrict__ ew,
                                 const long long* __restrict__ slot_row,
@@ -714,102 +931,123 @@ __global__ void __launch_bounds__(kThreads)
                                 TF* __restrict__ dfeats,
                                 float* __restrict__ partial, int n_rows,
                                 int rows, int n_params, int te, int kt) {
+  constexpr int NT = kBwdThreads;
   extern __shared__ float sm[];
   const StreamLayout L = make_stream_layout(m, te, kt, 0, true);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = blockIdx.x * rows;
   const int r1 = min(r0 + rows, n_rows);
   const int e_begin = row_ptr[r0], e_end = row_ptr[r1];
-  const int sd = L.sd;
-  const int d0 = m.dim[0], dn = m.dim[m.n];
+  const int sd = L.sd, n = m.n;
+  const int d0 = m.dim[0], dn = m.dim[n];
+  float* bias = sm + L.bias;
   // this block's dW/db, [dW0 (d0 x d1), db0 (d1), dW1, db1, ...]: its first
   // chunk stores them, later chunks add; a block without edges stores 0
   float* p = partial + (long long)blockIdx.x * n_params;
-  if (e_begin == e_end)
-    for (int i = threadIdx.x; i < n_params; i += kThreads) p[i] = 0.f;
-  int poff[kMaxLayers];
-  for (int l = 0, off = 0; l < m.n; ++l) {
-    poff[l] = off;
-    off += m.dim[l] * m.dim[l + 1] + m.dim[l + 1];
+  if (e_begin == e_end) {
+    for (int i = threadIdx.x; i < n_params; i += NT) p[i] = 0.f;
+    return;
   }
-  __syncthreads();
   for (int c0 = e_begin; c0 < e_end; c0 += te) {
     const int c1 = min(c0 + te, e_end);
     const bool first = c0 == e_begin;
-    // recompute: h[l+1] = act(z[l]), z[l] = h[l] @ W[l] + b[l]
-    gather_inputs(m, col, feats, c0, c1, sm + L.h[0], pad4(d0) + 1, te);
-    for (int l = 0; l < m.n; ++l) {
-      const int so = pad4(m.dim[l + 1]) + 1;
-      stream_dense<TW>(m, l, L, sm, sm + L.h[l], pad4(m.dim[l]) + 1,
-                       sm + L.h[l + 1], so, sm + L.z[l]);
+    // recompute: h[l+1] = act(z[l]), z[l] = h[l] @ W[l] + b[l]; h and z
+    // walk the layers' buffers (each te rows of stride pad4(width))
+    float* h = sm + L.h[0];
+    float* z = sm + L.z[0];
+    chunk_rows<NT>(te, pad4(d0), h, pad4(d0), [&](int e, int k) {
+      const int s = c0 + e;
+      return (s < c1 && k < d0) ? to_f32(feats[(long long)col[s] * d0 + k])
+                                : 0.f;
+    });
+    for (int l = 0; l < n; ++l) {
+      const int dout = m.dim[l + 1], act = m.act[l];
+      const int pin = pad4(m.dim[l]), pout = pad4(dout);
+      float* hout = h + te * pin;
+      // the last reader of the bias (the previous layer) ended synchronised
+      for (int j = threadIdx.x; j < pout; j += NT)
+        bias[j] = j < dout ? ld<TW>(m.b[l], j) : 0.f;
+      const int groups = (pout + 127) >> 7;
+      const int tr = task_rows<NT>(te, groups);
+      const int nrg = te / tr;
+      // W rows pin > din are zero (load_w_tile), so every tile has a
+      // multiple of 4 rows and the padded h columns add nothing
+      for_w_tiles<TW, NT>(m, l, pin, L, sm,
+                          [&](int k0, int kr, const float* wt) {
+        const bool lo = k0 == 0, hi = k0 + kr == pin;
+        for (int t = warp; t < nrg * groups; t += NT / 32) {
+          const int e0 = (t % nrg) * tr, j0 = (t / nrg) << 7;
+          if (tr == 4)
+            recompute_task<4>(h + k0, pin, wt, pout + 1, kr, e0, j0, pout,
+                              hout, z, pout, bias, act, lo, hi);
+          else if (tr == 2)
+            recompute_task<2>(h + k0, pin, wt, pout + 1, kr, e0, j0, pout,
+                              hout, z, pout, bias, act, lo, hi);
+          else
+            recompute_task<1>(h + k0, pin, wt, pout + 1, kr, e0, j0, pout,
+                              hout, z, pout, bias, act, lo, hi);
+        }
+      });
+      h = hout;
+      z += te * pout;
     }
-    gather_cotangents(dn, ew, slot_row, g_out, c0, c1, sm + L.d[0], sd, te);
+    // the output-gradient row of each slot's receiver, times its weight
+    float* dz = sm + L.d[0];
+    float* dh = sm + L.d[1];
+    chunk_rows<NT>(te, pad4(dn), dz, sd, [&](int e, int j) {
+      const int s = c0 + e;
+      return (s < c1 && j < dn) ? ew[s] * to_f32(g_out[slot_row[s] * dn + j])
+                                : 0.f;
+    });
     __syncthreads();
-    int cur = 0;
-    for (int l = m.n - 1; l >= 0; --l) {
-      const int din = m.dim[l], dout = m.dim[l + 1];
+    int poff = n_params;  // layer l's offset in the partial row
+    for (int l = n - 1; l >= 0; --l) {
+      const int din = m.dim[l], dout = m.dim[l + 1], act = m.act[l];
       const int pin = pad4(din), pout = pad4(dout);
-      float* dz = sm + L.d[cur];
-      const float* z = sm + L.z[l];
-      const float* h = sm + L.h[l + 1];
-      const int act = m.act[l];
-      for (int i = threadIdx.x; i < te * pout; i += kThreads) {
-        const int e = i / pout, j = i % pout;
-        const int q = e * (pout + 1) + j;
-        dz[e * sd + j] *= act_grad(act, z[q], h[q]);
-      }
+      const float* hz = h;  // h[l+1]
+      z -= te * pout;       // z[l]
+      h -= te * pin;        // h[l]
+      poff -= din * dout + dout;
+      for (int e = warp; e < te; e += NT / 32)
+        for (int j = lane; j < pout; j += 32) {
+          const int q = e * pout + j;
+          dz[e * sd + j] *= act_grad(act, z[q], hz[q]);
+        }
       __syncthreads();
       // dW[l] += h[l]^T dz and db[l] += the column sums of dz, into this
-      // block's partial row; each entry has one owning thread. Only te
-      // slots deep, so one entry per thread, consecutive threads on
-      // consecutive entries (coalesced), kBatch read back at a time.
-      float* pw = p + poff[l];
-      const float* hl = sm + L.h[l];
-      for (int base = threadIdx.x; base < din * dout;
-           base += kThreads * kBatch) {
-        float old[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int o = base + u * kThreads;
-          old[u] = (!first && o < din * dout) ? pw[o] : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int o = base + u * kThreads;
-          if (o >= din * dout) continue;
-          const int k = o / dout, j = o % dout;
-          float a = 0.f;
-          for (int e = 0; e < te; ++e)
-            a = fmaf(hl[e * (pin + 1) + k], dz[e * sd + j], a);
-          pw[o] = old[u] + a;
-        }
-      }
+      // block's partial row
+      float* pw = p + poff;
+      dw_tiles<NT>(h, pin, dz, sd, te, din, dout, pw,
+                   ((poff | dout | n_params) & 3) == 0, first);
       float* pb = pw + din * dout;
-      for (int j = threadIdx.x; j < dout; j += kThreads) {
+      for (int j = threadIdx.x; j < dout; j += NT) {
         float a = 0.f;
         for (int e = 0; e < te; ++e) a += dz[e * sd + j];
         pb[j] = first ? a : pb[j] + a;
       }
-      // dh[l] = dz @ W[l]^T, by row tiles of W (column tiles of dh): te x
-      // kr entries a tile, one per thread, each a dot product of length
-      // pout (a warp reads one dz row and kr W rows of odd stride)
-      float* dh = sm + L.d[cur ^ 1];
-      for_w_tiles<TW>(m, l, pin, L, sm, [&](int k0, int kr, const float* wt) {
-        for (int o = threadIdx.x; o < te * kr; o += kThreads) {
-          const int e = o / kr, k = o % kr;
-          float a = 0.f;
-          for (int j = 0; j < pout; ++j)
-            a = fmaf(dz[e * sd + j], wt[k * (pout + 1) + j], a);
-          dh[e * sd + k0 + k] = a;
+      // dh[l] = dz @ W[l]^T, by row tiles of W (column tiles of dh)
+      const int tr = te >= 32 ? 4 : te >= 16 ? 2 : 1;
+      for_w_tiles<TW, NT>(m, l, pin, L, sm,
+                          [&](int k0, int kr, const float* wt) {
+        for (int t = warp; t < te / tr; t += NT / 32) {
+          if (tr == 4)
+            dh_task<4>(dz, sd, wt, pout + 1, kr, pout, t * 4, dh + k0);
+          else if (tr == 2)
+            dh_task<2>(dz, sd, wt, pout + 1, kr, pout, t * 2, dh + k0);
+          else
+            dh_task<1>(dz, sd, wt, pout + 1, kr, pout, t, dh + k0);
         }
       });
-      cur ^= 1;
+      float* t = dz;
+      dz = dh;
+      dh = t;
     }
-    const float* dh0 = sm + L.d[cur];
-    for (int i = threadIdx.x; i < te * d0; i += kThreads) {
-      const int e = i / d0, k = i % d0;
+    for (int e = warp; e < te; e += NT / 32) {
       const int s = c0 + e;
-      if (s < c1)
-        dfeats[(long long)col[s] * d0 + k] = from_f32<TF>(dh0[e * sd + k]);
+      if (s >= c1) continue;
+      TF* out = dfeats + (long long)col[s] * d0;
+      for (int k = lane; k < d0; k += 32)
+        out[k] = from_f32<TF>(dz[e * sd + k]);
     }
     __syncthreads();
   }
@@ -986,7 +1224,7 @@ int ngpde_fused_mlp_bwd(const int* row_ptr, const int* col, const float* ew,
                                    p.smem);
         if (err != cudaSuccess) return static_cast<int>(err);
         fused_mlp_bwd_stream_kernel<TF, TW>
-            <<<blocks, kThreads, p.smem, stream>>>(
+            <<<blocks, kBwdThreads, p.smem, stream>>>(
                 m, row_ptr, col, ew, slot_row, x, g, dx, partial, n_rows,
                 rows, n_params, p.te, p.kt);
       }

@@ -188,26 +188,38 @@ def _layer_args(acts, dims, ws, bs):
             (ctypes.c_void_p * n)(*(b.data_ptr() for b in bs)))
 
 
-def _block_rows(csr: SegmentCSR, dims, backward: bool, dev) -> tuple:
+def _rows_rule(n_rows: int, n_slots: int, sms: int, streamed: bool,
+               backward: bool) -> tuple:
     """``(rows, slots)``: receiver rows per block and the edge slots a block
-    holds on average. A resident forward block stages every weight, so it
-    takes about ``_FWD_SLOTS`` slots; a resident backward block also keeps
-    every dW in shared memory and writes them once, so the backward spreads
-    the rows over at most one block per SM (fewer partials to add) unless
-    the forward's share is larger. A streamed block reads W once per chunk
+    holds on average, for ``n_rows`` receivers, ``n_slots`` edge slots and
+    ``sms`` SMs. A resident forward block stages every weight, so it takes
+    about ``_FWD_SLOTS`` slots; a resident backward block also keeps every
+    dW in shared memory and writes them once, so the backward spreads the
+    rows over at most one block per SM (fewer partials to add) unless the
+    forward's share is larger. A streamed block reads W once per chunk
     whatever its size, so both directions spread the rows over about one
     block per SM: a small graph (the MP-PDE chain: 256 rows) gets 128
-    blocks instead of 19."""
-    n_rows = max(csr.num_rows, 1)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks instead of 19. More rows a streamed backward block write fewer
+    dW partials, but 2 and 4 times as many ran slower on the H100
+    (``scripts/fused_mlp_variants.py``)."""
+    n_rows = max(n_rows, 1)
     per_sm = math.ceil(n_rows / sms)
-    avg_degree = csr.col.shape[0] / n_rows
+    avg_degree = n_slots / n_rows
     fwd = max(1, min(_MAX_FWD_ROWS, int(_FWD_SLOTS / max(avg_degree, 1e-9))))
-    if fused_mlp_variant(dims, backward) == "streamed":
-        rows = min(_MAX_FWD_ROWS, per_sm) if not backward else per_sm
+    if streamed:
+        rows = per_sm if backward else min(_MAX_FWD_ROWS, per_sm)
     else:
         rows = max(fwd, per_sm) if backward else fwd
     return rows, max(1, math.ceil(avg_degree * rows))
+
+
+def _block_rows(csr: SegmentCSR, dims, backward: bool, dev) -> tuple:
+    """``_rows_rule`` for ``csr`` on the card of ``dev``, in the variant
+    the launcher takes for ``dims``."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _rows_rule(csr.num_rows, csr.col.shape[0], sms,
+                      fused_mlp_variant(dims, backward) == "streamed",
+                      backward)
 
 
 def _bf16_flags(feats: torch.Tensor, ws) -> tuple:

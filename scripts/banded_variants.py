@@ -25,40 +25,23 @@ changed.
 """
 from __future__ import annotations
 
-import argparse
 import dataclasses
-import json
-import os
 import re
-import shutil
-import subprocess
-import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-PACKAGE = ROOT / "neuralgraphpde_torch"
+from _variants import PACKAGE, copy_package, edit, main
+
 MESHES = (1 << 17, 12000)
 NO_SCAN = ("__syncthreads_or(copied_nonfinite<T>(cur + Smem<T>::kA))",
            "(__syncthreads(), false)")
 
 
-def edit(path: Path, pattern: str, repl: str) -> None:
-    text, count = re.subn(pattern, repl, path.read_text())
-    if count != 1:
-        raise RuntimeError(f"{path}: no single match of {pattern!r}")
-    path.write_text(text)
-
-
-def variant(name: str) -> Path:
+def variant(name: str):
     """A copy of the package built as variant ``name``; returns the
     directory that holds it."""
     rows, _, suffix = name.partition("-")
     if not re.fullmatch(r"r\d+", rows) or suffix not in ("", "noscan"):
         raise SystemExit(f"unknown variant {name!r}")
-    root = ROOT / "build" / "banded_variants" / name
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(PACKAGE, root / PACKAGE.name,
-                    ignore=shutil.ignore_patterns("__pycache__"))
+    root = copy_package("banded_variants", name)
     cu, bsr = (root / PACKAGE.name / "csrc" / "banded.cu",
                root / PACKAGE.name / "ops" / "bsr.py")
     edit(cu, r"constexpr int kR = \d+;", f"constexpr int kR = {rows[1:]};")
@@ -125,39 +108,6 @@ def child(name: str) -> dict:
     return out
 
 
-def main() -> int:
-    p = argparse.ArgumentParser()
-    p.add_argument("--variants", nargs="+",
-                   default=["r64", "r32", "r16", "r32-noscan"])
-    p.add_argument("--out", help="write the times here as JSON")
-    p.add_argument("--child", help=argparse.SUPPRESS)
-    args = p.parse_args()
-    if args.child:
-        print(json.dumps(child(args.child)))
-        return 0
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    result = dict(card=card, variants=[])
-    for name in args.variants:
-        root = variant(name)
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child", name],
-            cwd=root, capture_output=True, text=True,
-            env={**os.environ, "PYTHONPATH": str(root)})
-        print(proc.stdout, end="", flush=True)
-        if proc.returncode != 0:
-            raise SystemExit(f"variant {name} failed:\n{proc.stderr}")
-        result["variants"].append(json.loads(proc.stdout.splitlines()[-1]))
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(result, f, indent=1)
-    return 0
-
-
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(__file__, ["r64", "r32", "r16", "r32-noscan"],
+                          variant, child))

@@ -12,9 +12,7 @@ is builds ``r4-8``. For each one this copies the package under
 ``build/dia_variants/<variant>/``, edits the copy's source (a pattern that
 does not match exactly once stops the run) and, in a process of its own,
 builds that copy. The variant ``parent`` runs the package of the checkout
-at ``--parent`` as it is (for example the parent commit, unpacked with
-``git archive`` into a directory that ``.gitignore`` lists); name it
-before and after the others to compare in turns.
+at ``--parent`` as it is (``scripts/_variants.py``).
 
 Each process times, at the 512² 8-neighbour grid with self-loops and F =
 128 (``chip_smoke.py``'s K2 shapes), the stencil in f32 and in bf16 and the
@@ -27,41 +25,22 @@ registers and spills. The package itself is not changed.
 """
 from __future__ import annotations
 
-import argparse
-import json
-import os
 import re
-import shutil
-import subprocess
-import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-PACKAGE = ROOT / "neuralgraphpde_torch"
+from _variants import PACKAGE, copy_package, edit, main
 
 
-def variant(name: str, parent) -> Path:
+def variant(name: str):
     """The directory holding the package of variant ``name``."""
-    if name == "parent":
-        if parent is None:
-            raise SystemExit("variant 'parent' needs --parent DIR")
-        return Path(parent).resolve()
     rows = re.fullmatch(r"r(\d+)(?:-(\d+))?", name)
     if rows is None:
         raise SystemExit(f"unknown variant {name!r}")
-    root = ROOT / "build" / "dia_variants" / name
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(PACKAGE, root / PACKAGE.name,
-                    ignore=shutil.ignore_patterns("__pycache__"))
+    root = copy_package("dia_variants", name)
     cu = root / PACKAGE.name / "csrc" / "dia_stencil.cu"
-    text = cu.read_text()
     for const, value in (("kStencilRows", rows[1]),
                          ("kFusedRows", rows[2] or rows[1])):
-        text, count = re.subn(rf"constexpr int {const} = \d+;",
-                              f"constexpr int {const} = {value};", text)
-        if count != 1:
-            raise RuntimeError(f"{cu}: no single match of {const}")
-    cu.write_text(text)
+        edit(cu, rf"constexpr int {const} = \d+;",
+             f"constexpr int {const} = {value};")
     return root
 
 
@@ -139,40 +118,6 @@ def child(name: str) -> dict:
     return out
 
 
-def main() -> int:
-    p = argparse.ArgumentParser()
-    p.add_argument("--variants", nargs="+",
-                   default=["r4-8", "r8", "r4", "r16"])
-    p.add_argument("--parent", help="a checkout whose package is 'parent'")
-    p.add_argument("--out", help="write the times here as JSON")
-    p.add_argument("--child", help=argparse.SUPPRESS)
-    args = p.parse_args()
-    if args.child:
-        print(json.dumps(child(args.child)))
-        return 0
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    result = dict(card=card, variants=[])
-    for name in args.variants:
-        root = variant(name, args.parent)
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child", name],
-            cwd=root, capture_output=True, text=True,
-            env={**os.environ, "PYTHONPATH": str(root)})
-        print(proc.stdout, end="", flush=True)
-        if proc.returncode != 0:
-            raise SystemExit(f"variant {name} failed:\n{proc.stderr}")
-        result["variants"].append(json.loads(proc.stdout.splitlines()[-1]))
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(result, f, indent=1)
-    return 0
-
-
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(__file__, ["r4-8", "r8", "r4", "r16"], variant,
+                          child, parent=True))

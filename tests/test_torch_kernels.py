@@ -881,24 +881,141 @@ def test_k3_autograd_function_cuda(cuda):
         assert _rel(leaf.grad.cpu(), p.cpu()) <= 1e-4
 
 
+def _stream_bwd_emulated(acts, csr, feats, ws, bs, g, sms, te, kt):
+    """The streamed K3 backward's decomposition in torch ops, in f32:
+    blocks of receiver rows by the wrapper's rule for ``sms`` SMs, each
+    block's edge slots in chunks of ``te`` (the last one ragged), the
+    chunk's MLP recomputed by W k-tiles of ``kt`` rows (the first tile
+    stored, later ones added), its dW/db summed over the chunk's slots in
+    order and added onto one partial per block, chunk after chunk, dh taken
+    by W k-tiles; the blocks' partials summed in block order."""
+    rows, _ = K3._rows_rule(csr.num_rows, csr.col.shape[0], sms, True, True)
+    n_blocks = -(-csr.num_rows // rows)
+    row_ptr = csr.row_ptr.tolist()
+    plain = [K3._PLAIN_ACTS[K3._act_name(a)] for a in acts]
+    dfeats = torch.zeros_like(feats)
+    partials = []
+    for blk in range(n_blocks):
+        r0, r1 = blk * rows, min((blk + 1) * rows, csr.num_rows)
+        dws = [torch.zeros_like(w) for w in ws]
+        dbs = [torch.zeros(w.shape[1]) for w in ws]
+        for c0 in range(row_ptr[r0], row_ptr[r1], te):
+            sl = slice(c0, min(c0 + te, row_ptr[r1]))
+            hs, zs = [feats[csr.col[sl].long()]], []
+            for w, b, act in zip(ws, bs, plain):
+                z = None
+                for k0 in range(0, w.shape[0], kt):
+                    part = hs[-1][:, k0:k0 + kt] @ w[k0:k0 + kt]
+                    z = part if z is None else z + part
+                zs.append(z + b.reshape(1, -1))
+                hs.append(act(zs[-1]))
+            dz = csr.weight[sl, None] * g[csr.rows[sl]]
+            for layer in reversed(range(len(ws))):
+                with torch.enable_grad():
+                    z = zs[layer].detach().requires_grad_()
+                    dz = torch.autograd.grad(plain[layer](z), z, dz)[0]
+                dws[layer] += hs[layer].T @ dz
+                dbs[layer] += dz.sum(0)
+                w = ws[layer]
+                dz = torch.cat([dz @ w[k0:k0 + kt].T
+                                for k0 in range(0, w.shape[0], kt)], 1)
+            dfeats[csr.col[sl].long()] = dz
+        partials.append(dws + dbs)
+    total = partials[0]
+    for part in partials[1:]:
+        total = [a + b for a, b in zip(total, part)]
+    n = len(ws)
+    return (dfeats, tuple(total[:n]),
+            tuple(t.reshape(b.shape) for t, b in zip(total[n:], bs)))
+
+
+@pytest.mark.parametrize("te", [4, 8, 32])
+@pytest.mark.parametrize("acts,dims", [
+    (("swish",), (282, 128)),
+    (("gelu", None), (5, 33, 9)),
+    (("tanh",) * 3, (4, 128, 128, 128)),
+    (("relu", "sigmoid", "softplus", None), (7, 33, 17, 64, 5))])
+def test_k3_stream_bwd_decomposition(jx, te, acts, dims):
+    """The streamed backward's blocks, chunks and W k-tiles, emulated in
+    torch on 40 receivers for 16 SMs (3 rows a block), with every 7th
+    receiver and the whole of block 2 (rows 6 to 8) without edges: against
+    ``fused_mlp_bwd_plain`` and ``_fused_mlp_bwd_pallas`` in interpret
+    mode, ``dfeats`` within 1e-5 and ``dW``/``db`` within 1e-4 of their
+    largest entries (sums over the edges in another order)."""
+    from neuralgraphpde.kernels import fused_mlp_kernels as JK
+
+    jnp, pltpu = jx.jnp, jx.pltpu
+    n, e = 40, 170
+    rng = np.random.default_rng(te + len(dims))
+    r = rng.choice([i for i in range(n) if i % 7 and not 6 <= i <= 8], e)
+    ew = rng.normal(size=e).astype(np.float32)
+    csr = build_segment_csr(np.arange(e), r, n, num_cols=e, edge_weight=ew)
+    tj = jx.sk.build_tiled_csr(np.arange(e), r, n, edge_weight=ew, tn=8,
+                               te=64)
+    feats = rng.normal(size=(e, dims[0])).astype(np.float32)
+    ws = [(rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [(rng.normal(size=(1, b)) / 3).astype(np.float32) for b in dims[1:]]
+    g = rng.normal(size=(n, dims[-1])).astype(np.float32)
+    pt = [torch.from_numpy(a) for a in (feats, *ws, *bs, g)]
+    pf, pw, pb, pg = pt[0], pt[1:len(ws) + 1], pt[len(ws) + 1:-1], pt[-1]
+    got = _stream_bwd_emulated(acts, csr, pf, pw, pb, pg, sms=16, te=te,
+                               kt=16)
+    pdf, pdw, pdb = K3.fused_mlp_bwd_plain(acts, csr, pf, pw, pb, pg)
+    gpad = np.zeros((tj.num_tiles * tj.tn, g.shape[1]), np.float32)
+    gpad[:n] = g
+    with pltpu.force_tpu_interpret_mode():
+        jdf, jdw, jdb = JK._fused_mlp_bwd_pallas(
+            acts, tj, jnp.asarray(feats), tuple(map(jnp.asarray, ws)),
+            tuple(map(jnp.asarray, bs)), jnp.asarray(gpad), interpret=True)
+    # block 2 holds no edge slot, and some block ends on a ragged chunk
+    slots = np.diff(csr.row_ptr.numpy()[::3])
+    assert slots[2] == 0 and (slots % te).any()
+    for want in ((pdf,) + pdw + pdb, (jdf,) + jdw + jdb):
+        assert _rel(got[0], np.asarray(want[0])) <= 1e-5
+        for a, b in zip(got[1] + got[2], want[1:]):
+            assert tuple(a.shape) == tuple(np.shape(b))
+            assert _rel(a, np.asarray(b)) <= 1e-4
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("acts,dims,n,e,variants", [
+@pytest.mark.parametrize("acts,dims,n,e,variants,te,empty", [
     # the MP-PDE ϕ as the kernel gets it (the last linear layer split off)
-    (("swish",), (282, 128), 256, 1024, ("streamed", "streamed")),
-    (("tanh", None), (4, 300, 300), 3000, 18000, ("streamed", "streamed")),
+    (("swish",), (282, 128), 256, 1024, ("streamed", "streamed"), 8, False),
+    (("tanh", None), (4, 300, 300), 3000, 18000, ("streamed", "streamed"),
+     32, False),
     # VMH ϕ at hidden 128: the forward still fits the resident block
     (("tanh",) * 3, (4, 128, 128, 128), 3000, 18000,
-     ("resident", "streamed")),
+     ("resident", "streamed"), 32, False),
     (("gelu", "relu", "sigmoid", None), (7, 1024, 33, 1024, 5), 200, 900,
-     ("streamed", "streamed")),
-    (("tanh",) * 3, (4, 60, 60, 60), 3000, 18000, ("resident", "resident"))])
-def test_k3_wide_variants_match_plain_cuda(cuda, acts, dims, n, e, variants):
+     ("streamed", "streamed"), None, False),
+    (("tanh",) * 3, (4, 60, 60, 60), 3000, 18000, ("resident", "resident"),
+     None, False),
+    # the streamed backward's chunk at 4 and 16 slots, a first block
+    # without edges, and many chunks a block (about 30 of 32 slots)
+    (("swish",), (282, 128), 264, 264, ("streamed", "streamed"), 4, False),
+    (("tanh", None), (4, 300, 300), 264, 2112, ("streamed", "streamed"),
+     16, False),
+    (("swish",), (282, 128), 256, 1024, ("streamed", "streamed"), 8, True),
+    (("tanh",) * 3, (4, 128, 128, 128), 3000, 120000,
+     ("resident", "streamed"), 32, True)])
+def test_k3_wide_variants_match_plain_cuda(cuda, acts, dims, n, e, variants,
+                                           te, empty):
     """Each MLP runs the variant the launcher picks for its widths, and
     matches the plain versions at the K3 bounds; the backward gives the same
-    bits on a second call."""
+    bits on a second call. ``te``: the streamed backward's chunk, the
+    power of two (4 to 32) above the slots a block holds on average;
+    ``empty``: the first block's receivers lose their edges."""
     assert (K3.fused_mlp_variant(dims), K3.fused_mlp_variant(
         dims, backward=True)) == variants
     s, r, _, rng = _edges(n, e, 16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rows, slots = K3._rows_rule(n, e, sms, True, True)
+    if empty:
+        r = r[r >= rows]
+        e = len(r)
+    if te is not None:
+        assert te == min(32, max(4, 1 << (slots - 1).bit_length()))
     csr = build_segment_csr(np.arange(e), r, n, num_cols=e).to(cuda)
 
     def put(*shape, scale=1.0):
@@ -1293,7 +1410,8 @@ def test_k5_bf16_plain_matches_pallas(jx, ph_bf16, h_bf16):
 @pytest.mark.parametrize("feats_bf16", [True, False])
 @pytest.mark.parametrize("acts,dims,variants", [
     (("tanh",) * 3, (4, 60, 60, 60), ("resident", "resident")),
-    (("swish",), (282, 128), ("streamed", "streamed"))])
+    (("swish",), (282, 128), ("streamed", "streamed")),
+    (("tanh",) * 3, (4, 128, 128, 128), ("resident", "streamed"))])
 def test_k3_bf16_kernels_match_plain_cuda(cuda, feats_bf16, acts, dims,
                                           variants):
     """K3's bf16 forms in both variants (bf16 weights; bf16 or f32
