@@ -7,10 +7,13 @@ Phases, each fatal on failure:
 1. Versions, the card (``nvidia-smi`` name and power limit), TF32 off.
 2. Build the CUDA kernels from ``neuralgraphpde_torch/csrc`` (nvcc, sm_90a);
    ptxas must report no spill in ``dia_stencil.cu`` (K2), and neither a
-   spill nor a stack frame in any instantiation of K3's streamed backward
-   (``fused_mlp_bwd_stream_kernel`` in ``fused_mlp.cu``, each report line
-   attributed to the function ptxas names before it); the functions of
-   ``fused_mlp.cu`` that spill, if any, are printed.
+   spill nor a stack frame in any of the four dtype instantiations of each
+   of K3's chunked kernels (the streamed forward, the streamed backward
+   and the resident backward: ``fused_mlp_fwd_stream_kernel``,
+   ``fused_mlp_bwd_stream_kernel``, ``fused_mlp_bwd_kernel`` in
+   ``fused_mlp.cu``, each report line attributed to the function ptxas
+   names before it); the functions of ``fused_mlp.cu`` that spill, if any,
+   are printed.
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: max relative error ``max|k − p| / max|p|``
    (bound 1e-5 in f32, 1e-2 in bf16 against a plain version fed the same
@@ -33,8 +36,9 @@ Phases, each fatal on failure:
    2^15 points with 4→128→128→128 tanh (the streamed variant, or resident
    forward and streamed backward): forward and ``dfeats`` within 1e-5,
    ``dW``/``db`` within 1e-4 (sums over every edge in another order); the
-   backward is timed (by events and on the device, ``torch.profiler``)
-   against autograd through the plain forward, and the
+   forward and the backward are timed (by events and on the device,
+   ``torch.profiler``), the backward against autograd through the plain
+   forward, and the
    training pair (forward + backward) against the plain forward under
    autograd plus its backward.
    The GNO kernels (K5) at the config-4 Darcy graph (32² grid, radius
@@ -938,8 +942,9 @@ def k3_bf16(K, csr, acts, dims, feats, ws, bs, g, shape, variants):
 def k3_checks(K, dev, cases):
     """Phase 3, K3: forward and backward against their plain versions on
     each ``(label, csr, acts, dims, record)`` case, in f32 and in the two
-    bf16 forms; the f32 backward also by device time (``torch.profiler``).
-    Returns the JSON records of the cases with a ``record`` key."""
+    bf16 forms; the f32 forward and backward also by device time
+    (``torch.profiler``). Returns the JSON records of the cases with a
+    ``record`` key."""
     from neuralgraphpde_torch.tools.profile_paths import device_per_call
 
     rng = np.random.default_rng(3)
@@ -989,6 +994,8 @@ def k3_checks(K, dev, cases):
             return K.fused_mlp_bwd(acts, csr, feats, ws, bs, g)
 
         ms_f = cuda_ms(lambda: K.fused_mlp_fwd(acts, csr, feats, ws, bs))
+        dev_f = device_per_call(
+            lambda: K.fused_mlp_fwd(acts, csr, feats, ws, bs))[0]
         plain_f = cuda_ms(lambda: K.fused_mlp_plain(acts, csr, feats, ws, bs))
         ms_b = cuda_ms(lambda: K.fused_mlp_bwd(acts, csr, feats, ws, bs, g))
         dev_b = device_per_call(
@@ -1000,8 +1007,8 @@ def k3_checks(K, dev, cases):
         bound_b, by_b = bound(*k3_work(csr, dims, True))
         print(f"  {shape} ({variants[0]} forward, {variants[1]} backward)\n"
               f"    fwd    rel {fwd_rel:.3e} (bound {F32_BOUND:g})  kernel "
-              f"{ms_f:.4f} ms  plain {plain_f:.4f} ms  bound {bound_f:.4f} "
-              f"ms ({by_f})\n"
+              f"{ms_f:.4f} ms (device {dev_f:.4f} ms)  plain {plain_f:.4f} "
+              f"ms  bound {bound_f:.4f} ms ({by_f})\n"
               f"    bwd    dfeats rel {df_rel:.3e} (bound {F32_BOUND:g}), "
               f"dW/db rel {par_rel:.3e} (bound {K3_PARAM_BOUND:g})  kernel "
               f"{ms_b:.4f} ms (device {dev_b:.4f} ms)  autograd through "
@@ -1013,9 +1020,9 @@ def k3_checks(K, dev, cases):
             records[record] = dict(
                 fused_mlp_fwd=dict(
                     variant=variants[0], max_abs_err=fwd_abs,
-                    max_rel_err=fwd_rel, ms=ms_f, plain_ms=plain_f,
-                    library_ms=None, bound_ms=bound_f, bound_by=by_f,
-                    shape=shape),
+                    max_rel_err=fwd_rel, ms=ms_f, device_ms=dev_f,
+                    plain_ms=plain_f, library_ms=None, bound_ms=bound_f,
+                    bound_by=by_f, shape=shape),
                 fused_mlp_bwd=dict(
                     variant=variants[1], max_abs_err=max(df_abs, par_abs),
                     max_rel_err=max(df_rel, par_rel), ms=ms_b,
@@ -1963,24 +1970,27 @@ def main() -> int:
           "build: no ptxas report for dia_stencil.cu")
     check(not spills(k2_log), f"build: dia_stencil.cu spills: "
                               f"{spills(k2_log)}")
-    # K3's streamed backward (csrc/fused_mlp.cu) is built to spill nothing
-    # and to keep no local array (a stack frame of 0 bytes), in all four
-    # dtype instantiations
+    # K3's chunked kernels (csrc/fused_mlp.cu) are built to spill nothing
+    # and to keep no local array (a stack frame of 0 bytes), each in all
+    # four dtype instantiations
     k3_funcs = ptxas_by_function(info["ptxas_by_source"].get(
         "fused_mlp.cu", ""))
     k3_spilling = {f: lines for f, (lines, _) in k3_funcs.items() if lines}
     print(f"build: fused_mlp.cu functions that spill: "
           f"{k3_spilling or 'none'}")
-    k3_bwd = {f: r for f, r in k3_funcs.items()
-              if "fused_mlp_bwd_stream_kernel" in f}
-    check(len(k3_bwd) == 4, f"build: {len(k3_bwd)} instantiations of "
-                            f"fused_mlp_bwd_stream_kernel in ptxas's report")
-    check(not any(lines for lines, _ in k3_bwd.values()),
-          f"build: fused_mlp_bwd_stream_kernel spills: "
-          f"{ {f: lines for f, (lines, _) in k3_bwd.items() if lines} }")
-    check(not any(frame for _, frame in k3_bwd.values()),
-          f"build: fused_mlp_bwd_stream_kernel keeps a stack frame: "
-          f"{ {f: frame for f, (_, frame) in k3_bwd.items() if frame} }")
+    for kernel in ("fused_mlp_fwd_stream_kernel",
+                   "fused_mlp_bwd_stream_kernel", "fused_mlp_bwd_kernel"):
+        # the mangled name: its length, the name, its template arguments
+        found = {f: r for f, r in k3_funcs.items()
+                 if re.search(rf"\d{kernel}I", f)}
+        check(len(found) == 4, f"build: {len(found)} instantiations of "
+                               f"{kernel} in ptxas's report")
+        check(not any(lines for lines, _ in found.values()),
+              f"build: {kernel} spills: "
+              f"{ {f: lines for f, (lines, _) in found.items() if lines} }")
+        check(not any(frame for _, frame in found.values()),
+              f"build: {kernel} keeps a stack frame: "
+              f"{ {f: frame for f, (_, frame) in found.items() if frame} }")
 
     t0 = time.perf_counter()
     grid = P.grid_graph_2d(512, 512, diagonals=True)
@@ -2047,7 +2057,7 @@ def main() -> int:
     label_bench = f"Delaunay 2^{VMH_POINTS_BENCH.bit_length() - 1}"
     k3_cases = [
         ("VMH mesh", csr_main, tanh3, (4, 60, 60, 60), "VMH"),
-        (label_bench, csr_bench, tanh3, (4, 60, 60, 60), None),
+        (label_bench, csr_bench, tanh3, (4, 60, 60, 60), "hidden 60"),
         ("MP-PDE phi, Burgers", mppde_g.cache["tcsr_edges"], ("swish",),
          (2 * mppde_model.hidden + mppde_model.bundle + 1,
           mppde_model.hidden), "MP-PDE"),
@@ -2278,15 +2288,18 @@ def main() -> int:
                 dict(path="MP-PDE training", launches=launches_m[name],
                      **{k: k3_records["MP-PDE"][name][k]
                         for k in ("variant",) + keys}),
-                # on no model path yet (the VMH ϕ at hidden 128, 2^15
-                # points), so no run of a path counts its launches
+                # on no model path (the VMH ϕ at 2^15 points, hidden 60:
+                # bench.py's VMH case, and at hidden 128), so no run of a
+                # path counts their launches
+                dict(path="none (VMH phi at 2^15 points)", launches=None,
+                     **{k: k3_records["hidden 60"][name][k]
+                        for k in ("variant",) + keys}),
                 dict(path="none (VMH phi at hidden 128)", launches=None,
                      **{k: k3_records["hidden 128"][name][k]
                         for k in ("variant",) + keys})]
-            if name == "fused_mlp_bwd":
-                for v, run in zip(entry["variants"],
-                                  ("VMH", "MP-PDE", "hidden 128")):
-                    v["device_ms"] = k3_records[run][name]["device_ms"]
+            for v, run in zip(entry["variants"], ("VMH", "MP-PDE",
+                                                  "hidden 60", "hidden 128")):
+                v["device_ms"] = k3_records[run][name]["device_ms"]
         if name == "segment_max":
             burgers = records["segment_max Burgers"]
             entry["other_shapes"] = [{k: burgers[k] for k in keys}]

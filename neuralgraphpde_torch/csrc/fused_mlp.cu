@@ -24,55 +24,59 @@
 // backward the output-gradient rows and dfeats) touch device memory.
 //
 // Design:
-// - a block of 128 threads owns a run of consecutive receiver rows and walks
-//   their edge slots in chunks of 32. Every layer is a small GEMM on the
-//   chunk (32 x K_in times K_in x K_out) in shared memory; each thread owns
-//   4x4 output tiles. Widths are padded to a multiple of 4 with zeros, and
-//   row strides are odd (padded width + 1) against bank conflicts.
-// - forward: all weights and biases staged in shared memory once per block;
-//   each row's sum is kept in shared memory by one owning thread, added in
-//   slot order, stored once per row: no atomics, deterministic.
+// - no atomics, and the same result on every run: every output has one
+//   owning thread, and every sum runs in one fixed order (k ascending within
+//   a W tile, tiles in order, then the bias; slots ascending within a chunk,
+//   chunks in order, blocks in order; j ascending in dh).
+// - a block owns a run of consecutive receiver rows and walks their edge
+//   slots in chunks; widths are padded to a multiple of 4 with zeros. Each
+//   row's sum is kept in shared memory by one owning thread, added in slot
+//   order and stored once per row.
 // - backward: the TPU kernel adds dW/db into output blocks that every
 //   (sequential) grid step revisits; GPU blocks run in no order. Here each
 //   block recomputes its chunk's activations, keeps them (and the
 //   pre-activations) in shared memory, and reverses through the layers with
-//   the exact derivative of each activation. dW/db accumulate per block in
-//   shared memory, each entry owned by one thread; the block writes them to
-//   a per-block scratch row and a second kernel sums the rows in block
-//   order. dfeats[col[s]] is written directly: every edge id appears once in
-//   `col`, so there is no scatter. The result is the same on every run.
+//   the exact derivative of each activation. dW/db accumulate per block,
+//   each entry owned by one thread; the block's partial row goes to scratch
+//   and a second kernel sums the rows in block order. dfeats[col[s]] is
+//   written directly: every edge id appears once in `col`, so there is no
+//   scatter.
 //
-// Two variants of each kernel, chosen by the launcher from the widths alone:
-// - resident (above): every weight, and backward every dW/db, lives in
-//   shared memory for the whole block. Taken when it fits (VMH's widths).
-// - streamed: for wider MLPs (MP-PDE's 282 -> 128, 4 -> 300 -> 300, ...).
-//   Each layer's W passes through shared tiles of `kt` rows, two buffers
-//   filled by cp.async, so the next tile's copy runs under the current
-//   tile's product; the chunk's activations (`te` edge slots, 4 <= te <=
-//   32) and the layer's bias stay in shared memory. The backward stores its
-//   first chunk's dW/db straight into the block's partial row in device
-//   memory and adds the later chunks' onto it, each entry owned by one
-//   thread (the same mapping on every chunk), and the same in-order sum of
-//   the partials follows: still no atomics, still deterministic. Every
-//   MLP of 1 to 4 layers with widths up to 1024 has a streamed plan (4
-//   layers of 1024 take te = 4). W is read once per chunk whatever a
-//   block's size, so the wrapper spreads a small graph's rows over about
-//   one block per SM and the launcher sizes the chunk to the average slots
-//   per block. The streamed backward runs kBwdThreads threads a block and
-//   computes its recompute, dW = h^T dz and dh = dz W^T as register tiles
-//   (see its section below).
-// - the streamed blocks' other copies from device memory (the forward's
-//   biases and gathered inputs, the backward's gathered inputs and
-//   cotangent rows) issue kBatch loads per thread before their first
-//   store: a plain loop waits out each load's latency,
-//   since the compiler cannot move a load above a store that may alias it.
-//   The resident kernels share the input gather but keep plain loops for
-//   their weights and cotangent rows: batched there, the resident backward
-//   ran slower on the H100.
+// Four kernels, chosen by the launcher from the widths alone:
+// - the resident forward (fused_mlp_fwd_kernel): every weight staged in
+//   shared memory once per block, 128 threads, chunks of 32 slots, each
+//   layer a block_gemm of 4x4 thread tiles over rows of odd stride. Taken
+//   where it fits (VMH's widths, and 4 -> 128 -> 128 -> 128).
+// - the chunked kernels, every product a register-tiled warp task with
+//   compile-time inner trip counts (see their section below):
+//   - the streamed forward and backward (kChunkThreads threads), for wider
+//     MLPs (MP-PDE's 282 -> 128, 4 -> 300 -> 300, ...). Each layer's W
+//     passes through shared
+//     tiles of `kt` rows, two buffers filled by cp.async, so the next tile's
+//     copy runs under the current tile's product; the chunk's activations
+//     (`te` edge slots, 4 <= te <= 32) and the layer's bias stay in shared
+//     memory. The backward stores its first chunk's dW/db straight into the
+//     block's partial row in device memory and adds the later chunks' onto
+//     it. Every MLP of 1 to 4 layers with widths up to 1024 has a streamed
+//     plan (4 layers of 1024 take te = 4). W is read once per chunk
+//     whatever a block's size, so the wrapper spreads a small graph's rows
+//     over about one block per SM and the launcher sizes the chunk to the
+//     average slots per block.
+//   - the resident backward (fused_mlp_bwd_kernel, kResThreads threads):
+//     the streamed backward's body with every W and b staged once per block
+//     and dW/db summed in shared memory, chunks of 32 slots; taken where
+//     that fits (VMH's widths).
+// - copies from device memory into shared memory keep kBatch loads in
+//   flight per thread (block_copy, chunk_rows): a plain loop waits out each
+//   load's latency, since the compiler cannot move a load above a store
+//   that may alias it. The staged weights are plain loops.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
+using ngpde::cp_async16;
 using ngpde::cp_async_commit;
 using ngpde::cp_async_wait;
 using ngpde::from_f32;
@@ -81,10 +85,17 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kMaxLayers = 4;
 constexpr int kMaxWidth = 1024;
-constexpr int kThreads = 128;
-// the streamed backward's block: 8 warps, so that each SM scheduler has two
-// to switch between (scripts/fused_mlp_variants.py times 128, 256 and 384)
-constexpr int kBwdThreads = 256;
+constexpr int kThreads = 128;  // the resident forward's block
+// the streamed kernels' block: 8 warps, so that each SM scheduler has two to
+// switch between (scripts/fused_mlp_variants.py times 128 and 256)
+constexpr int kChunkThreads = 256;
+// the resident backward's block: 16 warps (its 32-slot chunk gives each a
+// task; 5% faster than 8 at VMH's widths on the H100)
+constexpr int kResThreads = 512;
+// columns a lane in the streamed forward's recompute tasks (1, 2 or 4): at
+// its small chunks a task of fewer columns takes more rows, and each W value
+// read from shared memory feeds that many FMAs
+constexpr int kFwdCols = 2;
 constexpr int kTE = 32;  // edge slots per chunk
 constexpr int kKT = 64;  // W rows per streamed tile, at most
 constexpr int kBatch = 8;  // loads in flight per thread in block_copy
@@ -170,37 +181,50 @@ __host__ __device__ inline Layout make_layout(const Mlp& m, int rows,
   return L;
 }
 
-// float offsets into the dynamic shared memory of a streamed block: two W
-// tiles, the bias, then the chunk buffers of te slots (bwd: h[0..n],
-// z[0..n-1], d[0..1]; fwd: h[0..1] and the block's `rows` output sums).
-// The forward's chunk rows have odd strides; the backward's are multiples
-// of 4 floats (h[l] and z[l] pad4 of their width, d[0..1] the widest), so
-// its float4 loads are aligned: its lanes read along a row, or all read
-// one address, so no stride of theirs conflicts.
+// floats of one layer in the resident backward's block: W (pin rows of
+// stride pout + 1), b, dW (pin rows of stride pout) and db
+__host__ __device__ __forceinline__ int resident_floats(int pin, int pout) {
+  return pin * (pout + 1) + pout + pin * pout + pout;
+}
+
+// float offsets into the dynamic shared memory of a chunked block. Streamed:
+// two W tiles and the bias; resident (the backward's): every layer's W, b,
+// dW and db as stage_weights lays them. Then the chunk buffers of te slots
+// (bwd: h[0..n], z[0..n-1], d[0..1]; fwd: h[0..1] and the block's `rows`
+// output sums). Every chunk row's stride is a multiple of 4 floats (h[l]
+// and z[l] pad4 of their width, the other buffers the widest), so the
+// float4 loads are aligned: their lanes read along a row, or all read one
+// address, so no stride of theirs conflicts.
 struct StreamLayout {
   int wt[2], bias, h[kMaxLayers + 1], z[kMaxLayers], d[2], acc;
   int sd;  // row stride of h[0..1] (fwd) and d[0..1]
   int te, kt, total;
 };
 
-__host__ __device__ inline StreamLayout make_stream_layout(const Mlp& m,
-                                                           int te, int kt,
-                                                           int rows,
-                                                           bool bwd) {
+__host__ __device__ inline StreamLayout make_stream_layout(
+    const Mlp& m, int te, int kt, int rows, bool bwd, bool resident = false) {
   StreamLayout L{};
   int off = 0, pmax = 0;
   for (int l = 0; l <= m.n; ++l) pmax = imax(pmax, pad4(m.dim[l]));
-  L.sd = bwd ? pmax : pmax + 1;
+  L.sd = pmax;
   L.te = te;
   L.kt = kt;
-  for (int t = 0; t < 2; ++t) {
-    L.wt[t] = off;
-    off += kt * (pmax + 1);
-  }
-  L.bias = off;
-  off += pmax;
-  if (bwd) {
+  if (resident) {
     // unrolled to kMaxLayers, so that L stays in registers on the device
+#pragma unroll
+    for (int l = 0; l < kMaxLayers; ++l) {
+      if (l >= m.n) break;
+      off += resident_floats(pad4(m.dim[l]), pad4(m.dim[l + 1]));
+    }
+  } else {
+    for (int t = 0; t < 2; ++t) {
+      L.wt[t] = off;
+      off += kt * (pmax + 1);
+    }
+    L.bias = off;
+    off += pmax;
+  }
+  if (bwd) {
 #pragma unroll
     for (int l = 0; l <= kMaxLayers; ++l) {
       if (l > m.n) break;
@@ -227,6 +251,12 @@ __host__ __device__ inline StreamLayout make_stream_layout(const Mlp& m,
   }
   L.total = off;
   return L;
+}
+
+// the resident backward's layout: no larger than make_layout(m, 1, true),
+// which resident_fits counts (every stride here is at most the one there)
+__host__ __device__ inline StreamLayout make_resident_layout(const Mlp& m) {
+  return make_stream_layout(m, kTE, 0, 0, true, true);
 }
 
 // the resident block fits: forward at kMaxFwdRows rows, or the backward
@@ -307,6 +337,22 @@ __device__ __forceinline__ float act_grad(int act, float z, float h) {
   }
 }
 
+// f(std::integral_constant<int, act>()): a loop over many elements inside
+// f takes the activation's switch once
+template <typename F>
+__device__ __forceinline__ void with_act(int act, F f) {
+  switch (act) {
+    case kRelu: f(std::integral_constant<int, kRelu>()); break;
+    case kTanh: f(std::integral_constant<int, kTanh>()); break;
+    case kSigmoid: f(std::integral_constant<int, kSigmoid>()); break;
+    case kSoftplus: f(std::integral_constant<int, kSoftplus>()); break;
+    case kElu: f(std::integral_constant<int, kElu>()); break;
+    case kGelu: f(std::integral_constant<int, kGelu>()); break;
+    case kSwish: f(std::integral_constant<int, kSwish>()); break;
+    default: f(std::integral_constant<int, kIdentity>()); break;
+  }
+}
+
 // out(i, j) = sum_{k < K} A[i*ai + k*ak] * B[k*bk + j*bj] for i < M, j < N
 // (both multiples of 4); each thread takes 4x4 tiles, and `epi(i, j, v)`
 // stores. Every (i, j) belongs to one thread, the same on every call with
@@ -346,41 +392,44 @@ __device__ __forceinline__ void block_gemm(int M, int N, int K,
 
 // store(i, load(i)) for i < count, by the whole block; each thread issues
 // kBatch loads before its first store
-template <typename Load, typename Store>
+template <int NT = kThreads, typename Load, typename Store>
 __device__ __forceinline__ void block_copy(int count, Load load,
                                            Store store) {
-  for (int base = threadIdx.x; base < count; base += kThreads * kBatch) {
+  for (int base = threadIdx.x; base < count; base += NT * kBatch) {
     float v[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const int i = base + u * kThreads;
+      const int i = base + u * NT;
       v[u] = i < count ? load(i) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const int i = base + u * kThreads;
+      const int i = base + u * NT;
       if (i < count) store(i, v[u]);
     }
   }
 }
 
-// weights and biases into shared memory as f32, zero-padded; dW/db zeroed
-// (bwd)
-template <typename TW>
-__device__ void stage_weights(const Mlp& m, const Layout& L, float* sm,
-                              bool bwd) {
+// weights and biases into shared memory from sm on, as f32, zero-padded:
+// each layer's W (pad4(din) rows of stride pad4(dout) + 1), then its b; with
+// `grads` (the resident backward) its dW (stride pad4(dout)) and db follow,
+// zeroed
+template <typename TW, int NT = kThreads>
+__device__ void stage_weights(const Mlp& m, float* sm, bool grads) {
   for (int l = 0; l < m.n; ++l) {
     const int din = m.dim[l], dout = m.dim[l + 1];
-    const int pin = pad4(din), sw = pad4(dout) + 1;
-    for (int i = threadIdx.x; i < pin * sw; i += kThreads) {
+    const int pin = pad4(din), pout = pad4(dout), sw = pout + 1;
+    for (int i = threadIdx.x; i < pin * sw; i += NT) {
       const int k = i / sw, j = i % sw;
-      sm[L.w[l] + i] =
-          (k < din && j < dout) ? ld<TW>(m.w[l], k * dout + j) : 0.f;
-      if (bwd) sm[L.dw[l] + i] = 0.f;
+      sm[i] = (k < din && j < dout) ? ld<TW>(m.w[l], k * dout + j) : 0.f;
     }
-    for (int j = threadIdx.x; j < sw - 1; j += kThreads) {
-      sm[L.b[l] + j] = j < dout ? ld<TW>(m.b[l], j) : 0.f;
-      if (bwd) sm[L.db[l] + j] = 0.f;
+    sm += pin * sw;
+    for (int j = threadIdx.x; j < pout; j += NT)
+      sm[j] = j < dout ? ld<TW>(m.b[l], j) : 0.f;
+    sm += pout;
+    if (grads) {
+      for (int i = threadIdx.x; i < pin * pout + pout; i += NT) sm[i] = 0.f;
+      sm += pin * pout + pout;
     }
   }
 }
@@ -412,7 +461,7 @@ __global__ void __launch_bounds__(kThreads)
                          TF* __restrict__ out, int n_rows, int rows) {
   extern __shared__ float sm[];
   const Layout L = make_layout(m, rows, false);
-  stage_weights<TW>(m, L, sm, false);
+  stage_weights<TW>(m, sm, false);  // at L.w[0] = 0, L.b[0], ...
   const int r0 = blockIdx.x * rows;
   const int r1 = min(r0 + rows, n_rows);
   const int dn = m.dim[m.n], pn = pad4(dn);
@@ -457,110 +506,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename TF, typename TW>
-__global__ void __launch_bounds__(kThreads)
-    fused_mlp_bwd_kernel(Mlp m, const int* __restrict__ row_ptr,
-                         const int* __restrict__ col,
-                         const float* __restrict__ ew,
-                         const long long* __restrict__ slot_row,
-                         const TF* __restrict__ feats,
-                         const TF* __restrict__ g_out,
-                         TF* __restrict__ dfeats,
-                         float* __restrict__ partial, int n_rows, int rows,
-                         int n_params) {
-  extern __shared__ float sm[];
-  const Layout L = make_layout(m, rows, true);
-  stage_weights<TW>(m, L, sm, true);
-  const int r0 = blockIdx.x * rows;
-  const int r1 = min(r0 + rows, n_rows);
-  const int e_begin = row_ptr[r0], e_end = row_ptr[r1];
-  const int sd = L.sd;
-  const int d0 = m.dim[0], dn = m.dim[m.n];
-  __syncthreads();
-  for (int c0 = e_begin; c0 < e_end; c0 += kTE) {
-    const int c1 = min(c0 + kTE, e_end);
-    // recompute: h[l+1] = act(z[l]), z[l] = h[l] @ W[l] + b[l]
-    gather_inputs(m, col, feats, c0, c1, sm + L.h[0], pad4(d0) + 1, kTE);
-    __syncthreads();
-    for (int l = 0; l < m.n; ++l) {
-      const int pin = pad4(m.dim[l]), pout = pad4(m.dim[l + 1]);
-      float* z = sm + L.z[l];
-      float* h = sm + L.h[l + 1];
-      const float* bias = sm + L.b[l];
-      const int act = m.act[l];
-      block_gemm(kTE, pout, pin, sm + L.h[l], pin + 1, 1, sm + L.w[l],
-                 pout + 1, 1, [&](int e, int j, float v) {
-                   const float zz = v + bias[j];
-                   z[e * (pout + 1) + j] = zz;
-                   h[e * (pout + 1) + j] = act_fwd(act, zz);
-                 });
-      __syncthreads();
-    }
-    // the output-gradient row of each slot's receiver, times its weight
-    {
-      const int pn = pad4(dn);
-      float* d = sm + L.d[0];
-      for (int i = threadIdx.x; i < kTE * pn; i += kThreads) {
-        const int e = i / pn, j = i % pn;
-        const int s = c0 + e;
-        d[e * sd + j] = (s < c1 && j < dn)
-                            ? ew[s] * to_f32(g_out[slot_row[s] * dn + j])
-                            : 0.f;
-      }
-    }
-    __syncthreads();
-    int cur = 0;
-    for (int l = m.n - 1; l >= 0; --l) {
-      const int pin = pad4(m.dim[l]), pout = pad4(m.dim[l + 1]);
-      float* dz = sm + L.d[cur];
-      const float* z = sm + L.z[l];
-      const float* h = sm + L.h[l + 1];
-      const int act = m.act[l];
-      for (int i = threadIdx.x; i < kTE * pout; i += kThreads) {
-        const int e = i / pout, j = i % pout;
-        const int q = e * (pout + 1) + j;
-        dz[e * sd + j] *= act_grad(act, z[q], h[q]);
-      }
-      __syncthreads();
-      // dW[l] += h[l]^T dz, db[l] += sum over slots of dz
-      float* dw = sm + L.dw[l];
-      block_gemm(pin, pout, kTE, sm + L.h[l], 1, pin + 1, dz, sd, 1,
-                 [&](int k, int j, float v) { dw[k * (pout + 1) + j] += v; });
-      float* db = sm + L.db[l];
-      for (int j = threadIdx.x; j < pout; j += kThreads) {
-        float a = db[j];
-        for (int e = 0; e < kTE; ++e) a += dz[e * sd + j];
-        db[j] = a;
-      }
-      // dh[l] = dz @ W[l]^T
-      float* dh = sm + L.d[cur ^ 1];
-      block_gemm(kTE, pin, pout, dz, sd, 1, sm + L.w[l], 1, pout + 1,
-                 [&](int e, int k, float v) { dh[e * sd + k] = v; });
-      __syncthreads();
-      cur ^= 1;
-    }
-    const float* dh0 = sm + L.d[cur];
-    for (int i = threadIdx.x; i < kTE * d0; i += kThreads) {
-      const int e = i / d0, k = i % d0;
-      const int s = c0 + e;
-      if (s < c1)
-        dfeats[(long long)col[s] * d0 + k] = from_f32<TF>(dh0[e * sd + k]);
-    }
-    __syncthreads();
-  }
-  // this block's dW/db: [dW0 (d0 x d1), db0 (d1), dW1, db1, ...]
-  float* p = partial + (long long)blockIdx.x * n_params;
-  for (int l = 0; l < m.n; ++l) {
-    const int din = m.dim[l], dout = m.dim[l + 1];
-    const int sw = pad4(dout) + 1;
-    for (int i = threadIdx.x; i < din * dout; i += kThreads)
-      p[i] = sm[L.dw[l] + (i / dout) * sw + i % dout];
-    p += din * dout;
-    for (int j = threadIdx.x; j < dout; j += kThreads) p[j] = sm[L.db[l] + j];
-    p += dout;
-  }
-}
-
 // ---------------------------------------------------------------- streamed
 // 4 bytes from device memory into shared memory without passing through
 // registers; zero-filled where !valid (src is then not read)
@@ -592,24 +537,41 @@ __device__ void load_w_tile(const Mlp& m, int l, int k0, int kr, float* wt) {
   cp_async_commit();
 }
 
+// rows [k0, k0 + kr) of layer l's W into the tile wt of row stride
+// pad4(dout), zero outside W, as one cp.async group, a warp a row: each lane
+// copies 16 bytes where W's rows are 16-byte aligned (dout a multiple of 4,
+// W aligned), else 4 bytes; a bf16 W is converted on its way in by plain
+// loads, kBatch in flight a lane (chunk_rows). No divide per element: the
+// per-element i / sw of load_w_tile cost the streamed forward about half of
+// its cycles on the H100 (a clock64 split)
+template <typename TW, int NT>
+__device__ void load_w_rows(const Mlp& m, int l, int k0, int kr, float* wt);
+
 // body(k0, kr, tile) for rows [k0, k0 + kr) of layer l's W, kr = min(kt,
-// total - k0), k0 = 0, kt, ... below total, in order. When body runs its
-// tile is in shared memory and the next tile's copy is in flight into the
-// other buffer. Starts and ends synchronised.
-template <typename TW, int NT = kThreads, typename Body>
+// total - k0), k0 = 0, kt, ... below total, in order, each tile copied by
+// load_w_tile (row stride pad4(dout) + 1) or, with Rows, by load_w_rows
+// (stride pad4(dout)). When body runs its tile is in shared memory and the
+// next tile's copy is in flight into the other buffer. Starts and ends
+// synchronised.
+template <typename TW, int NT = kThreads, bool Rows = false, typename Body>
 __device__ void for_w_tiles(const Mlp& m, int l, int total,
                             const StreamLayout& L, float* sm, Body body) {
   const int kt = L.kt;
   // the buffers as two scalars, chosen by a select (no indexed local)
   float* const w0 = sm + L.wt[0];
   float* const w1 = sm + L.wt[1];
+  const auto load = [&](int k0, int kr, float* wt) {
+    if constexpr (Rows)
+      load_w_rows<TW, NT>(m, l, k0, kr, wt);
+    else
+      load_w_tile<TW, NT>(m, l, k0, kr, wt);
+  };
   __syncthreads();  // no reader of either buffer is left
-  load_w_tile<TW, NT>(m, l, 0, min(kt, total), w0);
+  load(0, min(kt, total), w0);
   for (int k0 = 0, t = 0; k0 < total; k0 += kt, ++t) {
     const int next = k0 + kt;
     if (next < total) {
-      load_w_tile<TW, NT>(m, l, next, min(kt, total - next),
-                          (t & 1) ? w0 : w1);
+      load(next, min(kt, total - next), (t & 1) ? w0 : w1);
       cp_async_wait<1>();  // this tile's copies are done, the next's not
     } else {
       cp_async_wait<0>();
@@ -620,100 +582,27 @@ __device__ void for_w_tiles(const Mlp& m, int l, int total,
   }
 }
 
-// out[e, j] = act(sum_{k < din} hin[e, k] W[k, j] + b[j]) for the te chunk
-// rows and j < pad4(dout), W streamed through the shared tiles and b staged
-// beside them; with `z`, the pre-activation is kept there too (row stride
-// so). Padded columns (j >= dout) see zero weights and bias. Ends
-// synchronised.
-template <typename TW>
-__device__ void stream_dense(const Mlp& m, int l, const StreamLayout& L,
-                             float* sm, const float* hin, int sin,
-                             float* out, int so, float* z) {
-  const int din = m.dim[l], dout = m.dim[l + 1];
-  const int pout = pad4(dout), sw = pout + 1;
-  float* bias = sm + L.bias;
-  // the last reader of the bias (the previous layer) ended synchronised
-  block_copy(
-      pout, [&](int j) { return j < dout ? ld<TW>(m.b[l], j) : 0.f; },
-      [&](int j, float v) { bias[j] = v; });
-  for_w_tiles<TW>(m, l, din, L, sm, [&](int k0, int kn, const float* wt) {
-    const bool first = k0 == 0;
-    // one owner per (e, j): the same tiling on every k-tile
-    block_gemm(L.te, pout, kn, hin + k0, sin, 1, wt, sw, 1,
-               [&](int e, int j, float v) {
-                 float* q = out + e * so + j;
-                 *q = first ? v : *q + v;
-               });
-  });
-  const int act = m.act[l];
-  for (int i = threadIdx.x; i < L.te * pout; i += kThreads) {
-    const int e = i / pout, j = i % pout;
-    const float zz = out[e * so + j] + bias[j];
-    if (z != nullptr) z[e * so + j] = zz;
-    out[e * so + j] = act_fwd(act, zz);
-  }
-  __syncthreads();
-}
-
-template <typename TF, typename TW>
-__global__ void __launch_bounds__(kThreads)
-    fused_mlp_fwd_stream_kernel(Mlp m, const int* __restrict__ row_ptr,
-                                const int* __restrict__ col,
-                                const float* __restrict__ ew,
-                                const TF* __restrict__ feats,
-                                TF* __restrict__ out, int n_rows, int rows,
-                                int te, int kt) {
-  extern __shared__ float sm[];
-  const StreamLayout L = make_stream_layout(m, te, kt, rows, false);
-  const int r0 = blockIdx.x * rows;
-  const int r1 = min(r0 + rows, n_rows);
-  const int dn = m.dim[m.n], pn = pad4(dn);
-  float* acc = sm + L.acc;
-  for (int i = threadIdx.x; i < rows * pn; i += kThreads) acc[i] = 0.f;
-  const int e_begin = row_ptr[r0], e_end = row_ptr[r1];
-  const int sd = L.sd;
-  for (int c0 = e_begin; c0 < e_end; c0 += te) {
-    const int c1 = min(c0 + te, e_end);
-    gather_inputs(m, col, feats, c0, c1, sm + L.h[0], sd, te);
-    int cur = 0;
-    for (int l = 0; l < m.n; ++l) {
-      stream_dense<TW>(m, l, L, sm, sm + L.h[cur], sd, sm + L.h[cur ^ 1], sd,
-                       nullptr);
-      cur ^= 1;
-    }
-    const float* hn = sm + L.h[cur];
-    for (int i = threadIdx.x; i < (r1 - r0) * pn; i += kThreads) {
-      const int r = i / pn, j = i % pn;
-      const int lo = max(row_ptr[r0 + r], c0);
-      const int hi = min(row_ptr[r0 + r + 1], c1);
-      float a = acc[i];
-      for (int s = lo; s < hi; ++s) a = fmaf(ew[s], hn[(s - c0) * sd + j], a);
-      acc[i] = a;
-    }
-    __syncthreads();
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < (r1 - r0) * dn; i += kThreads) {
-    const int r = i / dn, j = i % dn;
-    out[(long long)(r0 + r) * dn + j] = from_f32<TF>(acc[r * pn + j]);
-  }
-}
-
-// ------------------------------------------------- streamed backward (H100)
-// A block of kBwdThreads threads. Every product of a chunk is a register
-// tile with inner loops of compile-time trip count (4-wide along the sum),
-// each output owned by one thread, the same one on every chunk:
-// - recompute z = h W + b per W k-tile: a warp task is tr chunk rows x 128
-//   columns, each lane 4 columns 32 apart (conflict-free scalar reads of
-//   the odd-stride W tile), h rows read as broadcast float4;
+// ------------------------------------------------ chunked kernels (H100)
+// The streamed forward, the streamed backward and the resident backward.
+// Every product of a chunk is a register tile with inner loops of
+// compile-time trip count (4-wide along the sum), each output owned by one
+// thread, the same one on every chunk:
+// - recompute z = h W + b per W k-tile: a warp task is tr chunk rows x 32 NC
+//   columns, each lane NC columns 32 apart (conflict-free scalar reads of
+//   the odd-stride W tile), h rows read as broadcast float4. The backward's
+//   streamed tasks take NC = 4; the resident ones the fewest of 1, 2, 4
+//   that span the layer's width (VMH's 60: 2, no idle half); the forward's
+//   kFwdCols, so that at its small chunks each W read feeds tr FMAs;
 // - dW += h^T dz: a thread tile is 4 k-rows x 4 consecutive columns, te
 //   slots summed in ascending order in 16 registers, then one 16-byte
-//   read-modify-write per tile row of the block's partial row (consecutive
-//   threads on consecutive column groups: coalesced), 4-byte accesses
-//   where the row is not 16-byte aligned;
-// - dh = dz W^T per W k-tile: a warp task is tr chunk rows x 64 W rows,
-//   each lane 2 rows 32 apart (odd stride: conflict-free), dz rows read as
-//   broadcast float4.
+//   read-modify-write per tile row of the dW rows (streamed: the block's
+//   partial row, consecutive threads on consecutive column groups,
+//   coalesced; resident: the block's dW in shared memory), 4-byte accesses
+//   where a row is not 16-byte aligned;
+// - dh = dz W^T per W k-tile (resident: per 64-row slice of W): a warp task
+//   is tr chunk rows x 64 W rows, each lane 2 rows 32 apart (odd stride:
+//   conflict-free), dz rows read as broadcast float4; a resident layer of
+//   fewer than 32 input rows takes one output a thread (dh_narrow).
 // Layer offsets are carried from layer to layer (no runtime-indexed local
 // array), and the MLP stays in parameter space (__grid_constant__).
 
@@ -728,8 +617,8 @@ __device__ __forceinline__ float part(const float4& v, int u) {
 
 // dst[e * sdst + k] = load(e, k) for e < te, k < p: one warp a row (lanes
 // along the row, coalesced), kBatch loads in flight per lane. No divide
-// per element: 3-4% faster than block_copy on the H100 at both timed
-// shapes (scripts/fused_mlp_variants.py)
+// per element: 3-4% faster than block_copy in the streamed backward on the
+// H100 at both timed shapes (scripts/fused_mlp_variants.py)
 template <int NT, typename Load>
 __device__ __forceinline__ void chunk_rows(int te, int p, float* dst,
                                            int sdst, Load load) {
@@ -751,6 +640,53 @@ __device__ __forceinline__ void chunk_rows(int te, int p, float* dst,
   }
 }
 
+// chunk_rows, or with Flat, for rows narrower than a warp, over the chunk's
+// flat index (block_copy), so that every lane has loads in flight (VMH's
+// inputs are 4 floats wide): two divides per element, which cost more than
+// they save at 60 floats (a clock64 split on the H100)
+template <int NT, bool Flat, typename Load>
+__device__ __forceinline__ void gather_rows(int te, int p, float* dst,
+                                            int sdst, Load load) {
+  if (Flat && p < 32)
+    block_copy<NT>(
+        te * p, [&](int i) { return load(i / p, i % p); },
+        [&](int i, float v) { dst[(i / p) * sdst + i % p] = v; });
+  else
+    chunk_rows<NT>(te, p, dst, sdst, load);
+}
+
+template <typename TW, int NT>
+__device__ void load_w_rows(const Mlp& m, int l, int k0, int kr, float* wt) {
+  const int din = m.dim[l], dout = m.dim[l + 1], pout = pad4(dout);
+  if constexpr (sizeof(TW) == sizeof(float)) {
+    const int lane = threadIdx.x & 31;
+    const float* w = static_cast<const float*>(m.w[l]);
+    const bool vec = (dout & 3) == 0 &&
+                     (reinterpret_cast<unsigned long long>(w) & 15) == 0;
+    for (int k = threadIdx.x >> 5; k < kr; k += NT / 32) {
+      const bool row = k0 + k < din;
+      const float* src = w + (long long)(k0 + k) * dout;
+      float* dst = wt + k * pout;
+      if (vec) {
+        for (int j = lane << 2; j < pout; j += 128)
+          cp_async16(dst + j, row ? src + j : w, row ? 16 : 0);
+      } else {
+        for (int j = lane; j < pout; j += 32) {
+          const bool in = row && j < dout;
+          cp_async4(dst + j, in ? src + j : w, in);
+        }
+      }
+    }
+  } else {
+    chunk_rows<NT>(kr, pout, wt, pout, [&](int k, int j) {
+      return (k0 + k < din && j < dout)
+                 ? ld<TW>(m.w[l], (long long)(k0 + k) * dout + j)
+                 : 0.f;
+    });
+  }
+  cp_async_commit();
+}
+
 // chunk rows per warp task: the largest of 4, 2, 1 that still gives every
 // warp a task (te / tr * groups >= warps), else 1
 template <int NT>
@@ -762,23 +698,23 @@ __device__ __forceinline__ int task_rows(int te, int groups) {
 
 // one recompute task on W tile rows [0, kr) (kr a multiple of 4): rows
 // e0..e0+TR-1 of hin (already offset to the tile's first k) times the tile,
-// columns j0 + lane + 32c (c < 4) below pout. The first k-tile stores, later
-// ones add; the last adds the bias, keeps the pre-activation in z and the
-// activation in out (both of row stride so).
-template <int TR>
+// columns j0 + lane + 32c (c < NC) below pout. The first k-tile stores,
+// later ones add; the last adds the bias and keeps the activation in out
+// and, with KZ, the pre-activation in z (both of row stride so).
+template <int TR, int NC, bool KZ>
 __device__ __forceinline__ void recompute_task(
     const float* hin, int sin, const float* wt, int sw, int kr, int e0,
     int j0, int pout, float* out, float* z, int so, const float* bias,
     int act, bool first, bool last) {
   const int lane = threadIdx.x & 31;
-  bool in[4];
+  bool in[NC];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) in[c] = j0 + lane + 32 * c < pout;
-  float acc[TR][4];
+  for (int c = 0; c < NC; ++c) in[c] = j0 + lane + 32 * c < pout;
+  float acc[TR][NC];
 #pragma unroll
   for (int r = 0; r < TR; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
   const float* w = wt + j0 + lane;
   for (int k = 0; k < kr; k += 4) {
     float4 a[TR];
@@ -786,32 +722,85 @@ __device__ __forceinline__ void recompute_task(
     for (int r = 0; r < TR; ++r) a[r] = ld4(hin + (e0 + r) * sin + k);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      float b[4];
+      float b[NC];
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < NC; ++c)
         b[c] = in[c] ? w[(k + u) * sw + 32 * c] : 0.f;
 #pragma unroll
       for (int r = 0; r < TR; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
+        for (int c = 0; c < NC; ++c)
           acc[r][c] = fmaf(part(a[r], u), b[c], acc[r][c]);
     }
   }
 #pragma unroll
   for (int r = 0; r < TR; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < NC; ++c) {
       if (!in[c]) continue;
       const int j = j0 + lane + 32 * c, q = (e0 + r) * so + j;
       const float v = first ? acc[r][c] : out[q] + acc[r][c];
       if (last) {
         const float zz = v + bias[j];
-        z[q] = zz;
+        if (KZ) z[q] = zz;
         out[q] = act_fwd(act, zz);
       } else {
         out[q] = v;
       }
     }
+}
+
+// the recompute tasks of one W tile (rows [0, kr) of stride sw) over the te
+// chunk rows, as recompute_task describes them: warp w takes tasks w, w +
+// warps, ... of tr rows (task_rows) x 32 NC columns, the same ones on every
+// tile
+template <int NT, int NC, bool KZ>
+__device__ __forceinline__ void dense_tasks(
+    const float* hin, int sin, const float* wt, int sw, int kr, int te,
+    int pout, float* out, float* z, int so, const float* bias, int act,
+    bool first, bool last) {
+  constexpr int kCols = 32 * NC;
+  const int groups = (pout + kCols - 1) / kCols;
+  const int tr = task_rows<NT>(te, groups);
+  const int nrg = te / tr;
+  for (int t = threadIdx.x >> 5; t < nrg * groups; t += NT / 32) {
+    const int e0 = (t % nrg) * tr, j0 = (t / nrg) * kCols;
+    if (tr == 4)
+      recompute_task<4, NC, KZ>(hin, sin, wt, sw, kr, e0, j0, pout, out, z,
+                                so, bias, act, first, last);
+    else if (tr == 2)
+      recompute_task<2, NC, KZ>(hin, sin, wt, sw, kr, e0, j0, pout, out, z,
+                                so, bias, act, first, last);
+    else
+      recompute_task<1, NC, KZ>(hin, sin, wt, sw, kr, e0, j0, pout, out, z,
+                                so, bias, act, first, last);
+  }
+}
+
+// one layer of the recompute with W streamed: hout = act(hin W + b) for the
+// te chunk rows (row strides sin and so), b staged beside the W tiles
+// (copied as for_w_tiles' Rows says); with KZ the pre-activation is kept in
+// z (stride so). W rows pin > din are zero, so every tile has a multiple of
+// 4 rows and the padded h columns add nothing; padded columns (j >= dout)
+// see zero weights and bias. Ends synchronised.
+template <typename TW, int NT, int NC, bool KZ, bool Rows>
+__device__ __forceinline__ void stream_layer(const Mlp& m, int l,
+                                             const StreamLayout& L,
+                                             float* sm, int te,
+                                             const float* hin, int sin,
+                                             float* hout, int so, float* z) {
+  const int dout = m.dim[l + 1], act = m.act[l];
+  const int pin = pad4(m.dim[l]), pout = pad4(dout);
+  float* bias = sm + L.bias;
+  // the last reader of the bias (the previous layer) ended synchronised
+  for (int j = threadIdx.x; j < pout; j += NT)
+    bias[j] = j < dout ? ld<TW>(m.b[l], j) : 0.f;
+  for_w_tiles<TW, NT, Rows>(m, l, pin, L, sm,
+                            [&](int k0, int kr, const float* wt) {
+    dense_tasks<NT, NC, KZ>(hin + k0, sin, wt, Rows ? pout : pout + 1, kr, te,
+                            pout, hout, z, so, bias, act, k0 == 0,
+                            k0 + kr == pin);
+  });
 }
 
 // one dh task on a W tile of kr rows: dh[e, k] = sum_{j < pout} dz[e, j]
@@ -850,14 +839,36 @@ __device__ __forceinline__ void dh_task(const float* dz, int sd,
   }
 }
 
+// dh = dz W^T for a layer of fewer than 32 input rows (dh_task would leave
+// most lanes idle; VMH's first layer has 4): one output a thread, j
+// ascending as in dh_task
+template <int NT>
+__device__ __forceinline__ void dh_narrow(const float* dz, int sd,
+                                          const float* w, int sw, int pin,
+                                          int pout, int te, float* dh) {
+  for (int i = threadIdx.x; i < te * pin; i += NT) {
+    const int e = i / pin, k = i - e * pin;
+    const float* b = w + k * sw;
+    float acc = 0.f;
+    for (int j = 0; j < pout; j += 4) {
+      const float4 a = ld4(dz + e * sd + j);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc = fmaf(part(a, u), b[j + u], acc);
+    }
+    dh[e * sd + k] = acc;
+  }
+}
+
 // dW[k, j] (k < din, j < dout) of one layer from the chunk: h (te rows of
-// stride pin) and dz (stride sd), into the block's partial row pw (row
-// stride dout): stored on the first chunk, added to after. Tiles of 4 k x
-// 4 j, column groups fastest over the threads.
+// stride pin) and dz (stride sd), into the rows pw (row stride sw): stored
+// on the first chunk, added to after. Tiles of 4 k x 4 j, column groups
+// fastest over the threads. vec: sw and pw's offset are multiples of 4
+// floats (16-byte accesses; the columns past dout up to pad4(dout) are
+// written too)
 template <int NT>
 __device__ __forceinline__ void dw_tiles(const float* h, int pin,
                                          const float* dz, int sd, int te,
-                                         int din, int dout, float* pw,
+                                         int din, int dout, float* pw, int sw,
                                          bool vec, bool first) {
   const int ncg = pad4(dout) >> 2, nkg = pin >> 2;
   const int step_k = NT / ncg, step_j = NT % ncg;  // once per layer
@@ -881,13 +892,13 @@ __device__ __forceinline__ void dw_tiles(const float* h, int pin,
             acc[r][c] = fmaf(part(a, r), part(b, c), acc[r][c]);
       }
     }
-    if (vec) {  // dout and the row's offset are multiples of 4
+    if (vec) {
       float4 old[4] = {};
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         if (!first && k0 + r < din)
           old[r] = *reinterpret_cast<const float4*>(
-              pw + (long long)(k0 + r) * dout + j0);
+              pw + (long long)(k0 + r) * sw + j0);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         if (k0 + r >= din) continue;
@@ -898,7 +909,7 @@ __device__ __forceinline__ void dw_tiles(const float* h, int pin,
           v.z = old[r].z + v.z;
           v.w = old[r].w + v.w;
         }
-        *reinterpret_cast<float4*>(pw + (long long)(k0 + r) * dout + j0) = v;
+        *reinterpret_cast<float4*>(pw + (long long)(k0 + r) * sw + j0) = v;
       }
     } else {
 #pragma unroll
@@ -906,7 +917,7 @@ __device__ __forceinline__ void dw_tiles(const float* h, int pin,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           if (k0 + r >= din || j0 + c >= dout) continue;
-          float* q = pw + (long long)(k0 + r) * dout + j0 + c;
+          float* q = pw + (long long)(k0 + r) * sw + j0 + c;
           *q = first ? acc[r][c] : *q + acc[r][c];
         }
     }
@@ -919,82 +930,134 @@ __device__ __forceinline__ void dw_tiles(const float* h, int pin,
   }
 }
 
+// one block an SM (its shared memory): without the 1, ptxas may hold it to
+// 64 registers and spill
 template <typename TF, typename TW>
-__global__ void __launch_bounds__(kBwdThreads)
-    fused_mlp_bwd_stream_kernel(const __grid_constant__ Mlp m,
+__global__ void __launch_bounds__(kChunkThreads, 1)
+    fused_mlp_fwd_stream_kernel(const __grid_constant__ Mlp m,
                                 const int* __restrict__ row_ptr,
                                 const int* __restrict__ col,
                                 const float* __restrict__ ew,
-                                const long long* __restrict__ slot_row,
                                 const TF* __restrict__ feats,
-                                const TF* __restrict__ g_out,
-                                TF* __restrict__ dfeats,
-                                float* __restrict__ partial, int n_rows,
-                                int rows, int n_params, int te, int kt) {
-  constexpr int NT = kBwdThreads;
+                                TF* __restrict__ out, int n_rows, int rows,
+                                int te, int kt) {
+  constexpr int NT = kChunkThreads;
   extern __shared__ float sm[];
-  const StreamLayout L = make_stream_layout(m, te, kt, 0, true);
+  const StreamLayout L = make_stream_layout(m, te, kt, rows, false);
+  const int r0 = blockIdx.x * rows;
+  const int r1 = min(r0 + rows, n_rows);
+  const int n = m.n, d0 = m.dim[0], dn = m.dim[n], pn = pad4(dn);
+  const int sd = L.sd;
+  float* acc = sm + L.acc;
+  for (int i = threadIdx.x; i < rows * pn; i += NT) acc[i] = 0.f;
+  const int e_begin = row_ptr[r0], e_end = row_ptr[r1];
+  for (int c0 = e_begin; c0 < e_end; c0 += te) {
+    const int c1 = min(c0 + te, e_end);
+    // h[l+1] = act(h[l] @ W[l] + b[l]) in the two buffers in turn
+    float* h = sm + L.h[0];
+    float* hout = sm + L.h[1];
+    chunk_rows<NT>(te, pad4(d0), h, sd, [&](int e, int k) {
+      const int s = c0 + e;
+      return (s < c1 && k < d0) ? to_f32(feats[(long long)col[s] * d0 + k])
+                                : 0.f;
+    });
+    for (int l = 0; l < n; ++l) {
+      stream_layer<TW, NT, kFwdCols, false, true>(m, l, L, sm, te, h, sd,
+                                                  hout, sd, nullptr);
+      float* t = h;
+      h = hout;
+      hout = t;
+    }
+    // each (row, unit) pair adds the chunk's slots of its row, in order
+    for (int i = threadIdx.x; i < (r1 - r0) * pn; i += NT) {
+      const int r = i / pn, j = i % pn;
+      const int lo = max(row_ptr[r0 + r], c0);
+      const int hi = min(row_ptr[r0 + r + 1], c1);
+      float a = acc[i];
+      for (int s = lo; s < hi; ++s) a = fmaf(ew[s], h[(s - c0) * sd + j], a);
+      acc[i] = a;
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < (r1 - r0) * dn; i += NT) {
+    const int r = i / dn, j = i % dn;
+    out[(long long)(r0 + r) * dn + j] = from_f32<TF>(acc[r * pn + j]);
+  }
+}
+
+// The backward of a block, streamed or resident, in NT threads. Resident:
+// every W and b staged once, dW/db kept in shared memory as running sums
+// (each chunk's slots added in order onto the entry) and stored at the end;
+// te = kTE.
+template <typename TF, typename TW, bool Resident, int NT>
+__device__ __forceinline__ void bwd_block(
+    const Mlp& m, const int* __restrict__ row_ptr,
+    const int* __restrict__ col, const float* __restrict__ ew,
+    const long long* __restrict__ slot_row, const TF* __restrict__ feats,
+    const TF* __restrict__ g_out, TF* __restrict__ dfeats,
+    float* __restrict__ partial, int n_rows, int rows, int n_params, int te,
+    int kt) {
+  extern __shared__ float sm[];
+  const StreamLayout L = Resident ? make_resident_layout(m)
+                                  : make_stream_layout(m, te, kt, 0, true);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = blockIdx.x * rows;
   const int r1 = min(r0 + rows, n_rows);
   const int e_begin = row_ptr[r0], e_end = row_ptr[r1];
   const int sd = L.sd, n = m.n;
   const int d0 = m.dim[0], dn = m.dim[n];
-  float* bias = sm + L.bias;
-  // this block's dW/db, [dW0 (d0 x d1), db0 (d1), dW1, db1, ...]: its first
-  // chunk stores them, later chunks add; a block without edges stores 0
+  // this block's dW/db, [dW0 (d0 x d1), db0 (d1), dW1, db1, ...]: streamed,
+  // its first chunk stores them and later chunks add; resident, they are
+  // stored once at the end. A block without edges stores 0
   float* p = partial + (long long)blockIdx.x * n_params;
   if (e_begin == e_end) {
     for (int i = threadIdx.x; i < n_params; i += NT) p[i] = 0.f;
     return;
   }
+  if constexpr (Resident) stage_weights<TW, NT>(m, sm, true);
   for (int c0 = e_begin; c0 < e_end; c0 += te) {
     const int c1 = min(c0 + te, e_end);
     const bool first = c0 == e_begin;
     // recompute: h[l+1] = act(z[l]), z[l] = h[l] @ W[l] + b[l]; h and z
-    // walk the layers' buffers (each te rows of stride pad4(width))
+    // walk the layers' buffers (each te rows of stride pad4(width)), wl the
+    // resident layers' W, b, dW, db
     float* h = sm + L.h[0];
     float* z = sm + L.z[0];
-    chunk_rows<NT>(te, pad4(d0), h, pad4(d0), [&](int e, int k) {
+    float* wl = sm;
+    gather_rows<NT, Resident>(te, pad4(d0), h, pad4(d0), [&](int e, int k) {
       const int s = c0 + e;
       return (s < c1 && k < d0) ? to_f32(feats[(long long)col[s] * d0 + k])
                                 : 0.f;
     });
     for (int l = 0; l < n; ++l) {
-      const int dout = m.dim[l + 1], act = m.act[l];
-      const int pin = pad4(m.dim[l]), pout = pad4(dout);
+      const int pin = pad4(m.dim[l]), pout = pad4(m.dim[l + 1]);
       float* hout = h + te * pin;
-      // the last reader of the bias (the previous layer) ended synchronised
-      for (int j = threadIdx.x; j < pout; j += NT)
-        bias[j] = j < dout ? ld<TW>(m.b[l], j) : 0.f;
-      const int groups = (pout + 127) >> 7;
-      const int tr = task_rows<NT>(te, groups);
-      const int nrg = te / tr;
-      // W rows pin > din are zero (load_w_tile), so every tile has a
-      // multiple of 4 rows and the padded h columns add nothing
-      for_w_tiles<TW, NT>(m, l, pin, L, sm,
-                          [&](int k0, int kr, const float* wt) {
-        const bool lo = k0 == 0, hi = k0 + kr == pin;
-        for (int t = warp; t < nrg * groups; t += NT / 32) {
-          const int e0 = (t % nrg) * tr, j0 = (t / nrg) << 7;
-          if (tr == 4)
-            recompute_task<4>(h + k0, pin, wt, pout + 1, kr, e0, j0, pout,
-                              hout, z, pout, bias, act, lo, hi);
-          else if (tr == 2)
-            recompute_task<2>(h + k0, pin, wt, pout + 1, kr, e0, j0, pout,
-                              hout, z, pout, bias, act, lo, hi);
-          else
-            recompute_task<1>(h + k0, pin, wt, pout + 1, kr, e0, j0, pout,
-                              hout, z, pout, bias, act, lo, hi);
-        }
-      });
+      if constexpr (Resident) {
+        __syncthreads();  // h (and on the first chunk the weights) written
+        const int act = m.act[l];
+        const float* b = wl + pin * (pout + 1);
+        if (pout <= 32)
+          dense_tasks<NT, 1, true>(h, pin, wl, pout + 1, pin, te, pout, hout,
+                                   z, pout, b, act, true, true);
+        else if (pout <= 64)
+          dense_tasks<NT, 2, true>(h, pin, wl, pout + 1, pin, te, pout, hout,
+                                   z, pout, b, act, true, true);
+        else
+          dense_tasks<NT, 4, true>(h, pin, wl, pout + 1, pin, te, pout, hout,
+                                   z, pout, b, act, true, true);
+        wl += resident_floats(pin, pout);
+      } else {
+        stream_layer<TW, NT, 4, true, false>(m, l, L, sm, te, h, pin, hout,
+                                             pout, z);
+      }
       h = hout;
       z += te * pout;
     }
     // the output-gradient row of each slot's receiver, times its weight
     float* dz = sm + L.d[0];
     float* dh = sm + L.d[1];
-    chunk_rows<NT>(te, pad4(dn), dz, sd, [&](int e, int j) {
+    gather_rows<NT, Resident>(te, pad4(dn), dz, sd, [&](int e, int j) {
       const int s = c0 + e;
       return (s < c1 && j < dn) ? ew[s] * to_f32(g_out[slot_row[s] * dn + j])
                                 : 0.f;
@@ -1008,36 +1071,90 @@ __global__ void __launch_bounds__(kBwdThreads)
       z -= te * pout;       // z[l]
       h -= te * pin;        // h[l]
       poff -= din * dout + dout;
-      for (int e = warp; e < te; e += NT / 32)
-        for (int j = lane; j < pout; j += 32) {
-          const int q = e * pout + j;
-          dz[e * sd + j] *= act_grad(act, z[q], hz[q]);
-        }
+      if constexpr (Resident) {
+        // te = kTE rows: a warp's rows, two columns a lane, loaded before
+        // the first store, and the activation's switch outside the loop
+        constexpr int R = kTE / (NT / 32);
+        with_act(act, [&](auto a) {
+          for (int j0 = lane; j0 < pout; j0 += 64) {
+            float v[R][2];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int e = warp + r * (NT / 32), j = j0 + 32 * c;
+                const int q = e * pout + j;
+                v[r][c] = j < pout ? dz[e * sd + j] *
+                                         act_grad(decltype(a)::value, z[q],
+                                                  hz[q])
+                                   : 0.f;
+              }
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int e = warp + r * (NT / 32), j = j0 + 32 * c;
+                if (j < pout) dz[e * sd + j] = v[r][c];
+              }
+          }
+        });
+      } else {
+        for (int e = warp; e < te; e += NT / 32)
+          for (int j = lane; j < pout; j += 32) {
+            const int q = e * pout + j;
+            dz[e * sd + j] *= act_grad(act, z[q], hz[q]);
+          }
+      }
       __syncthreads();
-      // dW[l] += h[l]^T dz and db[l] += the column sums of dz, into this
-      // block's partial row
-      float* pw = p + poff;
-      dw_tiles<NT>(h, pin, dz, sd, te, din, dout, pw,
-                   ((poff | dout | n_params) & 3) == 0, first);
-      float* pb = pw + din * dout;
+      // dW[l] += h[l]^T dz and db[l] += the column sums of dz: resident into
+      // the block's dW/db in shared memory, streamed into its partial row
+      if constexpr (Resident) wl -= resident_floats(pin, pout);
+      const float* w = wl;
+      float* pw = Resident ? wl + pin * (pout + 1) + pout : p + poff;
+      float* pb = Resident ? pw + pin * pout : pw + din * dout;
+      if (Resident)
+        dw_tiles<NT>(h, pin, dz, sd, te, din, dout, pw, pout, true, false);
+      else
+        dw_tiles<NT>(h, pin, dz, sd, te, din, dout, pw, dout,
+                     ((poff | dout | n_params) & 3) == 0, first);
       for (int j = threadIdx.x; j < dout; j += NT) {
-        float a = 0.f;
+        float a = Resident ? pb[j] : 0.f;
         for (int e = 0; e < te; ++e) a += dz[e * sd + j];
-        pb[j] = first ? a : pb[j] + a;
+        pb[j] = Resident || first ? a : pb[j] + a;
       }
       // dh[l] = dz @ W[l]^T, by row tiles of W (column tiles of dh)
-      const int tr = te >= 32 ? 4 : te >= 16 ? 2 : 1;
-      for_w_tiles<TW, NT>(m, l, pin, L, sm,
-                          [&](int k0, int kr, const float* wt) {
-        for (int t = warp; t < te / tr; t += NT / 32) {
+      if (Resident && pin < 32) {
+        dh_narrow<NT>(dz, sd, w, pout + 1, pin, pout, te, dh);
+        __syncthreads();
+      } else if constexpr (Resident) {
+        const int slices = (pin + 63) >> 6;
+        const int tr = task_rows<NT>(te, slices), nrg = te / tr;
+        for (int t = warp; t < nrg * slices; t += NT / 32) {
+          const int e0 = (t % nrg) * tr, k0 = (t / nrg) << 6;
+          const float* wk = w + k0 * (pout + 1);
+          const int kr = min(64, pin - k0);
           if (tr == 4)
-            dh_task<4>(dz, sd, wt, pout + 1, kr, pout, t * 4, dh + k0);
+            dh_task<4>(dz, sd, wk, pout + 1, kr, pout, e0, dh + k0);
           else if (tr == 2)
-            dh_task<2>(dz, sd, wt, pout + 1, kr, pout, t * 2, dh + k0);
+            dh_task<2>(dz, sd, wk, pout + 1, kr, pout, e0, dh + k0);
           else
-            dh_task<1>(dz, sd, wt, pout + 1, kr, pout, t, dh + k0);
+            dh_task<1>(dz, sd, wk, pout + 1, kr, pout, e0, dh + k0);
         }
-      });
+        __syncthreads();
+      } else {
+        const int tr = te >= 32 ? 4 : te >= 16 ? 2 : 1;
+        for_w_tiles<TW, NT>(m, l, pin, L, sm,
+                            [&](int k0, int kr, const float* wt) {
+          for (int t = warp; t < te / tr; t += NT / 32) {
+            if (tr == 4)
+              dh_task<4>(dz, sd, wt, pout + 1, kr, pout, t * 4, dh + k0);
+            else if (tr == 2)
+              dh_task<2>(dz, sd, wt, pout + 1, kr, pout, t * 2, dh + k0);
+            else
+              dh_task<1>(dz, sd, wt, pout + 1, kr, pout, t, dh + k0);
+          }
+        });
+      }
       float* t = dz;
       dz = dh;
       dh = t;
@@ -1051,6 +1168,56 @@ __global__ void __launch_bounds__(kBwdThreads)
     }
     __syncthreads();
   }
+  if constexpr (Resident) {
+    const float* wl = sm;
+    for (int l = 0; l < n; ++l) {
+      const int din = m.dim[l], dout = m.dim[l + 1];
+      const int pin = pad4(din), pout = pad4(dout);
+      const float* dw = wl + pin * (pout + 1) + pout;
+      for (int i = threadIdx.x; i < din * dout; i += NT)
+        p[i] = dw[(i / dout) * pout + i % dout];
+      p += din * dout;
+      for (int j = threadIdx.x; j < dout; j += NT) p[j] = dw[pin * pout + j];
+      p += dout;
+      wl += resident_floats(pin, pout);
+    }
+  }
+}
+
+// one block an SM (its shared memory): without the 1, ptxas may hold it to
+// fewer registers and spill
+template <typename TF, typename TW>
+__global__ void __launch_bounds__(kResThreads, 1)
+    fused_mlp_bwd_kernel(const __grid_constant__ Mlp m,
+                         const int* __restrict__ row_ptr,
+                         const int* __restrict__ col,
+                         const float* __restrict__ ew,
+                         const long long* __restrict__ slot_row,
+                         const TF* __restrict__ feats,
+                         const TF* __restrict__ g_out,
+                         TF* __restrict__ dfeats,
+                         float* __restrict__ partial, int n_rows, int rows,
+                         int n_params) {
+  bwd_block<TF, TW, true, kResThreads>(m, row_ptr, col, ew, slot_row, feats,
+                                       g_out, dfeats, partial, n_rows, rows,
+                                       n_params, kTE, 0);
+}
+
+template <typename TF, typename TW>
+__global__ void __launch_bounds__(kChunkThreads)
+    fused_mlp_bwd_stream_kernel(const __grid_constant__ Mlp m,
+                                const int* __restrict__ row_ptr,
+                                const int* __restrict__ col,
+                                const float* __restrict__ ew,
+                                const long long* __restrict__ slot_row,
+                                const TF* __restrict__ feats,
+                                const TF* __restrict__ g_out,
+                                TF* __restrict__ dfeats,
+                                float* __restrict__ partial, int n_rows,
+                                int rows, int n_params, int te, int kt) {
+  bwd_block<TF, TW, false, kChunkThreads>(m, row_ptr, col, ew, slot_row,
+                                          feats, g_out, dfeats, partial,
+                                          n_rows, rows, n_params, te, kt);
 }
 
 // out[i] = sum over blocks b, in order, of partial[b, i], rounded to TW
@@ -1172,8 +1339,10 @@ int ngpde_fused_mlp_fwd(const int* row_ptr, const int* col, const float* ew,
                                p.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int blocks = (n_rows + p.rows - 1) / p.rows;
-    fused_mlp_fwd_stream_kernel<TF, TW><<<blocks, kThreads, p.smem, stream>>>(
-        m, row_ptr, col, ew, x, y, n_rows, p.rows, p.te, p.kt);
+    fused_mlp_fwd_stream_kernel<TF, TW>
+        <<<blocks, kChunkThreads, p.smem, stream>>>(m, row_ptr, col, ew, x, y,
+                                                    n_rows, p.rows, p.te,
+                                                    p.kt);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -1208,12 +1377,12 @@ int ngpde_fused_mlp_bwd(const int* row_ptr, const int* col, const float* ew,
       cudaError_t err;
       if (resident_fits(m, true)) {
         const int smem =
-            make_layout(m, rows, true).total * (int)sizeof(float);
+            make_resident_layout(m).total * (int)sizeof(float);
         err = cudaFuncSetAttribute(fused_mlp_bwd_kernel<TF, TW>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    smem);
         if (err != cudaSuccess) return static_cast<int>(err);
-        fused_mlp_bwd_kernel<TF, TW><<<blocks, kThreads, smem, stream>>>(
+        fused_mlp_bwd_kernel<TF, TW><<<blocks, kResThreads, smem, stream>>>(
             m, row_ptr, col, ew, slot_row, x, g, dx, partial, n_rows, rows,
             n_params);
       } else {
@@ -1224,7 +1393,7 @@ int ngpde_fused_mlp_bwd(const int* row_ptr, const int* col, const float* ew,
                                    p.smem);
         if (err != cudaSuccess) return static_cast<int>(err);
         fused_mlp_bwd_stream_kernel<TF, TW>
-            <<<blocks, kBwdThreads, p.smem, stream>>>(
+            <<<blocks, kChunkThreads, p.smem, stream>>>(
                 m, row_ptr, col, ew, slot_row, x, g, dx, partial, n_rows,
                 rows, n_params, p.te, p.kt);
       }

@@ -44,10 +44,12 @@ def copy_package(sweep: str, name: str) -> Path:
     return root
 
 
-def main(script: str, defaults, variant, child, parent: bool = False) -> int:
+def main(script: str, defaults, variant, child, parent: bool = False,
+         summary=None) -> int:
     """The command line of the sweep ``script``: ``--variants``, ``--out``
     and, with ``parent``, ``--parent``. Prints the card's name and power
-    limit, then each variant's lines; writes the results as JSON to
+    limit, then each variant's lines; ``summary(result)``, where given, may
+    print and add to the results before they are written as JSON to
     ``--out``."""
     p = argparse.ArgumentParser()
     p.add_argument("--variants", nargs="+", default=list(defaults))
@@ -81,6 +83,8 @@ def main(script: str, defaults, variant, child, parent: bool = False) -> int:
         if proc.returncode != 0:
             raise SystemExit(f"variant {name} failed:\n{proc.stderr}")
         result["variants"].append(json.loads(proc.stdout.splitlines()[-1]))
+    if summary is not None:
+        summary(result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

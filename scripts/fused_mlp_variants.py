@@ -1,51 +1,85 @@
-"""Times of K3's streamed backward built in other forms, on one GPU: other
-thread counts a block, other rows a block, and another checkout's package.
+"""Times of K3's chunked kernels built in other forms, on one GPU: other
+thread counts a block, other recompute task shapes in the streamed forward,
+and another checkout's package.
 
-    python scripts/fused_mlp_variants.py [--variants t256-s1 t128-s1 ...]
+    python scripts/fused_mlp_variants.py [--variants t256-c2-r512 ...]
                                          [--parent DIR] [--out PATH.json]
 
-A variant ``t<threads>-s<spread>`` builds the streamed backward with
-``threads`` threads a block (``kBwdThreads`` in ``csrc/fused_mlp.cu``) and
-``spread`` times the rows a block that spread the graph over one block per
-SM (``rows = per_sm`` in ``_rows_rule``, ``kernels/fused_mlp_kernels.py``).
-The package as it is builds ``t256-s1``. For each one this copies the
+A variant ``t<threads>-c<cols>-r<resident>`` builds the streamed forward
+and backward with ``threads`` threads a block (``kChunkThreads`` in
+``csrc/fused_mlp.cu``), the streamed forward's recompute tasks with
+``cols`` columns a lane (``kFwdCols``: 1, 2 or 4; a task of fewer columns
+takes more chunk rows) and the resident backward with ``resident`` threads
+a block (``kResThreads``). The package as it is builds ``t256-c2-r512``. For each one this copies the
 package under ``build/fused_mlp_variants/<variant>/``, edits the copy (a
 pattern that does not match exactly once stops the run) and, in a process
 of its own, builds that copy. The variant ``parent`` runs the package of
 the checkout at ``--parent`` as it is (``scripts/_variants.py``).
 
-Each process times the K3 backward in f32 (``fused_mlp_bwd``: the streamed
-kernel and the in-order sum of its partials) at the MP-PDE ϕ on the
-Burgers chain (256 nodes, 1,024 edges, 282→128 swish) and at 2^15 Delaunay
-points with 4→128→128→128 tanh (``chip_smoke.py``'s shapes): CUDA-event ms
-over 20 calls, device ms per call (``tools.profile_paths.device_per_call``)
-and the errors of ``dfeats`` and of ``dW``/``db`` against autograd through
-the plain version, each relative to its largest entry; the same times and
-error for the forward (``fused_mlp_fwd``, which shares the W-tile stream
-with the backward) at those shapes. Prints the ptxas
-lines of ``fused_mlp.cu`` (registers, stack and spills) of the streamed
-kernels. The package itself is not changed.
+Each process times K3 in f32, forward (``fused_mlp_fwd``) and backward
+(``fused_mlp_bwd``: the kernel, the in-order sum of its partials and the
+``dfeats`` fill), at four shapes: the MP-PDE ϕ on the Burgers chain (256
+nodes, 1,024 edges, 282→128 swish: both streamed), 2^15 Delaunay points
+with 4→128→128→128 tanh (resident forward, streamed backward), and
+4→60→60→60 tanh at the VMH mesh (3,000 points) and at 2^15 points (both
+resident): CUDA-event ms over 20 calls, device ms per call
+(``tools.profile_paths.device_per_call``), the errors of the forward, of
+``dfeats`` and of ``dW``/``db`` against the plain versions, each relative to
+its largest entry, and a digest of every output's bytes. Every variant's
+outputs are then compared with the first ``parent``'s, bit for bit. Prints
+the ptxas lines of ``fused_mlp.cu`` (registers, stack frame and spills of
+every function it compiled). The package itself is not changed.
 """
 from __future__ import annotations
 
+import hashlib
 import re
 
 from _variants import PACKAGE, copy_package, edit, main
 
+SHAPES = ("MP-PDE phi, Burgers", "2^15 points, hidden 128", "VMH mesh",
+          "2^15 points, hidden 60")
+
 
 def variant(name: str):
     """The directory holding the package of variant ``name``."""
-    form = re.fullmatch(r"t(\d+)-s(\d+)", name)
+    form = re.fullmatch(r"t(\d+)-c([124])-r(\d+)", name)
     if form is None:
         raise SystemExit(f"unknown variant {name!r}")
     root = copy_package("fused_mlp_variants", name)
-    edit(root / PACKAGE.name / "csrc" / "fused_mlp.cu",
-         r"constexpr int kBwdThreads = \d+;",
-         f"constexpr int kBwdThreads = {form[1]};")
-    edit(root / PACKAGE.name / "kernels" / "fused_mlp_kernels.py",
-         r"rows = per_sm if backward",
-         f"rows = min(n_rows, per_sm * {form[2]}) if backward")
+    src = root / PACKAGE.name / "csrc" / "fused_mlp.cu"
+    edit(src, r"constexpr int kChunkThreads = \d+;",
+         f"constexpr int kChunkThreads = {form[1]};")
+    edit(src, r"constexpr int kFwdCols = \d+;",
+         f"constexpr int kFwdCols = {form[2]};")
+    edit(src, r"constexpr int kResThreads = \d+;",
+         f"constexpr int kResThreads = {form[3]};")
     return root
+
+
+def ptxas_lines(log: str) -> list:
+    """One line per function of ptxas's report ``log``: its name, then its
+    registers, stack frame and spills."""
+    out, name = {}, None
+    for line in log.splitlines():
+        for mark in ("Compiling entry function '", "Function properties for "):
+            if mark in line:
+                name = line.split(mark, 1)[1].split("'")[0].strip()
+                out.setdefault(name, [])
+        if name is not None and ("stack frame" in line or "Used" in line):
+            out[name].append(line.replace("ptxas info    :", "").strip())
+    return [f"{name}: {'; '.join(lines)}" for name, lines in out.items()]
+
+
+def digest(tensors) -> str:
+    """A digest of the bytes of ``tensors``."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def child(name: str) -> dict:
@@ -56,6 +90,7 @@ def child(name: str) -> dict:
     import neuralgraphpde_torch as P
     from neuralgraphpde_torch import kernels as K
     from neuralgraphpde_torch.examples import train_mppde_burgers as M
+    from neuralgraphpde_torch.examples import train_vmh as T
     from neuralgraphpde_torch.kernels import _build
     from neuralgraphpde_torch.ops.bsr import host_edges
     from neuralgraphpde_torch.tools.profile_paths import device_per_call
@@ -65,15 +100,8 @@ def child(name: str) -> dict:
     _build.library()
     log = _build.build_info.get("ptxas_by_source", {}).get(
         "fused_mlp.cu", _build.build_info["ptxas"])
-    ptxas, keep = [], False
-    for line in log.splitlines():
-        if "Compiling entry function" in line or "Function properties" in line:
-            keep = "_stream_kernel" in line
-            if keep and "Compiling" in line:
-                ptxas.append(line.strip())
-        elif keep and ("registers" in line or "spill" in line):
-            ptxas.append(line.strip())
     model, _ = M.setup(M.Config(), dev)
+    vmh, _ = T.setup(T.Config(), dev)
     pts = np.random.default_rng(0).random((1 << 15, 2))
     _, r = host_edges(P.delaunay_graph(pts.astype(np.float32)))
     bench = K.build_segment_csr(np.arange(len(r)), r, 1 << 15,
@@ -84,12 +112,17 @@ def child(name: str) -> dict:
         return torch.from_numpy((rng.normal(size=shape) * scale).astype(
             np.float32)).to(dev)
 
-    out = dict(variant=name, ptxas=ptxas, cases={})
-    for what, csr, acts, dims in (
-            ("MP-PDE phi, Burgers", model.graph.cache["tcsr_edges"],
-             ("swish",), (282, 128)),
-            ("2^15 points, hidden 128", bench, ("tanh",) * 3,
-             (4, 128, 128, 128))):
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    out = dict(variant=name, ptxas=ptxas_lines(log), cases={})
+    tanh3 = ("tanh",) * 3
+    for what, csr, acts, dims in zip(SHAPES, (
+            model.graph.cache["tcsr_edges"], bench,
+            vmh.model.graph.cache["tcsr_edges"], bench), (
+            ("swish",), tanh3, tanh3, tanh3), (
+            (282, 128), (4, 128, 128, 128), (4, 60, 60, 60),
+            (4, 60, 60, 60))):
         ws = [normal(a, b, scale=a ** -0.5) for a, b in zip(dims[:-1],
                                                              dims[1:])]
         bs = [normal(1, b, scale=1 / 3) for b in dims[1:]]
@@ -104,15 +137,16 @@ def child(name: str) -> dict:
 
         got, want = kernel(), K.fused_mlp_bwd_plain(acts, csr, feats, ws,
                                                     bs, g)
-
-        def rel(a, b):
-            return float((a - b).abs().max() / b.abs().max())
-
-        rel_df = rel(got[0], want[0])
-        rel_p = max(rel(a, b) for a, b in zip(got[1] + got[2],
-                                              want[1] + want[2]))
-        rel_fwd = rel(forward(), K.fused_mlp_plain(acts, csr, feats, ws, bs))
-        case = dict(rel_dfeats=rel_df, rel_params=rel_p, rel_fwd=rel_fwd)
+        fwd = forward()
+        case = dict(
+            variants=[K.fused_mlp_variant(dims),
+                      K.fused_mlp_variant(dims, backward=True)],
+            rel_dfeats=rel(got[0], want[0]),
+            rel_params=max(rel(a, b) for a, b in zip(got[1] + got[2],
+                                                     want[1] + want[2])),
+            rel_fwd=rel(fwd, K.fused_mlp_plain(acts, csr, feats, ws, bs)),
+            digest_fwd=digest([fwd]),
+            digest_bwd=digest((got[0],) + got[1] + got[2]))
         for tag, fn in (("", kernel), ("fwd_", forward)):
             for _ in range(3):
                 fn()
@@ -127,16 +161,34 @@ def child(name: str) -> dict:
             case[tag + "device_ms"], case[tag + "kernels_per_call"] = \
                 device_per_call(fn)
         out["cases"][what] = case
-        print(f"{name} {what}: dfeats rel {rel_df:.3e}, dW/db rel "
-              f"{rel_p:.3e}, {case['ms']:.4f} ms by events, "
-              f"{case['device_ms']:.4f} device ms, "
-              f"{case['kernels_per_call']:g} kernels a call; forward rel "
-              f"{rel_fwd:.3e}, {case['fwd_ms']:.4f} ms by events, "
-              f"{case['fwd_device_ms']:.4f} device ms", flush=True)
+        print(f"{name} {what} ({'/'.join(case['variants'])}): dfeats rel "
+              f"{case['rel_dfeats']:.3e}, dW/db rel {case['rel_params']:.3e}"
+              f", {case['ms']:.4f} ms by events, {case['device_ms']:.4f} "
+              f"device ms, {case['kernels_per_call']:g} kernels a call; "
+              f"forward rel {case['rel_fwd']:.3e}, {case['fwd_ms']:.4f} ms "
+              f"by events, {case['fwd_device_ms']:.4f} device ms",
+              flush=True)
     return out
 
 
+def same_bits(result: dict) -> None:
+    """Each variant's outputs against the first ``parent``'s digests."""
+    runs = result["variants"]
+    ref = next((v for v in runs if v["variant"] == "parent"), None)
+    if ref is None:
+        return
+    for v in runs:
+        v["same_bits_as_parent"] = {
+            what: {d: case[d] == ref["cases"][what][d]
+                   for d in ("digest_fwd", "digest_bwd")}
+            for what, case in v["cases"].items()
+            if what in ref["cases"]}
+        print(f"{v['variant']} same bits as parent: "
+              f"{v['same_bits_as_parent']}", flush=True)
+
+
 if __name__ == "__main__":
-    raise SystemExit(main(__file__, ["t256-s1", "t128-s1", "t384-s1",
-                                     "t256-s2", "t256-s4"], variant, child,
-                          parent=True))
+    raise SystemExit(main(__file__, ["t256-c2-r512", "t256-c1-r512",
+                                     "t256-c4-r512", "t256-c2-r256",
+                                     "t128-c2-r128"], variant, child,
+                          parent=True, summary=same_bits))

@@ -881,15 +881,30 @@ def test_k3_autograd_function_cuda(cuda):
         assert _rel(leaf.grad.cpu(), p.cpu()) <= 1e-4
 
 
-def _stream_bwd_emulated(acts, csr, feats, ws, bs, g, sms, te, kt):
-    """The streamed K3 backward's decomposition in torch ops, in f32:
-    blocks of receiver rows by the wrapper's rule for ``sms`` SMs, each
-    block's edge slots in chunks of ``te`` (the last one ragged), the
-    chunk's MLP recomputed by W k-tiles of ``kt`` rows (the first tile
-    stored, later ones added), its dW/db summed over the chunk's slots in
-    order and added onto one partial per block, chunk after chunk, dh taken
-    by W k-tiles; the blocks' partials summed in block order."""
-    rows, _ = K3._rows_rule(csr.num_rows, csr.col.shape[0], sms, True, True)
+def _tiled(h, w, kt):
+    """``h @ w`` by k-tiles of ``kt`` rows of ``w`` (all of them at once for
+    ``kt`` None): the first tile's product stored, later ones added."""
+    kt = kt or w.shape[0]
+    z = None
+    for k0 in range(0, w.shape[0], kt):
+        part = h[:, k0:k0 + kt] @ w[k0:k0 + kt]
+        z = part if z is None else z + part
+    return z
+
+
+def _stream_bwd_emulated(acts, csr, feats, ws, bs, g, sms, te, kt,
+                         streamed=True):
+    """The K3 backward's decomposition in torch ops, in f32: blocks of
+    receiver rows by the wrapper's rule for ``sms`` SMs (for the streamed
+    variant, or with ``streamed`` False the resident one), each block's edge
+    slots in chunks of ``te`` (the last one ragged), the chunk's MLP
+    recomputed by W k-tiles of ``kt`` rows (the first tile stored, later ones
+    added; ``kt`` None: W as one tile, as the resident block holds it), its
+    dW/db summed over the chunk's slots in order and added onto one partial
+    per block, chunk after chunk, dh taken by W k-tiles; the blocks'
+    partials summed in block order."""
+    rows, _ = K3._rows_rule(csr.num_rows, csr.col.shape[0], sms, streamed,
+                            True)
     n_blocks = -(-csr.num_rows // rows)
     row_ptr = csr.row_ptr.tolist()
     plain = [K3._PLAIN_ACTS[K3._act_name(a)] for a in acts]
@@ -903,11 +918,7 @@ def _stream_bwd_emulated(acts, csr, feats, ws, bs, g, sms, te, kt):
             sl = slice(c0, min(c0 + te, row_ptr[r1]))
             hs, zs = [feats[csr.col[sl].long()]], []
             for w, b, act in zip(ws, bs, plain):
-                z = None
-                for k0 in range(0, w.shape[0], kt):
-                    part = hs[-1][:, k0:k0 + kt] @ w[k0:k0 + kt]
-                    z = part if z is None else z + part
-                zs.append(z + b.reshape(1, -1))
+                zs.append(_tiled(hs[-1], w, kt) + b.reshape(1, -1))
                 hs.append(act(zs[-1]))
             dz = csr.weight[sl, None] * g[csr.rows[sl]]
             for layer in reversed(range(len(ws))):
@@ -917,8 +928,9 @@ def _stream_bwd_emulated(acts, csr, feats, ws, bs, g, sms, te, kt):
                 dws[layer] += hs[layer].T @ dz
                 dbs[layer] += dz.sum(0)
                 w = ws[layer]
-                dz = torch.cat([dz @ w[k0:k0 + kt].T
-                                for k0 in range(0, w.shape[0], kt)], 1)
+                step = kt or w.shape[0]
+                dz = torch.cat([dz @ w[k0:k0 + step].T
+                                for k0 in range(0, w.shape[0], step)], 1)
             dfeats[csr.col[sl].long()] = dz
         partials.append(dws + dbs)
     total = partials[0]
@@ -978,6 +990,127 @@ def test_k3_stream_bwd_decomposition(jx, te, acts, dims):
             assert _rel(a, np.asarray(b)) <= 1e-4
 
 
+def _stream_fwd_emulated(acts, csr, feats, ws, bs, sms, te, kt):
+    """The streamed K3 forward's decomposition in torch ops, in f32: blocks
+    of receiver rows by the wrapper's rule for ``sms`` SMs, each block's
+    edge slots in chunks of ``te`` (the last one ragged), the chunk's MLP by
+    W k-tiles of ``kt`` rows (the first tile stored, later ones added, then
+    the bias and the activation), each row's sum added slot by slot in
+    order from 0 per block."""
+    rows, _ = K3._rows_rule(csr.num_rows, csr.col.shape[0], sms, True,
+                            False)
+    row_ptr = csr.row_ptr.tolist()
+    plain = [K3._PLAIN_ACTS[K3._act_name(a)] for a in acts]
+    out = torch.zeros((csr.num_rows, ws[-1].shape[1]))
+    for r0 in range(0, csr.num_rows, rows):
+        r1 = min(r0 + rows, csr.num_rows)
+        for c0 in range(row_ptr[r0], row_ptr[r1], te):
+            c1 = min(c0 + te, row_ptr[r1])
+            h = feats[csr.col[c0:c1].long()]
+            for w, b, act in zip(ws, bs, plain):
+                h = act(_tiled(h, w, kt) + b.reshape(1, -1))
+            for s in range(c0, c1):
+                row = int(csr.rows[s])
+                out[row] = out[row] + csr.weight[s] * h[s - c0]
+    return out
+
+
+def _k3_decomposition_case(jx, dims, seed, empty_rows):
+    """40 receivers, 170 edge slots, every 7th receiver and ``empty_rows``
+    without edges, an MLP of widths ``dims``: the port's edge-id layout,
+    JAX's tiling of the same edges, and numpy inputs."""
+    n, e = 40, 170
+    rng = np.random.default_rng(seed)
+    r = rng.choice([i for i in range(n) if i % 7 and i not in empty_rows],
+                   e)
+    ew = rng.normal(size=e).astype(np.float32)
+    csr = build_segment_csr(np.arange(e), r, n, num_cols=e, edge_weight=ew)
+    tj = jx.sk.build_tiled_csr(np.arange(e), r, n, edge_weight=ew, tn=8,
+                               te=64)
+    feats = rng.normal(size=(e, dims[0])).astype(np.float32)
+    ws = [(rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [(rng.normal(size=(1, b)) / 3).astype(np.float32) for b in dims[1:]]
+    g = rng.normal(size=(n, dims[-1])).astype(np.float32)
+    return csr, tj, feats, ws, bs, g
+
+
+_K3_DECOMPOSITION_MLPS = [
+    (("swish",), (282, 128)),
+    (("tanh",) * 3, (4, 60, 60, 60)),
+    (("gelu", None), (5, 33, 9)),
+    (("relu", "sigmoid", "softplus", None), (7, 33, 17, 64, 5))]
+
+
+@pytest.mark.parametrize("te", [8, 32])
+@pytest.mark.parametrize("acts,dims", _K3_DECOMPOSITION_MLPS)
+def test_k3_stream_fwd_decomposition(jx, te, acts, dims):
+    """The streamed forward's blocks, chunks and W k-tiles, emulated in
+    torch on 40 receivers for 16 SMs (3 rows a block), with every 7th
+    receiver and the whole of block 2 (rows 6 to 8) without edges: against
+    ``fused_mlp_plain`` and ``_fused_mlp_fwd`` in interpret mode, within
+    1e-5 of the largest output (sums over the edges in another order)."""
+    from neuralgraphpde.kernels import fused_mlp_kernels as JK
+
+    jnp, pltpu = jx.jnp, jx.pltpu
+    assert K3._rows_rule(40, 170, 16, True, False)[0] == 3
+    csr, tj, feats, ws, bs, _ = _k3_decomposition_case(jx, dims,
+                                                       te + len(dims),
+                                                       range(6, 9))
+    pt = [torch.from_numpy(a) for a in (feats, *ws, *bs)]
+    pw, pb = pt[1:len(ws) + 1], pt[len(ws) + 1:]
+    got = _stream_fwd_emulated(acts, csr, pt[0], pw, pb, sms=16, te=te,
+                               kt=16)
+    want = K3.fused_mlp_plain(acts, csr, pt[0], pw, pb)
+    with pltpu.force_tpu_interpret_mode():
+        jout = JK._fused_mlp_fwd(
+            acts, tj, jnp.asarray(feats), tuple(map(jnp.asarray, ws)),
+            tuple(map(jnp.asarray, bs)), interpret=True)
+    # block 2 holds no edge slot, and some block ends on a ragged chunk
+    slots = np.diff(csr.row_ptr.numpy()[::3])
+    assert slots[2] == 0 and (slots % te).any()
+    assert _rel(got, want) <= 1e-5
+    assert _rel(got, np.asarray(jout)[:40]) <= 1e-5
+
+
+@pytest.mark.parametrize("acts,dims", _K3_DECOMPOSITION_MLPS)
+def test_k3_resident_bwd_decomposition(jx, acts, dims):
+    """The resident backward's blocks (the wrapper's rule for the resident
+    variant: 13 rows a block for 16 SMs), chunks of 32 slots and W as one
+    tile, dW/db summed per block over its chunks and the blocks in order,
+    emulated in torch with every 7th receiver and the whole of block 1
+    (rows 13 to 25) without edges: against ``fused_mlp_bwd_plain`` and
+    ``_fused_mlp_bwd_pallas`` in interpret mode, ``dfeats`` within 1e-5 and
+    ``dW``/``db`` within 1e-4 of their largest entries."""
+    from neuralgraphpde.kernels import fused_mlp_kernels as JK
+
+    jnp, pltpu = jx.jnp, jx.pltpu
+    rows = K3._rows_rule(40, 170, 16, False, True)[0]
+    assert rows == 13
+    csr, tj, feats, ws, bs, g = _k3_decomposition_case(
+        jx, dims, len(dims), range(rows, 2 * rows))
+    pt = [torch.from_numpy(a) for a in (feats, *ws, *bs, g)]
+    pf, pw, pb, pg = pt[0], pt[1:len(ws) + 1], pt[len(ws) + 1:-1], pt[-1]
+    got = _stream_bwd_emulated(acts, csr, pf, pw, pb, pg, sms=16, te=32,
+                               kt=None, streamed=False)
+    pdf, pdw, pdb = K3.fused_mlp_bwd_plain(acts, csr, pf, pw, pb, pg)
+    gpad = np.zeros((tj.num_tiles * tj.tn, g.shape[1]), np.float32)
+    gpad[:40] = g
+    with pltpu.force_tpu_interpret_mode():
+        jdf, jdw, jdb = JK._fused_mlp_bwd_pallas(
+            acts, tj, jnp.asarray(feats), tuple(map(jnp.asarray, ws)),
+            tuple(map(jnp.asarray, bs)), jnp.asarray(gpad), interpret=True)
+    # block 1 holds no edge slot; the others take several chunks, the last
+    # one ragged
+    slots = np.diff(csr.row_ptr.numpy()[::rows])
+    assert slots[1] == 0 and slots.max() > 32 and (slots % 32).any()
+    for want in ((pdf,) + pdw + pdb, (jdf,) + jdw + jdb):
+        assert _rel(got[0], np.asarray(want[0])) <= 1e-5
+        for a, b in zip(got[1] + got[2], want[1:]):
+            assert tuple(a.shape) == tuple(np.shape(b))
+            assert _rel(a, np.asarray(b)) <= 1e-4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("acts,dims,n,e,variants,te,empty", [
     # the MP-PDE ϕ as the kernel gets it (the last linear layer split off)
@@ -998,19 +1131,29 @@ def test_k3_stream_bwd_decomposition(jx, te, acts, dims):
      16, False),
     (("swish",), (282, 128), 256, 1024, ("streamed", "streamed"), 8, True),
     (("tanh",) * 3, (4, 128, 128, 128), 3000, 120000,
-     ("resident", "streamed"), 32, True)])
+     ("resident", "streamed"), 32, True),
+    # the resident backward: many chunks a block (about 29 chunks of 32
+    # slots), a first block without edges, an MLP of widths that are not
+    # multiples of 4
+    (("tanh",) * 3, (4, 60, 60, 60), 3000, 120000, ("resident", "resident"),
+     None, False),
+    (("tanh",) * 3, (4, 60, 60, 60), 3000, 18000, ("resident", "resident"),
+     None, True),
+    (("gelu", None), (5, 33, 9), 3000, 18000, ("resident", "resident"),
+     None, False)])
 def test_k3_wide_variants_match_plain_cuda(cuda, acts, dims, n, e, variants,
                                            te, empty):
     """Each MLP runs the variant the launcher picks for its widths, and
-    matches the plain versions at the K3 bounds; the backward gives the same
-    bits on a second call. ``te``: the streamed backward's chunk, the
-    power of two (4 to 32) above the slots a block holds on average;
-    ``empty``: the first block's receivers lose their edges."""
+    matches the plain versions at the K3 bounds; the forward and the
+    backward give the same bits on a second call. ``te``: the streamed
+    backward's chunk, the power of two (4 to 32) above the slots a block
+    holds on average; ``empty``: the first backward block's receivers lose
+    their edges."""
     assert (K3.fused_mlp_variant(dims), K3.fused_mlp_variant(
         dims, backward=True)) == variants
     s, r, _, rng = _edges(n, e, 16)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    rows, slots = K3._rows_rule(n, e, sms, True, True)
+    rows, slots = K3._rows_rule(n, e, sms, variants[1] == "streamed", True)
     if empty:
         r = r[r >= rows]
         e = len(r)
@@ -1041,6 +1184,7 @@ def test_k3_wide_variants_match_plain_cuda(cuda, acts, dims, n, e, variants,
     for k, p in zip(kdw + kdb, pdw + pdb):
         assert k.shape == p.shape
         assert _rel(k.cpu(), p.cpu()) <= 1e-4
+    assert torch.equal(got, K3.fused_mlp_fwd(acts, csr, feats, ws, bs))
     again = K3.fused_mlp_bwd(acts, csr, feats, ws, bs, g)
     for a, b in zip((kdf,) + kdw + kdb, (again[0],) + again[1] + again[2]):
         assert torch.equal(a, b)
@@ -1411,7 +1555,8 @@ def test_k5_bf16_plain_matches_pallas(jx, ph_bf16, h_bf16):
 @pytest.mark.parametrize("acts,dims,variants", [
     (("tanh",) * 3, (4, 60, 60, 60), ("resident", "resident")),
     (("swish",), (282, 128), ("streamed", "streamed")),
-    (("tanh",) * 3, (4, 128, 128, 128), ("resident", "streamed"))])
+    (("tanh",) * 3, (4, 128, 128, 128), ("resident", "streamed")),
+    (("gelu", None), (5, 33, 9), ("resident", "resident"))])
 def test_k3_bf16_kernels_match_plain_cuda(cuda, feats_bf16, acts, dims,
                                           variants):
     """K3's bf16 forms in both variants (bf16 weights; bf16 or f32
