@@ -8,12 +8,14 @@ Phases, each fatal on failure:
 2. Build the CUDA kernels from ``neuralgraphpde_torch/csrc`` (nvcc, sm_90a);
    ptxas must report no spill in ``dia_stencil.cu`` (K2), and neither a
    spill nor a stack frame in any of the four dtype instantiations of each
-   of K3's chunked kernels (the streamed forward, the streamed backward
-   and the resident backward: ``fused_mlp_fwd_stream_kernel``,
-   ``fused_mlp_bwd_stream_kernel``, ``fused_mlp_bwd_kernel`` in
-   ``fused_mlp.cu``, each report line attributed to the function ptxas
-   names before it); the functions of ``fused_mlp.cu`` that spill, if any,
-   are printed.
+   of K3's kernels (the streamed forward and backward and the resident
+   forward and backward: ``fused_mlp_fwd_stream_kernel``,
+   ``fused_mlp_bwd_stream_kernel``, ``fused_mlp_fwd_resident_kernel``,
+   ``fused_mlp_bwd_kernel`` in ``fused_mlp.cu``) nor in any instantiation
+   of K5's product and per-edge backward (the 12 of ``gno_gemm_kernel``,
+   the 4 of ``gno_edge_bwd_kernel`` in ``gno.cu``), each report line
+   attributed to the function ptxas names before it; the functions of
+   ``fused_mlp.cu`` and ``gno.cu`` that spill, if any, are printed.
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: max relative error ``max|k − p| / max|p|``
    (bound 1e-5 in f32, 1e-2 in bf16 against a plain version fed the same
@@ -1076,8 +1078,11 @@ def k5_bf16(K, csr, senders, ph, h, wl, bl, g, shape):
 
 def k5_checks(K, dev, cases):
     """Phase 3, K5: forward and backward against their plain versions on
-    each ``(label, csr, senders, main_path)`` graph. Returns the JSON
-    records of the main-path graph."""
+    each ``(label, csr, senders, main_path)`` graph; on the main-path graph
+    also their device time split by launch (``torch.profiler``). Returns
+    the JSON records of the main-path graph."""
+    from neuralgraphpde_torch.tools.profile_paths import device_split
+
     rng = np.random.default_rng(5)
     k, width = 128, 64
 
@@ -1149,15 +1154,26 @@ def k5_checks(K, dev, cases):
               f"    fwd+bwd (training pair)  kernels {ms_t:.4f} ms  plain "
               f"fwd under autograd + backward {plain_t:.4f} ms")
         if main_path:
+            split_f = device_split(
+                lambda: K.fused_gno_fwd(csr, senders, ph, h, wl, bl))
+            split_b = device_split(
+                lambda: K.fused_gno_bwd(csr, senders, ph, h, wl, bl, g))
+            for what, split in (("fwd", split_f), ("bwd", split_b)):
+                print(f"    {what} on the device, "
+                      f"{sum(split.values()):.4f} ms by launch:")
+                for name, ms in split.items():
+                    print(f"      {ms:.4f} ms  {name}")
             records["gno_bf16"] = k5_bf16(K, csr, senders, ph, h, wl, bl,
                                           g, shape[:-4])
             records["fused_gno_fwd"] = dict(
                 max_abs_err=fwd_abs, max_rel_err=fwd_rel, ms=ms_f,
+                device_ms=sum(split_f.values()), device_split=split_f,
                 plain_ms=plain_f, library_ms=None, bound_ms=bound_f,
                 bound_by=by_f, shape=shape)
             records["fused_gno_bwd"] = dict(
                 max_abs_err=max(edge_abs, par_abs),
                 max_rel_err=max(edge_rel, par_rel), ms=ms_b,
+                device_ms=sum(split_b.values()), device_split=split_b,
                 plain_ms=plain_b, library_ms=None, bound_ms=bound_b,
                 bound_by=by_b, shape=shape)
     return records
@@ -1970,27 +1986,32 @@ def main() -> int:
           "build: no ptxas report for dia_stencil.cu")
     check(not spills(k2_log), f"build: dia_stencil.cu spills: "
                               f"{spills(k2_log)}")
-    # K3's chunked kernels (csrc/fused_mlp.cu) are built to spill nothing
-    # and to keep no local array (a stack frame of 0 bytes), each in all
-    # four dtype instantiations
-    k3_funcs = ptxas_by_function(info["ptxas_by_source"].get(
-        "fused_mlp.cu", ""))
-    k3_spilling = {f: lines for f, (lines, _) in k3_funcs.items() if lines}
-    print(f"build: fused_mlp.cu functions that spill: "
-          f"{k3_spilling or 'none'}")
-    for kernel in ("fused_mlp_fwd_stream_kernel",
-                   "fused_mlp_bwd_stream_kernel", "fused_mlp_bwd_kernel"):
-        # the mangled name: its length, the name, its template arguments
-        found = {f: r for f, r in k3_funcs.items()
-                 if re.search(rf"\d{kernel}I", f)}
-        check(len(found) == 4, f"build: {len(found)} instantiations of "
-                               f"{kernel} in ptxas's report")
-        check(not any(lines for lines, _ in found.values()),
-              f"build: {kernel} spills: "
-              f"{ {f: lines for f, (lines, _) in found.items() if lines} }")
-        check(not any(frame for _, frame in found.values()),
-              f"build: {kernel} keeps a stack frame: "
-              f"{ {f: frame for f, (_, frame) in found.items() if frame} }")
+    # K3's kernels (csrc/fused_mlp.cu) and K5's product and per-edge
+    # backward (csrc/gno.cu) are built to spill nothing and to keep no local
+    # array (a stack frame of 0 bytes), in every instantiation: K3's four
+    # dtype pairs, the product's 12 (three operand layouts by four dtype
+    # combinations) and the per-edge backward's 4
+    gated = {"fused_mlp.cu": {"fused_mlp_fwd_stream_kernel": 4,
+                              "fused_mlp_bwd_stream_kernel": 4,
+                              "fused_mlp_fwd_resident_kernel": 4,
+                              "fused_mlp_bwd_kernel": 4},
+             "gno.cu": {"gno_gemm_kernel": 12, "gno_edge_bwd_kernel": 4}}
+    for source, kernels in gated.items():
+        funcs = ptxas_by_function(info["ptxas_by_source"].get(source, ""))
+        spilling = {f: lines for f, (lines, _) in funcs.items() if lines}
+        print(f"build: {source} functions that spill: "
+              f"{spilling or 'none'}")
+        for kernel, count in kernels.items():
+            # the mangled name: its length, the name, its template arguments
+            found = {f: r for f, r in funcs.items()
+                     if re.search(rf"\d{kernel}I", f)}
+            check(len(found) == count, f"build: {len(found)} instantiations "
+                                       f"of {kernel} in ptxas's report")
+            spill = {f: lines for f, (lines, _) in found.items() if lines}
+            frames = {f: frame for f, (_, frame) in found.items() if frame}
+            check(not spill, f"build: {kernel} spills: {spill}")
+            check(not frames, f"build: {kernel} keeps a stack frame: "
+                              f"{frames}")
 
     t0 = time.perf_counter()
     grid = P.grid_graph_2d(512, 512, diagonals=True)
@@ -2310,7 +2331,7 @@ def main() -> int:
                      backward_launches=counts["backward"].get(fn, 0))
                 for run, counts in counted]
         for extra in ("k1_same_csr_ms", "training_pair", "device_ms",
-                      "unfused_ms"):
+                      "device_split", "unfused_ms"):
             if extra in rec:
                 entry[extra] = rec[extra]
         entry["dtypes"] = {"every operand": "float32"}

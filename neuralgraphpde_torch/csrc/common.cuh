@@ -1,5 +1,5 @@
 // Shared helpers for the port's kernels: f32/bf16 conversion, cp.async
-// copies, the GCN epilogue activations, and the fused GCN epilogue that
+// copies, float4 reads, the GCN epilogue activations, and the fused GCN epilogue that
 // streams W through a shared tile (used by the DIA stencil and the
 // block-band kernels).
 #pragma once
@@ -41,6 +41,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(src_bytes));
 }
 
+// 4 bytes from device memory into shared memory without passing through
+// registers; zero-filled where !valid (src is then not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -49,6 +58,16 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 16 bytes at p (16-byte aligned) as a float4
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// component u (0..3, known at compile time) of v
+__device__ __forceinline__ float part(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
 // GCN epilogue activations: 0 identity, 1 tanh, 2 relu, 3 sigmoid

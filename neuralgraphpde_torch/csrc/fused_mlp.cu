@@ -42,34 +42,33 @@
 //   written directly: every edge id appears once in `col`, so there is no
 //   scatter.
 //
-// Four kernels, chosen by the launcher from the widths alone:
-// - the resident forward (fused_mlp_fwd_kernel): every weight staged in
-//   shared memory once per block, 128 threads, chunks of 32 slots, each
-//   layer a block_gemm of 4x4 thread tiles over rows of odd stride. Taken
-//   where it fits (VMH's widths, and 4 -> 128 -> 128 -> 128).
-// - the chunked kernels, every product a register-tiled warp task with
-//   compile-time inner trip counts (see their section below):
-//   - the streamed forward and backward (kChunkThreads threads), for wider
-//     MLPs (MP-PDE's 282 -> 128, 4 -> 300 -> 300, ...). Each layer's W
-//     passes through shared
-//     tiles of `kt` rows, two buffers filled by cp.async, so the next tile's
-//     copy runs under the current tile's product; the chunk's activations
-//     (`te` edge slots, 4 <= te <= 32) and the layer's bias stay in shared
-//     memory. The backward stores its first chunk's dW/db straight into the
-//     block's partial row in device memory and adds the later chunks' onto
-//     it. Every MLP of 1 to 4 layers with widths up to 1024 has a streamed
-//     plan (4 layers of 1024 take te = 4). W is read once per chunk
-//     whatever a block's size, so the wrapper spreads a small graph's rows
-//     over about one block per SM and the launcher sizes the chunk to the
-//     average slots per block.
-//   - the resident backward (fused_mlp_bwd_kernel, kResThreads threads):
-//     the streamed backward's body with every W and b staged once per block
-//     and dW/db summed in shared memory, chunks of 32 slots; taken where
-//     that fits (VMH's widths).
+// Four kernels, chosen by the launcher from the widths alone, every product
+// a register-tiled warp task with compile-time inner trip counts (see the
+// chunked kernels' section below):
+// - the streamed forward and backward (kChunkThreads threads), for wider
+//   MLPs (MP-PDE's 282 -> 128, 4 -> 300 -> 300, ...). Each layer's W
+//   passes through shared tiles of `kt` rows, two buffers filled by
+//   cp.async, so the next tile's copy runs under the current tile's
+//   product; the chunk's activations (`te` edge slots, 4 <= te <= 32) and
+//   the layer's bias stay in shared memory. The backward stores its first
+//   chunk's dW/db straight into the block's partial row in device memory
+//   and adds the later chunks' onto it. Every MLP of 1 to 4 layers with
+//   widths up to 1024 has a streamed plan (4 layers of 1024 take te = 4).
+//   W is read once per chunk whatever a block's size, so the wrapper
+//   spreads a small graph's rows over about one block per SM and the
+//   launcher sizes the chunk to the average slots per block.
+// - the resident forward and backward: the streamed kernels' bodies with
+//   every W and b staged once per block (stage_weights: a warp a W row,
+//   16-byte cp.async where the row stride allows it, no divide an element)
+//   and chunks of 32 slots; the backward also sums dW/db in shared memory.
+//   Taken where the block fits (VMH's widths; the forward also at 4 -> 128
+//   -> 128 -> 128): the forward (kResFwdThreads threads) over about
+//   _FWD_SLOTS slots a block (kernels/fused_mlp_kernels.py), the backward
+//   (kResThreads threads) over at most one block per SM.
 // - copies from device memory into shared memory keep kBatch loads in
 //   flight per thread (block_copy, chunk_rows): a plain loop waits out each
 //   load's latency, since the compiler cannot move a load above a store
-//   that may alias it. The staged weights are plain loops.
+//   that may alias it.
 #include <type_traits>
 
 #include "common.cuh"
@@ -77,24 +76,33 @@
 namespace {
 
 using ngpde::cp_async16;
+using ngpde::cp_async4;
 using ngpde::cp_async_commit;
 using ngpde::cp_async_wait;
 using ngpde::from_f32;
+using ngpde::ld4;
+using ngpde::part;
 using ngpde::to_f32;
 using bf16 = __nv_bfloat16;
 
 constexpr int kMaxLayers = 4;
 constexpr int kMaxWidth = 1024;
-constexpr int kThreads = 128;  // the resident forward's block
 // the streamed kernels' block: 8 warps, so that each SM scheduler has two to
 // switch between (scripts/fused_mlp_variants.py times 128 and 256)
 constexpr int kChunkThreads = 256;
 // the resident backward's block: 16 warps (its 32-slot chunk gives each a
 // task; 5% faster than 8 at VMH's widths on the H100)
 constexpr int kResThreads = 512;
-// columns a lane in the streamed forward's recompute tasks (1, 2 or 4): at
-// its small chunks a task of fewer columns takes more rows, and each W value
-// read from shared memory feeds that many FMAs
+// the resident forward's block, and the blocks an SM its registers are held
+// to: 4, whose 64 registers do not spill, as VMH's 48 KB of shared memory
+// lets 4 blocks share an SM (0.0457 device ms at the VMH mesh against
+// 0.0572 at 1 and 0.0450 at 3, 0.306 against 0.388 and 0.328 at 2^15
+// points on the H100; scripts/fused_mlp_variants.py)
+constexpr int kResFwdThreads = 256, kResFwdBlocks = 4;
+// columns a lane in the forward's recompute tasks, streamed and resident
+// (1, 2 or 4): at the streamed forward's small chunks a task of fewer
+// columns takes more rows, and each W value read from shared memory feeds
+// that many FMAs
 constexpr int kFwdCols = 2;
 constexpr int kTE = 32;  // edge slots per chunk
 constexpr int kKT = 64;  // W rows per streamed tile, at most
@@ -129,67 +137,18 @@ __host__ __device__ __forceinline__ int imax(int a, int b) {
   return a > b ? a : b;
 }
 
-// float offsets into the dynamic shared memory of one block
-struct Layout {
-  int w[kMaxLayers], b[kMaxLayers], dw[kMaxLayers], db[kMaxLayers];
-  int h[kMaxLayers + 1], z[kMaxLayers], d[2], acc;
-  int sd;  // row stride of the chunk buffers h[0..1] (fwd) and d[0..1]
-  int total;
-};
-
-__host__ __device__ inline Layout make_layout(const Mlp& m, int rows,
-                                              bool bwd) {
-  Layout L{};
-  int off = 0, pmax = 0;
-  for (int l = 0; l <= m.n; ++l) pmax = imax(pmax, pad4(m.dim[l]));
-  L.sd = pmax + 1;
-  for (int l = 0; l < m.n; ++l) {
-    const int pin = pad4(m.dim[l]), pout = pad4(m.dim[l + 1]);
-    L.w[l] = off;
-    off += pin * (pout + 1);
-    L.b[l] = off;
-    off += pout;
-    if (bwd) {
-      L.dw[l] = off;
-      off += pin * (pout + 1);
-      L.db[l] = off;
-      off += pout;
-    }
-  }
-  if (bwd) {
-    for (int l = 0; l <= m.n; ++l) {
-      L.h[l] = off;
-      off += kTE * (pad4(m.dim[l]) + 1);
-    }
-    for (int l = 0; l < m.n; ++l) {
-      L.z[l] = off;
-      off += kTE * (pad4(m.dim[l + 1]) + 1);
-    }
-    L.d[0] = off;
-    off += kTE * L.sd;
-    L.d[1] = off;
-    off += kTE * L.sd;
-  } else {
-    L.h[0] = off;
-    off += kTE * L.sd;
-    L.h[1] = off;
-    off += kTE * L.sd;
-    L.acc = off;
-    off += rows * pad4(m.dim[m.n]);
-  }
-  L.total = off;
-  return L;
-}
-
-// floats of one layer in the resident backward's block: W (pin rows of
-// stride pout + 1), b, dW (pin rows of stride pout) and db
-__host__ __device__ __forceinline__ int resident_floats(int pin, int pout) {
-  return pin * (pout + 1) + pout + pin * pout + pout;
+// floats of one layer in a resident block, as stage_weights lays them:
+// forward W (pin rows of stride pout) and b; backward W (pin rows of stride
+// pout + 1), b, dW (pin rows of stride pout) and db
+__host__ __device__ __forceinline__ int resident_floats(int pin, int pout,
+                                                        bool bwd) {
+  return bwd ? pin * (pout + 1) + pout + pin * pout + pout
+             : pin * pout + pout;
 }
 
 // float offsets into the dynamic shared memory of a chunked block. Streamed:
-// two W tiles and the bias; resident (the backward's): every layer's W, b,
-// dW and db as stage_weights lays them. Then the chunk buffers of te slots
+// two W tiles and the bias; resident: every layer's W and b (backward: and
+// dW and db) as stage_weights lays them. Then the chunk buffers of te slots
 // (bwd: h[0..n], z[0..n-1], d[0..1]; fwd: h[0..1] and the block's `rows`
 // output sums). Every chunk row's stride is a multiple of 4 floats (h[l]
 // and z[l] pad4 of their width, the other buffers the widest), so the
@@ -214,7 +173,7 @@ __host__ __device__ inline StreamLayout make_stream_layout(
 #pragma unroll
     for (int l = 0; l < kMaxLayers; ++l) {
       if (l >= m.n) break;
-      off += resident_floats(pad4(m.dim[l]), pad4(m.dim[l + 1]));
+      off += resident_floats(pad4(m.dim[l]), pad4(m.dim[l + 1]), bwd);
     }
   } else {
     for (int t = 0; t < 2; ++t) {
@@ -253,16 +212,27 @@ __host__ __device__ inline StreamLayout make_stream_layout(
   return L;
 }
 
-// the resident backward's layout: no larger than make_layout(m, 1, true),
-// which resident_fits counts (every stride here is at most the one there)
+// the resident backward's layout
 __host__ __device__ inline StreamLayout make_resident_layout(const Mlp& m) {
   return make_stream_layout(m, kTE, 0, 0, true, true);
 }
 
-// the resident block fits: forward at kMaxFwdRows rows, or the backward
+// The rule that picks the resident variant: the floats of the first
+// resident blocks' layout, every row of odd stride (pad4 + 1), forward at
+// kMaxFwdRows rows. Kept as it was, so that every MLP keeps its variant;
+// the resident layouts in use need no more (each stride is at most the one
+// counted here).
 bool resident_fits(const Mlp& m, bool bwd) {
-  const int floats = bwd ? make_layout(m, 1, true).total
-                         : make_layout(m, kMaxFwdRows, false).total;
+  int floats = 0, pmax = 0;
+  for (int l = 0; l <= m.n; ++l) pmax = imax(pmax, pad4(m.dim[l]));
+  for (int l = 0; l < m.n; ++l) {
+    const int pin = pad4(m.dim[l]), pout = pad4(m.dim[l + 1]);
+    floats += (bwd ? 2 : 1) * (pin * (pout + 1) + pout);
+    if (bwd) floats += kTE * (pin + 1) + kTE * (pout + 1);
+  }
+  floats += 2 * kTE * (pmax + 1);
+  floats += bwd ? kTE * (pad4(m.dim[m.n]) + 1)
+                : kMaxFwdRows * pad4(m.dim[m.n]);
   return floats * (int)sizeof(float) <= kMaxSmem;
 }
 
@@ -353,46 +323,9 @@ __device__ __forceinline__ void with_act(int act, F f) {
   }
 }
 
-// out(i, j) = sum_{k < K} A[i*ai + k*ak] * B[k*bk + j*bj] for i < M, j < N
-// (both multiples of 4); each thread takes 4x4 tiles, and `epi(i, j, v)`
-// stores. Every (i, j) belongs to one thread, the same on every call with
-// the same M and N.
-template <typename Epi>
-__device__ __forceinline__ void block_gemm(int M, int N, int K,
-                                           const float* A, int ai, int ak,
-                                           const float* B, int bk, int bj,
-                                           Epi epi) {
-  const int mt = M >> 2;
-  const int tiles = mt * (N >> 2);
-  for (int t = threadIdx.x; t < tiles; t += kThreads) {
-    const int i0 = (t % mt) << 2;
-    const int j0 = (t / mt) << 2;
-    float acc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = A[(i0 + r) * ai + k * ak];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = B[k * bk + (j0 + c) * bj];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) epi(i0 + r, j0 + c, acc[r][c]);
-  }
-}
-
 // store(i, load(i)) for i < count, by the whole block; each thread issues
 // kBatch loads before its first store
-template <int NT = kThreads, typename Load, typename Store>
+template <int NT, typename Load, typename Store>
 __device__ __forceinline__ void block_copy(int count, Load load,
                                            Store store) {
   for (int base = threadIdx.x; base < count; base += NT * kBatch) {
@@ -410,118 +343,13 @@ __device__ __forceinline__ void block_copy(int count, Load load,
   }
 }
 
-// weights and biases into shared memory from sm on, as f32, zero-padded:
-// each layer's W (pad4(din) rows of stride pad4(dout) + 1), then its b; with
-// `grads` (the resident backward) its dW (stride pad4(dout)) and db follow,
-// zeroed
-template <typename TW, int NT = kThreads>
-__device__ void stage_weights(const Mlp& m, float* sm, bool grads) {
-  for (int l = 0; l < m.n; ++l) {
-    const int din = m.dim[l], dout = m.dim[l + 1];
-    const int pin = pad4(din), pout = pad4(dout), sw = pout + 1;
-    for (int i = threadIdx.x; i < pin * sw; i += NT) {
-      const int k = i / sw, j = i % sw;
-      sm[i] = (k < din && j < dout) ? ld<TW>(m.w[l], k * dout + j) : 0.f;
-    }
-    sm += pin * sw;
-    for (int j = threadIdx.x; j < pout; j += NT)
-      sm[j] = j < dout ? ld<TW>(m.b[l], j) : 0.f;
-    sm += pout;
-    if (grads) {
-      for (int i = threadIdx.x; i < pin * pout + pout; i += NT) sm[i] = 0.f;
-      sm += pin * pout + pout;
-    }
-  }
-}
-
-// the chunk's input rows feats[col[s]] into h (te rows of stride sh) as
-// f32, zero-padded
-template <typename TF>
-__device__ void gather_inputs(const Mlp& m, const int* __restrict__ col,
-                              const TF* __restrict__ feats, int c0, int c1,
-                              float* h, int sh, int te) {
-  const int d0 = m.dim[0], p0 = pad4(d0);
-  block_copy(
-      te * p0,
-      [&](int i) {
-        const int e = i / p0, k = i % p0;
-        const int s = c0 + e;
-        return (s < c1 && k < d0) ? to_f32(feats[(long long)col[s] * d0 + k])
-                                  : 0.f;
-      },
-      [&](int i, float v) { h[(i / p0) * sh + i % p0] = v; });
-}
-
-template <typename TF, typename TW>
-__global__ void __launch_bounds__(kThreads)
-    fused_mlp_fwd_kernel(Mlp m, const int* __restrict__ row_ptr,
-                         const int* __restrict__ col,
-                         const float* __restrict__ ew,
-                         const TF* __restrict__ feats,
-                         TF* __restrict__ out, int n_rows, int rows) {
-  extern __shared__ float sm[];
-  const Layout L = make_layout(m, rows, false);
-  stage_weights<TW>(m, sm, false);  // at L.w[0] = 0, L.b[0], ...
-  const int r0 = blockIdx.x * rows;
-  const int r1 = min(r0 + rows, n_rows);
-  const int dn = m.dim[m.n], pn = pad4(dn);
-  float* acc = sm + L.acc;
-  for (int i = threadIdx.x; i < rows * pn; i += kThreads) acc[i] = 0.f;
-  const int e_begin = row_ptr[r0], e_end = row_ptr[r1];
-  const int sd = L.sd;
-  __syncthreads();
-  for (int c0 = e_begin; c0 < e_end; c0 += kTE) {
-    const int c1 = min(c0 + kTE, e_end);
-    gather_inputs(m, col, feats, c0, c1, sm + L.h[0], sd, kTE);
-    __syncthreads();
-    int cur = 0;
-    for (int l = 0; l < m.n; ++l) {
-      const float* hin = sm + L.h[cur];
-      float* hout = sm + L.h[cur ^ 1];
-      const int pin = pad4(m.dim[l]), pout = pad4(m.dim[l + 1]);
-      const float* bias = sm + L.b[l];
-      const int act = m.act[l];
-      block_gemm(kTE, pout, pin, hin, sd, 1, sm + L.w[l], pout + 1, 1,
-                 [&](int e, int j, float v) {
-                   hout[e * sd + j] = act_fwd(act, v + bias[j]);
-                 });
-      __syncthreads();
-      cur ^= 1;
-    }
-    // each (row, unit) pair adds the chunk's slots of its row, in order
-    const float* hn = sm + L.h[cur];
-    for (int i = threadIdx.x; i < (r1 - r0) * pn; i += kThreads) {
-      const int r = i / pn, j = i % pn;
-      const int lo = max(row_ptr[r0 + r], c0);
-      const int hi = min(row_ptr[r0 + r + 1], c1);
-      float a = acc[i];
-      for (int s = lo; s < hi; ++s) a = fmaf(ew[s], hn[(s - c0) * sd + j], a);
-      acc[i] = a;
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < (r1 - r0) * dn; i += kThreads) {
-    const int r = i / dn, j = i % dn;
-    out[(long long)(r0 + r) * dn + j] = from_f32<TF>(acc[r * pn + j]);
-  }
-}
-
 // ---------------------------------------------------------------- streamed
-// 4 bytes from device memory into shared memory without passing through
-// registers; zero-filled where !valid (src is then not read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
 // rows [k0, k0 + kr) of layer l's W into the tile wt (row stride
 // pad4(dout) + 1), zero outside W, as one cp.async group. A bf16 W is
 // converted on its way in, so its tile is loaded by plain loads and stores
 // (its group is empty): it lands before the tile's __syncthreads all the
 // same.
-template <typename TW, int NT = kThreads>
+template <typename TW, int NT>
 __device__ void load_w_tile(const Mlp& m, int l, int k0, int kr, float* wt) {
   const int din = m.dim[l], dout = m.dim[l + 1], sw = pad4(dout) + 1;
   for (int i = threadIdx.x; i < kr * sw; i += NT) {
@@ -553,7 +381,7 @@ __device__ void load_w_rows(const Mlp& m, int l, int k0, int kr, float* wt);
 // (stride pad4(dout)). When body runs its tile is in shared memory and the
 // next tile's copy is in flight into the other buffer. Starts and ends
 // synchronised.
-template <typename TW, int NT = kThreads, bool Rows = false, typename Body>
+template <typename TW, int NT, bool Rows = false, typename Body>
 __device__ void for_w_tiles(const Mlp& m, int l, int total,
                             const StreamLayout& L, float* sm, Body body) {
   const int kt = L.kt;
@@ -605,15 +433,6 @@ __device__ void for_w_tiles(const Mlp& m, int l, int total,
 //   fewer than 32 input rows takes one output a thread (dh_narrow).
 // Layer offsets are carried from layer to layer (no runtime-indexed local
 // array), and the MLP stays in parameter space (__grid_constant__).
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// component u (0..3, known at compile time) of v
-__device__ __forceinline__ float part(const float4& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-}
 
 // dst[e * sdst + k] = load(e, k) for e < te, k < p: one warp a row (lanes
 // along the row, coalesced), kBatch loads in flight per lane. No divide
@@ -685,6 +504,58 @@ __device__ void load_w_rows(const Mlp& m, int l, int k0, int kr, float* wt) {
     });
   }
   cp_async_commit();
+}
+
+// every layer's W (pad4(din) rows of stride sw = pad4(dout) + Odd) and b
+// into shared memory from sm on, as f32, zero-padded, a warp a W row with
+// lanes along it (no divide an element); with `grads` (the resident
+// backward) the layer's dW (stride pad4(dout)) and db follow, zeroed. An
+// f32 W comes by cp.async, 16 bytes a lane where the rows allow it (an even
+// stride, dout a multiple of 4, W 16-byte aligned), else 4; a bf16 W by
+// plain loads, kBatch in flight a lane (chunk_rows). Returns with this
+// thread's copies landed; the caller synchronises.
+template <typename TW, int NT, bool Odd>
+__device__ void stage_weights(const Mlp& m, float* sm, bool grads) {
+  const int lane = threadIdx.x & 31;
+  for (int l = 0; l < m.n; ++l) {
+    const int din = m.dim[l], dout = m.dim[l + 1];
+    const int pin = pad4(din), pout = pad4(dout), sw = pout + (Odd ? 1 : 0);
+    if constexpr (sizeof(TW) == sizeof(float)) {
+      const float* w = static_cast<const float*>(m.w[l]);
+      const bool vec = !Odd && (dout & 3) == 0 &&
+                       (reinterpret_cast<unsigned long long>(w) & 15) == 0;
+      for (int k = threadIdx.x >> 5; k < pin; k += NT / 32) {
+        const bool row = k < din;
+        const float* src = w + (long long)k * dout;
+        float* dst = sm + k * sw;
+        if (vec) {
+          for (int j = lane << 2; j < sw; j += 128)
+            cp_async16(dst + j, row ? src + j : w, row ? 16 : 0);
+        } else {
+          for (int j = lane; j < sw; j += 32) {
+            const bool in = row && j < dout;
+            cp_async4(dst + j, in ? src + j : w, in);
+          }
+        }
+      }
+    } else {
+      chunk_rows<NT>(pin, sw, sm, sw, [&](int k, int j) {
+        return (k < din && j < dout)
+                   ? ld<TW>(m.w[l], (long long)k * dout + j)
+                   : 0.f;
+      });
+    }
+    sm += pin * sw;
+    for (int j = threadIdx.x; j < pout; j += NT)
+      sm[j] = j < dout ? ld<TW>(m.b[l], j) : 0.f;
+    sm += pout;
+    if (grads) {
+      for (int i = threadIdx.x; i < pin * pout + pout; i += NT) sm[i] = 0.f;
+      sm += pin * pout + pout;
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
 }
 
 // chunk rows per warp task: the largest of 4, 2, 1 that still gives every
@@ -930,20 +801,19 @@ __device__ __forceinline__ void dw_tiles(const float* h, int pin,
   }
 }
 
-// one block an SM (its shared memory): without the 1, ptxas may hold it to
-// 64 registers and spill
-template <typename TF, typename TW>
-__global__ void __launch_bounds__(kChunkThreads, 1)
-    fused_mlp_fwd_stream_kernel(const __grid_constant__ Mlp m,
-                                const int* __restrict__ row_ptr,
-                                const int* __restrict__ col,
-                                const float* __restrict__ ew,
-                                const TF* __restrict__ feats,
-                                TF* __restrict__ out, int n_rows, int rows,
-                                int te, int kt) {
-  constexpr int NT = kChunkThreads;
+// The forward of a block, streamed or resident, in NT threads: each chunk's
+// MLP by recompute tasks of kFwdCols columns a lane, then each (row, unit)
+// pair adds the chunk's slots of its row, in order, onto the row's sum in
+// shared memory. Resident: every W and b staged once (stage_weights), each
+// layer's W one k-tile; te = kTE.
+template <typename TF, typename TW, bool Resident, int NT>
+__device__ __forceinline__ void fwd_block(
+    const Mlp& m, const int* __restrict__ row_ptr,
+    const int* __restrict__ col, const float* __restrict__ ew,
+    const TF* __restrict__ feats, TF* __restrict__ out, int n_rows,
+    int rows, int te, int kt) {
   extern __shared__ float sm[];
-  const StreamLayout L = make_stream_layout(m, te, kt, rows, false);
+  const StreamLayout L = make_stream_layout(m, te, kt, rows, false, Resident);
   const int r0 = blockIdx.x * rows;
   const int r1 = min(r0 + rows, n_rows);
   const int n = m.n, d0 = m.dim[0], dn = m.dim[n], pn = pad4(dn);
@@ -951,23 +821,37 @@ __global__ void __launch_bounds__(kChunkThreads, 1)
   float* acc = sm + L.acc;
   for (int i = threadIdx.x; i < rows * pn; i += NT) acc[i] = 0.f;
   const int e_begin = row_ptr[r0], e_end = row_ptr[r1];
+  if constexpr (Resident) {
+    if (e_begin < e_end) stage_weights<TW, NT, false>(m, sm, false);
+  }
   for (int c0 = e_begin; c0 < e_end; c0 += te) {
     const int c1 = min(c0 + te, e_end);
     // h[l+1] = act(h[l] @ W[l] + b[l]) in the two buffers in turn
     float* h = sm + L.h[0];
     float* hout = sm + L.h[1];
-    chunk_rows<NT>(te, pad4(d0), h, sd, [&](int e, int k) {
+    gather_rows<NT, Resident>(te, pad4(d0), h, sd, [&](int e, int k) {
       const int s = c0 + e;
       return (s < c1 && k < d0) ? to_f32(feats[(long long)col[s] * d0 + k])
                                 : 0.f;
     });
+    const float* wl = sm;  // resident: layer l's W, then its b
     for (int l = 0; l < n; ++l) {
-      stream_layer<TW, NT, kFwdCols, false, true>(m, l, L, sm, te, h, sd,
-                                                  hout, sd, nullptr);
+      if constexpr (Resident) {
+        const int pin = pad4(m.dim[l]), pout = pad4(m.dim[l + 1]);
+        __syncthreads();  // h (and on the first chunk the weights) written
+        dense_tasks<NT, kFwdCols, false>(h, sd, wl, pout, pin, te, pout,
+                                         hout, nullptr, sd, wl + pin * pout,
+                                         m.act[l], true, true);
+        wl += resident_floats(pin, pout, false);
+      } else {
+        stream_layer<TW, NT, kFwdCols, false, true>(m, l, L, sm, te, h, sd,
+                                                    hout, sd, nullptr);
+      }
       float* t = h;
       h = hout;
       hout = t;
     }
+    if constexpr (Resident) __syncthreads();  // the last layer's rows
     // each (row, unit) pair adds the chunk's slots of its row, in order
     for (int i = threadIdx.x; i < (r1 - r0) * pn; i += NT) {
       const int r = i / pn, j = i % pn;
@@ -984,6 +868,34 @@ __global__ void __launch_bounds__(kChunkThreads, 1)
     const int r = i / dn, j = i % dn;
     out[(long long)(r0 + r) * dn + j] = from_f32<TF>(acc[r * pn + j]);
   }
+}
+
+// one block an SM (its shared memory): without the 1, ptxas may hold it to
+// 64 registers and spill
+template <typename TF, typename TW>
+__global__ void __launch_bounds__(kChunkThreads, 1)
+    fused_mlp_fwd_stream_kernel(const __grid_constant__ Mlp m,
+                                const int* __restrict__ row_ptr,
+                                const int* __restrict__ col,
+                                const float* __restrict__ ew,
+                                const TF* __restrict__ feats,
+                                TF* __restrict__ out, int n_rows, int rows,
+                                int te, int kt) {
+  fwd_block<TF, TW, false, kChunkThreads>(m, row_ptr, col, ew, feats, out,
+                                          n_rows, rows, te, kt);
+}
+
+template <typename TF, typename TW>
+__global__ void __launch_bounds__(kResFwdThreads, kResFwdBlocks)
+    fused_mlp_fwd_resident_kernel(const __grid_constant__ Mlp m,
+                                  const int* __restrict__ row_ptr,
+                                  const int* __restrict__ col,
+                                  const float* __restrict__ ew,
+                                  const TF* __restrict__ feats,
+                                  TF* __restrict__ out, int n_rows,
+                                  int rows) {
+  fwd_block<TF, TW, true, kResFwdThreads>(m, row_ptr, col, ew, feats, out,
+                                          n_rows, rows, kTE, 0);
 }
 
 // The backward of a block, streamed or resident, in NT threads. Resident:
@@ -1015,7 +927,7 @@ __device__ __forceinline__ void bwd_block(
     for (int i = threadIdx.x; i < n_params; i += NT) p[i] = 0.f;
     return;
   }
-  if constexpr (Resident) stage_weights<TW, NT>(m, sm, true);
+  if constexpr (Resident) stage_weights<TW, NT, true>(m, sm, true);
   for (int c0 = e_begin; c0 < e_end; c0 += te) {
     const int c1 = min(c0 + te, e_end);
     const bool first = c0 == e_begin;
@@ -1046,7 +958,7 @@ __device__ __forceinline__ void bwd_block(
         else
           dense_tasks<NT, 4, true>(h, pin, wl, pout + 1, pin, te, pout, hout,
                                    z, pout, b, act, true, true);
-        wl += resident_floats(pin, pout);
+        wl += resident_floats(pin, pout, true);
       } else {
         stream_layer<TW, NT, 4, true, false>(m, l, L, sm, te, h, pin, hout,
                                              pout, z);
@@ -1108,7 +1020,7 @@ __device__ __forceinline__ void bwd_block(
       __syncthreads();
       // dW[l] += h[l]^T dz and db[l] += the column sums of dz: resident into
       // the block's dW/db in shared memory, streamed into its partial row
-      if constexpr (Resident) wl -= resident_floats(pin, pout);
+      if constexpr (Resident) wl -= resident_floats(pin, pout, true);
       const float* w = wl;
       float* pw = Resident ? wl + pin * (pout + 1) + pout : p + poff;
       float* pb = Resident ? pw + pin * pout : pw + din * dout;
@@ -1179,7 +1091,7 @@ __device__ __forceinline__ void bwd_block(
       p += din * dout;
       for (int j = threadIdx.x; j < dout; j += NT) p[j] = dw[pin * pout + j];
       p += dout;
-      wl += resident_floats(pin, pout);
+      wl += resident_floats(pin, pout, true);
     }
   }
 }
@@ -1322,14 +1234,17 @@ int ngpde_fused_mlp_fwd(const int* row_ptr, const int* col, const float* ew,
     TF* y = static_cast<TF*>(out);
     cudaError_t err;
     if (resident_fits(m, false)) {
-      const int smem = make_layout(m, rows, false).total * (int)sizeof(float);
-      err = cudaFuncSetAttribute(fused_mlp_fwd_kernel<TF, TW>,
+      const int smem =
+          make_stream_layout(m, kTE, 0, rows, false, true).total *
+          (int)sizeof(float);
+      err = cudaFuncSetAttribute(fused_mlp_fwd_resident_kernel<TF, TW>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
       if (err != cudaSuccess) return static_cast<int>(err);
       const int blocks = (n_rows + rows - 1) / rows;
-      fused_mlp_fwd_kernel<TF, TW><<<blocks, kThreads, smem, stream>>>(
-          m, row_ptr, col, ew, x, y, n_rows, rows);
+      fused_mlp_fwd_resident_kernel<TF, TW>
+          <<<blocks, kResFwdThreads, smem, stream>>>(m, row_ptr, col, ew, x,
+                                                     y, n_rows, rows);
       return static_cast<int>(cudaGetLastError());
     }
     StreamPlan p;

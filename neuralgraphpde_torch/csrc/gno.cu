@@ -37,30 +37,56 @@
 // traffic that feeds them.
 //
 // Design:
+// - S, dS and Wl' are kept with k padded to KP (KB rounded up to 4) by
+//   zeros: S and dS (N, IN, KP), Wl' (IN, KP, OUT). Every row of the three
+//   starts 16-byte aligned, and the padding adds zeros to every sum.
 // - reduce: one block per receiver row. The row's edges, in chunks of 32,
 //   are gathered into shared memory (w*h rows and ph' rows); each thread
 //   owns 4x4 tiles of (i, k) and adds the chunk's edges in slot order. A
 //   later chunk of the same row adds onto the S entries the same thread
 //   wrote: no atomics, the same sums on every run.
-// - products: one tiled kernel (a 64x64 output tile per block of 256
-//   threads, 4x4 per thread, 16-deep shared-memory stages) over strided
-//   operands, so S.Wl', g.Wl'^T and S^T.g are the same code. A product with
+// - products: one tiled kernel for S.Wl', g.Wl'^T and S^T.g
+//   (gno_gemm_kernel): a kBM x kBN output tile a block, each thread kRG x
+//   kCG groups of 4 rows x 4 consecutive columns, kStages shared-memory
+//   stages of kBK-deep operand tiles filled by 16-byte cp.async, so the
+//   next tiles' copies run under the current tile's FMAs. Each operand is
+//   staged in its layout in device memory (no transposing copy, no divide
+//   an element): rows along k for S and g as A and for Wl' as B of
+//   g.Wl'^T, rows along m or n otherwise, read as float4 along whichever is
+//   contiguous. The reads do not conflict: a quarter warp's A reads are one
+//   address (broadcast), B's along n are consecutive, and B's along k are
+//   swizzled (the 16-byte chunk q of row n sits at q ^ (n / 4 mod kBK / 4)).
+//   Each thread stores its 4 columns of a row as 16 bytes. A product with
 //   few output tiles is split along its inner dimension into per-split
-//   partials that a second kernel adds in split order: deterministic.
-// - per-edge backward: one block per receiver row keeps dS[n] in shared
-//   memory twice, row-major and transposed, so that both per-chunk products
-//   (dph' = hw . dS[n] and dh_e = ph' . dS[n]^T) read it with 16-byte loads
-//   across consecutive threads. Every edge id appears once in `col`, so dph
-//   and dh_e rows are written directly, with no scatter.
+//   partials that a second kernel adds in split order: deterministic. bf16
+//   operands take plain loads, converted on their way into shared memory.
+// - per-edge backward: one block per receiver row, 3 an SM. dS[n] is
+//   staged once by 16-byte cp.async, under the gather of the chunk's h and
+//   ph' rows (32 edges a chunk), in the row-major (IN, KP) layout it has in
+//   device memory. The chunk's outputs are warp tasks of TR edges, TR the
+//   smallest that gives every warp at most one task (at mean in-degree 18.6
+//   every warp has one): dph tasks of 128 columns k (4 consecutive a lane,
+//   float4 reads of dS along k) summed over i, dh tasks of 64 rows i (2 a
+//   lane, 32 apart, float4 reads along k at the row stride KP: conflict-free
+//   where KP = 4 mod 32, as at the Darcy widths) summed over k; the edges'
+//   h and ph' rows are read as broadcast float4. w[s] multiplies each sum
+//   once. Every edge id appears once in `col`, so dph and dh_e rows are
+//   written directly, with no scatter.
 #include "common.cuh"
 
 namespace {
 
+using ngpde::cp_async16;
+using ngpde::cp_async4;
+using ngpde::cp_async_commit;
+using ngpde::cp_async_wait;
 using ngpde::from_f32;
+using ngpde::ld4;
+using ngpde::part;
 using ngpde::to_f32;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the reduce's block
 constexpr int kTE = 32;  // edge slots per chunk
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
 // returned by the launchers for widths outside the envelope (cudaError_t
@@ -69,14 +95,30 @@ constexpr int kOutsideEnvelope = -1;
 // K, IN and OUT each at most this (keeps the int offsets in range)
 constexpr int kMaxWidth = 4096;
 constexpr int kMaxSplits = 65535;  // gridDim.z
-constexpr int kBM = 64, kBN = 64, kBK = 16;  // product tiles
+// the products' output tile and each thread's groups of 4 rows (kRG) and 4
+// columns (kCG) in it (kernels/gno_kernels.py _TILE_M and _TILE_N follow
+// kBM and kBN; scripts/gno_variants.py sweeps them), and the stages of
+// kBK-deep operand tiles
+constexpr int kBM = 128, kBN = 64, kRG = 2, kCG = 1;
+constexpr int kBK = 32, kStages = 3;
+constexpr int kGemmThreads = (kBM / (4 * kRG)) * (kBN / (4 * kCG));
+// the per-edge backward's block, the blocks an SM its registers are held
+// to (its shared memory allows 3 at the Darcy widths) and its widest task,
+// in edges
+constexpr int kEdgeThreads = 256, kEdgeBlocks = 3;
+constexpr int kMaxTR = 8;
+constexpr int kBatch = 8;  // loads in flight a lane in the edge gather
+
+static_assert(kGemmThreads % 32 == 0 && kGemmThreads <= 1024, "gemm block");
+static_assert(kBK % 4 == 0 && (kBK & (kBK - 1)) == 0, "kBK: a power of 2");
+static_assert(kTE % kMaxTR == 0, "a task never reads past the chunk");
 
 struct Gno {
   int k;    // ph width
   int kb;   // k + 1 with a bias, else k: the columns of ph' and rows of Wl'
   int in;   // h width
   int out;  // output width
-  int kp;   // kb padded to a multiple of 4
+  int kp;   // kb padded to a multiple of 4: S, dS and Wl' rows
   int inp;  // in padded to a multiple of 4
 };
 
@@ -87,7 +129,7 @@ __host__ __device__ inline int reduce_smem_floats(const Gno& p) {
   return kTE * (p.inp + p.kp);
 }
 __host__ __device__ inline int edge_bwd_smem_floats(const Gno& p) {
-  return 2 * p.inp * p.kp + kTE * (p.inp + p.kp);
+  return p.inp * p.kp + kTE * (p.inp + p.kp);
 }
 
 // The chunk [c0, c1) of slots: w[s] * h[snd_s] rows into hw (kTE x inp) and
@@ -131,17 +173,8 @@ __device__ __forceinline__ void fma4x4(float (&acc)[4][4], const float4 a,
     for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
 }
 
-// (a[0][q], a[1][q], a[2][q], a[3][q]): column q of four rows held as
-// float4s, so that acc[r][c] += sum_q a[r][q] * b[q][c] is four outer
-// products (q is a constant after unrolling)
-__device__ __forceinline__ float4 column(const float4 (&a)[4], int q) {
-  auto at = [q](const float4 v) {
-    return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-  };
-  return make_float4(at(a[0]), at(a[1]), at(a[2]), at(a[3]));
-}
-
-// S[r, i, k] for one receiver row r per block, stored (N, in, kb) in f32.
+// S[r, i, k] for one receiver row r per block, stored (N, in, kp) in f32
+// (zero for k >= kb).
 template <typename TP, typename TH>
 __global__ void __launch_bounds__(kThreads)
     gno_reduce_kernel(Gno p, const int* __restrict__ row_ptr,
@@ -157,7 +190,7 @@ __global__ void __launch_bounds__(kThreads)
   const int e_begin = row_ptr[r], e_end = row_ptr[r + 1];
   const int kt_n = p.kp >> 2;
   const int tiles = (p.inp >> 2) * kt_n;
-  float* srow = s_out + (long long)r * p.in * p.kb;
+  float* srow = s_out + (long long)r * p.in * p.kp;
   // one pass per chunk; a row with no edges takes one pass that stores 0
   for (int c0 = e_begin;; c0 += kTE) {
     const int c1 = min(c0 + kTE, e_end);
@@ -172,9 +205,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int i = i0 + a, k = k0 + c;
-          acc[a][c] = (c0 != e_begin && i < p.in && k < p.kb)
-                          ? srow[i * p.kb + k]
-                          : 0.f;
+          acc[a][c] =
+              (c0 != e_begin && i < p.in) ? srow[i * p.kp + k] : 0.f;
         }
       for (int e = 0; e < ne; ++e)
         fma4x4(acc, *reinterpret_cast<const float4*>(hw + e * p.inp + i0),
@@ -184,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int i = i0 + a, k = k0 + c;
-          if (i < p.in && k < p.kb) srow[i * p.kb + k] = acc[a][c];
+          if (i < p.in) srow[i * p.kp + k] = acc[a][c];
         }
     }
     if (c1 >= e_end) break;
@@ -192,67 +224,164 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// C[m, n] = sum_k A(m, k) B(k, n) with A(m, k) = A[m*am + k*ak] and
-// B(k, n) = B[k*bk + n*bn], for m < M, n < N, in f32. Block z of the grid's
-// third dimension takes the inner range [z*kc, min((z+1)*kc, K)) and writes
-// the (M, N) slab C + z*M*N (zeros for an empty range).
-template <typename TA, typename TB, typename TC>
-__global__ void __launch_bounds__(kThreads)
-    gemm_kernel(int M, int N, int K, int kc, const TA* __restrict__ A,
-                long long am, long long ak, const TB* __restrict__ B,
-                long long bk, long long bn, TC* __restrict__ C) {
-  __shared__ __align__(16) float As[kBK][kBM + 4];
-  __shared__ __align__(16) float Bs[kBK][kBN + 4];
+// ------------------------------------------------------------- products
+// Rows [0, R) x columns [0, C) of an operand tile into shared memory s (row
+// stride C floats), from the matrix whose element (row0 + r, col0 + c) sits
+// at g[(row0 + r) * ld + col0 + c], zero outside rows < rlim and columns <
+// clim. With Swz the 16-byte chunk q of row r lands at chunk q ^ (r / 4 mod
+// C / 4). f32: 16-byte cp.async where `vec` (g, ld and col0 16-byte
+// aligned) and the chunk lies inside the matrix, 4-byte ones at its edge;
+// bf16: plain loads converted to f32. No divide: R, C are powers of 2.
+template <int R, int C, bool Swz, typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ g,
+                                          long long ld, int row0, int rlim,
+                                          int col0, int clim, bool vec,
+                                          float* s) {
+  constexpr int kQ = C / 4;  // chunks a row
+  for (int idx = threadIdx.x; idx < R * kQ; idx += kGemmThreads) {
+    const int r = idx / kQ, q = idx % kQ;
+    const int gr = row0 + r, gc = col0 + 4 * q;
+    float* dst = s + r * C + 4 * (Swz ? q ^ ((r >> 2) & (kQ - 1)) : q);
+    const T* src = g + (long long)gr * ld + gc;
+    const bool row_in = gr < rlim;
+    if constexpr (sizeof(T) == sizeof(float)) {
+      const float* gf = reinterpret_cast<const float*>(g);
+      const float* sf = reinterpret_cast<const float*>(src);
+      if (vec && (!row_in || gc + 4 <= clim || gc >= clim)) {
+        const bool in = row_in && gc < clim;
+        cp_async16(dst, in ? sf : gf, in ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool in = row_in && gc + u < clim;
+          cp_async4(dst + u, in ? sf + u : gf, in);
+        }
+      }
+    } else {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        v[u] = (row_in && gc + u < clim) ? to_f32(src[u]) : 0.f;
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// C[m, n] = sum_k A(m, k) B(k, n) for m < M, n < N, in f32, k ascending,
+// with A(m, k) = A[m * lda + k] (AK) or A[k * lda + m], and B(k, n) =
+// B[n * ldb + k] (BK) or B[k * ldb + n]. Block z of the grid's third
+// dimension takes the inner range [z*kc, min((z+1)*kc, K)) (kc a multiple
+// of kBK) and writes the (M, N) slab C + z*M*N (zeros for an empty range).
+// a_vec / b_vec: the operand's 16-byte chunks are 16-byte aligned.
+template <bool AK, bool BK, typename TA, typename TB, typename TC>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    gno_gemm_kernel(int M, int N, int K, int kc, const TA* __restrict__ A,
+                    long long lda, bool a_vec, const TB* __restrict__ B,
+                    long long ldb, bool b_vec, TC* __restrict__ C) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  constexpr int kA = kBM * kBK, kStage = kA + kBN * kBK;
+  constexpr int kTX = kBN / (4 * kCG);  // threads along n
+  constexpr int kRS = kBM / kRG, kCS = kBN / kCG;  // group strides
+  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int kbeg = blockIdx.z * kc;
-  const int kend = min(kbeg + kc, K);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4];
+  const int kbeg = blockIdx.z * kc, kend = min(kbeg + kc, K);
+  const int nk = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
+  const auto load = [&](int t) {
+    float* s = sm + (t % kStages) * kStage;
+    const int k0 = kbeg + t * kBK;
+    if constexpr (AK)
+      load_tile<kBM, kBK, false>(A, lda, m0, M, k0, kend, a_vec, s);
+    else
+      load_tile<kBK, kBM, false>(A, lda, k0, kend, m0, M, a_vec, s);
+    if constexpr (BK)
+      load_tile<kBN, kBK, true>(B, ldb, n0, N, k0, kend, b_vec, s + kA);
+    else
+      load_tile<kBK, kBN, false>(B, ldb, k0, kend, n0, N, b_vec, s + kA);
+  };
+  float acc[4 * kRG][4 * kCG];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < 4 * kRG; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
-    // neighbouring threads read neighbouring addresses of whichever index
-    // has unit stride
-    for (int idx = threadIdx.x; idx < kBM * kBK; idx += kThreads) {
-      int m, k;
-      if (ak == 1) {
-        m = idx / kBK;
-        k = idx % kBK;
-      } else {
-        k = idx / kBM;
-        m = idx % kBM;
-      }
-      const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < kend) ? to_f32(A[gm * am + gk * ak]) : 0.f;
+    for (int c = 0; c < 4 * kCG; ++c) acc[r][c] = 0.f;
+  // one cp.async group per stage, empty past the last tile
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nk) load(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t has landed (this thread's part)
+    __syncthreads();  // every part of tile t, and tile t - 1 is read
+    if (t + kStages - 1 < nk) load(t + kStages - 1);
+    cp_async_commit();
+    const float* As = sm + (t % kStages) * kStage;
+    const float* Bs = As + kA;
+#pragma unroll
+    for (int q = 0; q < kBK / 4; ++q) {
+      float a[4 * kRG][4], b[4][4 * kCG];  // [row][k], [k][column]
+#pragma unroll
+      for (int g = 0; g < kRG; ++g)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (AK) {
+            const float4 v = ld4(As + (g * kRS + ty * 4 + i) * kBK + 4 * q);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) a[g * 4 + i][u] = part(v, u);
+          } else {
+            const float4 v = ld4(As + (4 * q + i) * kBM + g * kRS + ty * 4);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) a[g * 4 + r][i] = part(v, r);
+          }
+        }
+#pragma unroll
+      for (int g = 0; g < kCG; ++g)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (BK) {
+            const int n = g * kCS + tx * 4 + i;
+            const float4 v =
+                ld4(Bs + n * kBK + 4 * (q ^ ((n >> 2) & (kBK / 4 - 1))));
+#pragma unroll
+            for (int u = 0; u < 4; ++u) b[u][g * 4 + i] = part(v, u);
+          } else {
+            const float4 v = ld4(Bs + (4 * q + i) * kBN + g * kCS + tx * 4);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) b[i][g * 4 + c] = part(v, c);
+          }
+        }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int r = 0; r < 4 * kRG; ++r)
+#pragma unroll
+          for (int c = 0; c < 4 * kCG; ++c)
+            acc[r][c] = fmaf(a[r][u], b[u][c], acc[r][c]);
     }
-    for (int idx = threadIdx.x; idx < kBK * kBN; idx += kThreads) {
-      int k, n;
-      if (bn == 1) {
-        k = idx / kBN;
-        n = idx % kBN;
-      } else {
-        n = idx / kBK;
-        k = idx % kBK;
-      }
-      const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < kend && gn < N) ? to_f32(B[gk * bk + gn * bn]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k)
-      fma4x4(acc, *reinterpret_cast<const float4*>(&As[k][ty * 4]),
-             *reinterpret_cast<const float4*>(&Bs[k][tx * 4]));
-    __syncthreads();
   }
   TC* c = C + (long long)blockIdx.z * M * N;
+  // C from torch.empty: 16-byte aligned, and so is each row where N % 4 == 0
+  const bool vec = sizeof(TC) == sizeof(float) && (N & 3) == 0;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int g = 0; g < kRG; ++g)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int gm = m0 + ty * 4 + r, gn = n0 + tx * 4 + q;
-      if (gm < M && gn < N) c[(long long)gm * N + gn] = from_f32<TC>(acc[r][q]);
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + g * kRS + ty * 4 + i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int h = 0; h < kCG; ++h) {
+        const int n = n0 + h * kCS + tx * 4;
+        TC* dst = c + (long long)m * N + n;
+        if (vec && n + 4 <= N) {
+          *reinterpret_cast<float4*>(dst) = make_float4(
+              acc[g * 4 + i][h * 4], acc[g * 4 + i][h * 4 + 1],
+              acc[g * 4 + i][h * 4 + 2], acc[g * 4 + i][h * 4 + 3]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (n + u < N) dst[u] = from_f32<TC>(acc[g * 4 + i][h * 4 + u]);
+        }
+      }
     }
 }
 
@@ -269,10 +398,165 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
   out[i] = from_f32<TC>(a);
 }
 
-// dph' (in TP) and dh_e (f32) of one receiver row per block, from dS
-// stored (N, in, kb).
+// ------------------------------------------------------ per-edge backward
+// The chunk [c0, c1) of slots: h[snd_s] rows into hs (kTE x inp) and
+// ph'[e_s] rows into pp (kTE x kp), as f32, zero-padded, rows past c1 zero:
+// a warp a row, lanes along it, kBatch loads in flight a lane.
 template <typename TP, typename TH>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void gather_edges(
+    const Gno& p, const int* __restrict__ col,
+    const int* __restrict__ senders, const TP* __restrict__ ph,
+    const TH* __restrict__ h, int c0, int c1, float* hs, float* pp) {
+  const int lane = threadIdx.x & 31;
+  for (int e = threadIdx.x >> 5; e < kTE; e += kEdgeThreads / 32) {
+    const int s = c0 + e;
+    const bool live = s < c1;
+    const long long eid = live ? col[s] : 0;
+    const TH* hrow = h + (live ? senders[eid] : 0) * (long long)p.in;
+    const TP* prow = ph + eid * p.k;
+    for (int i0 = lane; i0 < p.inp; i0 += 32 * kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + 32 * u;
+        v[u] = live && i < p.in ? to_f32(hrow[i]) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (i0 + 32 * u < p.inp) hs[e * p.inp + i0 + 32 * u] = v[u];
+    }
+    for (int k0 = lane; k0 < p.kp; k0 += 32 * kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int k = k0 + 32 * u;
+        // the bias column of ph' is 1
+        v[u] = !live ? 0.f
+               : k < p.k ? to_f32(prow[k])
+                         : (k < p.kb ? 1.f : 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (k0 + 32 * u < p.kp) pp[e * p.kp + k0 + 32 * u] = v[u];
+    }
+  }
+}
+
+// One dph task: dph[e_s, k0 .. k0 + 3] (below k) = w[s] sum_i hs[e, i]
+// dS[i, k], i ascending, for the chunk rows e = e0 .. e0 + TR - 1 whose
+// slot s = c0 + e is below c1
+template <int TR, typename TP>
+__device__ __forceinline__ void dph_task(const Gno& p, const float* dsm,
+                                         const float* hs, int e0, int k0,
+                                         int c0, int c1,
+                                         const int* __restrict__ col,
+                                         const float* __restrict__ ew,
+                                         TP* __restrict__ dph) {
+  if (k0 >= p.k) return;  // k0 + 3 < kp then
+  float acc[TR][4];
+#pragma unroll
+  for (int r = 0; r < TR; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  // two dS rows at a time, each edge's two h values as one 8-byte
+  // broadcast, and the i loop not unrolled: a step's loads stay in
+  // flight together, within the registers of 3 blocks an SM
+#pragma unroll 1
+  for (int i = 0; i < p.inp; i += 2) {
+    const float4 b0 = ld4(dsm + i * p.kp + k0);
+    const float4 b1 = ld4(dsm + (i + 1) * p.kp + k0);
+#pragma unroll
+    for (int r = 0; r < TR; ++r) {
+      const float2 a =
+          *reinterpret_cast<const float2*>(hs + (e0 + r) * p.inp + i);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[r][c] = fmaf(a.y, part(b1, c), fmaf(a.x, part(b0, c), acc[r][c]));
+    }
+  }
+  const bool vec = sizeof(TP) == sizeof(float) && (p.k & 3) == 0;
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    const int s = c0 + e0 + r;
+    if (s >= c1) break;
+    const float w = ew[s];
+    TP* dst = dph + (long long)col[s] * p.k + k0;
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = make_float4(
+          w * acc[r][0], w * acc[r][1], w * acc[r][2], w * acc[r][3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (k0 + c < p.k) dst[c] = from_f32<TP>(w * acc[r][c]);
+    }
+  }
+}
+
+// One dh task: dh_e[e_s, i] = w[s] sum_k pp[e, k] dS[i, k], k ascending,
+// for i = i0 and i0 + 32 (below in) and the chunk rows e0 .. e0 + TR - 1
+// whose slot is below c1
+template <int TR>
+__device__ __forceinline__ void dh_task(const Gno& p, const float* dsm,
+                                        const float* pp, int e0, int i0,
+                                        int c0, int c1,
+                                        const int* __restrict__ col,
+                                        const float* __restrict__ ew,
+                                        float* __restrict__ dh_edge) {
+  const bool in0 = i0 < p.in, in1 = i0 + 32 < p.in;
+  if (!in0) return;
+  const float* d0 = dsm + i0 * p.kp;
+  const float* d1 = in1 ? d0 + 32 * p.kp : d0;
+  float acc[TR][2];
+#pragma unroll
+  for (int r = 0; r < TR; ++r) acc[r][0] = acc[r][1] = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < p.kp; k += 4) {
+    const float4 b0 = ld4(d0 + k), b1 = ld4(d1 + k);
+#pragma unroll
+    for (int r = 0; r < TR; ++r) {
+      const float4 a = ld4(pp + (e0 + r) * p.kp + k);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        acc[r][0] = fmaf(part(a, u), part(b0, u), acc[r][0]);
+        acc[r][1] = fmaf(part(a, u), part(b1, u), acc[r][1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    const int s = c0 + e0 + r;
+    if (s >= c1) break;
+    const float w = ew[s];
+    float* dst = dh_edge + (long long)col[s] * p.in + i0;
+    dst[0] = w * acc[r][0];
+    if (in1) dst[32] = w * acc[r][1];
+  }
+}
+
+// task t of a chunk with TR edges a task: the dph tasks (kgs column groups
+// of 128) first, then the dh tasks (row groups of 64 i)
+template <int TR, typename TP>
+__device__ __forceinline__ void edge_task(const Gno& p, int t, int nrg,
+                                          int kgs, const float* dsm,
+                                          const float* hs, const float* pp,
+                                          int c0, int c1,
+                                          const int* __restrict__ col,
+                                          const float* __restrict__ ew,
+                                          TP* __restrict__ dph,
+                                          float* __restrict__ dh_edge) {
+  const int lane = threadIdx.x & 31;
+  const int e0 = (t % nrg) * TR, g = t / nrg;
+  if (g < kgs)
+    dph_task<TR>(p, dsm, hs, e0, g * 128 + 4 * lane, c0, c1, col, ew, dph);
+  else
+    dh_task<TR>(p, dsm, pp, e0, (g - kgs) * 64 + lane, c0, c1, col, ew,
+                dh_edge);
+}
+
+// dph (in TP) and dh_e (f32) of one receiver row per block, from dS stored
+// (N, in, kp)
+template <typename TP, typename TH>
+__global__ void __launch_bounds__(kEdgeThreads, kEdgeBlocks)
     gno_edge_bwd_kernel(Gno p, const int* __restrict__ row_ptr,
                         const int* __restrict__ col,
                         const float* __restrict__ ew,
@@ -282,97 +566,64 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ ds,
                         TP* __restrict__ dph,
                         float* __restrict__ dh_edge) {
+  constexpr int kWarps = kEdgeThreads / 32;
   extern __shared__ float4 sm4[];
   float* dsm = reinterpret_cast<float*>(sm4);  // (inp, kp): dS[r]
-  float* dst = dsm + p.inp * p.kp;             // (kp, inp): dS[r]^T
-  float* hw = dst + p.kp * p.inp;              // (kTE, inp)
-  float* pp = hw + kTE * p.inp;                // (kTE, kp)
+  float* hs = dsm + p.inp * p.kp;              // (kTE, inp)
+  float* pp = hs + kTE * p.inp;                // (kTE, kp)
   const int r = blockIdx.x;
   const int e_begin = row_ptr[r], e_end = row_ptr[r + 1];
   if (e_begin == e_end) return;  // the same for the whole block
-  const float* drow = ds + (long long)r * p.in * p.kb;
-  for (int idx = threadIdx.x; idx < p.inp * p.kp; idx += kThreads) {
-    const int i = idx / p.kp, k = idx % p.kp;
-    const float v = (i < p.in && k < p.kb) ? drow[i * p.kb + k] : 0.f;
-    dsm[idx] = v;
-    dst[k * p.inp + i] = v;
-  }
-  const int kt_n = p.kp >> 2, it_n = p.inp >> 2;
+  // dS[r]: in rows of kp floats, contiguous and 16-byte aligned; the rows
+  // up to inp are zero
+  const float* drow = ds + (long long)r * p.in * p.kp;
+  for (int q = threadIdx.x; q < (p.in * p.kp) >> 2; q += kEdgeThreads)
+    cp_async16(dsm + 4 * q, drow + 4 * q, 16);
+  cp_async_commit();
+  for (int q = p.in * p.kp + threadIdx.x; q < p.inp * p.kp;
+       q += kEdgeThreads)
+    dsm[q] = 0.f;
+  const int warp = threadIdx.x >> 5;
+  const int kgs = (p.k + 127) >> 7, groups = kgs + ((p.in + 63) >> 6);
   for (int c0 = e_begin; c0 < e_end; c0 += kTE) {
     const int c1 = min(c0 + kTE, e_end);
-    gather_chunk(p, col, ew, senders, ph, h, c0, c1, hw, pp);
-    __syncthreads();
-    const int et_n = (c1 - c0 + 3) >> 2;
-    // dph'[e, k] = sum_i hw[e, i] dS[i, k]
-    for (int t = threadIdx.x; t < et_n * kt_n; t += kThreads) {
-      const int e0 = (t / kt_n) << 2, k0 = (t % kt_n) << 2;
-      float acc[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-      for (int i = 0; i < p.inp; i += 4) {
-        float4 a[4], b[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          a[q] = *reinterpret_cast<const float4*>(hw + (e0 + q) * p.inp + i);
-          b[q] = *reinterpret_cast<const float4*>(dsm + (i + q) * p.kp + k0);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          fma4x4(acc, column(a, q), b[q]);
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int s = c0 + e0 + a;
-        if (s >= c1) continue;
-        const long long e = col[s];
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (k0 + c < p.k) dph[e * p.k + k0 + c] = from_f32<TP>(acc[a][c]);
+    gather_edges(p, col, senders, ph, h, c0, c1, hs, pp);
+    cp_async_wait<0>();
+    __syncthreads();  // dS[r] and the chunk's rows are in shared memory
+    // the fewest edges a task that leave no warp a second task, at most
+    // kMaxTR; rows past the chunk's are zero and not stored
+    const int ne = c1 - c0;
+    int tr = 1;
+    while (tr < kMaxTR && ((ne + tr - 1) / tr) * groups > kWarps) ++tr;
+    const int nrg = (ne + tr - 1) / tr;
+    for (int t = warp; t < nrg * groups; t += kWarps) {
+      switch (tr) {
+#define NGPDE_EDGE_TASK(TR)                                              \
+  case TR:                                                               \
+    edge_task<TR>(p, t, nrg, kgs, dsm, hs, pp, c0, c1, col, ew, dph,     \
+                  dh_edge);                                              \
+    break;
+        NGPDE_EDGE_TASK(1)
+        NGPDE_EDGE_TASK(2)
+        NGPDE_EDGE_TASK(3)
+        NGPDE_EDGE_TASK(4)
+        NGPDE_EDGE_TASK(5)
+        NGPDE_EDGE_TASK(6)
+        NGPDE_EDGE_TASK(7)
+        NGPDE_EDGE_TASK(8)
+#undef NGPDE_EDGE_TASK
       }
     }
-    // dh_e[e, i] = w[s] sum_k ph'[e, k] dS[i, k]
-    for (int t = threadIdx.x; t < et_n * it_n; t += kThreads) {
-      const int e0 = (t / it_n) << 2, i0 = (t % it_n) << 2;
-      float acc[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-      for (int k = 0; k < p.kp; k += 4) {
-        float4 a[4], b[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          a[q] = *reinterpret_cast<const float4*>(pp + (e0 + q) * p.kp + k);
-          b[q] = *reinterpret_cast<const float4*>(dst + (k + q) * p.inp + i0);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          fma4x4(acc, column(a, q), b[q]);
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int s = c0 + e0 + a;
-        if (s >= c1) continue;
-        const long long e = col[s];
-        const float w = ew[s];
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (i0 + c < p.in) dh_edge[e * p.in + i0 + c] = w * acc[a][c];
-      }
-    }
-    __syncthreads();  // the next chunk overwrites hw and pp
+    __syncthreads();  // the next chunk overwrites hs and pp
   }
 }
 
 // host: the widths, or kOutsideEnvelope. K5's envelope: K, IN and OUT
-// from 1 to kMaxWidth, and the per-edge backward block (dS[n] twice plus a
-// chunk's w*h and ph' rows, the largest of the kernels' blocks) within
-// kMaxSmem bytes. Both launchers hold the widths to it, so a forward never
-// runs whose backward could not.
+// from 1 to kMaxWidth, and 2 * inp * kp + kTE * (inp + kp) floats within
+// kMaxSmem bytes (the first per-edge backward's block, which kept dS[n]
+// twice; the envelope has stayed as it was, and the current block needs
+// less). Both launchers hold the widths to it, so a forward never runs
+// whose backward could not.
 int make_gno(int k, int in, int out, int has_bias, Gno* p) {
   if (k < 1 || in < 1 || out < 1 || k > kMaxWidth || in > kMaxWidth ||
       out > kMaxWidth)
@@ -383,31 +634,40 @@ int make_gno(int k, int in, int out, int has_bias, Gno* p) {
   p->out = out;
   p->kp = pad4(p->kb);
   p->inp = pad4(in);
-  if ((long long)edge_bwd_smem_floats(*p) * (long long)sizeof(float) >
-      kMaxSmem)
-    return kOutsideEnvelope;
+  const long long envelope =
+      2LL * p->inp * p->kp + (long long)kTE * (p->inp + p->kp);
+  if (envelope * (long long)sizeof(float) > kMaxSmem) return kOutsideEnvelope;
   return 0;
 }
 
-// C = A . B as gemm_kernel describes it; with splits > 1 through `partial`
-// (splits * M * N floats) and sum_splits_kernel.
-template <typename TA, typename TB, typename TC>
+bool aligned16(const void* ptr, long long ld) {
+  return (reinterpret_cast<unsigned long long>(ptr) & 15) == 0 &&
+         (ld & 3) == 0;
+}
+
+// C = A . B as gno_gemm_kernel describes it; with splits > 1 through
+// `partial` (splits * M * N floats) and sum_splits_kernel.
+template <bool AK, bool BK, typename TA, typename TB, typename TC>
 cudaError_t launch_gemm(int M, int N, int K, int splits, const TA* A,
-                        long long am, long long ak, const TB* B,
-                        long long bk, long long bn, TC* C, float* partial,
-                        cudaStream_t stream) {
+                        long long lda, const TB* B, long long ldb, TC* C,
+                        float* partial, cudaStream_t stream) {
   if (M == 0 || N == 0) return cudaSuccess;
   const int per = (K + splits - 1) / splits;
   const int kc = (per + kBK - 1) / kBK * kBK;
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, splits);
-  if (splits == 1) {
-    gemm_kernel<TA, TB, TC><<<grid, kThreads, 0, stream>>>(
-        M, N, K, kc, A, am, ak, B, bk, bn, C);
+  const int smem = kStages * (kBM + kBN) * kBK * (int)sizeof(float);
+  const bool a_vec = sizeof(TA) == sizeof(float) && aligned16(A, lda);
+  const bool b_vec = sizeof(TB) == sizeof(float) && aligned16(B, ldb);
+  const auto run = [&](auto kernel, auto* out) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kGemmThreads, smem, stream>>>(M, N, K, kc, A, lda, a_vec,
+                                                 B, ldb, b_vec, out);
     return cudaGetLastError();
-  }
-  gemm_kernel<TA, TB, float><<<grid, kThreads, 0, stream>>>(
-      M, N, K, kc, A, am, ak, B, bk, bn, partial);
-  cudaError_t err = cudaGetLastError();
+  };
+  if (splits == 1) return run(gno_gemm_kernel<AK, BK, TA, TB, TC>, C);
+  cudaError_t err = run(gno_gemm_kernel<AK, BK, TA, TB, float>, partial);
   if (err != cudaSuccess) return err;
   const long long n = (long long)M * N;
   sum_splits_kernel<TC><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
@@ -447,10 +707,11 @@ int with_dtypes(int ph_bf16, int h_bf16, int w_bf16, F f) {
 extern "C" {
 
 // out (n_rows, out_chs) in ph's dtype. ph (E, k); h (nodes, in); wlb (in,
-// kb, out_chs) = [Wl; bl] along k (kb = k + has_bias); ph_bf16, h_bf16,
-// w_bf16: the dtypes of ph, h and wlb (bf16 if set, else f32); s_buf:
-// n_rows * in * kb floats of scratch; partial: splits * n_rows * out_chs
-// floats when splits > 1. Returns a cudaError_t, or kOutsideEnvelope (-1).
+// kp, out_chs) = [Wl; bl] along k (kb = k + has_bias rows), zero rows up to
+// kp = kb rounded up to 4; ph_bf16, h_bf16, w_bf16: the dtypes of ph, h and
+// wlb (bf16 if set, else f32); s_buf: n_rows * in * kp floats of scratch;
+// partial: splits * n_rows * out_chs floats when splits > 1. Returns a
+// cudaError_t, or kOutsideEnvelope (-1).
 int ngpde_gno_fwd(const int* row_ptr, const int* col, const float* ew,
                   const int* senders, const void* ph, const void* h,
                   const void* wlb, void* out, float* s_buf, float* partial,
@@ -472,19 +733,22 @@ int ngpde_gno_fwd(const int* row_ptr, const int* col, const float* ew,
         p, row_ptr, col, ew, senders, static_cast<const TP*>(ph),
         static_cast<const TH*>(h), s_buf, n_rows, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int j = in * p.kb;
-    return static_cast<int>(launch_gemm(
-        n_rows, out_chs, j, splits, s_buf, j, 1, static_cast<const TW*>(wlb),
-        out_chs, 1, static_cast<TP*>(out), partial, stream));
+    // out = S . Wl': A(m = n, k = j) = S[n * J + j], B(j, o) = wlb[j * out + o]
+    const int j = in * p.kp;
+    return static_cast<int>(launch_gemm<true, false>(
+        n_rows, out_chs, j, splits, static_cast<const float*>(s_buf), j,
+        static_cast<const TW*>(wlb), out_chs, static_cast<TP*>(out), partial,
+        stream));
   });
 }
 
 // For the cotangent g_out (n_rows, out_chs) in ph's dtype: dph (E, k) in
 // ph's dtype and dh_edge (E, in) in f32, one row per edge, written for every
-// edge in `col` (the wrapper zeroes them first); dwlb (in, kb, out_chs) =
-// [dWl; dbl] in wlb's dtype. s_buf and ds_buf: n_rows * in * kb floats
-// each; partial: splits * in * kb * out_chs floats when splits > 1 (the
-// split of S^T . g along the receivers); dtype flags as for the forward.
+// edge in `col` (the wrapper zeroes them first); dwlb (in, kp, out_chs) =
+// [dWl; dbl] in wlb's dtype (its padding rows zero). s_buf and ds_buf:
+// n_rows * in * kp floats each; partial: splits * in * kp * out_chs floats
+// when splits > 1 (the split of S^T . g along the receivers); wlb and the
+// dtype flags as for the forward.
 int ngpde_gno_bwd(const int* row_ptr, const int* col, const float* ew,
                   const int* senders, const void* ph, const void* h,
                   const void* wlb, const void* g_out, void* dph,
@@ -498,7 +762,7 @@ int ngpde_gno_bwd(const int* row_ptr, const int* col, const float* ew,
   if (splits < 1 || splits > kMaxSplits || n_rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int j = in * p.kb;
+  const int j = in * p.kp;
   return with_dtypes(ph_bf16, h_bf16, w_bf16, [&](auto tp, auto th, auto tw) {
     using TP = decltype(tp);
     using TH = decltype(th);
@@ -512,21 +776,26 @@ int ngpde_gno_bwd(const int* row_ptr, const int* col, const float* ew,
       err = launch_reduce(p, row_ptr, col, ew, senders, php, hp, s_buf,
                           n_rows, stream);
       if (err != cudaSuccess) return static_cast<int>(err);
-      // dS = g . Wl'^T: B(k = o, n = j) = wlb[j * out + o]
-      err = launch_gemm(n_rows, j, out_chs, 1, gp, out_chs, 1, wp, 1,
-                        out_chs, ds_buf, nullptr, stream);
+      // dS = g . Wl'^T: A(n, o) = g[n * out + o], B(o, j) = wlb[j * out + o]
+      err = launch_gemm<true, true>(n_rows, j, out_chs, 1, gp,
+                                    (long long)out_chs, wp,
+                                    (long long)out_chs, ds_buf, nullptr,
+                                    stream);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    // dWl' = S^T . g: A(m = j, k = n) = S[n * J + j] (zeros without rows)
-    err = launch_gemm(j, out_chs, n_rows, splits, s_buf, 1, j, gp, out_chs,
-                      1, static_cast<TW*>(dwlb), partial, stream);
+    // dWl' = S^T . g: A(j, n) = S[n * J + j], B(n, o) = g[n * out + o]
+    // (zeros without rows)
+    err = launch_gemm<false, false>(
+        j, out_chs, n_rows, splits, static_cast<const float*>(s_buf),
+        (long long)j, gp, (long long)out_chs, static_cast<TW*>(dwlb),
+        partial, stream);
     if (err != cudaSuccess || n_rows == 0) return static_cast<int>(err);
     const int smem = edge_bwd_smem_floats(p) * (int)sizeof(float);
     err = cudaFuncSetAttribute(gno_edge_bwd_kernel<TP, TH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    gno_edge_bwd_kernel<TP, TH><<<n_rows, kThreads, smem, stream>>>(
+    gno_edge_bwd_kernel<TP, TH><<<n_rows, kEdgeThreads, smem, stream>>>(
         p, row_ptr, col, ew, senders, php, hp, ds_buf,
         static_cast<TP*>(dph), dh_edge);
     return static_cast<int>(cudaGetLastError());

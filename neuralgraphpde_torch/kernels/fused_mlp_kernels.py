@@ -69,6 +69,7 @@ _PLAIN_ACTS = {
 # resident forward: receiver rows per block, chosen so a block's edges fill
 # about this many chunk slots on average (at most csrc/fused_mlp.cu
 # kMaxFwdRows): every block stages all the weights once
+# (scripts/fused_mlp_variants.py times other values)
 _FWD_SLOTS = 56
 _MAX_FWD_ROWS = 64
 # what the CUDA launchers return for an MLP outside the envelope

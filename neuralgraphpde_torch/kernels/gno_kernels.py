@@ -50,8 +50,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 # what the CUDA launchers return for widths outside the envelope
 _OUTSIDE_ENVELOPE = -1
-# the products' output tile (csrc/gno.cu kBM = kBN)
-_TILE = 64
+# the products' output tile, rows by columns (csrc/gno.cu kBM, kBN)
+_TILE_M = 128
+_TILE_N = 64
 # a product with few output tiles is split along its inner dimension into
 # about this many blocks per SM, each split at least _MIN_SPLIT deep
 _BLOCKS_PER_SM = 2
@@ -116,27 +117,35 @@ def _check_launch(err: int, what: str, widths) -> None:
     if err == _OUTSIDE_ENVELOPE:
         raise ValueError(f"{what}: widths (K, IN, OUT) = {widths} are "
                          "outside the GNO kernels' envelope: each from 1 to "
-                         "4096, and the per-edge backward block (dS of one "
-                         "receiver twice plus a chunk of 32 edges) within "
-                         "the card's 227 KB of shared memory")
+                         "4096, and 2·IN·KP + 32·(IN + KP) floats (KP: K "
+                         "plus the bias, rounded up to 4) within the card's "
+                         "227 KB of shared memory")
     _build.check(err, what)
 
 
 def _packed(wl: torch.Tensor, bl: Optional[torch.Tensor]) -> torch.Tensor:
-    """``Wl' = [Wl; bl]`` along k, contiguous ``(IN, KB, OUT)``."""
-    if bl is None:
-        return wl.contiguous()
-    return torch.cat([wl, bl], dim=1)
+    """``Wl' = [Wl; bl]`` along k, contiguous ``(IN, KP, OUT)``: its KB
+    rows padded with zero rows to KP, a multiple of 4, so that every row
+    of ``Wl'``, S and dS starts 16-byte aligned."""
+    in_chs, k, out_chs = wl.shape
+    kb = k + (bl is not None)
+    parts = [wl] if bl is None else [wl, bl]
+    if kb % 4:
+        parts.append(wl.new_zeros((in_chs, 4 - kb % 4, out_chs)))
+    return torch.cat(parts, dim=1)
 
 
-def _splits(m: int, n: int, inner: int, dev) -> int:
-    """Inner-dimension splits of an ``(m × inner) · (inner × n)`` product:
-    about ``_BLOCKS_PER_SM`` blocks per SM, each split ``_MIN_SPLIT``
-    deep at least."""
-    tiles = math.ceil(m / _TILE) * math.ceil(n / _TILE)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+def _splits(m: int, n: int, inner: int, sms: int) -> int:
+    """Inner-dimension splits of an ``(m × inner) · (inner × n)`` product
+    on a card of ``sms`` SMs: about ``_BLOCKS_PER_SM`` blocks per SM, each
+    split ``_MIN_SPLIT`` deep at least."""
+    tiles = math.ceil(m / _TILE_M) * math.ceil(n / _TILE_N)
     return max(1, min(math.ceil(_BLOCKS_PER_SM * sms / max(tiles, 1)),
                       math.ceil(inner / _MIN_SPLIT)))
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def fused_gno_plain(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
@@ -184,9 +193,9 @@ def _launch_fwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
     """K5 forward on the card, from the packed ``Wl'`` (``_packed``)."""
     _check_cuda(csr, ph, senders, h, wlb)
     dev = ph.device
-    in_chs, kb, out_chs = wlb.shape
-    n, j = csr.num_rows, in_chs * kb
-    splits = _splits(n, out_chs, j, dev)
+    in_chs, kp, out_chs = wlb.shape
+    n, j = csr.num_rows, in_chs * kp
+    splits = _splits(n, out_chs, j, _sms(dev))
     flags = _bf16_flags(ph, h, wlb)
     out = torch.empty((n, out_chs), dtype=ph.dtype, device=dev)
     s_buf = torch.empty((n, j), dtype=torch.float32, device=dev)
@@ -208,18 +217,18 @@ def _launch_bwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
                 h: torch.Tensor, wlb: torch.Tensor, k: int, has_bias: bool,
                 g_out: torch.Tensor):
     """K5 backward on the card, from the packed ``Wl'``: ``(dph, dh,
-    dWl')``, the per-edge ``dh`` rows summed onto the senders in f32, then
-    rounded to h's dtype."""
+    dWl')`` (``dWl'`` padded as ``Wl'``), the per-edge ``dh`` rows summed
+    onto the senders in f32, then rounded to h's dtype."""
     _check_cuda(csr, ph, senders, h, wlb, g_out)
     dev = ph.device
-    in_chs, kb, out_chs = wlb.shape
-    n, j = csr.num_rows, in_chs * kb
-    splits = _splits(j, out_chs, n, dev)
+    in_chs, kp, out_chs = wlb.shape
+    n, j = csr.num_rows, in_chs * kp
+    splits = _splits(j, out_chs, n, _sms(dev))
     flags = _bf16_flags(ph, h, wlb)
     f32 = dict(dtype=torch.float32, device=dev)
     dph = torch.zeros_like(ph)
     dh_edge = torch.zeros((csr.num_cols, in_chs), **f32)
-    dwlb = torch.empty((in_chs, kb, out_chs), dtype=wlb.dtype, device=dev)
+    dwlb = torch.empty((in_chs, kp, out_chs), dtype=wlb.dtype, device=dev)
     s_buf = torch.empty((n, j), **f32)
     ds_buf = torch.empty((n, j), **f32)
     partial = torch.empty((splits * j * out_chs if splits > 1 else 0,),
@@ -281,7 +290,7 @@ def fused_gno_bwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
     k = wl.shape[1]
     dph, dh, dwlb = _launch_bwd(csr, senders, ph, h, _packed(wl, bl), k,
                                 bl is not None, g_out)
-    return dph, dh, dwlb[:, :k], (None if bl is None else dwlb[:, k:])
+    return dph, dh, dwlb[:, :k], (None if bl is None else dwlb[:, k:k + 1])
 
 
 fused_gno_bwd.launches = 0
@@ -307,7 +316,7 @@ class _FusedGNO(torch.autograd.Function):
         k = ctx.k
         dph, dh, dwlb = _launch_bwd(ctx.csr, senders, ph, h, wlb, k,
                                     ctx.has_bias, g_out.contiguous())
-        dbl = dwlb[:, k:] if ctx.has_bias else None
+        dbl = dwlb[:, k:k + 1] if ctx.has_bias else None
         return None, None, dph, dh, dwlb[:, :k], dbl
 
 

@@ -1,20 +1,26 @@
-"""Times of K3's chunked kernels built in other forms, on one GPU: other
-thread counts a block, other recompute task shapes in the streamed forward,
-and another checkout's package.
+"""Times of K3's kernels built in other forms, on one GPU: other thread
+counts a block, other recompute task shapes in the forward, other rows a
+resident forward block, and another checkout's package.
 
-    python scripts/fused_mlp_variants.py [--variants t256-c2-r512 ...]
-                                         [--parent DIR] [--out PATH.json]
+    python scripts/fused_mlp_variants.py
+        [--variants t256-c2-r512-f256x4-s56 ...] [--parent DIR]
+        [--out PATH.json]
 
-A variant ``t<threads>-c<cols>-r<resident>`` builds the streamed forward
-and backward with ``threads`` threads a block (``kChunkThreads`` in
-``csrc/fused_mlp.cu``), the streamed forward's recompute tasks with
-``cols`` columns a lane (``kFwdCols``: 1, 2 or 4; a task of fewer columns
-takes more chunk rows) and the resident backward with ``resident`` threads
-a block (``kResThreads``). The package as it is builds ``t256-c2-r512``. For each one this copies the
-package under ``build/fused_mlp_variants/<variant>/``, edits the copy (a
-pattern that does not match exactly once stops the run) and, in a process
-of its own, builds that copy. The variant ``parent`` runs the package of
-the checkout at ``--parent`` as it is (``scripts/_variants.py``).
+A variant ``t<threads>-c<cols>-r<resident>-f<fwd>x<blocks>-s<slots>``
+builds the streamed forward and backward with ``threads`` threads a block
+(``kChunkThreads`` in ``csrc/fused_mlp.cu``), the forward's recompute
+tasks, streamed and resident, with ``cols`` columns a lane (``kFwdCols``:
+1, 2 or 4; a task of fewer columns takes more chunk rows), the resident
+backward with ``resident`` threads a block (``kResThreads``), the resident
+forward with ``fwd`` threads a block and registers for ``blocks`` blocks an
+SM (``kResFwdThreads``, ``kResFwdBlocks``), and gives a resident forward
+block about ``slots`` edge slots (``_FWD_SLOTS`` in
+``kernels/fused_mlp_kernels.py``). The package as it is builds
+``t256-c2-r512-f256x4-s56``. For each one this copies the package under
+``build/fused_mlp_variants/<variant>/``, edits the copy (a pattern that
+does not match exactly once stops the run) and, in a process of its own,
+builds that copy. The variant ``parent`` runs the package of the checkout
+at ``--parent`` as it is (``scripts/_variants.py``).
 
 Each process times K3 in f32, forward (``fused_mlp_fwd``) and backward
 (``fused_mlp_bwd``: the kernel, the in-order sum of its partials and the
@@ -43,7 +49,8 @@ SHAPES = ("MP-PDE phi, Burgers", "2^15 points, hidden 128", "VMH mesh",
 
 def variant(name: str):
     """The directory holding the package of variant ``name``."""
-    form = re.fullmatch(r"t(\d+)-c([124])-r(\d+)", name)
+    form = re.fullmatch(r"t(\d+)-c([124])-r(\d+)-f(\d+)x(\d+)-s(\d+)",
+                        name)
     if form is None:
         raise SystemExit(f"unknown variant {name!r}")
     root = copy_package("fused_mlp_variants", name)
@@ -54,6 +61,11 @@ def variant(name: str):
          f"constexpr int kFwdCols = {form[2]};")
     edit(src, r"constexpr int kResThreads = \d+;",
          f"constexpr int kResThreads = {form[3]};")
+    edit(src, r"constexpr int kResFwdThreads = \d+, kResFwdBlocks = \d+;",
+         f"constexpr int kResFwdThreads = {form[4]}, "
+         f"kResFwdBlocks = {form[5]};")
+    edit(root / PACKAGE.name / "kernels" / "fused_mlp_kernels.py",
+         r"_FWD_SLOTS = \d+", f"_FWD_SLOTS = {form[6]}")
     return root
 
 
@@ -188,7 +200,10 @@ def same_bits(result: dict) -> None:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main(__file__, ["t256-c2-r512", "t256-c1-r512",
-                                     "t256-c4-r512", "t256-c2-r256",
-                                     "t128-c2-r128"], variant, child,
-                          parent=True, summary=same_bits))
+    raise SystemExit(main(__file__, ["t256-c2-r512-f256x4-s56",
+                                     "t256-c2-r512-f256x1-s56",
+                                     "t256-c2-r512-f256x3-s56",
+                                     "t256-c2-r512-f512x2-s56",
+                                     "t256-c2-r512-f128x4-s56",
+                                     "t256-c2-r512-f256x4-s112"], variant,
+                          child, parent=True, summary=same_bits))

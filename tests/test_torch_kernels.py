@@ -990,14 +990,17 @@ def test_k3_stream_bwd_decomposition(jx, te, acts, dims):
             assert _rel(a, np.asarray(b)) <= 1e-4
 
 
-def _stream_fwd_emulated(acts, csr, feats, ws, bs, sms, te, kt):
-    """The streamed K3 forward's decomposition in torch ops, in f32: blocks
-    of receiver rows by the wrapper's rule for ``sms`` SMs, each block's
+def _stream_fwd_emulated(acts, csr, feats, ws, bs, sms, te, kt,
+                         streamed=True):
+    """The K3 forward's decomposition in torch ops, in f32: blocks of
+    receiver rows by the wrapper's rule for ``sms`` SMs (for the streamed
+    variant, or with ``streamed`` False the resident one), each block's
     edge slots in chunks of ``te`` (the last one ragged), the chunk's MLP by
     W k-tiles of ``kt`` rows (the first tile stored, later ones added, then
-    the bias and the activation), each row's sum added slot by slot in
-    order from 0 per block."""
-    rows, _ = K3._rows_rule(csr.num_rows, csr.col.shape[0], sms, True,
+    the bias and the activation; ``kt`` None: W as one tile, as the
+    resident block holds it), each row's sum added slot by slot in order
+    from 0 per block."""
+    rows, _ = K3._rows_rule(csr.num_rows, csr.col.shape[0], sms, streamed,
                             False)
     row_ptr = csr.row_ptr.tolist()
     plain = [K3._PLAIN_ACTS[K3._act_name(a)] for a in acts]
@@ -1073,6 +1076,42 @@ def test_k3_stream_fwd_decomposition(jx, te, acts, dims):
     assert _rel(got, np.asarray(jout)[:40]) <= 1e-5
 
 
+@pytest.mark.parametrize("acts,dims", [
+    (("tanh",) * 3, (4, 60, 60, 60)),
+    (("tanh",) * 3, (4, 128, 128, 128)),
+    (("gelu", None), (5, 33, 9)),
+    (("relu", "sigmoid", "softplus", None), (7, 33, 17, 64, 5))])
+def test_k3_resident_fwd_decomposition(jx, acts, dims):
+    """The resident forward's blocks (the wrapper's rule for the resident
+    variant: 13 rows a block at 170 slots on 40 receivers), chunks of 32
+    slots and W as one tile, emulated in torch with every 7th receiver and
+    the whole of block 1 (rows 13 to 25) without edges: against
+    ``fused_mlp_plain`` and ``_fused_mlp_fwd`` in interpret mode, within
+    1e-5 of the largest output (sums over the edges in another order)."""
+    from neuralgraphpde.kernels import fused_mlp_kernels as JK
+
+    jnp, pltpu = jx.jnp, jx.pltpu
+    rows = K3._rows_rule(40, 170, 16, False, False)[0]
+    assert rows == 13
+    csr, tj, feats, ws, bs, _ = _k3_decomposition_case(
+        jx, dims, 2 * len(dims), range(rows, 2 * rows))
+    pt = [torch.from_numpy(a) for a in (feats, *ws, *bs)]
+    pw, pb = pt[1:len(ws) + 1], pt[len(ws) + 1:]
+    got = _stream_fwd_emulated(acts, csr, pt[0], pw, pb, sms=16, te=32,
+                               kt=None, streamed=False)
+    want = K3.fused_mlp_plain(acts, csr, pt[0], pw, pb)
+    with pltpu.force_tpu_interpret_mode():
+        jout = JK._fused_mlp_fwd(
+            acts, tj, jnp.asarray(feats), tuple(map(jnp.asarray, ws)),
+            tuple(map(jnp.asarray, bs)), interpret=True)
+    # block 1 holds no edge slot; the others take two chunks, the last one
+    # ragged
+    slots = np.diff(csr.row_ptr.numpy()[::rows])
+    assert slots[1] == 0 and slots.max() > 32 and (slots % 32).any()
+    assert _rel(got, want) <= 1e-5
+    assert _rel(got, np.asarray(jout)[:40]) <= 1e-5
+
+
 @pytest.mark.parametrize("acts,dims", _K3_DECOMPOSITION_MLPS)
 def test_k3_resident_bwd_decomposition(jx, acts, dims):
     """The resident backward's blocks (the wrapper's rule for the resident
@@ -1140,7 +1179,13 @@ def test_k3_resident_bwd_decomposition(jx, acts, dims):
     (("tanh",) * 3, (4, 60, 60, 60), 3000, 18000, ("resident", "resident"),
      None, True),
     (("gelu", None), (5, 33, 9), 3000, 18000, ("resident", "resident"),
-     None, False)])
+     None, False),
+    # the resident forward at hidden 128 with a first block without edges,
+    # and with W rows that are not 16-byte multiples (4-byte staging)
+    (("tanh",) * 3, (4, 128, 128, 128), 3000, 18000,
+     ("resident", "streamed"), 32, True),
+    (("sigmoid", "tanh"), (6, 30, 50), 3000, 18000, ("resident", "resident"),
+     None, True)])
 def test_k3_wide_variants_match_plain_cuda(cuda, acts, dims, n, e, variants,
                                            te, empty):
     """Each MLP runs the variant the launcher picks for its widths, and
@@ -1284,14 +1329,148 @@ def test_k5_plain_matches_numpy_loop():
     assert not got[19].any()
 
 
+def _split_ranges(inner, splits, depth=32):
+    """The inner range ``[lo, hi)`` of each split, in order, as
+    ``csrc/gno.cu``'s ``launch_gemm`` cuts them: ``ceil(inner / splits)``
+    rounded up to a whole stage of ``depth`` (``kBK``)."""
+    per = -(-inner // splits)
+    kc = -(-per // depth) * depth
+    return [(min(z * kc, inner), min((z + 1) * kc, inner))
+            for z in range(splits)]
+
+
+def _k5_emulated(csr, senders, ph, h, wl, bl, g, sms):
+    """K5 forward and backward by the CUDA kernels' decomposition, in torch
+    ops in f32: ``Wl'`` packed with k padded to KP rows (``_packed``); S
+    (N, IN, KP) reduced per receiver row in chunks of 32 edge slots, each
+    chunk added onto the row in order; the products split along their inner
+    dimension for ``sms`` SMs (``_splits``, ``_split_ranges``), the partials
+    summed in split order; dph and the per-edge dh_e of each chunk by warp
+    tasks of TR edges (TR the smallest that leaves none of 8 warps a second
+    task, at most 8), w[s] times each sum; dh_e onto the senders with
+    ``index_add_``. Returns ``(out, (dph, dh, dwl, dbl), forward splits,
+    dWl' splits)``."""
+    in_chs, k, out_chs = wl.shape
+    wlb = K5._packed(wl, bl)
+    kp = wlb.shape[1]
+    n, j = csr.num_rows, in_chs * kp
+    row_ptr, col = csr.row_ptr.tolist(), csr.col.long()
+    snd = senders.long()
+    php = torch.zeros(ph.shape[0], kp)  # ph' = [ph, 1], zero-padded
+    php[:, :k] = ph
+    if bl is not None:
+        php[:, k] = 1.0
+
+    def chunks(r):
+        return [(c0, min(c0 + 32, row_ptr[r + 1]))
+                for c0 in range(row_ptr[r], row_ptr[r + 1], 32)]
+
+    s_red = torch.zeros(n, in_chs, kp)
+    for r in range(n):
+        for c0, c1 in chunks(r):
+            e = col[c0:c1]
+            s_red[r] += (csr.weight[c0:c1, None] * h[snd[e]]).T @ php[e]
+
+    def product(a, b):
+        splits = K5._splits(a.shape[0], b.shape[1], a.shape[1], sms)
+        parts = [a[:, lo:hi] @ b[lo:hi]
+                 for lo, hi in _split_ranges(a.shape[1], splits)]
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total, splits
+
+    w2 = wlb.reshape(j, out_chs)
+    out, fwd_splits = product(s_red.reshape(n, j), w2)
+    ds = (g @ w2.T).reshape(n, in_chs, kp)  # one split: inner OUT
+    dwlb, bwd_splits = product(s_red.reshape(n, j).T, g)
+    dph = torch.zeros_like(ph)
+    dh_e = torch.zeros(ph.shape[0], in_chs)
+    groups = -(-k // 128) + -(-in_chs // 64)
+    for r in range(n):
+        for c0, c1 in chunks(r):
+            ne = c1 - c0
+            tr = next((t for t in range(1, 9) if -(-ne // t) * groups <= 8),
+                      8)
+            for e0 in range(c0, c1, tr):
+                sl = slice(e0, min(e0 + tr, c1))
+                e, w = col[sl], csr.weight[sl, None]
+                dph[e] = w * (h[snd[e]] @ ds[r, :, :k])
+                dh_e[e] = w * (php[e] @ ds[r].T)
+    dh = torch.zeros_like(h).index_add_(0, snd, dh_e)
+    dwlb = dwlb.reshape(in_chs, kp, out_chs)
+    return out, (dph, dh, dwlb[:, :k],
+                 None if bl is None else dwlb[:, k:k + 1]), fwd_splits, \
+        bwd_splits
+
+
+@pytest.mark.parametrize("k,in_chs,out_chs,bias,n,e,splits", [
+    # S.Wl' over 8 · 64 = 512 inner columns (K + 0 padded from 61 to 64)
+    (61, 8, 5, False, 40, 300, (2, 1)),
+    # S^T.g over 520 receivers, the last split ragged; KB 14 padded to 16
+    (13, 6, 5, True, 520, 1200, (1, 3))])
+def test_k5_decomposition(jx, k, in_chs, out_chs, bias, n, e, splits):
+    """K5's forward and backward as the CUDA kernels decompose them
+    (``_k5_emulated``, 16 SMs): the products at their split-K boundaries
+    with the partials summed in split order, and the per-edge backward's
+    chunks and warp tasks, with every 7th receiver and node n − 1 without
+    in-edges and receiver 3 holding 70 edges (chunks of 32, 32 and 6):
+    against ``fused_gno_plain`` / ``fused_gno_bwd_plain`` and
+    ``_fused_gno_fwd`` / ``_fused_gno_bwd_pallas`` in interpret mode, the
+    forward, dph and dh within 1e-5 and dWl, dbl within 1e-4 of their
+    largest entries."""
+    from neuralgraphpde.kernels import gno_kernels as JK
+
+    jnp = jx.jnp
+    rng = np.random.default_rng(k + n)
+    live = [i for i in range(n - 1) if i % 7 and i != 3]
+    r = np.concatenate([rng.choice(live, e - 70), np.full(70, 3)])
+    s = rng.integers(0, n, e).astype(np.int32)
+    ew = rng.normal(size=e).astype(np.float32)
+    csr = build_segment_csr(np.arange(e), r, n, num_cols=e, edge_weight=ew)
+    tj = jx.sk.build_tiled_csr(np.arange(e), r, n, edge_weight=ew, tn=8,
+                               te=16)
+    ph = rng.normal(size=(e, k)).astype(np.float32)
+    h = rng.normal(size=(n, in_chs)).astype(np.float32)
+    wl = (rng.normal(size=(in_chs, k, out_chs)) / np.sqrt(k)).astype(
+        np.float32)
+    bl = (rng.normal(size=(in_chs, 1, out_chs)).astype(np.float32)
+          if bias else None)
+    g = rng.normal(size=(n, out_chs)).astype(np.float32)
+    t = [None if a is None else torch.from_numpy(a)
+         for a in (s, ph, h, wl, bl, g)]
+    out, grads, fwd_splits, bwd_splits = _k5_emulated(csr, *t, sms=16)
+    assert (fwd_splits, bwd_splits) == splits
+    want = K5.fused_gno_plain(csr, *t[:5])
+    plain = K5.fused_gno_bwd_plain(csr, *t)
+    jargs = (tj, jnp.asarray(s), jnp.asarray(ph), jnp.asarray(h),
+             jnp.asarray(wl), None if bl is None else jnp.asarray(bl))
+    jout = JK._fused_gno_fwd(*jargs, interpret=True)
+    gpad = np.zeros((tj.num_tiles * tj.tn, out_chs), np.float32)
+    gpad[:n] = g
+    jgrads = JK._fused_gno_bwd_pallas(*jargs, jnp.asarray(gpad),
+                                      interpret=True)
+    assert not out[n - 1].any()
+    for ref in (want, np.asarray(jout)[:n]):
+        assert _rel(out, np.asarray(ref)) <= 1e-5
+    for ref in (plain, jgrads):
+        assert (ref[3] is None) == (not bias)
+        for a, b, bound in zip(grads, ref, (1e-5, 1e-5, 1e-4, 1e-4)):
+            if b is None:
+                continue
+            assert tuple(a.shape) == tuple(np.shape(b))
+            assert _rel(a, np.asarray(b)) <= bound
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,in_chs,out_chs,bias,n,e", [
     (128, 64, 64, True, 1024, 19092), (128, 64, 64, False, 1024, 19092),
+    (128, 64, 64, True, 300, 15000),
     (7, 5, 9, True, 300, 2000), (40, 33, 17, False, 100, 5000)])
 def test_k5_kernels_match_plain_cuda(cuda, k, in_chs, out_chs, bias, n, e):
     """Forward and backward against the plain versions, at the GNO Darcy
-    widths and at widths that are not multiples of 4; the last case's rows
-    have ~50 edges (several 32-edge chunks each)."""
+    widths and at widths that are not multiples of 4; the third and the
+    last case's rows have ~50 edges (several 32-edge chunks each)."""
     csr, senders, ph, h, wl, bl, g = _k5_case(cuda, k, in_chs, out_chs,
                                               bias, n, e)
     fwd0, bwd0 = K5.fused_gno_fwd.launches, K5.fused_gno_bwd.launches
@@ -1556,7 +1735,8 @@ def test_k5_bf16_plain_matches_pallas(jx, ph_bf16, h_bf16):
     (("tanh",) * 3, (4, 60, 60, 60), ("resident", "resident")),
     (("swish",), (282, 128), ("streamed", "streamed")),
     (("tanh",) * 3, (4, 128, 128, 128), ("resident", "streamed")),
-    (("gelu", None), (5, 33, 9), ("resident", "resident"))])
+    (("gelu", None), (5, 33, 9), ("resident", "resident")),
+    (("sigmoid", "tanh"), (6, 30, 50), ("resident", "resident"))])
 def test_k3_bf16_kernels_match_plain_cuda(cuda, feats_bf16, acts, dims,
                                           variants):
     """K3's bf16 forms in both variants (bf16 weights; bf16 or f32
