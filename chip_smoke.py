@@ -12,8 +12,9 @@ Phases, each fatal on failure:
    forward and backward: ``fused_mlp_fwd_stream_kernel``,
    ``fused_mlp_bwd_stream_kernel``, ``fused_mlp_fwd_resident_kernel``,
    ``fused_mlp_bwd_kernel`` in ``fused_mlp.cu``) nor in any instantiation
-   of K5's product and per-edge backward (the 12 of ``gno_gemm_kernel``,
-   the 4 of ``gno_edge_bwd_kernel`` in ``gno.cu``), each report line
+   of K5's reduce, product and per-edge backward (the 4 of
+   ``gno_reduce_kernel``, the 12 of ``gno_gemm_kernel``, the 4 of
+   ``gno_edge_bwd_kernel`` in ``gno.cu``), each report line
    attributed to the function ptxas names before it; the functions of
    ``fused_mlp.cu`` and ``gno.cu`` that spill, if any, are printed.
 3. Each kernel against its plain PyTorch version on the card, at the shapes
@@ -47,7 +48,13 @@ Phases, each fatal on failure:
    0.08: 1,024 nodes, 19,092 edges) and at the n = 64 grid (4,096 nodes,
    335,480 edges), K 128, IN = OUT = 64, with a bias: forward, ``dph`` and
    ``dh`` within 1e-5, ``dWl``/``dbl`` within 1e-4 (sums over every
-   receiver in another order); timed as K3 is.
+   receiver in another order); timed as K3 is. At 32² the reduce (S, in
+   the forward and again in the backward) is also printed alone: its
+   device ms from the split by launch beside its own bound (ph, h, the CSR
+   and senders read once, S written once; E·IN·KB multiply-adds), recorded
+   as ``reduce_device_ms`` and ``reduce_bound_ms``. That bound is not
+   gated: at 32² the reduce's 45 MB can stay in the 50 MB L2 across timed
+   calls.
    The segment-max kernel (K6), max and min (−max(−m)), forward and the
    backward of its autograd call, at the ``bench.py`` ``rand`` shape (the
    K1 graph's edge-id layout, F = 128), on that graph with the edges of
@@ -1163,17 +1170,32 @@ def k5_checks(K, dev, cases):
                       f"{sum(split.values()):.4f} ms by launch:")
                 for name, ms in split.items():
                     print(f"      {ms:.4f} ms  {name}")
+            # the reduce alone: ph, h, the CSR and senders read once, S
+            # (N, IN, KP) written once; E·IN·KB multiply-adds
+            kp = (k + 4) // 4 * 4
+            reduce_bound, reduce_by = bound(
+                csr_bytes(csr) + nbytes(senders, ph, h) + 4 * n * width * kp,
+                2.0 * reduce_macs)
+            reduce_ms = [sum(ms for name, ms in split.items()
+                             if "gno_reduce_kernel" in name)
+                         for split in (split_f, split_b)]
+            check(min(reduce_ms) > 0, f"{shape}: no reduce in the split")
+            print(f"    reduce on the device: fwd {reduce_ms[0]:.4f} ms, "
+                  f"bwd {reduce_ms[1]:.4f} ms; its bound {reduce_bound:.4f} "
+                  f"ms ({reduce_by}; not gated: S may stay in L2)")
             records["gno_bf16"] = k5_bf16(K, csr, senders, ph, h, wl, bl,
                                           g, shape[:-4])
             records["fused_gno_fwd"] = dict(
                 max_abs_err=fwd_abs, max_rel_err=fwd_rel, ms=ms_f,
                 device_ms=sum(split_f.values()), device_split=split_f,
+                reduce_device_ms=reduce_ms[0], reduce_bound_ms=reduce_bound,
                 plain_ms=plain_f, library_ms=None, bound_ms=bound_f,
                 bound_by=by_f, shape=shape)
             records["fused_gno_bwd"] = dict(
                 max_abs_err=max(edge_abs, par_abs),
                 max_rel_err=max(edge_rel, par_rel), ms=ms_b,
                 device_ms=sum(split_b.values()), device_split=split_b,
+                reduce_device_ms=reduce_ms[1], reduce_bound_ms=reduce_bound,
                 plain_ms=plain_b, library_ms=None, bound_ms=bound_b,
                 bound_by=by_b, shape=shape)
     return records
@@ -1986,16 +2008,17 @@ def main() -> int:
           "build: no ptxas report for dia_stencil.cu")
     check(not spills(k2_log), f"build: dia_stencil.cu spills: "
                               f"{spills(k2_log)}")
-    # K3's kernels (csrc/fused_mlp.cu) and K5's product and per-edge
-    # backward (csrc/gno.cu) are built to spill nothing and to keep no local
-    # array (a stack frame of 0 bytes), in every instantiation: K3's four
-    # dtype pairs, the product's 12 (three operand layouts by four dtype
-    # combinations) and the per-edge backward's 4
+    # K3's kernels (csrc/fused_mlp.cu) and K5's reduce, product and
+    # per-edge backward (csrc/gno.cu) are built to spill nothing and to keep
+    # no local array (a stack frame of 0 bytes), in every instantiation: K3's
+    # four dtype pairs, the reduce's 4, the product's 12 (three operand
+    # layouts by four dtype combinations) and the per-edge backward's 4
     gated = {"fused_mlp.cu": {"fused_mlp_fwd_stream_kernel": 4,
                               "fused_mlp_bwd_stream_kernel": 4,
                               "fused_mlp_fwd_resident_kernel": 4,
                               "fused_mlp_bwd_kernel": 4},
-             "gno.cu": {"gno_gemm_kernel": 12, "gno_edge_bwd_kernel": 4}}
+             "gno.cu": {"gno_reduce_kernel": 4, "gno_gemm_kernel": 12,
+                        "gno_edge_bwd_kernel": 4}}
     for source, kernels in gated.items():
         funcs = ptxas_by_function(info["ptxas_by_source"].get(source, ""))
         spilling = {f: lines for f, (lines, _) in funcs.items() if lines}
@@ -2331,7 +2354,8 @@ def main() -> int:
                      backward_launches=counts["backward"].get(fn, 0))
                 for run, counts in counted]
         for extra in ("k1_same_csr_ms", "training_pair", "device_ms",
-                      "device_split", "unfused_ms"):
+                      "device_split", "reduce_device_ms", "reduce_bound_ms",
+                      "unfused_ms"):
             if extra in rec:
                 entry[extra] = rec[extra]
         entry["dtypes"] = {"every operand": "float32"}

@@ -40,11 +40,19 @@
 // - S, dS and Wl' are kept with k padded to KP (KB rounded up to 4) by
 //   zeros: S and dS (N, IN, KP), Wl' (IN, KP, OUT). Every row of the three
 //   starts 16-byte aligned, and the padding adds zeros to every sum.
-// - reduce: one block per receiver row. The row's edges, in chunks of 32,
-//   are gathered into shared memory (w*h rows and ph' rows); each thread
-//   owns 4x4 tiles of (i, k) and adds the chunk's edges in slot order. A
-//   later chunk of the same row adds onto the S entries the same thread
-//   wrote: no atomics, the same sums on every run.
+// - reduce: one block per receiver row; each thread owns a kRI x 4 tile of
+//   S[n] (8 i x 4 k: 8 x 33 = 264 tiles at the Darcy widths, 288 threads,
+//   registers held for 2 blocks an SM) in registers across all the row's
+//   chunks of 32 edge slots, adds each chunk's edges in slot order and
+//   stores the tile once, 16 bytes a row: no atomics, S never read back,
+//   the same sums on every run. A width with more tiles than kRedThreads
+//   takes passes, each walking the row's chunks again. A chunk is gathered
+//   a warp an edge row: its col/senders/w loaded once, the ph rows asked for
+//   before the senders arrive, then the h rows, by 16-byte cp.async (bf16 by
+//   plain loads), the bias column and padding of ph' by plain stores, h
+//   scaled by w[s] in place by the lane that copied it, no divide an
+//   element; two chunk buffers let chunk c + 1's copies run under chunk c's
+//   FMAs (one where two do not fit).
 // - products: one tiled kernel for S.Wl', g.Wl'^T and S^T.g
 //   (gno_gemm_kernel): a kBM x kBN output tile a block, each thread kRG x
 //   kCG groups of 4 rows x 4 consecutive columns, kStages shared-memory
@@ -86,8 +94,12 @@ using ngpde::part;
 using ngpde::to_f32;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // the reduce's block
 constexpr int kTE = 32;  // edge slots per chunk
+// the reduce: a thread's tile of S, kRI rows i x 4 columns k; at most
+// kRedThreads threads a block (a row with more tiles takes passes), their
+// registers held to kRedBlocks blocks an SM (scripts/gno_variants.py sweeps
+// the three)
+constexpr int kRI = 8, kRedThreads = 384, kRedBlocks = 2;
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
 // returned by the launchers for widths outside the envelope (cudaError_t
 // codes are >= 0)
@@ -109,6 +121,8 @@ constexpr int kEdgeThreads = 256, kEdgeBlocks = 3;
 constexpr int kMaxTR = 8;
 constexpr int kBatch = 8;  // loads in flight a lane in the edge gather
 
+static_assert(kRI % 4 == 0 && kRedThreads % 32 == 0 && kRedThreads <= 1024,
+              "reduce block");
 static_assert(kGemmThreads % 32 == 0 && kGemmThreads <= 1024, "gemm block");
 static_assert(kBK % 4 == 0 && (kBK & (kBK - 1)) == 0, "kBK: a power of 2");
 static_assert(kTE % kMaxTR == 0, "a task never reads past the chunk");
@@ -124,103 +138,195 @@ struct Gno {
 
 __host__ __device__ __forceinline__ int pad4(int d) { return (d + 3) & ~3; }
 
-// floats of dynamic shared memory of the two per-row kernels
-__host__ __device__ inline int reduce_smem_floats(const Gno& p) {
-  return kTE * (p.inp + p.kp);
-}
+// floats of dynamic shared memory of the per-edge backward
 __host__ __device__ inline int edge_bwd_smem_floats(const Gno& p) {
   return p.inp * p.kp + kTE * (p.inp + p.kp);
 }
 
-// The chunk [c0, c1) of slots: w[s] * h[snd_s] rows into hw (kTE x inp) and
-// ph'[e_s] rows into pp (kTE x kp), as f32, zero-padded.
+// The reduce's chunk [c0, c0 + ne) of a row's slots, a warp an edge row
+// (edges warp, warp + nw, ...): lane j first loads the edge id and weight of
+// the warp's j-th edge (the weight into bw) and asks for its sender; then
+// the warp copies each edge's ph' row into pp (kp floats a row), and once
+// the senders have arrived its h row into hw (hs floats a row). f32
+// rows go by 16-byte cp.async where they are 16-byte aligned (vec) and by
+// 4-byte ones otherwise; bf16 rows by plain loads, converted to f32 (h times
+// w[s] there); the bias column (1) and the zero padding of ph' by plain
+// stores. f32 h rows land unscaled: reduce_scale multiplies them by w[s] once
+// they have landed. hw's columns past `in` are left as they are: the tile
+// rows they feed are never stored.
 template <typename TP, typename TH>
-__device__ void gather_chunk(const Gno& p, const int* __restrict__ col,
-                             const float* __restrict__ ew,
-                             const int* __restrict__ senders,
-                             const TP* __restrict__ ph,
-                             const TH* __restrict__ h, int c0, int c1,
-                             float* hw, float* pp) {
-  for (int idx = threadIdx.x; idx < kTE * p.inp; idx += kThreads) {
-    const int e = idx / p.inp, i = idx % p.inp;
-    const int s = c0 + e;
-    float v = 0.f;
-    if (s < c1 && i < p.in)
-      v = ew[s] * to_f32(h[(long long)senders[col[s]] * p.in + i]);
-    hw[idx] = v;
+__device__ __forceinline__ void reduce_gather(
+    const Gno& p, int hs, bool ph_vec, bool h_vec,
+    const int* __restrict__ col, const float* __restrict__ ew,
+    const int* __restrict__ senders, const TP* __restrict__ ph,
+    const TH* __restrict__ h, int c0, int ne, float* hw, float* pp,
+    float* bw) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int eid = 0, snd = 0;
+  float w = 0.f;
+  if (warp + nw * lane < ne) {
+    const int s = c0 + warp + nw * lane;
+    eid = col[s];
+    w = ew[s];
+    snd = senders[eid];
+    bw[warp + nw * lane] = w;
   }
-  for (int idx = threadIdx.x; idx < kTE * p.kp; idx += kThreads) {
-    const int e = idx / p.kp, k = idx % p.kp;
-    const int s = c0 + e;
-    float v = 0.f;
-    if (s < c1) {
-      if (k < p.k)
-        v = to_f32(ph[(long long)col[s] * p.k + k]);
-      else if (k < p.kb)
-        v = 1.f;  // the bias column of ph'
+  for (int j = 0, e = warp; e < ne; ++j, e += nw) {
+    const TP* prow = ph + __shfl_sync(~0u, eid, j) * (long long)p.k;
+    float* pd = pp + e * p.kp;
+    if (sizeof(TP) == sizeof(float) && ph_vec) {
+      // k is a multiple of 4: a chunk lies in ph or past it
+      for (int q = lane; q < p.kp >> 2; q += 32) {
+        if (4 * q < p.k)
+          cp_async16(pd + 4 * q, prow + 4 * q, 16);
+        else
+          *reinterpret_cast<float4*>(pd + 4 * q) =
+              make_float4(p.kb > p.k ? 1.f : 0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+      for (int k = lane; k < p.kp; k += 32) {
+        if (k >= p.k) {
+          pd[k] = k < p.kb ? 1.f : 0.f;
+        } else if constexpr (sizeof(TP) == sizeof(float)) {
+          cp_async4(pd + k, prow + k, true);
+        } else {
+          pd[k] = to_f32(prow[k]);
+        }
+      }
     }
-    pp[idx] = v;
+  }
+  for (int j = 0, e = warp; e < ne; ++j, e += nw) {
+    const TH* hrow = h + __shfl_sync(~0u, snd, j) * (long long)p.in;
+    float* hd = hw + e * hs;
+    if constexpr (sizeof(TH) == sizeof(float)) {
+      if (h_vec) {
+        for (int q = lane; q < p.in >> 2; q += 32)
+          cp_async16(hd + 4 * q, hrow + 4 * q, 16);
+      } else {
+        for (int i = lane; i < p.in; i += 32) cp_async4(hd + i, hrow + i, true);
+      }
+    } else {
+      const float wj = __shfl_sync(~0u, w, j);
+      for (int i = lane; i < p.in; i += 32) hd[i] = wj * to_f32(hrow[i]);
+    }
   }
 }
 
-__device__ __forceinline__ void fma4x4(float (&acc)[4][4], const float4 a,
-                                       const float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+// f32 h rows of a chunk: each lane multiplies the part of hw it copied by
+// w[s] from bw (its own cp.async writes are visible to it after the wait;
+// bw's, by lanes of the same warp, after __syncwarp), w[s] * h rounded as
+// the product it is
+__device__ __forceinline__ void reduce_scale(const Gno& p, int hs, bool h_vec,
+                                            int ne, const float* bw,
+                                            float* hw) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  __syncwarp();
+  for (int e = warp; e < ne; e += nw) {
+    const float wj = bw[e];
+    float* hd = hw + e * hs;
+    if (h_vec) {
+      for (int q = lane; q < p.in >> 2; q += 32) {
+        float4 v = ld4(hd + 4 * q);
+        v.x *= wj;
+        v.y *= wj;
+        v.z *= wj;
+        v.w *= wj;
+        *reinterpret_cast<float4*>(hd + 4 * q) = v;
+      }
+    } else {
+      for (int i = lane; i < p.in; i += 32) hd[i] *= wj;
+    }
+  }
 }
 
 // S[r, i, k] for one receiver row r per block, stored (N, in, kp) in f32
-// (zero for k >= kb).
+// (zero for k >= kb). Thread t of a pass owns the kRI x 4 tile (i, k) =
+// (t / (kp / 4) * kRI, t % (kp / 4) * 4) in registers across all the row's
+// chunks and stores it once, a 16-byte store a row of the tile (rows i >=
+// in are not stored); widths with more tiles than threads take passes.
+// Chunk c + 1's copies run under chunk c's FMAs where two buffers fit
+// (bufs 2), else the chunks share one. Each entry is the chain acc = 0,
+// fmaf(w[s] h[snd_s, i], ph'[e_s, k], acc) over the row's slots in order.
 template <typename TP, typename TH>
-__global__ void __launch_bounds__(kThreads)
-    gno_reduce_kernel(Gno p, const int* __restrict__ row_ptr,
+__global__ void __launch_bounds__(kRedThreads, kRedBlocks)
+    gno_reduce_kernel(Gno p, int hs, int bufs, bool ph_vec, bool h_vec,
+                      const int* __restrict__ row_ptr,
                       const int* __restrict__ col,
                       const float* __restrict__ ew,
                       const int* __restrict__ senders,
                       const TP* __restrict__ ph,
                       const TH* __restrict__ h, float* __restrict__ s_out) {
   extern __shared__ float4 sm4[];
-  float* hw = reinterpret_cast<float*>(sm4);
-  float* pp = hw + kTE * p.inp;
+  float* const sm = reinterpret_cast<float*>(sm4);
+  // a chunk buffer: hw (kTE x hs), pp (kTE x kp), bw (kTE)
+  const int buf_floats = kTE * (hs + p.kp + 1);
   const int r = blockIdx.x;
-  const int e_begin = row_ptr[r], e_end = row_ptr[r + 1];
-  const int kt_n = p.kp >> 2;
-  const int tiles = (p.inp >> 2) * kt_n;
-  float* srow = s_out + (long long)r * p.in * p.kp;
-  // one pass per chunk; a row with no edges takes one pass that stores 0
-  for (int c0 = e_begin;; c0 += kTE) {
-    const int c1 = min(c0 + kTE, e_end);
-    gather_chunk(p, col, ew, senders, ph, h, c0, c1, hw, pp);
-    __syncthreads();
-    const int ne = c1 - c0;
-    for (int t = threadIdx.x; t < tiles; t += kThreads) {
-      const int i0 = (t / kt_n) << 2, k0 = (t % kt_n) << 2;
-      float acc[4][4];
+  const int e_begin = row_ptr[r], deg = row_ptr[r + 1] - e_begin;
+  const int chunks = (deg + kTE - 1) / kTE;
+  const int kt_n = p.kp >> 2, tiles = hs / kRI * kt_n;
+  for (int base = 0; base < tiles; base += blockDim.x) {
+    const int t = base + threadIdx.x;
+    const bool own = t < tiles;
+    const int i0 = own ? t / kt_n * kRI : 0, k0 = own ? t % kt_n * 4 : 0;
+    float acc[kRI][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < kRI; ++a)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int i = i0 + a, k = k0 + c;
-          acc[a][c] =
-              (c0 != e_begin && i < p.in) ? srow[i * p.kp + k] : 0.f;
+      for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+    if (base > 0) __syncthreads();  // the last pass has read the buffers
+    for (int c = 0; c < chunks; ++c) {
+      float* hw = sm + (c & (bufs - 1)) * buf_floats;
+      float* pp = hw + kTE * hs;
+      const int ne = min(kTE, deg - c * kTE);
+      if (c == 0 || bufs == 1) {
+        reduce_gather(p, hs, ph_vec, h_vec, col, ew, senders, ph, h,
+                     e_begin + c * kTE, ne, hw, pp, pp + kTE * p.kp);
+        cp_async_commit();
+      }
+      if (bufs == 2 && c + 1 < chunks) {
+        float* hn = sm + ((c + 1) & 1) * buf_floats;
+        reduce_gather(p, hs, ph_vec, h_vec, col, ew, senders, ph, h,
+                     e_begin + (c + 1) * kTE, min(kTE, deg - (c + 1) * kTE),
+                     hn, hn + kTE * hs, hn + kTE * (hs + p.kp));
+        cp_async_commit();
+        cp_async_wait<1>();  // chunk c has landed (this thread's copies)
+      } else {
+        cp_async_wait<0>();
+      }
+      if constexpr (sizeof(TH) == sizeof(float))
+        reduce_scale(p, hs, h_vec, ne, pp + kTE * p.kp, hw);
+      __syncthreads();  // chunk c is in shared memory, scaled
+      if (own) {
+        const float* hb = hw + i0;
+        const float* pb = pp + k0;
+        for (int e = 0; e < ne; ++e) {
+          const float4 b = ld4(pb + e * p.kp);
+          float a[kRI];
+#pragma unroll
+          for (int q = 0; q < kRI / 4; ++q) {
+            const float4 v = ld4(hb + e * hs + 4 * q);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) a[4 * q + u] = part(v, u);
+          }
+#pragma unroll
+          for (int x = 0; x < kRI; ++x)
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              acc[x][u] = fmaf(a[x], part(b, u), acc[x][u]);
         }
-      for (int e = 0; e < ne; ++e)
-        fma4x4(acc, *reinterpret_cast<const float4*>(hw + e * p.inp + i0),
-               *reinterpret_cast<const float4*>(pp + e * p.kp + k0));
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int i = i0 + a, k = k0 + c;
-          if (i < p.in) srow[i * p.kp + k] = acc[a][c];
-        }
+      }
+      if (c + 1 < chunks) __syncthreads();  // chunk c read: refill its buffer
     }
-    if (c1 >= e_end) break;
-    __syncthreads();  // the next chunk overwrites hw and pp
+    if (own) {
+      float* srow = s_out + (long long)r * p.in * p.kp;
+#pragma unroll
+      for (int x = 0; x < kRI; ++x)
+        if (i0 + x < p.in)
+          *reinterpret_cast<float4*>(srow + (i0 + x) * p.kp + k0) =
+              make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
+    }
   }
 }
 
@@ -675,18 +781,43 @@ cudaError_t launch_gemm(int M, int N, int K, int splits, const TA* A,
   return cudaGetLastError();
 }
 
+// the reduce's launch: hw rows of hs floats (in rounded up to kRI), the
+// threads a block (a multiple of 32) and passes that cover its tiles, and
+// two chunk buffers where they fit in kMaxSmem, else one. One always fits
+// inside make_gno's envelope: 32 (hs + kp + 1) floats exceed 32 (inp + kp)
+// by at most 32 (kRI - 3), less than the 2 inp kp the envelope also holds
+// wherever a buffer comes near kMaxSmem.
+struct ReduceShape {
+  int hs, threads, bufs, smem;
+};
+
+ReduceShape reduce_shape(const Gno& p) {
+  ReduceShape r;
+  r.hs = (p.in + kRI - 1) / kRI * kRI;
+  const int tiles = r.hs / kRI * (p.kp >> 2);
+  const int passes = (tiles + kRedThreads - 1) / kRedThreads;
+  r.threads = ((tiles + passes - 1) / passes + 31) / 32 * 32;
+  const int buf = kTE * (r.hs + p.kp + 1) * (int)sizeof(float);
+  r.bufs = 2 * buf <= kMaxSmem ? 2 : 1;
+  r.smem = r.bufs * buf;
+  return r;
+}
+
 template <typename TP, typename TH>
 cudaError_t launch_reduce(const Gno& p, const int* row_ptr, const int* col,
                           const float* ew, const int* senders, const TP* ph,
                           const TH* h, float* s_buf, int n_rows,
                           cudaStream_t stream) {
-  const int smem = reduce_smem_floats(p) * (int)sizeof(float);
+  const ReduceShape rs = reduce_shape(p);
+  const bool ph_vec = sizeof(TP) == sizeof(float) && aligned16(ph, p.k);
+  const bool h_vec = sizeof(TH) == sizeof(float) && aligned16(h, p.in);
   cudaError_t err = cudaFuncSetAttribute(
       gno_reduce_kernel<TP, TH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      rs.smem);
   if (err != cudaSuccess) return err;
-  gno_reduce_kernel<TP, TH><<<n_rows, kThreads, smem, stream>>>(
-      p, row_ptr, col, ew, senders, ph, h, s_buf);
+  gno_reduce_kernel<TP, TH><<<n_rows, rs.threads, rs.smem, stream>>>(
+      p, rs.hs, rs.bufs, ph_vec, h_vec, row_ptr, col, ew, senders, ph, h,
+      s_buf);
   return cudaGetLastError();
 }
 

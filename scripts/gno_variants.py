@@ -1,35 +1,44 @@
 """Times of K5 built in other forms, on one GPU: other product tiles,
 stages and splits, other register budgets and task widths of the per-edge
-backward, and another checkout's package.
+backward, other reduce tiles and blocks, and another checkout's package.
 
-    python scripts/gno_variants.py [--variants m128n64r2c1k32s3p2-e3t8 ...]
-                                   [--parent DIR] [--out PATH.json]
+    python scripts/gno_variants.py
+        [--variants m128n64r2c1k32s3p2-e3t8-u8t384b2 ...]
+        [--parent DIR] [--out PATH.json]
 
-A variant ``m<BM>n<BN>r<RG>c<CG>k<BK>s<S>p<P>-e<B>t<TR>`` builds the
-products (``gno_gemm_kernel`` in ``csrc/gno.cu``) with a BM × BN output
-tile a block, RG × CG groups of 4 rows × 4 columns a thread and S stages of
-BK-deep operand tiles, splits a product with few tiles for about P blocks
-an SM (``_BLOCKS_PER_SM`` in ``kernels/gno_kernels.py``), and holds the
+A variant ``m<BM>n<BN>r<RG>c<CG>k<BK>s<S>p<P>-e<B>t<TR>-u<RI>t<RT>b<RB>``
+builds the products (``gno_gemm_kernel`` in ``csrc/gno.cu``) with a BM × BN
+output tile a block, RG × CG groups of 4 rows × 4 columns a thread and S
+stages of BK-deep operand tiles, splits a product with few tiles for about
+P blocks an SM (``_BLOCKS_PER_SM`` in ``kernels/gno_kernels.py``), holds the
 per-edge backward's registers to B blocks an SM (``kEdgeBlocks``) with
-tasks of at most TR edges (``kMaxTR``: 1, 2, 4 or 8). The package as it is
-builds ``m128n64r2c1k32s3p2-e3t8``. For each one this copies the package
-under ``build/gno_variants/<variant>/``, edits the copy (a pattern that does
-not match exactly once stops the run) and, in a process of its own, builds
-that copy. The variant ``parent`` runs the package of the checkout at
-``--parent`` as it is (``scripts/_variants.py``).
+tasks of at most TR edges (``kMaxTR``: 1, 2, 4 or 8), and builds the reduce
+(``gno_reduce_kernel``) with RI × 4 tiles of S a thread (``kRI``: 4, 8 or
+16), at most RT threads a block (``kRedThreads``, a multiple of 32) and
+its registers held to RB blocks an SM (``kRedBlocks``). The package as it
+is builds ``m128n64r2c1k32s3p2-e3t8-u8t384b2``. For each one this copies
+the package under ``build/gno_variants/<variant>/``, edits the copy (a
+pattern that does not match exactly once stops the run) and, in a process
+of its own, builds that copy. The variant ``parent`` runs the package of
+the checkout at ``--parent`` as it is (``scripts/_variants.py``).
 
 Each process times K5 in f32, K 128, IN = OUT = 64, with a bias, at the GNO
 Darcy 32² graph (``train_gno_darcy``'s: 1,024 nodes, 19,092 edges) and at
 the 64² grid (4,096 nodes, 335,480 edges): forward and backward by CUDA
 events over 20 calls, device ms a call split by launch
-(``split``, which runs on a parent checkout too), the products' TFLOP/s where the
-kernel names tell the three apart (2 · rows · columns · IN · (K + 1) useful
-operations over the product's device time: S·Wl', g·Wl'ᵀ, Sᵀ·g), the max
-relative error of out, dph, dh, dWl and dbl against the plain versions
-(``max|k − p| / max|p|``) and a digest of each output's bytes. Every
+(``split``, which runs on a parent checkout too), the reduce's device ms
+(``gno_reduce_kernel``, in the forward and again in the backward), the
+products' TFLOP/s where the kernel names tell the three apart (2 · rows ·
+columns · IN · (K + 1) useful operations over the product's device time:
+S·Wl', g·Wl'ᵀ, Sᵀ·g), the max relative error of out, dph, dh, dWl and dbl
+against the plain versions (``max|k − p| / max|p|``) and a digest of each
+output's bytes (the outputs of calls under
+``torch.use_deterministic_algorithms``, so that dh's ``index_add_`` sums
+in a fixed order). Every
 variant's digests are compared with the first ``parent``'s: K5's sums move
-with its tiles and splits, so the errors against the plain versions are
-what holds a variant. Prints the ptxas lines of ``gno.cu``.
+with the products' tiles and splits (not with the reduce's tiles, whose
+every entry keeps its slot order), so the errors against the plain
+versions are what holds a variant. Prints the ptxas lines of ``gno.cu``.
 """
 from __future__ import annotations
 
@@ -48,10 +57,11 @@ PRODUCTS = {"S.Wl'": "gno_gemm_kernel<true, false",
 def variant(name: str):
     """The directory holding the package of variant ``name``."""
     form = re.fullmatch(r"m(\d+)n(\d+)r(\d+)c(\d+)k(\d+)s(\d+)p(\d+)"
-                        r"-e(\d+)t([1248])", name)
+                        r"-e(\d+)t([1248])-u(4|8|16)t(\d+)b(\d+)", name)
     if form is None:
         raise SystemExit(f"unknown variant {name!r}")
-    bm, bn, rg, cg, bk, st, per_sm, blocks, tr = form.groups()
+    (bm, bn, rg, cg, bk, st, per_sm, blocks, tr, ri, red_threads,
+     red_blocks) = form.groups()
     root = copy_package("gno_variants", name)
     src = root / PACKAGE.name / "csrc" / "gno.cu"
     edit(src, r"constexpr int kBM = \d+, kBN = \d+, kRG = \d+, kCG = \d+;",
@@ -61,6 +71,9 @@ def variant(name: str):
     edit(src, r"constexpr int kEdgeThreads = 256, kEdgeBlocks = \d+;",
          f"constexpr int kEdgeThreads = 256, kEdgeBlocks = {blocks};")
     edit(src, r"constexpr int kMaxTR = \d+;", f"constexpr int kMaxTR = {tr};")
+    edit(src, r"constexpr int kRI = \d+, kRedThreads = \d+, kRedBlocks = \d+;",
+         f"constexpr int kRI = {ri}, kRedThreads = {red_threads}, "
+         f"kRedBlocks = {red_blocks};")
     py = root / PACKAGE.name / "kernels" / "gno_kernels.py"
     edit(py, r"_TILE_M = \d+", f"_TILE_M = {bm}")
     edit(py, r"_TILE_N = \d+", f"_TILE_N = {bn}")
@@ -135,7 +148,14 @@ def child(name: str) -> dict:
         def backward():
             return K.fused_gno_bwd(csr, senders, ph, h, wl, bl, g)
 
-        got = (forward(),) + backward()
+        # dh's per-edge rows go onto the senders by index_add_, whose
+        # atomics change its bits from call to call unless PyTorch takes its
+        # deterministic path
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            got = (forward(),) + backward()
+        finally:
+            torch.use_deterministic_algorithms(False)
         with torch.no_grad():
             want = (K.fused_gno_plain(csr, senders, ph, h, wl, bl),)
         want += K.fused_gno_bwd_plain(csr, senders, ph, h, wl, bl, g)
@@ -157,7 +177,9 @@ def child(name: str) -> dict:
             end.synchronize()
             by_name = split(fn)
             case[tag] = dict(ms=start.elapsed_time(end) / 20,
-                             device_ms=sum(by_name.values()), split=by_name)
+                             device_ms=sum(by_name.values()), split=by_name,
+                             reduce_ms=sum(v for key, v in by_name.items()
+                                           if "gno_reduce_kernel" in key))
             for product, mark in PRODUCTS.items():
                 ms = sum(v for key, v in by_name.items() if mark in key)
                 if ms > 0:
@@ -168,7 +190,9 @@ def child(name: str) -> dict:
         print(f"{name} {what}: fwd {case['fwd']['ms']:.4f} ms by events, "
               f"{case['fwd']['device_ms']:.4f} device ms; bwd "
               f"{case['bwd']['ms']:.4f} ms by events, "
-              f"{case['bwd']['device_ms']:.4f} device ms; rel "
+              f"{case['bwd']['device_ms']:.4f} device ms; reduce "
+              f"{case['fwd']['reduce_ms']:.4f} / {case['bwd']['reduce_ms']:.4f}"
+              f" device ms; rel "
               f"{ {a: f'{v:.2e}' for a, v in case['rel'].items()} }; "
               f"{rates}", flush=True)
         for tag in ("fwd", "bwd"):
@@ -193,10 +217,9 @@ def same_bits(result: dict) -> None:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main(__file__, ["m128n64r2c1k32s3p2-e3t8",
-                                     "m128n64r2c2k32s3p2-e3t8",
-                                     "m64n64r1c1k32s3p2-e3t8",
-                                     "m128n64r2c1k32s2p2-e3t8",
-                                     "m128n64r2c1k32s3p3-e3t8",
-                                     "m128n64r2c1k32s3p2-e2t8"], variant,
-                          child, parent=True, summary=same_bits))
+    raise SystemExit(main(__file__, ["m128n64r2c1k32s3p2-e3t8-u8t384b2",
+                                     "m128n64r2c1k32s3p2-e3t8-u8t384b1",
+                                     "m128n64r2c1k32s3p2-e3t8-u8t288b3",
+                                     "m128n64r2c1k32s3p2-e3t8-u4t544b2",
+                                     "m128n64r2c1k32s3p2-e3t8-u16t384b1"],
+                          variant, child, parent=True, summary=same_bits))

@@ -1339,17 +1339,36 @@ def _split_ranges(inner, splits, depth=32):
             for z in range(splits)]
 
 
+# csrc/gno.cu's reduce: a thread's tile of S (kRI rows i x 4 columns k) and
+# the most threads a block (kRedThreads)
+_REDUCE_ROWS = 8
+_REDUCE_THREADS = 384
+
+
+def _reduce_shape(in_chs, kp):
+    """``csrc/gno.cu``'s ``reduce_shape``: the w·h chunk rows' stride (IN
+    rounded up to ``_REDUCE_ROWS``), threads a block and passes."""
+    hs = -(-in_chs // _REDUCE_ROWS) * _REDUCE_ROWS
+    tiles = hs // _REDUCE_ROWS * (kp // 4)
+    passes = -(-tiles // _REDUCE_THREADS)
+    per_pass = -(-tiles // passes)
+    return hs, -(-per_pass // 32) * 32, passes
+
+
 def _k5_emulated(csr, senders, ph, h, wl, bl, g, sms):
     """K5 forward and backward by the CUDA kernels' decomposition, in torch
     ops in f32: ``Wl'`` packed with k padded to KP rows (``_packed``); S
-    (N, IN, KP) reduced per receiver row in chunks of 32 edge slots, each
-    chunk added onto the row in order; the products split along their inner
-    dimension for ``sms`` SMs (``_splits``, ``_split_ranges``), the partials
-    summed in split order; dph and the per-edge dh_e of each chunk by warp
-    tasks of TR edges (TR the smallest that leaves none of 8 warps a second
-    task, at most 8), w[s] times each sum; dh_e onto the senders with
-    ``index_add_``. Returns ``(out, (dph, dh, dwl, dbl), forward splits,
-    dWl' splits)``."""
+    (N, IN, KP) reduced per receiver row by the reduce's tiles (thread t of
+    pass p owns the ``_REDUCE_ROWS`` × 4 tile p·threads + t in row-major
+    order over (IN rounded up, KP), adds the row's chunks of 32 edge slots
+    in order into its registers and stores the rows below IN once: every S
+    entry is stored by exactly one thread); the products split along their
+    inner dimension for ``sms`` SMs (``_splits``, ``_split_ranges``), the
+    partials summed in split order; dph and the per-edge dh_e of each chunk
+    by warp tasks of TR edges (TR the smallest that leaves none of 8 warps a
+    second task, at most 8), w[s] times each sum; dh_e onto the senders with
+    ``index_add_``. Returns ``(out, (dph, dh, dwl, dbl), (forward splits,
+    dWl' splits, reduce passes))``."""
     in_chs, k, out_chs = wl.shape
     wlb = K5._packed(wl, bl)
     kp = wlb.shape[1]
@@ -1365,11 +1384,31 @@ def _k5_emulated(csr, senders, ph, h, wl, bl, g, sms):
         return [(c0, min(c0 + 32, row_ptr[r + 1]))
                 for c0 in range(row_ptr[r], row_ptr[r + 1], 32)]
 
-    s_red = torch.zeros(n, in_chs, kp)
-    for r in range(n):
-        for c0, c1 in chunks(r):
-            e = col[c0:c1]
-            s_red[r] += (csr.weight[c0:c1, None] * h[snd[e]]).T @ php[e]
+    hs, threads, passes = _reduce_shape(in_chs, kp)
+    assert threads % 32 == 0 and threads <= _REDUCE_THREADS
+    hwp = torch.zeros(ph.shape[0], hs)  # chunk rows of w·h, hs wide
+    hwp[:, :in_chs] = h[snd]
+    s_red = torch.full((n, in_chs, kp), float("nan"))
+    stores = torch.zeros(in_chs, kp, dtype=torch.int64)
+    for pass_ in range(passes):
+        acc = {}  # tile -> (rows, RI, 4) registers, held across chunks
+        for t in range(pass_ * threads, (pass_ + 1) * threads):
+            if t < hs // _REDUCE_ROWS * (kp // 4):
+                i0, k0 = divmod(t, kp // 4)
+                acc[(i0 * _REDUCE_ROWS, k0 * 4)] = torch.zeros(
+                    n, _REDUCE_ROWS, 4)
+        for r in range(n):
+            for c0, c1 in chunks(r):
+                e = col[c0:c1]
+                part = (csr.weight[c0:c1, None] * hwp[e]).T @ php[e]
+                for (i0, k0), a in acc.items():
+                    a[r] += part[i0:i0 + _REDUCE_ROWS, k0:k0 + 4]
+        for (i0, k0), a in acc.items():
+            rows = min(_REDUCE_ROWS, in_chs - i0)
+            if rows > 0:
+                s_red[:, i0:i0 + rows, k0:k0 + 4] = a[:, :rows]
+                stores[i0:i0 + rows, k0:k0 + 4] += 1
+    assert bool((stores == 1).all())  # each entry stored once
 
     def product(a, b):
         splits = K5._splits(a.shape[0], b.shape[1], a.shape[1], sms)
@@ -1400,31 +1439,36 @@ def _k5_emulated(csr, senders, ph, h, wl, bl, g, sms):
     dh = torch.zeros_like(h).index_add_(0, snd, dh_e)
     dwlb = dwlb.reshape(in_chs, kp, out_chs)
     return out, (dph, dh, dwlb[:, :k],
-                 None if bl is None else dwlb[:, k:k + 1]), fwd_splits, \
-        bwd_splits
+                 None if bl is None else dwlb[:, k:k + 1]), (
+        fwd_splits, bwd_splits, passes)
 
 
 @pytest.mark.parametrize("k,in_chs,out_chs,bias,n,e,splits", [
     # S.Wl' over 8 · 64 = 512 inner columns (K + 0 padded from 61 to 64)
-    (61, 8, 5, False, 40, 300, (2, 1)),
+    (61, 8, 5, False, 40, 300, (2, 1, 1)),
     # S^T.g over 520 receivers, the last split ragged; KB 14 padded to 16
-    (13, 6, 5, True, 520, 1200, (1, 3))])
+    (13, 6, 5, True, 520, 1200, (1, 3, 1)),
+    # the reduce's 8 × 64 tiles of (IN 64, KP 256) in two passes of 256
+    (255, 64, 5, True, 40, 300, (32, 1, 2))])
 def test_k5_decomposition(jx, k, in_chs, out_chs, bias, n, e, splits):
     """K5's forward and backward as the CUDA kernels decompose them
-    (``_k5_emulated``, 16 SMs): the products at their split-K boundaries
-    with the partials summed in split order, and the per-edge backward's
-    chunks and warp tasks, with every 7th receiver and node n − 1 without
-    in-edges and receiver 3 holding 70 edges (chunks of 32, 32 and 6):
-    against ``fused_gno_plain`` / ``fused_gno_bwd_plain`` and
-    ``_fused_gno_fwd`` / ``_fused_gno_bwd_pallas`` in interpret mode, the
-    forward, dph and dh within 1e-5 and dWl, dbl within 1e-4 of their
-    largest entries."""
+    (``_k5_emulated``, 16 SMs; ``splits``: the products' splits and the
+    reduce's passes): the reduce's tiles and passes, the products at their
+    split-K boundaries with the partials summed in split order, and the
+    per-edge backward's chunks and warp tasks, with every 7th receiver and
+    node n − 1 without in-edges and receivers 3, 5 and 6 holding 70, 32 and
+    33 edges (chunks of 32, 32 and 6; one full chunk; 32 and 1): against
+    ``fused_gno_plain`` / ``fused_gno_bwd_plain`` and ``_fused_gno_fwd`` /
+    ``_fused_gno_bwd_pallas`` in interpret mode, the forward, dph and dh
+    within 1e-5 and dWl, dbl within 1e-4 of their largest entries."""
     from neuralgraphpde.kernels import gno_kernels as JK
 
     jnp = jx.jnp
     rng = np.random.default_rng(k + n)
-    live = [i for i in range(n - 1) if i % 7 and i != 3]
-    r = np.concatenate([rng.choice(live, e - 70), np.full(70, 3)])
+    held = {3: 70, 5: 32, 6: 33}  # receiver: in-edges
+    live = [i for i in range(n - 1) if i % 7 and i not in held]
+    r = np.concatenate([rng.choice(live, e - sum(held.values()))]
+                       + [np.full(d, i) for i, d in held.items()])
     s = rng.integers(0, n, e).astype(np.int32)
     ew = rng.normal(size=e).astype(np.float32)
     csr = build_segment_csr(np.arange(e), r, n, num_cols=e, edge_weight=ew)
@@ -1439,8 +1483,9 @@ def test_k5_decomposition(jx, k, in_chs, out_chs, bias, n, e, splits):
     g = rng.normal(size=(n, out_chs)).astype(np.float32)
     t = [None if a is None else torch.from_numpy(a)
          for a in (s, ph, h, wl, bl, g)]
-    out, grads, fwd_splits, bwd_splits = _k5_emulated(csr, *t, sms=16)
-    assert (fwd_splits, bwd_splits) == splits
+    out, grads, geometry = _k5_emulated(csr, *t, sms=16)
+    assert geometry == splits
+    assert np.bincount(r, minlength=n)[[3, 5, 6]].tolist() == [70, 32, 33]
     want = K5.fused_gno_plain(csr, *t[:5])
     plain = K5.fused_gno_bwd_plain(csr, *t)
     jargs = (tj, jnp.asarray(s), jnp.asarray(ph), jnp.asarray(h),
@@ -1462,15 +1507,24 @@ def test_k5_decomposition(jx, k, in_chs, out_chs, bias, n, e, splits):
             assert _rel(a, np.asarray(b)) <= bound
 
 
+# K5 on the card beyond the Darcy widths: rows of ~90 edges (3 chunks, the
+# reduce's second buffer refilled), a width whose reduce takes two passes
+# (IN 64, KP 256: 512 tiles), and one whose two chunk buffers exceed the
+# card's shared memory (IN 4, KP 1,004: one buffer)
+K5_WIDE = [(128, 64, 64, True, 100, 9000), (255, 64, 16, True, 200, 4000),
+           (1000, 4, 8, True, 100, 3000)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,in_chs,out_chs,bias,n,e", [
     (128, 64, 64, True, 1024, 19092), (128, 64, 64, False, 1024, 19092),
     (128, 64, 64, True, 300, 15000),
-    (7, 5, 9, True, 300, 2000), (40, 33, 17, False, 100, 5000)])
+    (7, 5, 9, True, 300, 2000), (40, 33, 17, False, 100, 5000)] + K5_WIDE)
 def test_k5_kernels_match_plain_cuda(cuda, k, in_chs, out_chs, bias, n, e):
     """Forward and backward against the plain versions, at the GNO Darcy
-    widths and at widths that are not multiples of 4; the third and the
-    last case's rows have ~50 edges (several 32-edge chunks each)."""
+    widths, at widths that are not multiples of 4 and at ``K5_WIDE``; the
+    third and the fifth case's rows have ~50 edges (several 32-edge chunks
+    each); the same inputs give the same bits."""
     csr, senders, ph, h, wl, bl, g = _k5_case(cuda, k, in_chs, out_chs,
                                               bias, n, e)
     fwd0, bwd0 = K5.fused_gno_fwd.launches, K5.fused_gno_bwd.launches
@@ -1767,14 +1821,19 @@ def test_k3_bf16_kernels_match_plain_cuda(cuda, feats_bf16, acts, dims,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,in_chs,out_chs,bias,n,e",
+                         [(128, 64, 64, True, 1024, 19092)] + K5_WIDE)
 @pytest.mark.parametrize("ph_bf16,h_bf16", [(True, True), (False, True),
                                             (False, False)])
-def test_k5_bf16_kernels_match_plain_cuda(cuda, ph_bf16, h_bf16):
-    """K5's bf16 forms at the GNO Darcy widths (bf16 ``Wl``/``bl``; ``ph``
-    and ``h`` in bf16 or f32): forward, ``dph``, ``dh``, ``dWl`` and
-    ``dbl`` each within 1e-2 of its own largest entry of the plain
-    versions, each in its input's dtype."""
-    csr, senders, ph, h, wl, bl, g = _k5_case(cuda, 128, 64, 64, seed=22)
+def test_k5_bf16_kernels_match_plain_cuda(cuda, ph_bf16, h_bf16, k, in_chs,
+                                          out_chs, bias, n, e):
+    """K5's bf16 forms (bf16 ``Wl``/``bl``; ``ph`` and ``h`` in bf16 or
+    f32) at the GNO Darcy widths and at ``K5_WIDE``: forward, ``dph``,
+    ``dh``, ``dWl`` and ``dbl`` each within 1e-2 of its own largest entry of
+    the plain versions, each in its input's dtype; the same inputs give the
+    same bits."""
+    csr, senders, ph, h, wl, bl, g = _k5_case(cuda, k, in_chs, out_chs,
+                                              bias, n, e, seed=22)
     pdt = torch.bfloat16 if ph_bf16 else torch.float32
     args = (ph.to(pdt), h.to(torch.bfloat16 if h_bf16 else torch.float32),
             wl.to(torch.bfloat16), bl.to(torch.bfloat16))
@@ -1792,6 +1851,11 @@ def test_k5_bf16_kernels_match_plain_cuda(cuda, ph_bf16, h_bf16):
     for a, p, arg in zip(kern, plain, args):
         assert a.shape == p.shape and a.dtype == p.dtype == arg.dtype
         assert _rel(a.cpu().float(), p.cpu().float()) <= BF16 / 2
+    # dh adds its per-edge rows with index_add_, whose atomics may not
+    again = K5.fused_gno_bwd(csr, senders, *args, g.to(pdt))
+    assert torch.equal(K5.fused_gno_fwd(csr, senders, *args), got)
+    for a, b in zip(kern[:1] + kern[2:], again[:1] + again[2:]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
