@@ -1,0 +1,2 @@
+"""``conv_roofline.train``: ``readers.conv_roofline``."""
+from bench_torch.metrics.readers import conv_roofline as read  # noqa: F401

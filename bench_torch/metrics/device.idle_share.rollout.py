@@ -1,0 +1,2 @@
+"""``device.idle_share.rollout``: ``readers.idle_share``."""
+from bench_torch.metrics.readers import idle_share as read  # noqa: F401

@@ -1,0 +1,2 @@
+"""``step.mfu.train``: ``readers.mfu``."""
+from bench_torch.metrics.readers import mfu as read  # noqa: F401
