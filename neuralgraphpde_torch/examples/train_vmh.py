@@ -29,6 +29,7 @@ from ..ode.neural_ode import NeuralGraphODE
 from ..ops.spmm import precompute
 from ..train.losses import rollout_mse
 from ..train.optim import rprop
+from ..utils.profiling import annotate
 from ..utils.state import update_graph
 
 
@@ -86,15 +87,17 @@ def full_batch_grad(model: NeuralGraphODE,
                     u: torch.Tensor) -> Tuple[torch.Tensor, List[dict]]:
     """Gradient of the mean over simulations of each one's rollout MSE,
     accumulated into the parameters' ``.grad`` (zeroed first): one solve and
-    one backward per simulation. Returns the loss (a 0-d tensor on ``u``'s
-    device) and each solve's ``last_stats``."""
+    one backward per simulation (each in an ``ngpde.train.backward`` span
+    under a profiler). Returns the loss (a 0-d tensor on ``u``'s device)
+    and each solve's ``last_stats``."""
     model.zero_grad(set_to_none=True)
     sims = u.shape[0]
     loss = u.new_zeros(())
     stats = []
     for s in range(sims):
         part = rollout_mse(model(u[s, 0]), u[s]) / sims
-        part.backward()
+        with annotate("ngpde.train.backward"):
+            part.backward()
         loss += part.detach()
         stats.append(dict(model.last_stats))
     return loss, stats

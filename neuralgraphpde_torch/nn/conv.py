@@ -20,6 +20,7 @@ from ..ops.message_passing import (aggregate_neighbors, apply_edges, copy_xj,
                                    e_mul_xj, propagate, w_mul_xj)
 from ..ops.scatter import canonical_reduction
 from ..ops.spmm import get_spmm_mode, kernel_available
+from ..utils.profiling import annotate, annotated
 from ..utils.state import drop
 from .basic import (Chain, Dense, glorot_normal, glorot_uniform,
                     make_params, matmul, resolve_activation, zeros_init)
@@ -30,6 +31,11 @@ Aggr = Union[str, Callable]
 # degree-normalized storage of the fused GCN right-hand side, in the JAX
 # gate's order
 _NORMALIZED = ("dia_norm", "pbanded_norm", "banded_norm")
+# the profiler span of each path a conv layer's dispatch takes
+_FUSED_SPAN = {"dia_norm": "ngpde.dispatch.dia_fused",
+               "pbanded_norm": "ngpde.dispatch.pbanded_fused",
+               "banded_norm": "ngpde.dispatch.banded_fused"}
+_PER_EDGE_SPAN = "ngpde.dispatch.per_edge"
 
 
 class GCNConv(AbstractGNNLayer):
@@ -45,6 +51,9 @@ class GCNConv(AbstractGNNLayer):
     a kernel-side width (``out_chs`` if ``out_chs < in_chs``, else
     ``in_chs``) of at most 512, and a mode that takes kernels (``pallas``,
     ``bsr``, or ``auto`` with x on the card). Otherwise the exact path runs.
+    Under a profiler the forward is an ``ngpde.conv.GCNConv`` span holding
+    ``ngpde.dispatch.<storage>_fused`` or the SpMM's ``ngpde.dispatch.spmm.
+    <mode>``.
     """
 
     def __init__(self, in_chs: int, out_chs: int,
@@ -62,6 +71,7 @@ class GCNConv(AbstractGNNLayer):
         make_params(self, in_chs, out_chs, use_bias, init_weight, init_bias,
                     generator, device, dtype)
 
+    @annotated("ngpde.conv.GCNConv")
     def forward(self, x: torch.Tensor,
                 edge_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
         g = self.graph
@@ -113,12 +123,13 @@ class GCNConv(AbstractGNNLayer):
                           pbanded_gcn_rhs if norm == "pbanded_norm" else
                           banded_gcn_rhs)
                 nrm, nrm_rev = g.cache[norm], g.cache.get(norm + "_rev")
-                if premultiply:
-                    y = rhs_fn(self.activation, matmul(x, w), None, b, nrm,
-                               nrm_rev)
-                else:
-                    y = rhs_fn(self.activation, x, w, b, nrm, nrm_rev)
-                return y.to(x.dtype)
+                with annotate(_FUSED_SPAN[norm]):
+                    if premultiply:
+                        y = rhs_fn(self.activation, matmul(x, w), None, b,
+                                   nrm, nrm_rev)
+                    else:
+                        y = rhs_fn(self.activation, x, w, b, nrm, nrm_rev)
+                    return y.to(x.dtype)
 
         if premultiply:
             x = matmul(x, w)
@@ -228,18 +239,22 @@ def _try_fused_phi(phi, feats, g, aggr):
     if plan is None:
         return None
     acts, ws, bs, post = plan
-    reduced = fused_mlp_aggregate(acts, feats, ws, bs, g.cache["tcsr_edges"])
-    deg = _node_degree(g, reduced.dtype)
-    return fused_phi_post(reduced, post, deg, canonical_reduction(aggr))
+    with annotate("ngpde.dispatch.k3"):
+        reduced = fused_mlp_aggregate(acts, feats, ws, bs,
+                                      g.cache["tcsr_edges"])
+        deg = _node_degree(g, reduced.dtype)
+        return fused_phi_post(reduced, post, deg, canonical_reduction(aggr))
 
 
 def _phi_aggregate(phi, feats, g, aggr):
-    """``aggr_{e→i} ϕ(feats_e)``: the fused kernel path when it applies,
-    else ϕ on every edge then the segment reduce."""
+    """``aggr_{e→i} ϕ(feats_e)``: the fused kernel path when it applies
+    (an ``ngpde.dispatch.k3`` span), else ϕ on every edge then the segment
+    reduce (``ngpde.dispatch.per_edge``)."""
     m = _try_fused_phi(phi, feats, g, aggr)
     if m is not None:
         return m
-    return aggregate_neighbors(g, aggr, phi(feats))
+    with annotate(_PER_EDGE_SPAN):
+        return aggregate_neighbors(g, aggr, phi(feats))
 
 
 class ExplicitEdgeConv(AbstractGNNContainerLayer):
@@ -262,6 +277,7 @@ class ExplicitEdgeConv(AbstractGNNContainerLayer):
         self.phi = phi
         self.aggr = aggr
 
+    @annotated("ngpde.conv.ExplicitEdgeConv")
     def forward(self, x) -> torch.Tensor:
         x = wrap_input(x)
         g = self.graph
@@ -297,6 +313,7 @@ class VMHConv(AbstractGNNContainerLayer):
         self.phi, self.gamma = phi, gamma
         self.aggr = aggr
 
+    @annotated("ngpde.conv.VMHConv")
     def forward(self, x) -> torch.Tensor:
         x = wrap_input(x)
         g = self.graph
@@ -345,6 +362,7 @@ class MPPDEConv(AbstractGNNContainerLayer):
         self.phi, self.psi = phi, psi
         self.aggr = aggr
 
+    @annotated("ngpde.conv.MPPDEConv")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = self.graph
         N, E, G = g.num_nodes, g.num_edges, g.num_graphs
@@ -446,17 +464,19 @@ class GNOConv(AbstractGNNContainerLayer):
         if split is None or red not in ("sum", "mean"):
             return None
         prefix, last = split
-        ph = self._edge_feats(g, x)
-        for layer in prefix:
-            ph = layer(ph)
-        wl, bl = pack_last_layer(last.weight, last.bias, self.in_chs,
-                                 self.out_chs)
-        m = fused_gno_aggregate(ph, x, wl, bl, g.cache["tcsr_edges"],
-                                g.senders)
-        if red == "mean":
-            m = m / _node_degree(g, m.dtype).clamp_min(1.0)[:, None]
-        return m
+        with annotate("ngpde.dispatch.k5"):
+            ph = self._edge_feats(g, x)
+            for layer in prefix:
+                ph = layer(ph)
+            wl, bl = pack_last_layer(last.weight, last.bias, self.in_chs,
+                                     self.out_chs)
+            m = fused_gno_aggregate(ph, x, wl, bl, g.cache["tcsr_edges"],
+                                    g.senders)
+            if red == "mean":
+                m = m / _node_degree(g, m.dtype).clamp_min(1.0)[:, None]
+            return m
 
+    @annotated("ngpde.conv.GNOConv")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = self.graph
         m = None
@@ -465,16 +485,18 @@ class GNOConv(AbstractGNNContainerLayer):
             if mode == "pallas" or (mode == "auto" and kernel_available(x)):
                 m = self._fused_forward(x, g)
         if m is None:
-            E = g.num_edges
-            w = self.phi(self._edge_feats(g, x)).reshape(E, self.in_chs,
-                                                          self.out_chs)
+            with annotate(_PER_EDGE_SPAN):
+                E = g.num_edges
+                w = self.phi(self._edge_feats(g, x)).reshape(
+                    E, self.in_chs, self.out_chs)
 
-            def message(xi, xj, e):
-                # in the dtype the two promote to, as jnp.einsum's
-                dtype = torch.promote_types(w.dtype, xj.dtype)
-                return torch.einsum("eio,ei->eo", w.to(dtype), xj.to(dtype))
+                def message(xi, xj, e):
+                    # in the dtype the two promote to, as jnp.einsum's
+                    dtype = torch.promote_types(w.dtype, xj.dtype)
+                    return torch.einsum("eio,ei->eo", w.to(dtype),
+                                        xj.to(dtype))
 
-            m = propagate(message, g, self.aggr, xj=x)
+                m = propagate(message, g, self.aggr, xj=x)
         y = matmul(x, self.linear.weight) + m
         if self.linear.bias is not None:
             y = y + self.linear.bias

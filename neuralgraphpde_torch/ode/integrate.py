@@ -10,6 +10,12 @@ Time, step size, error ratio and the controller's arithmetic stay float32
 0-d CPU tensors, as they are in the JAX package (which runs with x64 off),
 so both accept the same steps.
 
+Under a profiler each solve runs in an ``ngpde.solve`` span (a backsolve's
+backward: one per save interval), each attempted step in
+``ngpde.solver.attempt`` with its error ratio and next step size in
+``ngpde.solver.control``, and each counted right-hand-side evaluation in
+``ngpde.rhs`` (``utils.profiling``).
+
 Gradients, as in the JAX package, by one of two adjoints:
 
 - ``backsolve`` (``odeint``'s default): the continuous adjoint. The forward
@@ -38,7 +44,10 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
+from ..utils.profiling import annotate
 from .tableaus import Tableau, get_tableau
+
+SOLVE, RHS = "ngpde.solve", "ngpde.rhs"
 
 
 def _f32(v) -> torch.Tensor:
@@ -78,16 +87,23 @@ def odeint_grid(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
     split into ``steps_per_interval`` equal steps."""
     tab = get_tableau(solver)
     ts = _times(ts)
+
+    def spanned(t, y, a):
+        with annotate(RHS):
+            return rhs(t, y, a)
+
     ys = [y0]
     y = y0
-    for i in range(ts.shape[0] - 1):
-        t0 = ts[i]
-        dt = (ts[i + 1] - t0) / steps_per_interval
-        for j in range(steps_per_interval):
-            t = t0 + dt * _f32(j)
-            y, _, _ = _rk_step(rhs, tab, t, y, dt, rhs(t, y, args), args)
-        ys.append(y)
-    return torch.stack(ys)
+    with annotate(SOLVE):
+        for i in range(ts.shape[0] - 1):
+            t0 = ts[i]
+            dt = (ts[i + 1] - t0) / steps_per_interval
+            for j in range(steps_per_interval):
+                t = t0 + dt * _f32(j)
+                y, _, _ = _rk_step(spanned, tab, t, y, dt,
+                                   spanned(t, y, args), args)
+            ys.append(y)
+        return torch.stack(ys)
 
 
 def _rms_host(x: torch.Tensor) -> torch.Tensor:
@@ -182,7 +198,9 @@ def _odeint_adaptive(rhs, tab: Tableau, rtol, atol, max_steps, chk_steps,
     accepted steps in one interval, or an interval not reached."""
     if f0 is None:
         f0 = rhs(ts[0], y0, args)
-    dt = _initial_step_size(rhs, ts[0], y0, f0, args, tab.order, rtol, atol)
+    with annotate("ngpde.solver.init_step"):
+        dt = _initial_step_size(rhs, ts[0], y0, f0, args, tab.order, rtol,
+                                atol)
     tp, yp, fp = ts[0], y0, f0
     t, y, f = ts[0], y0, f0
     ys = [y0]
@@ -190,18 +208,20 @@ def _odeint_adaptive(rhs, tab: Tableau, rtol, atol, max_steps, chk_steps,
     for target in ts[1:]:
         n = accepted = 0
         while t < target and n < max_steps:
-            h = dt if interpolate else torch.minimum(dt, target - t)
-            y1, err, f_last = _rk_step(rhs, tab, t, y, h, f, args)
-            ratio = _error_ratio(err, y, y1, rtol, atol)
-            stats["steps"] += 1
-            if ratio <= 1.0:
-                f1 = f_last if tab.fsal else rhs(t + h, y1, args)
-                tp, yp, fp = t, y, f
-                t, y, f = t + h, y1, f1
-                stats["accepted"] += 1
-                accepted += 1
-            dt = _optimal_dt(h, ratio, tab.order)
-            n += 1
+            with annotate("ngpde.solver.attempt"):
+                h = dt if interpolate else torch.minimum(dt, target - t)
+                y1, err, f_last = _rk_step(rhs, tab, t, y, h, f, args)
+                with annotate("ngpde.solver.control"):
+                    ratio = _error_ratio(err, y, y1, rtol, atol)
+                    dt = _optimal_dt(h, ratio, tab.order)
+                stats["steps"] += 1
+                if ratio <= 1.0:
+                    f1 = f_last if tab.fsal else rhs(t + h, y1, args)
+                    tp, yp, fp = t, y, f
+                    t, y, f = t + h, y1, f1
+                    stats["accepted"] += 1
+                    accepted += 1
+                n += 1
         if "attempts" in stats:
             stats["attempts"].append(n)
         if interpolate:
@@ -343,20 +363,22 @@ class _BacksolveRun:
 
         def rhs(t, y, a):
             counts["nfe"] += 1
-            return self.raw_rhs(t, y, a)
+            with annotate(RHS):
+                return self.raw_rhs(t, y, a)
 
         y_bar = g[-1]
         t_bar = torch.zeros((), device=dev)
         p_bar = [torch.zeros_like(p) for p in params]
         for i in range(len(self.ts) - 1, 0, -1):
-            with torch.no_grad():
-                f_i = rhs(self.ts[i], ys[i], self.args)
-                t_bar = t_bar - torch.sum(g[i] * f_i)
-            span = torch.stack([-self.ts[i], -self.ts[i - 1]])
-            aug = _odeint_adaptive(
-                aug_rhs, self.tab, self.rtol, self.atol, self.max_steps, 0,
-                pack([ys[i], y_bar, t_bar] + p_bar), span, None,
-                interpolate=False, stats=counts)[-1]
+            with annotate(SOLVE):
+                with torch.no_grad():
+                    f_i = rhs(self.ts[i], ys[i], self.args)
+                    t_bar = t_bar - torch.sum(g[i] * f_i)
+                span = torch.stack([-self.ts[i], -self.ts[i - 1]])
+                aug = _odeint_adaptive(
+                    aug_rhs, self.tab, self.rtol, self.atol, self.max_steps,
+                    0, pack([ys[i], y_bar, t_bar] + p_bar), span, None,
+                    interpolate=False, stats=counts)[-1]
             _, y_bar, t_bar, *p_bar = unpack(aug)
             y_bar = y_bar + g[i - 1]
         self.stats.update(backward_nfe=counts["nfe"],
@@ -458,15 +480,17 @@ def odeint(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
 
     def counted(t, y, a):
         counts["nfe"] += 1
-        return rhs(t, y, a)
+        with annotate(RHS):
+            return rhs(t, y, a)
 
     interpolate = interpolation == "hermite"
-    if adjoint == "backsolve" and torch.is_grad_enabled():
-        return _backsolve(counted, rhs, tab, rtol, atol, max_steps, y0,
-                          _times(ts), args, interpolate, counts)
-    return _odeint_adaptive(counted, tab, rtol, atol, max_steps,
-                            checkpoint_steps, y0, _times(ts), args,
-                            interpolate=interpolate, stats=counts)
+    with annotate(SOLVE):
+        if adjoint == "backsolve" and torch.is_grad_enabled():
+            return _backsolve(counted, rhs, tab, rtol, atol, max_steps, y0,
+                              _times(ts), args, interpolate, counts)
+        return _odeint_adaptive(counted, tab, rtol, atol, max_steps,
+                                checkpoint_steps, y0, _times(ts), args,
+                                interpolate=interpolate, stats=counts)
 
 
 @torch.no_grad()
@@ -480,6 +504,8 @@ def solve_stats(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
     stage)."""
     tab = get_tableau(solver)
     counts = dict(nfe=0, steps=0, accepted=0, attempts=[])
-    ys = _odeint_adaptive(rhs, tab, rtol, atol, max_steps, 0, y0,
-                          _times(ts), args, interpolate=False, stats=counts)
+    with annotate(SOLVE):
+        ys = _odeint_adaptive(rhs, tab, rtol, atol, max_steps, 0, y0,
+                              _times(ts), args, interpolate=False,
+                              stats=counts)
     return ys, torch.tensor(counts["attempts"], dtype=torch.int64)

@@ -37,12 +37,15 @@ from ..kernels.banded_kernels import banded_spmm_pallas, pbanded_spmm_pallas
 from ..kernels.dia_kernels import dia_spmm_stencil
 from ..kernels.segment_kernels import (build_segment_csr,
                                        segment_max_aggregate, segment_spmm)
+from ..utils.profiling import annotate
 from .bsr import (DIA_MAX_BANDWIDTH, build_banded, build_packed_banded,
                   bsr_spmm, dense_band_gate, host_edges, packed_gate,
                   precompute_bsr)
 from .dia import build_dia, dia_remainder_spmm, plan_dia, transpose_dia
 
 _MODES = ("auto", "xla", "dense", "pallas", "bsr")
+# the profiler span of each mode ``spmm`` resolves to
+_SPANS = {m: f"ngpde.dispatch.spmm.{m}" for m in _MODES}
 _SPMM_MODE = "auto"
 # Band-count cap after an automatic reorder: RCM'd planar meshes at ~10^5
 # nodes land just past the dense-band builder's 16 (the JAX package's value).
@@ -314,7 +317,8 @@ def spmm_structured(g: GnnGraph, x: torch.Tensor) -> torch.Tensor:
 def spmm(g: GnnGraph, x: torch.Tensor,
          edge_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Receiver sum of (optionally weighted) sender features, dispatched per
-    ``set_spmm_mode`` and the structure cached on ``g``."""
+    ``set_spmm_mode`` and the structure cached on ``g``; under a profiler,
+    in an ``ngpde.dispatch.spmm.<mode>`` span of the mode taken."""
     mode = _SPMM_MODE
     weighted = edge_weight is not None
     two_d = x.dim() == 2
@@ -341,12 +345,13 @@ def spmm(g: GnnGraph, x: torch.Tensor,
         # runtime weights cannot ride the stored values
         mode = ("pallas" if weighted and "tcsr_edges" in g.cache and two_d
                 and kernel else "xla")
-    if mode == "dense":
-        return spmm_dense(g, x)
-    if mode == "bsr":
-        return spmm_structured(g, x)
-    if mode == "pallas":
-        if weighted:
-            return spmm_pallas_weighted(g, x, edge_weight)
-        return spmm_pallas(g, x)
-    return spmm_xla(g, x, edge_weight)
+    with annotate(_SPANS[mode]):
+        if mode == "dense":
+            return spmm_dense(g, x)
+        if mode == "bsr":
+            return spmm_structured(g, x)
+        if mode == "pallas":
+            if weighted:
+                return spmm_pallas_weighted(g, x, edge_weight)
+            return spmm_pallas(g, x)
+        return spmm_xla(g, x, edge_weight)

@@ -58,8 +58,9 @@ memory, and ``run_mem_GB``, that peak less what was allocated before the
 run: every part's models and graphs stay resident), one under it
 (``profiled_wall_s``). ``busy_ms`` is the union of
 the device events' intervals of the profiled run, ``idle_share`` is ``1 −
-busy_ms / profiled wall``, and ``top_ms`` the device time of the largest
-kernels by name.
+busy_ms / wall_s``, the un-profiled wall (the profiler inflates the host's
+time, most on host-bound paths), and ``top_ms`` the device time of the
+largest kernels by name.
 
 Prints one line per measurement and, with ``--out``, writes them all as one
 JSON object.
@@ -564,12 +565,13 @@ def path_profile(label: str, mode: str, fn) -> dict:
             by_name[name[:90]] += dur / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     rec = dict(path=label, mode=mode, wall_s=wall, profiled_wall_s=profiled,
-               busy_ms=busy, idle_share=1.0 - busy / (profiled * 1e3),
+               busy_ms=busy, idle_share=1.0 - busy / (wall * 1e3),
                peak_mem_GB=peak / 1e9, run_mem_GB=(peak - resident) / 1e9,
                n_kernels=sum(e[3] == "kernel" for e in events), top_ms=top,
                **facts)
     print(f"{label}, {mode}: wall {wall:.4f} s (profiled {profiled:.4f} s), "
-          f"device busy {busy:.3f} ms, idle share {rec['idle_share']:.4f}, "
+          f"device busy {busy:.3f} ms, idle share "
+          f"{rec['idle_share']:.4f} (of the un-profiled wall), "
           f"{rec['n_kernels']} kernels, peak {rec['peak_mem_GB']:.4f} GB "
           f"({rec['run_mem_GB']:.4f} GB above the resident tensors), "
           f"{facts}", flush=True)

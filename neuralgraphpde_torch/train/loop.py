@@ -14,20 +14,26 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..utils.profiling import annotate
+
 
 def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
                     has_aux: bool = False):
     """``step(*batch) -> (loss, aux)``: zero the gradients, evaluate
     ``loss_fn(*batch)`` (``(loss, aux)`` with ``has_aux``), backpropagate,
     apply one optimizer update. ``loss`` is returned detached, on its
-    device; ``aux`` is None without ``has_aux``."""
+    device; ``aux`` is None without ``has_aux``. Under a profiler the
+    backward and the update run in ``ngpde.train.backward`` and
+    ``ngpde.train.optimizer`` spans."""
 
     def step(*batch):
         optimizer.zero_grad(set_to_none=True)
         out = loss_fn(*batch)
         loss, aux = out if has_aux else (out, None)
-        loss.backward()
-        optimizer.step()
+        with annotate("ngpde.train.backward"):
+            loss.backward()
+        with annotate("ngpde.train.optimizer"):
+            optimizer.step()
         return loss.detach(), aux
 
     return step

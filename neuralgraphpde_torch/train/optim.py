@@ -23,6 +23,8 @@ from typing import Iterable
 
 import torch
 
+from ..utils.profiling import annotate
+
 
 def adam(params: Iterable, learning_rate: float = 1e-2) -> torch.optim.Adam:
     """``torch.optim.Adam`` with the JAX ``adam``'s default learning rate and
@@ -32,7 +34,8 @@ def adam(params: Iterable, learning_rate: float = 1e-2) -> torch.optim.Adam:
 
 
 class Rprop(torch.optim.Optimizer):
-    """Rprop− with the JAX package's update rule (module docstring)."""
+    """Rprop− with the JAX package's update rule (module docstring); under
+    a profiler its update runs in an ``ngpde.train.optimizer`` span."""
 
     def __init__(self, params: Iterable, lr: float = 1e-3,
                  etas=(0.5, 1.2), step_sizes=(1e-8, 50.0)):
@@ -45,27 +48,28 @@ class Rprop(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        for group in self.param_groups:
-            eta_minus, eta_plus = group["etas"]
-            step_min, step_max = group["step_sizes"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self.state[p]
-                if not state:
-                    state["step_size"] = torch.full_like(p, group["lr"])
-                    state["prev_grad"] = torch.zeros_like(p)
-                g, eta = p.grad, state["step_size"]
-                sign = g * state["prev_grad"]
-                eta = torch.where(
-                    sign > 0, torch.clamp(eta * eta_plus, max=step_max),
-                    torch.where(sign < 0,
-                                torch.clamp(eta * eta_minus, min=step_min),
-                                eta))
-                g_eff = torch.where(sign < 0, torch.zeros_like(g), g)
-                p.add_(-torch.sign(g_eff) * eta)
-                state["step_size"] = eta
-                state["prev_grad"] = g_eff
+        with annotate("ngpde.train.optimizer"):
+            for group in self.param_groups:
+                eta_minus, eta_plus = group["etas"]
+                step_min, step_max = group["step_sizes"]
+                for p in group["params"]:
+                    if p.grad is None:
+                        continue
+                    state = self.state[p]
+                    if not state:
+                        state["step_size"] = torch.full_like(p, group["lr"])
+                        state["prev_grad"] = torch.zeros_like(p)
+                    g, eta = p.grad, state["step_size"]
+                    sign = g * state["prev_grad"]
+                    eta = torch.where(
+                        sign > 0, torch.clamp(eta * eta_plus, max=step_max),
+                        torch.where(
+                            sign < 0,
+                            torch.clamp(eta * eta_minus, min=step_min), eta))
+                    g_eff = torch.where(sign < 0, torch.zeros_like(g), g)
+                    p.add_(-torch.sign(g_eff) * eta)
+                    state["step_size"] = eta
+                    state["prev_grad"] = g_eff
         return loss
 
 
