@@ -16,7 +16,10 @@ Phases, each fatal on failure:
    ``gno_reduce_kernel``, the 12 of ``gno_gemm_kernel``, the 4 of
    ``gno_edge_bwd_kernel`` in ``gno.cu``), each report line
    attributed to the function ptxas names before it; the functions of
-   ``fused_mlp.cu`` and ``gno.cu`` that spill, if any, are printed.
+   ``fused_mlp.cu`` and ``gno.cu`` that spill, if any, are printed; and
+   neither in the six instantiations (f32, bf16, f64, each with 16-byte
+   vectors and scalar) of each RK stage kernel in ``rk_stage.cu``
+   (``rk_combine_kernel``, ``rk_norm_kernel``, ``rk_scatter_kernel``).
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: max relative error ``max|k − p| / max|p|``
    (bound 1e-5 in f32, 1e-2 in bf16 against a plain version fed the same
@@ -116,6 +119,16 @@ Phases, each fatal on failure:
    hybrid DIA: a GRAND forward on the 256² periodic 8-neighbour grid
    (``dia`` + ``dia_rem``) on the stencil K2 plus the COO remainder, parity
    as above.
+   The solver's RK stage kernels (``csrc/rk_stage.cu``; no Pallas source:
+   XLA fused this algebra in the JAX package), each alone at the grid
+   state (262,144 × 64 f32) and at a VMH solve's state (3,000 × 1 f32)
+   against the eager composition it replaced on the same inputs
+   (``plain``): a Tsit5 stage input (base and six terms), the Hermite
+   save (four terms), the error norm (seven terms over max(|y0|, |y1|)),
+   and the backward of a step's first stage (six cotangents to ``k0``'s
+   and ``y``'s); the same bits (the norm within 1e-6, and the same bits
+   again on a rerun), CUDA-event ms of each, and the bound (the bytes,
+   each input read once and each output written once, over 3.35 TB/s).
 6. VMH training at the full configuration (24 sims × 3,000 points, ϕ
    4→60→60→60→40, γ 41→60→60→60→1, Tsit5 at rtol 1e-5 / atol 1e-3):
    the epoch-1 full-batch loss and gradients on the K3 path and on the
@@ -174,7 +187,11 @@ right-hand sides' backward launches are SpMM launches, counted on the
 SpMM), K3's with their launches in the backsolve gradient; then the five
 bf16 forms (K3 forward and backward, K5 forward and backward, K6), each at
 its bf16 path's shape and operand dtypes with its bf16 bound, library time
-and launches on that path, and every form's record. The last line is
+and launches on that path, and every form's record; then the two RK
+stage wrappers (``rk_combine``, whose records are the stage input, the
+Hermite save and the backward's scatter, and ``rk_norm``), with
+``replaces`` null, at the grid state with the VMH state beside it, and
+their launches in GRAND B's gradient. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -1914,6 +1931,76 @@ def bf16_mppde_layer_max(P, K, g, dev):
     return launches
 
 
+def rk_checks(dev) -> dict:
+    """Phase 5, the RK stage kernels alone against the eager compositions
+    they replaced (their plain versions, run on the card), at the grid
+    state and at a VMH solve's state. Returns the records by name, each
+    with the VMH record under ``other_shapes``."""
+    from neuralgraphpde_torch.kernels import rk_kernels as rk
+    from neuralgraphpde_torch.ode.tableaus import TSIT5
+
+    hf = 0.0371
+    stage6 = TSIT5.a[6]
+    first = [[TSIT5.a[m][0] for m in range(6, 0, -1)], [1.0] * 6]
+    cases = [
+        # (record, what, kernel, plain, inputs read, outputs written)
+        ("rk_combine", "Tsit5 stage input, base + 6 terms",
+         lambda y, y1, ks: rk.rk_combine(y, hf, stage6, ks[:6]),
+         lambda y, y1, ks: rk.combine_plain(y, hf, stage6, ks[:6]), 7, 1),
+        ("rk_combine hermite", "Hermite save, 4 terms",
+         lambda y, y1, ks: rk.rk_combine(None, None, (0.3, 0.01, 0.7, -0.02),
+                                         [y, ks[0], y1, ks[6]], False),
+         lambda y, y1, ks: rk.combine_plain(
+             None, None, (0.3, 0.01, 0.7, -0.02), [y, ks[0], y1, ks[6]],
+             False), 4, 1),
+        ("rk_norm", "error norm, 7 terms, max(|y0|, |y1|)",
+         lambda y, y1, ks: rk.rk_norm(hf, TSIT5.b_err, ks, y, y1, 1e-3,
+                                      1e-3),
+         lambda y, y1, ks: rk.norm_plain(hf, TSIT5.b_err, ks, y, y1, 1e-3,
+                                         1e-3), 9, 0),
+        ("rk_scatter", "first stage's backward, 6 cotangents to 2",
+         lambda y, y1, ks: rk.rk_scatter(ks[:6], first, hf, [True, False]),
+         lambda y, y1, ks: rk.scatter_plain(ks[:6], first, hf,
+                                            [True, False]), 6, 2)]
+    records = {}
+    for label, shape in (("grid", (512 * 512, 64)), ("VMH", (3000, 1))):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        y, y1, *ks = [torch.randn(shape, device=dev, generator=gen)
+                      for _ in range(9)]
+        state = y.numel() * y.element_size()
+        for name, what, kernel, plain, reads, writes in cases:
+            got, want = kernel(y, y1, ks), plain(y, y1, ks)
+            if name == "rk_norm":
+                rel = abs(float(got) - float(want)) / float(want)
+                same = torch.equal(kernel(y, y1, ks), got)
+                check(rel <= 1e-6 and same, f"{name} at {label}: rel "
+                                            f"{rel:.3e}, rerun same {same}")
+            else:
+                got = got if isinstance(got, list) else [got]
+                want = want if isinstance(want, list) else [want]
+                rel = max(rel_err(a, b)[0] for a, b in zip(got, want))
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"{name} at {label}: not the eager bits (rel "
+                      f"{rel:.3e})")
+            ms = cuda_ms(lambda: kernel(y, y1, ks))
+            plain_ms = cuda_ms(lambda: plain(y, y1, ks))
+            b_ms, b_by = bound((reads + writes) * state, 0.0)
+            rec = dict(name=name, what=what, shape=list(shape), ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None, max_rel_err=rel, max_abs_err=None,
+                       bits="same" if name != "rk_norm" else "rerun same")
+            print(f"  {name:<19} {label:<5} {what}: {ms:.4f} ms (eager "
+                  f"{plain_ms:.4f} ms, {plain_ms / ms:.1f}x), bound "
+                  f"{b_ms:.4f} ms by {b_by} ({b_ms / ms:.0%} of it), "
+                  f"{rec['bits']} (rel {rel:.1e})")
+            if label == "grid":
+                records[name] = rec
+            else:
+                records[name]["other_shapes"] = [rec]
+        del y, y1, ks
+    return records
+
+
 def grand_forward(P, model, g, x, label):
     """A first (cold) forward on the kernel path, a second (warm) one whose
     kernel launches are counted (the main path), two forwards on the xla
@@ -2018,7 +2105,9 @@ def main() -> int:
                               "fused_mlp_fwd_resident_kernel": 4,
                               "fused_mlp_bwd_kernel": 4},
              "gno.cu": {"gno_reduce_kernel": 4, "gno_gemm_kernel": 12,
-                        "gno_edge_bwd_kernel": 4}}
+                        "gno_edge_bwd_kernel": 4},
+             "rk_stage.cu": {"rk_combine_kernel": 6, "rk_norm_kernel": 6,
+                             "rk_scatter_kernel": 6}}
     for source, kernels in gated.items():
         funcs = ptxas_by_function(info["ptxas_by_source"].get(source, ""))
         spilling = {f: lines for f, (lines, _) in funcs.items() if lines}
@@ -2173,6 +2262,9 @@ def main() -> int:
     check(grad_c["backward"].get("dia_spmm_stencil", 0) > 0,
           "B unfused: stencil K2 not launched in the backward")
     del xla_b
+    print("RK stage kernels alone (no Pallas source), against the eager "
+          "composition:")
+    rk_records = rk_checks(dev)
 
     print("GRAND on the 2^17-point scrambled Delaunay mesh (K4):")
     k4 = mesh_path(P, K, reord_g, "pbanded", "K4 mesh", seed=3)
@@ -2412,6 +2504,23 @@ def main() -> int:
         **{k: rec[k] for k in keys + ("dtypes",)},
         other_shapes=[{k: records["segment_max"]["bf16"][k]
                        for k in keys + ("dtypes",)}]))
+    # the RK stage wrappers: no TPU kernel (XLA fused this algebra), their
+    # launches in GRAND B's gradient
+    for name, extra in (("rk_combine", ("rk_combine hermite",
+                                        "rk_scatter")), ("rk_norm", ())):
+        rec = rk_records[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="neuralgraphpde_torch/csrc/rk_stage.cu", replaces=None,
+            launches=grad_b["launches"].get(name, 0),
+            runs=[dict(run="GRAND B gradient",
+                       launches=grad_b["launches"].get(name, 0),
+                       backward_launches=grad_b["backward"].get(name, 0))],
+            **{k: rec[k] for k in keys}, what=rec["what"],
+            other_shapes=rec["other_shapes"] + [rk_records[e]
+                                                for e in extra],
+            dtypes={"every operand": "float32"}))
+        check(kernels[-1]["launches"] > 0, f"{name}: no launch in GRAND B")
     check_bounds(kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

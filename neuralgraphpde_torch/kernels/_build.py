@@ -30,6 +30,10 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
+_PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
+_DP = ctypes.POINTER(ctypes.c_double)  # a host array of doubles
+_D = ctypes.c_double
+_LL = ctypes.c_longlong
 # C entry point -> argument types; every one returns a cudaError_t as int
 _SIGNATURES = {
     "ngpde_segment_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -49,6 +53,12 @@ _SIGNATURES = {
                          _P, _P, _I, _I, _P),
     "ngpde_block_gcn_rhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                             _P, _P, _I, _I, _I, _I, _I, _P),
+    "ngpde_rk_combine": (_PP, _DP, _I, _P, _D, _I, _I, _P, _LL, _I, _I, _I,
+                         _P),
+    "ngpde_rk_norm": (_PP, _DP, _I, _D, _I, _I, _P, _P, _D, _D, _P, _P, _LL,
+                      _I, _I, _I, _P),
+    "ngpde_rk_scatter": (_PP, _I, _PP, _DP, _IP, _I, _D, _LL, _I, _I, _I,
+                         _P),
 }
 
 _lib = None

@@ -10,6 +10,18 @@ Time, step size, error ratio and the controller's arithmetic stay float32
 0-d CPU tensors, as they are in the JAX package (which runs with x64 off),
 so both accept the same steps.
 
+Every vector operation on the state is one combination of
+``kernels.rk_kernels`` (on the card, one pass over memory in a
+hand-written kernel; on the CPU, the eager composition): each stage input
+``y + h·Σ a_ij k_j``, the new state (for Tsit5 and dopri5, whose last stage
+row equals ``b``, the last stage input itself), the error estimate with its
+scaled RMS norm, the initial step's norms and ``y0 + h0·f0``, and each
+Hermite save. Each rounds as the eager composition did, so the values are
+those of ``y + h·sum(a·k)`` (the norm's sum of squares is taken in another
+order on the card). Under autograd the stages of one step share a
+``StageTape``, whose backward writes each stage derivative's cotangent
+once.
+
 Under a profiler each solve runs in an ``ngpde.solve`` span (a backsolve's
 backward: one per save interval), each attempted step in
 ``ngpde.solver.attempt`` with its error ratio and next step size in
@@ -40,10 +52,12 @@ Gradients, as in the JAX package, by one of two adjoints:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, List, Optional
 
 import torch
 
+from ..kernels import rk_kernels as rk
 from ..utils.profiling import annotate
 from .tableaus import Tableau, get_tableau
 
@@ -58,27 +72,60 @@ def _times(ts) -> torch.Tensor:
     return torch.as_tensor(ts, dtype=torch.float32).detach().cpu().reshape(-1)
 
 
-def _lincomb(coeffs, ks):
-    """Σ_i coeffs[i] · ks[i], summed left to right."""
-    return sum(c * k for c, k in zip(coeffs, ks))
+@functools.lru_cache(maxsize=None)
+def _plan(tab: Tableau):
+    """The tableau's combinations, each as (k indices, coefficients) of its
+    nonzero coefficients (a term c·k with c = 0 adds ±0 after the leading
+    0, which leaves a finite sum's bits as they are): the stage inputs
+    ``rows[i]``, the solution weights, whether the last stage input is the
+    new state (its row equals ``b``: Tsit5 and dopri5), and the error
+    weights."""
+
+    def nonzero(coeffs):
+        pairs = [(j, c) for j, c in enumerate(coeffs) if c != 0]
+        return (tuple(j for j, _ in pairs), tuple(c for _, c in pairs))
+
+    rows = [nonzero(row) for row in tab.a]
+    b = nonzero(tab.b)
+    reuse = tab.stages > 1 and rows[-1] == b
+    err = nonzero(tab.b_err) if tab.adaptive else None
+    return rows, b, reuse, err
 
 
-def _rk_step(rhs, tab: Tableau, t, y, h, f0, args):
+def _counted(stats: Optional[dict], fn, *args):
+    """``fn(*args)``, one combination of the solve: counted in
+    ``stats['combos']`` and, where it launched a kernel,
+    ``stats['combos_fused']``."""
+    if stats is None:
+        return fn(*args)
+    before = rk.rk_combine.launches + rk.rk_norm.launches
+    out = fn(*args)
+    stats["combos"] += 1
+    stats["combos_fused"] += (rk.rk_combine.launches + rk.rk_norm.launches
+                              > before)
+    return out
+
+
+def _rk_step(rhs, tab: Tableau, t, y, h, f0, args, stats=None):
     """One explicit RK step from ``(t, y)`` with ``f0 = f(t, y)``. Returns
-    ``(y1, err, f_last)``; for FSAL tableaus ``f_last = f(t + h, y1)``.
-    The error estimate is computed outside autograd: only the controller
-    reads it."""
+    ``(y1, ks)``, the stage derivatives ``ks`` (for FSAL tableaus
+    ``ks[-1] = f(t + h, y1)``). Each stage input is one combination; when
+    the last one is the new state (``_plan``), it is ``y1``. Under autograd
+    the step's stages share one ``StageTape``."""
     hf = float(h)
+    rows, b, reuse, _ = _plan(tab)
+    tape = rk.StageTape(hf)
     ks = [f0]
+    z = None
     for i in range(1, tab.stages):
-        incr = _lincomb(tab.a[i], ks[: len(tab.a[i])])
-        ks.append(rhs(t + _f32(tab.c[i]) * h, y + hf * incr, args))
-    y1 = y + hf * _lincomb(tab.b, ks)
-    err = None
-    if tab.adaptive:
-        with torch.no_grad():
-            err = hf * _lincomb(tab.b_err, [k.detach() for k in ks])
-    return y1, err, ks[-1]
+        js, cs = rows[i]
+        z = _counted(stats, tape.stage, i, y, js, cs, [ks[j] for j in js])
+        ks.append(rhs(t + _f32(tab.c[i]) * h, z, args))
+    if not reuse:
+        js, cs = b
+        z = _counted(stats, tape.stage, tab.stages, y, js, cs,
+                     [ks[j] for j in js])
+    return z, ks
 
 
 def odeint_grid(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
@@ -100,23 +147,21 @@ def odeint_grid(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
             dt = (ts[i + 1] - t0) / steps_per_interval
             for j in range(steps_per_interval):
                 t = t0 + dt * _f32(j)
-                y, _, _ = _rk_step(spanned, tab, t, y, dt,
-                                   spanned(t, y, args), args)
+                y, _ = _rk_step(spanned, tab, t, y, dt, spanned(t, y, args),
+                                args)
             ys.append(y)
         return torch.stack(ys)
 
 
-def _rms_host(x: torch.Tensor) -> torch.Tensor:
-    """sqrt(mean(x²)) as a float32 CPU scalar (one device read)."""
-    return torch.sqrt(torch.sum(x * x) / x.numel()).cpu()
-
-
-def _error_ratio(err, y0, y1, rtol, atol) -> torch.Tensor:
-    """The controller's scaled RMS error, outside autograd."""
+def _error_ratio(tab: Tableau, h, ks, y0, y1, rtol, atol,
+                 stats=None) -> torch.Tensor:
+    """The controller's scaled RMS error of the step ``y0 → y1``, outside
+    autograd: one pass over the state, one device read."""
+    js, cs = _plan(tab)[3]
     with torch.no_grad():
-        scale = atol + rtol * torch.maximum(y0.detach().abs(),
-                                            y1.detach().abs())
-        return _rms_host(err.detach() / scale)
+        return _counted(stats, rk.rk_norm, float(h), cs,
+                        [ks[j].detach() for j in js], y0.detach(),
+                        y1.detach(), rtol, atol).cpu()
 
 
 def _optimal_dt(dt, ratio, order, safety=0.9, min_factor=0.2,
@@ -130,22 +175,25 @@ def _optimal_dt(dt, ratio, order, safety=0.9, min_factor=0.2,
 
 
 @torch.no_grad()
-def _initial_step_size(rhs, t0, y0, f0, args, order, rtol, atol):
+def _initial_step_size(rhs, t0, y0, f0, args, order, rtol, atol, stats=None):
     """Hairer-Nørsett-Wanner automatic initial step selection; a constant
     of the solve, so its right-hand-side evaluation records no graph."""
     y0, f0 = y0.detach(), f0.detach()
 
-    def scaled_norm(x, ref):
-        return _rms_host(x / (atol + rtol * ref.abs()))
+    def scaled_norm(coeffs, xs):
+        return _counted(stats, rk.rk_norm, None, coeffs, xs, y0, None, rtol,
+                        atol, False).cpu()
 
-    d0 = scaled_norm(y0, y0)
-    d1 = scaled_norm(f0, y0)
+    d0 = scaled_norm((1.0,), (y0,))
+    d1 = scaled_norm((1.0,), (f0,))
     if d0 < 1e-5 or d1 < 1e-5:
         h0 = _f32(1e-6)
     else:
         h0 = 0.01 * d0 / torch.clamp(d1, min=1e-30)
-    f1 = rhs(t0 + h0, y0 + float(h0) * f0, args)
-    d2 = scaled_norm(f1 - f0, y0) / h0
+    y_h0 = _counted(stats, rk.rk_combine, y0, float(h0), (1.0,), (f0,),
+                    False)
+    f1 = rhs(t0 + h0, y_h0, args)
+    d2 = scaled_norm((1.0, -1.0), (f1, f0)) / h0  # the norm of f1 - f0
     if d1 <= 1e-15 and d2 <= 1e-15:
         h1 = torch.clamp(h0 * 1e-3, min=1e-6)
     else:
@@ -154,8 +202,9 @@ def _initial_step_size(rhs, t0, y0, f0, args, order, rtol, atol):
     return torch.minimum(100.0 * h0, h1)
 
 
-def _hermite_eval(t0, y0, f0, t1, y1, f1, t):
-    """Cubic Hermite interpolant over ``[t0, t1]`` evaluated at ``t``."""
+def _hermite_eval(t0, y0, f0, t1, y1, f1, t, stats=None):
+    """Cubic Hermite interpolant over ``[t0, t1]`` evaluated at ``t``: one
+    combination of the four tensors, summed from the first term."""
     h = t1 - t0
     theta = (t - t0) / h
     th2 = theta * theta
@@ -164,8 +213,9 @@ def _hermite_eval(t0, y0, f0, t1, y1, f1, t):
     c_f0 = h * (th3 - 2.0 * th2 + theta)
     c_y1 = -2.0 * th3 + 3.0 * th2
     c_f1 = h * (th3 - th2)
-    return (float(c_y0) * y0 + float(c_f0) * f0 + float(c_y1) * y1
-            + float(c_f1) * f1)
+    return _counted(stats, rk.combination, None, None,
+                    (float(c_y0), float(c_f0), float(c_y1), float(c_f1)),
+                    (y0, f0, y1, f1), False)
 
 
 class _NanGrad(torch.autograd.Function):
@@ -200,7 +250,7 @@ def _odeint_adaptive(rhs, tab: Tableau, rtol, atol, max_steps, chk_steps,
         f0 = rhs(ts[0], y0, args)
     with annotate("ngpde.solver.init_step"):
         dt = _initial_step_size(rhs, ts[0], y0, f0, args, tab.order, rtol,
-                                atol)
+                                atol, stats)
     tp, yp, fp = ts[0], y0, f0
     t, y, f = ts[0], y0, f0
     ys = [y0]
@@ -210,13 +260,14 @@ def _odeint_adaptive(rhs, tab: Tableau, rtol, atol, max_steps, chk_steps,
         while t < target and n < max_steps:
             with annotate("ngpde.solver.attempt"):
                 h = dt if interpolate else torch.minimum(dt, target - t)
-                y1, err, f_last = _rk_step(rhs, tab, t, y, h, f, args)
+                y1, ks = _rk_step(rhs, tab, t, y, h, f, args, stats)
                 with annotate("ngpde.solver.control"):
-                    ratio = _error_ratio(err, y, y1, rtol, atol)
+                    ratio = _error_ratio(tab, h, ks, y, y1, rtol, atol,
+                                         stats)
                     dt = _optimal_dt(h, ratio, tab.order)
                 stats["steps"] += 1
                 if ratio <= 1.0:
-                    f1 = f_last if tab.fsal else rhs(t + h, y1, args)
+                    f1 = ks[-1] if tab.fsal else rhs(t + h, y1, args)
                     tp, yp, fp = t, y, f
                     t, y, f = t + h, y1, f1
                     stats["accepted"] += 1
@@ -225,7 +276,7 @@ def _odeint_adaptive(rhs, tab: Tableau, rtol, atol, max_steps, chk_steps,
         if "attempts" in stats:
             stats["attempts"].append(n)
         if interpolate:
-            ys.append(_hermite_eval(tp, yp, fp, t, y, f, target))
+            ys.append(_hermite_eval(tp, yp, fp, t, y, f, target, stats))
         else:
             ys.append(y)
             overflow |= accepted > chk_steps or t < target
@@ -359,7 +410,7 @@ class _BacksolveRun:
                      for gr, w in zip(grads, wrt)]
             return pack([-dy.detach(), grads[0], -grads[1]] + grads[2:])
 
-        counts = dict(nfe=0, steps=0, accepted=0)
+        counts = dict(nfe=0, steps=0, accepted=0, combos=0, combos_fused=0)
 
         def rhs(t, y, a):
             counts["nfe"] += 1
@@ -461,7 +512,10 @@ def odeint(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
       a solve beyond it returns NaN gradients with unchanged values.
 
     ``stats``, if given, receives ``nfe`` (right-hand-side evaluations),
-    ``steps`` (attempted) and ``accepted``; a backsolve's backward adds
+    ``steps`` (attempted), ``accepted``, ``combos`` (the combinations of
+    the state the solver made: stage inputs, error norms, the initial
+    step's, Hermite saves) and ``combos_fused`` (those that launched a
+    kernel: all of them on the card); a backsolve's backward adds
     ``backward_nfe`` (its right-hand-side evaluations: one per augmented
     evaluation, one per save), ``backward_steps`` and
     ``backward_accepted`` to the same dict.
@@ -476,7 +530,7 @@ def odeint(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
             f"solver {tab.name!r} has no embedded error estimate; use "
             "odeint_grid for fixed-step solvers")
     counts = {} if stats is None else stats
-    counts.update(nfe=0, steps=0, accepted=0)
+    counts.update(nfe=0, steps=0, accepted=0, combos=0, combos_fused=0)
 
     def counted(t, y, a):
         counts["nfe"] += 1
@@ -503,7 +557,8 @@ def solve_stats(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
     int64 tensor (each attempt is a right-hand-side evaluation per
     stage)."""
     tab = get_tableau(solver)
-    counts = dict(nfe=0, steps=0, accepted=0, attempts=[])
+    counts = dict(nfe=0, steps=0, accepted=0, combos=0, combos_fused=0,
+                  attempts=[])
     with annotate(SOLVE):
         ys = _odeint_adaptive(rhs, tab, rtol, atol, max_steps, 0, y0,
                               _times(ts), args, interpolate=False,

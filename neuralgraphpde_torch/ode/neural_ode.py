@@ -25,8 +25,9 @@ class NeuralGraphODE(ContainerLayer):
     ``adjoint='backsolve'`` (``odeint``); the wrapped model's parameters
     reach the right-hand side as the leaves it closes over. After each call
     ``last_stats`` holds the adaptive solver's counts (``nfe``, ``steps``,
-    ``accepted``; after a backsolve's backward also ``backward_nfe``,
-    ``backward_steps``, ``backward_accepted``).
+    ``accepted``, ``combos``, ``combos_fused``; after a backsolve's
+    backward also ``backward_nfe``, ``backward_steps``,
+    ``backward_accepted``).
     """
 
     layer_names = ("model",)
