@@ -13,8 +13,9 @@ Phases, each fatal on failure:
    ``fused_mlp_bwd_stream_kernel``, ``fused_mlp_fwd_resident_kernel``,
    ``fused_mlp_bwd_kernel`` in ``fused_mlp.cu``) nor in any instantiation
    of K5's reduce, product and per-edge backward (the 4 of
-   ``gno_reduce_kernel``, the 12 of ``gno_gemm_kernel``, the 4 of
-   ``gno_edge_bwd_kernel`` in ``gno.cu``), each report line
+   ``gno_reduce_kernel``, the 12 of ``gno_gemm_kernel``, the 8 of
+   ``gno_edge_bwd_kernel``, whole and sliced, in ``gno.cu``), each report
+   line
    attributed to the function ptxas names before it; the functions of
    ``fused_mlp.cu`` and ``gno.cu`` that spill, if any, are printed; and
    neither in the six instantiations (f32, bf16, f64, each with 16-byte
@@ -57,7 +58,17 @@ Phases, each fatal on failure:
    and senders read once, S written once; E·IN·KB multiply-adds), recorded
    as ``reduce_device_ms`` and ``reduce_bound_ms``. That bound is not
    gated: at 32² the reduce's 45 MB can stay in the 50 MB L2 across timed
-   calls.
+   calls. At 32² a digest of the forward's output, ``dph``, ``dWl`` and
+   ``dbl`` is printed, to compare bit for bit with another checkout's.
+   Then K5 at the graph kernel network's widths on the ``gno-darcy``
+   cell's graph (``bench_torch/traffic/darcy.py::ball_edges``: the 61²
+   grid at spacing 1/60, every node within radius 0.1 by float64
+   distance, self-loops: 3,721 nodes, 383,293 edges; K 1,024,
+   IN = OUT = 64, a bias): the reduce's passes and the per-edge backward's
+   slices (``gno_plan``), forward and backward against the plain versions
+   at the same bounds, each timed by events (kernel and plain) beside its
+   bound, and its device ms by launch; recorded as ``gkn`` in K5's
+   ``kernels`` entries.
    The segment-max kernel (K6), max and min (−max(−m)), forward and the
    backward of its autograd call, at the ``bench.py`` ``rand`` shape (the
    K1 graph's edge-id layout, F = 128), on that graph with the edges of
@@ -281,6 +292,14 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def digest(t: torch.Tensor) -> str:
+    """A digest of the bytes of tensor ``t``."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().view(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest()[:16]
 
 
 def check(cond: bool, what: str) -> None:
@@ -1200,6 +1219,12 @@ def k5_checks(K, dev, cases):
             print(f"    reduce on the device: fwd {reduce_ms[0]:.4f} ms, "
                   f"bwd {reduce_ms[1]:.4f} ms; its bound {reduce_bound:.4f} "
                   f"ms ({reduce_by}; not gated: S may stay in L2)")
+            # the bits, to compare with another checkout's (dh is left out:
+            # its index_add_ sums in another order from call to call)
+            print("    digests: " + ", ".join(
+                f"{what} {digest(t)}" for what, t in
+                zip(("out", "dph", "dWl", "dbl"), (got,) + kern[:1]
+                    + kern[2:])))
             records["gno_bf16"] = k5_bf16(K, csr, senders, ph, h, wl, bl,
                                           g, shape[:-4])
             records["fused_gno_fwd"] = dict(
@@ -1216,6 +1241,95 @@ def k5_checks(K, dev, cases):
                 plain_ms=plain_b, library_ms=None, bound_ms=bound_b,
                 bound_by=by_b, shape=shape)
     return records
+
+
+def k5_gkn_checks(K, dev):
+    """Phase 3, K5 at the graph kernel network's widths on the
+    ``gno-darcy`` cell's graph: forward and backward against the plain
+    versions, timed by events beside their bounds, device ms by launch.
+    Returns ``{fused_gno_fwd: record, fused_gno_bwd: record}``."""
+    from neuralgraphpde_torch.tools.profile_paths import device_split
+
+    from bench_torch.traffic.darcy import ball_edges
+
+    s, r = ball_edges(61, 0.1)
+    n, e, k, width = 61 * 61, len(r), 1024, 64
+    check(e == 383_293, f"GKN graph: {e} edges, expected 383,293")
+    csr = K.build_segment_csr(np.arange(e), r, n, num_cols=e).to(dev)
+    senders = torch.from_numpy(s).to(dev)
+    rng = np.random.default_rng(18)
+
+    def put(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(dev)
+
+    wl, bl = K.pack_last_layer(put(k, width * width, scale=k ** -0.5),
+                               put(1, width * width, scale=0.1), width, width)
+    ph, h, g = put(e, k), put(n, width), put(n, width)
+    plan = K.gno_plan(k, width, width, True)
+    shape = f"K5 GKN 61² N={n} E={e} K={k} IN=OUT={width} bias f32"
+    got = K.fused_gno_fwd(csr, senders, ph, h, wl, bl)
+    kern = K.fused_gno_bwd(csr, senders, ph, h, wl, bl, g)
+    with torch.no_grad():
+        want = K.fused_gno_plain(csr, senders, ph, h, wl, bl)
+    fwd_rel, fwd_abs = rel_err(got, want)
+    del want
+    plain = K.fused_gno_bwd_plain(csr, senders, ph, h, wl, bl, g)
+    torch.cuda.synchronize()
+    edge = [rel_err(a, b) for a, b in zip(kern[:2], plain[:2])]
+    par = [rel_err(a, b) for a, b in zip(kern[2:], plain[2:])]
+    del plain
+    edge_rel, par_rel = max(v for v, _ in edge), max(v for v, _ in par)
+    for out in (got,) + kern:
+        check(bool(torch.isfinite(out).all()), f"{shape}: non-finite")
+    check(fwd_rel <= F32_BOUND, f"{shape} fwd: rel {fwd_rel:.3e}")
+    check(edge_rel <= F32_BOUND, f"{shape} dph/dh: rel {edge_rel:.3e}")
+    check(par_rel <= K5_PARAM_BOUND, f"{shape} dWl/dbl: rel {par_rel:.3e}")
+    del got, kern
+    ms_f = cuda_ms(lambda: K.fused_gno_fwd(csr, senders, ph, h, wl, bl))
+    ms_b = cuda_ms(lambda: K.fused_gno_bwd(csr, senders, ph, h, wl, bl, g))
+    plain_f = cuda_ms(lambda: K.fused_gno_plain(csr, senders, ph, h, wl, bl),
+                      reps=3, warmup=1)
+    plain_b = cuda_ms(lambda: K.fused_gno_bwd_plain(csr, senders, ph, h, wl,
+                                                    bl, g), reps=3, warmup=1)
+    reduce_macs = e * width * (k + 1)
+    product_macs = n * width * (k + 1) * width
+    inputs = csr_bytes(csr) + nbytes(senders, ph, h, wl, bl)
+    bound_f, by_f = bound(inputs + 4 * n * width, 2.0 * (reduce_macs
+                                                         + product_macs))
+    bound_b, by_b = bound(inputs + nbytes(g, ph, h, wl) + 4 * width,
+                          2.0 * (3 * reduce_macs + 2 * product_macs))
+    split_f = device_split(lambda: K.fused_gno_fwd(csr, senders, ph, h, wl,
+                                                   bl), reps=5)
+    split_b = device_split(lambda: K.fused_gno_bwd(csr, senders, ph, h, wl,
+                                                   bl, g), reps=5)
+    print(f"  {shape}\n"
+          f"    plan: reduce {plan['reduce_passes']} passes of "
+          f"{plan['reduce_threads']} threads, {plan['reduce_buffers']} "
+          f"buffers; per-edge backward {plan['edge_slices']} slices of "
+          f"{plan['edge_slice']} columns k, {plan['edge_smem']} B a block\n"
+          f"    fwd    rel {fwd_rel:.3e} (bound {F32_BOUND:g})  kernel "
+          f"{ms_f:.4f} ms  plain {plain_f:.4f} ms  bound {bound_f:.4f} ms "
+          f"({by_f})\n"
+          f"    bwd    dph/dh rel {edge_rel:.3e} (bound {F32_BOUND:g}), "
+          f"dWl/dbl rel {par_rel:.3e} (bound {K5_PARAM_BOUND:g})  kernel "
+          f"{ms_b:.4f} ms  autograd through plain {plain_b:.4f} ms  bound "
+          f"{bound_b:.4f} ms ({by_b})")
+    for what, split in (("fwd", split_f), ("bwd", split_b)):
+        print(f"    {what} on the device, {sum(split.values()):.4f} ms by "
+              "launch:")
+        for name, ms in split.items():
+            print(f"      {ms:.4f} ms  {name}")
+    common = dict(plan=plan, shape=shape, plain_ms=None, library_ms=None)
+    return {"fused_gno_fwd": dict(
+                common, max_abs_err=fwd_abs, max_rel_err=fwd_rel, ms=ms_f,
+                plain_ms=plain_f, device_ms=sum(split_f.values()),
+                device_split=split_f, bound_ms=bound_f, bound_by=by_f),
+            "fused_gno_bwd": dict(
+                common, max_abs_err=max(a for _, a in edge + par),
+                max_rel_err=max(edge_rel, par_rel), ms=ms_b, plain_ms=plain_b,
+                device_ms=sum(split_b.values()), device_split=split_b,
+                bound_ms=bound_b, bound_by=by_b)}
 
 
 def k6_checks(K, dev, cases):
@@ -2099,13 +2213,14 @@ def main() -> int:
     # per-edge backward (csrc/gno.cu) are built to spill nothing and to keep
     # no local array (a stack frame of 0 bytes), in every instantiation: K3's
     # four dtype pairs, the reduce's 4, the product's 12 (three operand
-    # layouts by four dtype combinations) and the per-edge backward's 4
+    # layouts by four dtype combinations) and the per-edge backward's 8
+    # (whole and sliced by four)
     gated = {"fused_mlp.cu": {"fused_mlp_fwd_stream_kernel": 4,
                               "fused_mlp_bwd_stream_kernel": 4,
                               "fused_mlp_fwd_resident_kernel": 4,
                               "fused_mlp_bwd_kernel": 4},
              "gno.cu": {"gno_reduce_kernel": 4, "gno_gemm_kernel": 12,
-                        "gno_edge_bwd_kernel": 4},
+                        "gno_edge_bwd_kernel": 8},
              "rk_stage.cu": {"rk_combine_kernel": 6, "rk_norm_kernel": 6,
                              "rk_scatter_kernel": 6}}
     for source, kernels in gated.items():
@@ -2201,6 +2316,7 @@ def main() -> int:
     k3_records = k3_checks(K, dev, k3_cases)
     records.update(k3_records["VMH"])
     records.update(k5_checks(K, dev, gno_cases))
+    gkn_records = k5_gkn_checks(K, dev)
     records.update(k6_checks(K, dev, k6_cases))
     del k6_cases
     records.update(band_checks(K, dev, [
@@ -2436,6 +2552,8 @@ def main() -> int:
             for v, run in zip(entry["variants"], ("VMH", "MP-PDE",
                                                   "hidden 60", "hidden 128")):
                 v["device_ms"] = k3_records[run][name]["device_ms"]
+        if name in gkn_records:
+            entry["gkn"] = gkn_records[name]
         if name == "segment_max":
             burgers = records["segment_max Burgers"]
             entry["other_shapes"] = [{k: burgers[k] for k in keys}]

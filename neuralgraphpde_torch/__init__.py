@@ -21,7 +21,8 @@ from .nn import (MLP, AbstractGNNContainerLayer, AbstractGNNLayer, Chain,
                  Layer, MPPDEConv, Precision, VMHConv, bf16)
 from .utils import drop, update_graph, wrapgraph
 from .ode import NeuralGraphODE, odeint, odeint_grid, solve_stats
-from .models import GNOModel, MPPDESolver, grand_model, vmh_model
+from .models import (GKNModel, GNOModel, MPPDESolver, grand_model,
+                     vmh_model)
 from .data import (burgers_dataset, convection_diffusion_dataset,
                    cora_dataset, darcy_dataset, load_cora, synthetic_cora)
 from .train import (MetricsLogger, Rprop, accuracy, adam, make_train_step,

@@ -46,7 +46,10 @@
 //   chunks of 32 edge slots, adds each chunk's edges in slot order and
 //   stores the tile once, 16 bytes a row: no atomics, S never read back,
 //   the same sums on every run. A width with more tiles than kRedThreads
-//   takes passes, each walking the row's chunks again. A chunk is gathered
+//   takes passes, each over a slice of k (every i, kgp groups of 4
+//   columns: 6 passes of 172 columns at K 1024, IN 64) that walks the
+//   row's chunks again and gathers only its slice of the ph' rows, so the
+//   two chunk buffers still fit. A chunk is gathered
 //   a warp an edge row: its col/senders/w loaded once, the ph rows asked for
 //   before the senders arrive, then the h rows, by 16-byte cp.async (bf16 by
 //   plain loads), the bias column and padding of ph' by plain stores, h
@@ -68,15 +71,25 @@
 //   few output tiles is split along its inner dimension into per-split
 //   partials that a second kernel adds in split order: deterministic. bf16
 //   operands take plain loads, converted on their way into shared memory.
-// - per-edge backward: one block per receiver row, 3 an SM. dS[n] is
-//   staged once by 16-byte cp.async, under the gather of the chunk's h and
-//   ph' rows (32 edges a chunk), in the row-major (IN, KP) layout it has in
-//   device memory. The chunk's outputs are warp tasks of TR edges, TR the
+// - per-edge backward: one block per receiver row, 3 an SM (2 in the
+//   sliced form, below: its own instantiation). dS[n] is
+//   staged by 16-byte cp.async, under the gather of the chunk's h and ph'
+//   rows (32 edges a chunk), in the row-major (IN, KP) layout it has in
+//   device memory, whole where that leaves two blocks an SM; a wider row
+//   (K 1024, IN 64: dS[n] alone is 257 KB) is staged in slices of ks
+//   columns k (a multiple of 128 where one fits, at a row stride ks + 4),
+//   each slice walking the row's chunks with its columns of ph': dph's
+//   sums lie within a slice, and dh_e's sum over k goes on across slices
+//   through dh_e itself (the running sum stored unscaled, in f32, read
+//   back by the next slice, scaled by w[s] after the last), so every sum
+//   keeps one chain and the bits do not depend on the slices. The
+//   chunk's outputs are warp tasks of TR edges, TR the
 //   smallest that gives every warp at most one task (at mean in-degree 18.6
 //   every warp has one): dph tasks of 128 columns k (4 consecutive a lane,
 //   float4 reads of dS along k) summed over i, dh tasks of 64 rows i (2 a
-//   lane, 32 apart, float4 reads along k at the row stride KP: conflict-free
-//   where KP = 4 mod 32, as at the Darcy widths) summed over k; the edges'
+//   lane, 32 apart, float4 reads along k at the row stride, KP or ks + 4:
+//   conflict-free where it is 4 mod 32, as at the Darcy and GKN widths)
+//   summed over k; the edges'
 //   h and ph' rows are read as broadcast float4. w[s] multiplies each sum
 //   once. Every edge id appears once in `col`, so dph and dh_e rows are
 //   written directly, with no scatter.
@@ -101,6 +114,9 @@ constexpr int kTE = 32;  // edge slots per chunk
 // the three)
 constexpr int kRI = 8, kRedThreads = 384, kRedBlocks = 2;
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+// bytes of shared memory a block may use and still leave a second block its
+// share of the SM's 228 KB (1 KB of each block's is the system's)
+constexpr int kHalfSmPerBlock = 233472 / 2 - 1024;
 // returned by the launchers for widths outside the envelope (cudaError_t
 // codes are >= 0)
 constexpr int kOutsideEnvelope = -1;
@@ -118,6 +134,12 @@ constexpr int kGemmThreads = (kBM / (4 * kRG)) * (kBN / (4 * kCG));
 // to (its shared memory allows 3 at the Darcy widths) and its widest task,
 // in edges
 constexpr int kEdgeThreads = 256, kEdgeBlocks = 3;
+// the blocks an SM the sliced form's registers are held to (its slices are
+// sized for 2; its tasks' running sums and slice bounds spill at 3). A row
+// that fits whole keeps the unsliced form: at K 128, IN 64 on an H100 its 3
+// blocks an SM run the per-edge backward 14-20% faster than the sliced
+// form's 2
+constexpr int kEdgeSlicedBlocks = 2;
 constexpr int kMaxTR = 8;
 constexpr int kBatch = 8;  // loads in flight a lane in the edge gather
 
@@ -138,25 +160,82 @@ struct Gno {
 
 __host__ __device__ __forceinline__ int pad4(int d) { return (d + 3) & ~3; }
 
-// floats of dynamic shared memory of the per-edge backward
-__host__ __device__ inline int edge_bwd_smem_floats(const Gno& p) {
-  return p.inp * p.kp + kTE * (p.inp + p.kp);
+// The reduce's launch: hw rows of hs floats (in rounded up to kRI); passes
+// over each row, pass q holding the tiles of every i and of the kgp groups
+// of 4 columns k from q * kgp on (fewer in the last), gathered into pp
+// rows of 4 * kgp floats; the threads a block (a multiple of 32); two
+// chunk buffers where they fit in kMaxSmem, else one.
+struct ReduceShape {
+  int hs, kgp, passes, threads, bufs, smem;
+};
+
+inline ReduceShape reduce_shape(const Gno& p) {
+  ReduceShape r;
+  r.hs = (p.in + kRI - 1) / kRI * kRI;
+  const int ig = r.hs / kRI, kt = p.kp >> 2;
+  const int most = kRedThreads / ig > 1 ? kRedThreads / ig : 1;
+  r.passes = (kt + most - 1) / most;
+  r.kgp = (kt + r.passes - 1) / r.passes;
+  r.threads = (ig * r.kgp + 31) / 32 * 32;
+  const int buf = kTE * (r.hs + 4 * r.kgp + 1) * (int)sizeof(float);
+  r.bufs = 2 * buf <= kMaxSmem ? 2 : 1;
+  r.smem = r.bufs * buf;
+  return r;
+}
+
+// The per-edge backward's slices of k: dS[n] and the ph' rows are staged
+// ks columns at a time (the last slice runs to kp), in shared-memory rows
+// of `stride` floats: one slice of all kp columns where that block leaves
+// two blocks an SM; else the widest ks that does, a multiple of 128 (one
+// dph task's columns) where one fits, else of 4, at a stride of ks + 4
+// (4 mod 32 where ks is a multiple of 128: the dh tasks' reads do not
+// conflict); where none leaves two blocks an SM, the same within kMaxSmem.
+// ks = 0 where not even 4 columns fit.
+struct EdgeShape {
+  int ks, slices, stride, smem;
+};
+
+inline int edge_smem(const Gno& p, int stride) {
+  return (p.inp * stride + kTE * (p.inp + stride)) * (int)sizeof(float);
+}
+
+inline EdgeShape edge_shape(const Gno& p) {
+  EdgeShape e{p.kp, 1, p.kp, edge_smem(p, p.kp)};
+  if (e.smem <= kHalfSmPerBlock) return e;
+  const int budgets[2] = {kHalfSmPerBlock, kMaxSmem};
+  for (int b = 0; b < 2; ++b) {
+    // the widest ks (a multiple of 4) whose stride ks + 4 fits
+    const int fl = budgets[b] / (int)sizeof(float) - kTE * p.inp;
+    int ks = fl > 0 ? (fl / (p.inp + kTE) - 4) & ~3 : 0;
+    if (ks >= p.kp) return e;  // one slice within kMaxSmem
+    if (ks >= 128) ks &= ~127;
+    if (ks >= 4) {
+      e.ks = ks;
+      e.slices = (p.kp - 4 + ks - 1) / ks;  // the last takes up to ks + 4
+      e.stride = ks + 4;
+      e.smem = edge_smem(p, e.stride);
+      return e;
+    }
+  }
+  e.ks = 0;
+  return e;
 }
 
 // The reduce's chunk [c0, c0 + ne) of a row's slots, a warp an edge row
 // (edges warp, warp + nw, ...): lane j first loads the edge id and weight of
 // the warp's j-th edge (the weight into bw) and asks for its sender; then
-// the warp copies each edge's ph' row into pp (kp floats a row), and once
-// the senders have arrived its h row into hw (hs floats a row). f32
-// rows go by 16-byte cp.async where they are 16-byte aligned (vec) and by
-// 4-byte ones otherwise; bf16 rows by plain loads, converted to f32 (h times
-// w[s] there); the bias column (1) and the zero padding of ph' by plain
-// stores. f32 h rows land unscaled: reduce_scale multiplies them by w[s] once
-// they have landed. hw's columns past `in` are left as they are: the tile
-// rows they feed are never stored.
+// the warp copies the columns [k_lo, k_lo + kw) of each edge's ph' row
+// into pp (rows of ps floats), and once the senders have arrived its h row
+// into hw (hs floats a row). f32 rows go by 16-byte cp.async where they
+// are 16-byte aligned (vec) and by 4-byte ones otherwise; bf16 rows by
+// plain loads, converted to f32 (h times w[s] there); the bias column (1)
+// and the zero padding of ph' by plain stores. f32 h rows land unscaled:
+// reduce_scale multiplies them by w[s] once they have landed. hw's columns
+// past `in` are left as they are: the tile rows they feed are never
+// stored.
 template <typename TP, typename TH>
 __device__ __forceinline__ void reduce_gather(
-    const Gno& p, int hs, bool ph_vec, bool h_vec,
+    const Gno& p, int hs, int ps, int k_lo, int kw, bool ph_vec, bool h_vec,
     const int* __restrict__ col, const float* __restrict__ ew,
     const int* __restrict__ senders, const TP* __restrict__ ph,
     const TH* __restrict__ h, int c0, int ne, float* hw, float* pp,
@@ -173,21 +252,22 @@ __device__ __forceinline__ void reduce_gather(
     bw[warp + nw * lane] = w;
   }
   for (int j = 0, e = warp; e < ne; ++j, e += nw) {
-    const TP* prow = ph + __shfl_sync(~0u, eid, j) * (long long)p.k;
-    float* pd = pp + e * p.kp;
+    const TP* prow = ph + __shfl_sync(~0u, eid, j) * (long long)p.k + k_lo;
+    float* pd = pp + e * ps;
     if (sizeof(TP) == sizeof(float) && ph_vec) {
-      // k is a multiple of 4: a chunk lies in ph or past it
-      for (int q = lane; q < p.kp >> 2; q += 32) {
-        if (4 * q < p.k)
+      // k and k_lo are multiples of 4: a chunk lies in ph or past it, and
+      // the one chunk past it starts with the bias column
+      for (int q = lane; q < kw >> 2; q += 32) {
+        if (k_lo + 4 * q < p.k)
           cp_async16(pd + 4 * q, prow + 4 * q, 16);
         else
           *reinterpret_cast<float4*>(pd + 4 * q) =
               make_float4(p.kb > p.k ? 1.f : 0.f, 0.f, 0.f, 0.f);
       }
     } else {
-      for (int k = lane; k < p.kp; k += 32) {
-        if (k >= p.k) {
-          pd[k] = k < p.kb ? 1.f : 0.f;
+      for (int k = lane; k < kw; k += 32) {
+        if (k_lo + k >= p.k) {
+          pd[k] = k_lo + k < p.kb ? 1.f : 0.f;
         } else if constexpr (sizeof(TP) == sizeof(float)) {
           cp_async4(pd + k, prow + k, true);
         } else {
@@ -242,16 +322,18 @@ __device__ __forceinline__ void reduce_scale(const Gno& p, int hs, bool h_vec,
 }
 
 // S[r, i, k] for one receiver row r per block, stored (N, in, kp) in f32
-// (zero for k >= kb). Thread t of a pass owns the kRI x 4 tile (i, k) =
-// (t / (kp / 4) * kRI, t % (kp / 4) * 4) in registers across all the row's
+// (zero for k >= kb). In pass q (reduce_shape), with kgn groups of 4
+// columns from k_lo = 4 q kgp on, thread t owns the kRI x 4 tile (i, k) =
+// (t / kgn * kRI, k_lo + t % kgn * 4) in registers across all the row's
 // chunks and stores it once, a 16-byte store a row of the tile (rows i >=
-// in are not stored); widths with more tiles than threads take passes.
-// Chunk c + 1's copies run under chunk c's FMAs where two buffers fit
-// (bufs 2), else the chunks share one. Each entry is the chain acc = 0,
-// fmaf(w[s] h[snd_s, i], ph'[e_s, k], acc) over the row's slots in order.
+// in are not stored); one pass holds every tile where they fit in
+// kRedThreads. Chunk c + 1's copies run under chunk c's FMAs where two
+// buffers fit (bufs 2), else the chunks share one. Each entry is the chain
+// acc = 0, fmaf(w[s] h[snd_s, i], ph'[e_s, k], acc) over the row's slots in
+// order, whichever pass and thread hold it.
 template <typename TP, typename TH>
 __global__ void __launch_bounds__(kRedThreads, kRedBlocks)
-    gno_reduce_kernel(Gno p, int hs, int bufs, bool ph_vec, bool h_vec,
+    gno_reduce_kernel(Gno p, ReduceShape rs, bool ph_vec, bool h_vec,
                       const int* __restrict__ row_ptr,
                       const int* __restrict__ col,
                       const float* __restrict__ ew,
@@ -260,49 +342,53 @@ __global__ void __launch_bounds__(kRedThreads, kRedBlocks)
                       const TH* __restrict__ h, float* __restrict__ s_out) {
   extern __shared__ float4 sm4[];
   float* const sm = reinterpret_cast<float*>(sm4);
-  // a chunk buffer: hw (kTE x hs), pp (kTE x kp), bw (kTE)
-  const int buf_floats = kTE * (hs + p.kp + 1);
+  // a chunk buffer: hw (kTE x hs), pp (kTE x ps), bw (kTE)
+  const int hs = rs.hs, ps = 4 * rs.kgp, bufs = rs.bufs;
+  const int buf_floats = kTE * (hs + ps + 1);
   const int r = blockIdx.x;
   const int e_begin = row_ptr[r], deg = row_ptr[r + 1] - e_begin;
   const int chunks = (deg + kTE - 1) / kTE;
-  const int kt_n = p.kp >> 2, tiles = hs / kRI * kt_n;
-  for (int base = 0; base < tiles; base += blockDim.x) {
-    const int t = base + threadIdx.x;
-    const bool own = t < tiles;
-    const int i0 = own ? t / kt_n * kRI : 0, k0 = own ? t % kt_n * 4 : 0;
+  const int kt_n = p.kp >> 2, ig = hs / kRI;
+  for (int pass = 0; pass < rs.passes; ++pass) {
+    const int kg0 = pass * rs.kgp, kgn = min(rs.kgp, kt_n - kg0);
+    const int k_lo = 4 * kg0, kw = 4 * kgn;
+    const int t = threadIdx.x;
+    const bool own = t < ig * kgn;
+    const int i0 = own ? t / kgn * kRI : 0, k0 = own ? t % kgn * 4 : 0;
     float acc[kRI][4];
 #pragma unroll
     for (int a = 0; a < kRI; ++a)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-    if (base > 0) __syncthreads();  // the last pass has read the buffers
+    if (pass > 0) __syncthreads();  // the last pass has read the buffers
     for (int c = 0; c < chunks; ++c) {
       float* hw = sm + (c & (bufs - 1)) * buf_floats;
       float* pp = hw + kTE * hs;
       const int ne = min(kTE, deg - c * kTE);
       if (c == 0 || bufs == 1) {
-        reduce_gather(p, hs, ph_vec, h_vec, col, ew, senders, ph, h,
-                     e_begin + c * kTE, ne, hw, pp, pp + kTE * p.kp);
+        reduce_gather(p, hs, ps, k_lo, kw, ph_vec, h_vec, col, ew, senders,
+                      ph, h, e_begin + c * kTE, ne, hw, pp, pp + kTE * ps);
         cp_async_commit();
       }
       if (bufs == 2 && c + 1 < chunks) {
         float* hn = sm + ((c + 1) & 1) * buf_floats;
-        reduce_gather(p, hs, ph_vec, h_vec, col, ew, senders, ph, h,
-                     e_begin + (c + 1) * kTE, min(kTE, deg - (c + 1) * kTE),
-                     hn, hn + kTE * hs, hn + kTE * (hs + p.kp));
+        reduce_gather(p, hs, ps, k_lo, kw, ph_vec, h_vec, col, ew, senders,
+                      ph, h, e_begin + (c + 1) * kTE,
+                      min(kTE, deg - (c + 1) * kTE), hn, hn + kTE * hs,
+                      hn + kTE * (hs + ps));
         cp_async_commit();
         cp_async_wait<1>();  // chunk c has landed (this thread's copies)
       } else {
         cp_async_wait<0>();
       }
       if constexpr (sizeof(TH) == sizeof(float))
-        reduce_scale(p, hs, h_vec, ne, pp + kTE * p.kp, hw);
+        reduce_scale(p, hs, h_vec, ne, pp + kTE * ps, hw);
       __syncthreads();  // chunk c is in shared memory, scaled
       if (own) {
         const float* hb = hw + i0;
         const float* pb = pp + k0;
         for (int e = 0; e < ne; ++e) {
-          const float4 b = ld4(pb + e * p.kp);
+          const float4 b = ld4(pb + e * ps);
           float a[kRI];
 #pragma unroll
           for (int q = 0; q < kRI / 4; ++q) {
@@ -320,7 +406,7 @@ __global__ void __launch_bounds__(kRedThreads, kRedBlocks)
       if (c + 1 < chunks) __syncthreads();  // chunk c read: refill its buffer
     }
     if (own) {
-      float* srow = s_out + (long long)r * p.in * p.kp;
+      float* srow = s_out + (long long)r * p.in * p.kp + k_lo;
 #pragma unroll
       for (int x = 0; x < kRI; ++x)
         if (i0 + x < p.in)
@@ -505,12 +591,13 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
 }
 
 // ------------------------------------------------------ per-edge backward
-// The chunk [c0, c1) of slots: h[snd_s] rows into hs (kTE x inp) and
-// ph'[e_s] rows into pp (kTE x kp), as f32, zero-padded, rows past c1 zero:
-// a warp a row, lanes along it, kBatch loads in flight a lane.
+// The chunk [c0, c1) of slots: h[snd_s] rows into hs (kTE x inp) and the
+// columns [k_lo, k_lo + kw) of the ph'[e_s] rows into pp (kTE rows of
+// `stride` floats), as f32, zero-padded, rows past c1 zero: a warp a row,
+// lanes along it, kBatch loads in flight a lane.
 template <typename TP, typename TH>
 __device__ __forceinline__ void gather_edges(
-    const Gno& p, const int* __restrict__ col,
+    const Gno& p, int k_lo, int kw, int stride, const int* __restrict__ col,
     const int* __restrict__ senders, const TP* __restrict__ ph,
     const TH* __restrict__ h, int c0, int c1, float* hs, float* pp) {
   const int lane = threadIdx.x & 31;
@@ -531,11 +618,11 @@ __device__ __forceinline__ void gather_edges(
       for (int u = 0; u < kBatch; ++u)
         if (i0 + 32 * u < p.inp) hs[e * p.inp + i0 + 32 * u] = v[u];
     }
-    for (int k0 = lane; k0 < p.kp; k0 += 32 * kBatch) {
+    for (int k0 = lane; k0 < kw; k0 += 32 * kBatch) {
       float v[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
-        const int k = k0 + 32 * u;
+        const int k = k_lo + k0 + 32 * u;
         // the bias column of ph' is 1
         v[u] = !live ? 0.f
                : k < p.k ? to_f32(prow[k])
@@ -543,22 +630,24 @@ __device__ __forceinline__ void gather_edges(
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u)
-        if (k0 + 32 * u < p.kp) pp[e * p.kp + k0 + 32 * u] = v[u];
+        if (k0 + 32 * u < kw) pp[e * stride + k0 + 32 * u] = v[u];
     }
   }
 }
 
-// One dph task: dph[e_s, k0 .. k0 + 3] (below k) = w[s] sum_i hs[e, i]
-// dS[i, k], i ascending, for the chunk rows e = e0 .. e0 + TR - 1 whose
-// slot s = c0 + e is below c1
+// One dph task: dph[e_s, k_lo + k0 .. k_lo + k0 + 3] (below k) = w[s]
+// sum_i hs[e, i] dS[i, k], i ascending, for the chunk rows e = e0 .. e0 +
+// TR - 1 whose slot s = c0 + e is below c1; dsm holds the slice's columns
+// of dS at row stride `stride`, the first kd of them columns of dph
 template <int TR, typename TP>
-__device__ __forceinline__ void dph_task(const Gno& p, const float* dsm,
+__device__ __forceinline__ void dph_task(const Gno& p, int k_lo, int kd,
+                                         int stride, const float* dsm,
                                          const float* hs, int e0, int k0,
                                          int c0, int c1,
                                          const int* __restrict__ col,
                                          const float* __restrict__ ew,
                                          TP* __restrict__ dph) {
-  if (k0 >= p.k) return;  // k0 + 3 < kp then
+  if (k0 >= kd) return;  // k0 + 3 lies in the slice then
   float acc[TR][4];
 #pragma unroll
   for (int r = 0; r < TR; ++r)
@@ -569,8 +658,8 @@ __device__ __forceinline__ void dph_task(const Gno& p, const float* dsm,
   // flight together, within the registers of 3 blocks an SM
 #pragma unroll 1
   for (int i = 0; i < p.inp; i += 2) {
-    const float4 b0 = ld4(dsm + i * p.kp + k0);
-    const float4 b1 = ld4(dsm + (i + 1) * p.kp + k0);
+    const float4 b0 = ld4(dsm + i * stride + k0);
+    const float4 b1 = ld4(dsm + (i + 1) * stride + k0);
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
       const float2 a =
@@ -586,41 +675,52 @@ __device__ __forceinline__ void dph_task(const Gno& p, const float* dsm,
     const int s = c0 + e0 + r;
     if (s >= c1) break;
     const float w = ew[s];
-    TP* dst = dph + (long long)col[s] * p.k + k0;
+    TP* dst = dph + (long long)col[s] * p.k + k_lo + k0;
     if (vec) {
       *reinterpret_cast<float4*>(dst) = make_float4(
           w * acc[r][0], w * acc[r][1], w * acc[r][2], w * acc[r][3]);
     } else {
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        if (k0 + c < p.k) dst[c] = from_f32<TP>(w * acc[r][c]);
+        if (k_lo + k0 + c < p.k) dst[c] = from_f32<TP>(w * acc[r][c]);
     }
   }
 }
 
-// One dh task: dh_e[e_s, i] = w[s] sum_k pp[e, k] dS[i, k], k ascending,
-// for i = i0 and i0 + 32 (below in) and the chunk rows e0 .. e0 + TR - 1
-// whose slot is below c1
+// One dh task over a slice of kw columns k: for i = i0 and i0 + 32 (below
+// in) and the chunk rows e0 .. e0 + TR - 1 whose slot is below c1, the sum
+// dh_e[e_s, i] = w[s] sum_k pp[e, k] dS[i, k], k ascending, goes on from
+// the running sum that the last slice stored in dh_e (0 in the first
+// slice), and is stored unscaled, or times w[s] in the last slice
 template <int TR>
-__device__ __forceinline__ void dh_task(const Gno& p, const float* dsm,
-                                        const float* pp, int e0, int i0,
-                                        int c0, int c1,
+__device__ __forceinline__ void dh_task(const Gno& p, int kw, int stride,
+                                        bool first, bool last,
+                                        const float* dsm, const float* pp,
+                                        int e0, int i0, int c0, int c1,
                                         const int* __restrict__ col,
                                         const float* __restrict__ ew,
                                         float* __restrict__ dh_edge) {
   const bool in0 = i0 < p.in, in1 = i0 + 32 < p.in;
   if (!in0) return;
-  const float* d0 = dsm + i0 * p.kp;
-  const float* d1 = in1 ? d0 + 32 * p.kp : d0;
+  const float* d0 = dsm + i0 * stride;
+  const float* d1 = in1 ? d0 + 32 * stride : d0;
   float acc[TR][2];
 #pragma unroll
-  for (int r = 0; r < TR; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int r = 0; r < TR; ++r) {
+    acc[r][0] = acc[r][1] = 0.f;
+    const int s = c0 + e0 + r;
+    if (!first && s < c1) {
+      const float* src = dh_edge + (long long)col[s] * p.in + i0;
+      acc[r][0] = src[0];
+      if (in1) acc[r][1] = src[32];
+    }
+  }
 #pragma unroll 1
-  for (int k = 0; k < p.kp; k += 4) {
+  for (int k = 0; k < kw; k += 4) {
     const float4 b0 = ld4(d0 + k), b1 = ld4(d1 + k);
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
-      const float4 a = ld4(pp + (e0 + r) * p.kp + k);
+      const float4 a = ld4(pp + (e0 + r) * stride + k);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         acc[r][0] = fmaf(part(a, u), part(b0, u), acc[r][0]);
@@ -632,38 +732,40 @@ __device__ __forceinline__ void dh_task(const Gno& p, const float* dsm,
   for (int r = 0; r < TR; ++r) {
     const int s = c0 + e0 + r;
     if (s >= c1) break;
-    const float w = ew[s];
+    const float w = last ? ew[s] : 1.f;
     float* dst = dh_edge + (long long)col[s] * p.in + i0;
-    dst[0] = w * acc[r][0];
-    if (in1) dst[32] = w * acc[r][1];
+    dst[0] = last ? w * acc[r][0] : acc[r][0];
+    if (in1) dst[32] = last ? w * acc[r][1] : acc[r][1];
   }
 }
 
 // task t of a chunk with TR edges a task: the dph tasks (kgs column groups
 // of 128) first, then the dh tasks (row groups of 64 i)
 template <int TR, typename TP>
-__device__ __forceinline__ void edge_task(const Gno& p, int t, int nrg,
-                                          int kgs, const float* dsm,
-                                          const float* hs, const float* pp,
-                                          int c0, int c1,
-                                          const int* __restrict__ col,
-                                          const float* __restrict__ ew,
-                                          TP* __restrict__ dph,
-                                          float* __restrict__ dh_edge) {
+__device__ __forceinline__ void edge_task(
+    const Gno& p, int k_lo, int kw, int kd, int stride, bool first,
+    bool last, int t, int nrg, int kgs, const float* dsm, const float* hs,
+    const float* pp, int c0, int c1, const int* __restrict__ col,
+    const float* __restrict__ ew, TP* __restrict__ dph,
+    float* __restrict__ dh_edge) {
   const int lane = threadIdx.x & 31;
   const int e0 = (t % nrg) * TR, g = t / nrg;
   if (g < kgs)
-    dph_task<TR>(p, dsm, hs, e0, g * 128 + 4 * lane, c0, c1, col, ew, dph);
+    dph_task<TR>(p, k_lo, kd, stride, dsm, hs, e0, g * 128 + 4 * lane, c0,
+                 c1, col, ew, dph);
   else
-    dh_task<TR>(p, dsm, pp, e0, (g - kgs) * 64 + lane, c0, c1, col, ew,
-                dh_edge);
+    dh_task<TR>(p, kw, stride, first, last, dsm, pp, e0,
+                (g - kgs) * 64 + lane, c0, c1, col, ew, dh_edge);
 }
 
 // dph (in TP) and dh_e (f32) of one receiver row per block, from dS stored
-// (N, in, kp)
-template <typename TP, typename TH>
-__global__ void __launch_bounds__(kEdgeThreads, kEdgeBlocks)
-    gno_edge_bwd_kernel(Gno p, const int* __restrict__ row_ptr,
+// (N, in, kp): whole (Sliced false: one slice of every column, at row
+// stride kp), or slice by slice of k (edge_shape)
+template <bool Sliced, typename TP, typename TH>
+__global__ void __launch_bounds__(kEdgeThreads,
+                                  Sliced ? kEdgeSlicedBlocks : kEdgeBlocks)
+    gno_edge_bwd_kernel(Gno p, EdgeShape es,
+                        const int* __restrict__ row_ptr,
                         const int* __restrict__ col,
                         const float* __restrict__ ew,
                         const int* __restrict__ senders,
@@ -674,62 +776,84 @@ __global__ void __launch_bounds__(kEdgeThreads, kEdgeBlocks)
                         float* __restrict__ dh_edge) {
   constexpr int kWarps = kEdgeThreads / 32;
   extern __shared__ float4 sm4[];
-  float* dsm = reinterpret_cast<float*>(sm4);  // (inp, kp): dS[r]
-  float* hs = dsm + p.inp * p.kp;              // (kTE, inp)
-  float* pp = hs + kTE * p.inp;                // (kTE, kp)
+  const int stride = Sliced ? es.stride : p.kp;
+  const int slices = Sliced ? es.slices : 1;
+  float* dsm = reinterpret_cast<float*>(sm4);  // (inp, stride): dS[r]'s slice
+  float* hs = dsm + p.inp * stride;            // (kTE, inp)
+  float* pp = hs + kTE * p.inp;                // (kTE, stride)
   const int r = blockIdx.x;
   const int e_begin = row_ptr[r], e_end = row_ptr[r + 1];
   if (e_begin == e_end) return;  // the same for the whole block
-  // dS[r]: in rows of kp floats, contiguous and 16-byte aligned; the rows
-  // up to inp are zero
   const float* drow = ds + (long long)r * p.in * p.kp;
-  for (int q = threadIdx.x; q < (p.in * p.kp) >> 2; q += kEdgeThreads)
-    cp_async16(dsm + 4 * q, drow + 4 * q, 16);
-  cp_async_commit();
-  for (int q = p.in * p.kp + threadIdx.x; q < p.inp * p.kp;
-       q += kEdgeThreads)
-    dsm[q] = 0.f;
   const int warp = threadIdx.x >> 5;
-  const int kgs = (p.k + 127) >> 7, groups = kgs + ((p.in + 63) >> 6);
-  for (int c0 = e_begin; c0 < e_end; c0 += kTE) {
-    const int c1 = min(c0 + kTE, e_end);
-    gather_edges(p, col, senders, ph, h, c0, c1, hs, pp);
-    cp_async_wait<0>();
-    __syncthreads();  // dS[r] and the chunk's rows are in shared memory
-    // the fewest edges a task that leave no warp a second task, at most
-    // kMaxTR; rows past the chunk's are zero and not stored
-    const int ne = c1 - c0;
-    int tr = 1;
-    while (tr < kMaxTR && ((ne + tr - 1) / tr) * groups > kWarps) ++tr;
-    const int nrg = (ne + tr - 1) / tr;
-    for (int t = warp; t < nrg * groups; t += kWarps) {
-      switch (tr) {
-#define NGPDE_EDGE_TASK(TR)                                              \
-  case TR:                                                               \
-    edge_task<TR>(p, t, nrg, kgs, dsm, hs, pp, c0, c1, col, ew, dph,     \
-                  dh_edge);                                              \
-    break;
-        NGPDE_EDGE_TASK(1)
-        NGPDE_EDGE_TASK(2)
-        NGPDE_EDGE_TASK(3)
-        NGPDE_EDGE_TASK(4)
-        NGPDE_EDGE_TASK(5)
-        NGPDE_EDGE_TASK(6)
-        NGPDE_EDGE_TASK(7)
-        NGPDE_EDGE_TASK(8)
-#undef NGPDE_EDGE_TASK
+  const int dh_groups = (p.in + 63) >> 6;
+  for (int sl = 0; sl < slices; ++sl) {
+    const int k_lo = Sliced ? sl * es.ks : 0;
+    const int kw = Sliced && sl + 1 < slices ? es.ks : p.kp - k_lo;
+    // the slice of dS[r]: in rows of kw floats, 16-byte aligned, at row
+    // stride `stride` (whole, contiguous); the rows up to inp are zero (the
+    // last slice's tasks have read dsm: the chunk loop ended in a barrier)
+    if (Sliced) {
+      const int q4 = kw >> 2;
+      for (int q = threadIdx.x; q < p.in * q4; q += kEdgeThreads) {
+        const int i = q / q4, c = q - i * q4;
+        cp_async16(dsm + i * stride + 4 * c, drow + i * p.kp + k_lo + 4 * c,
+                   16);
       }
+    } else {
+      for (int q = threadIdx.x; q < (p.in * p.kp) >> 2; q += kEdgeThreads)
+        cp_async16(dsm + 4 * q, drow + 4 * q, 16);
     }
-    __syncthreads();  // the next chunk overwrites hs and pp
+    cp_async_commit();
+    for (int q = p.in * stride + threadIdx.x; q < p.inp * stride;
+         q += kEdgeThreads)
+      dsm[q] = 0.f;
+    const int kd = min(kw, p.k - k_lo);  // the slice's columns of dph
+    const int kgs = kd > 0 ? (kd + 127) >> 7 : 0, groups = kgs + dh_groups;
+    const bool first = !Sliced || sl == 0;
+    const bool last = !Sliced || sl + 1 == slices;
+    for (int c0 = e_begin; c0 < e_end; c0 += kTE) {
+      const int c1 = min(c0 + kTE, e_end);
+      gather_edges(p, k_lo, kw, stride, col, senders, ph, h, c0, c1, hs, pp);
+      cp_async_wait<0>();
+      __syncthreads();  // dS[r]'s slice and the chunk's rows are in place
+      // the fewest edges a task that leave no warp a second task, at most
+      // kMaxTR; rows past the chunk's are zero and not stored
+      const int ne = c1 - c0;
+      int tr = 1;
+      while (tr < kMaxTR && ((ne + tr - 1) / tr) * groups > kWarps) ++tr;
+      const int nrg = (ne + tr - 1) / tr;
+      for (int t = warp; t < nrg * groups; t += kWarps) {
+        switch (tr) {
+#define NGPDE_EDGE_TASK(TR)                                           \
+  case TR:                                                            \
+    edge_task<TR>(p, k_lo, kw, kd, stride, first, last, t, nrg, kgs,  \
+                  dsm, hs, pp, c0, c1, col, ew, dph, dh_edge);        \
+    break;
+          NGPDE_EDGE_TASK(1)
+          NGPDE_EDGE_TASK(2)
+          NGPDE_EDGE_TASK(3)
+          NGPDE_EDGE_TASK(4)
+          NGPDE_EDGE_TASK(5)
+          NGPDE_EDGE_TASK(6)
+          NGPDE_EDGE_TASK(7)
+          NGPDE_EDGE_TASK(8)
+#undef NGPDE_EDGE_TASK
+        }
+      }
+      // the next chunk overwrites hs and pp, the next slice dsm; and the
+      // next slice's dh tasks read what this one stored in dh_e
+      __syncthreads();
+    }
   }
 }
 
 // host: the widths, or kOutsideEnvelope. K5's envelope: K, IN and OUT
-// from 1 to kMaxWidth, and 2 * inp * kp + kTE * (inp + kp) floats within
-// kMaxSmem bytes (the first per-edge backward's block, which kept dS[n]
-// twice; the envelope has stayed as it was, and the current block needs
-// less). Both launchers hold the widths to it, so a forward never runs
-// whose backward could not.
+// from 1 to kMaxWidth, the reduce's chunk buffer (reduce_shape) within
+// kMaxSmem bytes, and a slice of at least 4 columns of the per-edge
+// backward (edge_shape) too: IN up to 1,444 at any K (the backward's dS
+// rows and h rows fill the block first). Both launchers hold the widths
+// to it, so a forward never runs whose backward could not.
 int make_gno(int k, int in, int out, int has_bias, Gno* p) {
   if (k < 1 || in < 1 || out < 1 || k > kMaxWidth || in > kMaxWidth ||
       out > kMaxWidth)
@@ -740,9 +864,8 @@ int make_gno(int k, int in, int out, int has_bias, Gno* p) {
   p->out = out;
   p->kp = pad4(p->kb);
   p->inp = pad4(in);
-  const long long envelope =
-      2LL * p->inp * p->kp + (long long)kTE * (p->inp + p->kp);
-  if (envelope * (long long)sizeof(float) > kMaxSmem) return kOutsideEnvelope;
+  if (reduce_shape(*p).smem > kMaxSmem || edge_shape(*p).ks == 0)
+    return kOutsideEnvelope;
   return 0;
 }
 
@@ -781,28 +904,6 @@ cudaError_t launch_gemm(int M, int N, int K, int splits, const TA* A,
   return cudaGetLastError();
 }
 
-// the reduce's launch: hw rows of hs floats (in rounded up to kRI), the
-// threads a block (a multiple of 32) and passes that cover its tiles, and
-// two chunk buffers where they fit in kMaxSmem, else one. One always fits
-// inside make_gno's envelope: 32 (hs + kp + 1) floats exceed 32 (inp + kp)
-// by at most 32 (kRI - 3), less than the 2 inp kp the envelope also holds
-// wherever a buffer comes near kMaxSmem.
-struct ReduceShape {
-  int hs, threads, bufs, smem;
-};
-
-ReduceShape reduce_shape(const Gno& p) {
-  ReduceShape r;
-  r.hs = (p.in + kRI - 1) / kRI * kRI;
-  const int tiles = r.hs / kRI * (p.kp >> 2);
-  const int passes = (tiles + kRedThreads - 1) / kRedThreads;
-  r.threads = ((tiles + passes - 1) / passes + 31) / 32 * 32;
-  const int buf = kTE * (r.hs + p.kp + 1) * (int)sizeof(float);
-  r.bufs = 2 * buf <= kMaxSmem ? 2 : 1;
-  r.smem = r.bufs * buf;
-  return r;
-}
-
 template <typename TP, typename TH>
 cudaError_t launch_reduce(const Gno& p, const int* row_ptr, const int* col,
                           const float* ew, const int* senders, const TP* ph,
@@ -816,8 +917,7 @@ cudaError_t launch_reduce(const Gno& p, const int* row_ptr, const int* col,
       rs.smem);
   if (err != cudaSuccess) return err;
   gno_reduce_kernel<TP, TH><<<n_rows, rs.threads, rs.smem, stream>>>(
-      p, rs.hs, rs.bufs, ph_vec, h_vec, row_ptr, col, ew, senders, ph, h,
-      s_buf);
+      p, rs, ph_vec, h_vec, row_ptr, col, ew, senders, ph, h, s_buf);
   return cudaGetLastError();
 }
 
@@ -836,6 +936,26 @@ int with_dtypes(int ph_bf16, int h_bf16, int w_bf16, F f) {
 }  // namespace
 
 extern "C" {
+
+// How K5 runs at the widths (k, in, out, has_bias): plan[0] the reduce's
+// passes over a row, plan[1] its threads a block, plan[2] its chunk
+// buffers, plan[3] the per-edge backward's slices of k, plan[4] their
+// width (the last runs to kp) and plan[5] its shared-memory bytes. Returns
+// 0, or kOutsideEnvelope (-1) outside the envelope.
+int ngpde_gno_plan(int k, int in, int out, int has_bias, int* plan) {
+  Gno p;
+  const int bad = make_gno(k, in, out, has_bias, &p);
+  if (bad != 0) return bad;
+  const ReduceShape rs = reduce_shape(p);
+  const EdgeShape es = edge_shape(p);
+  plan[0] = rs.passes;
+  plan[1] = rs.threads;
+  plan[2] = rs.bufs;
+  plan[3] = es.slices;
+  plan[4] = es.ks;
+  plan[5] = es.smem;
+  return 0;
+}
 
 // out (n_rows, out_chs) in ph's dtype. ph (E, k); h (nodes, in); wlb (in,
 // kp, out_chs) = [Wl; bl] along k (kb = k + has_bias rows), zero rows up to
@@ -921,15 +1041,19 @@ int ngpde_gno_bwd(const int* row_ptr, const int* col, const float* ew,
         (long long)j, gp, (long long)out_chs, static_cast<TW*>(dwlb),
         partial, stream);
     if (err != cudaSuccess || n_rows == 0) return static_cast<int>(err);
-    const int smem = edge_bwd_smem_floats(p) * (int)sizeof(float);
-    err = cudaFuncSetAttribute(gno_edge_bwd_kernel<TP, TH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    gno_edge_bwd_kernel<TP, TH><<<n_rows, kEdgeThreads, smem, stream>>>(
-        p, row_ptr, col, ew, senders, php, hp, ds_buf,
-        static_cast<TP*>(dph), dh_edge);
-    return static_cast<int>(cudaGetLastError());
+    const EdgeShape es = edge_shape(p);
+    const auto run = [&](auto kernel) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, es.smem);
+      if (e != cudaSuccess) return e;
+      kernel<<<n_rows, kEdgeThreads, es.smem, stream>>>(
+          p, es, row_ptr, col, ew, senders, php, hp, ds_buf,
+          static_cast<TP*>(dph), dh_edge);
+      return cudaGetLastError();
+    };
+    return static_cast<int>(es.slices > 1
+                                ? run(gno_edge_bwd_kernel<true, TP, TH>)
+                                : run(gno_edge_bwd_kernel<false, TP, TH>));
   });
 }
 

@@ -10,7 +10,7 @@ from .fused_mlp_kernels import (fused_mlp_aggregate, fused_mlp_bwd,
                                 fused_mlp_plain, fused_mlp_variant)
 from .gno_kernels import (fused_gno_aggregate, fused_gno_bwd,
                           fused_gno_bwd_plain, fused_gno_fwd, fused_gno_plain,
-                          pack_last_layer)
+                          gno_plan, pack_last_layer)
 from .rk_kernels import rk_combine, rk_norm
 from .segment_kernels import (SegmentCSR, build_segment_csr, segment_max,
                               segment_max_aggregate, segment_max_plain,
@@ -19,7 +19,8 @@ from .segment_kernels import (SegmentCSR, build_segment_csr, segment_max,
 # every kernel wrapper, each counting its launches in ``.launches`` (the
 # differentiable ones also count the part made in backward passes in
 # ``.backward_launches``; K3, K5 and K6 count the launches that read a bf16
-# operand in ``.bf16_launches``; ``rk_combine`` counts the RK stage
+# operand in ``.bf16_launches``, K5 its reduce's passes over the rows in
+# ``.reduce_passes``; ``rk_combine`` counts the RK stage
 # algebra's combinations and their backward's scatters, ``rk_norm`` its
 # error norms)
 KERNELS = (segment_spmm, dia_spmm_stencil, dia_gcn_rhs, fused_mlp_fwd,
@@ -31,7 +32,8 @@ KERNELS = (segment_spmm, dia_spmm_stencil, dia_gcn_rhs, fused_mlp_fwd,
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
-        for count in ("backward_launches", "bf16_launches"):
+        for count in ("backward_launches", "bf16_launches",
+                      "reduce_passes"):
             if hasattr(fn, count):
                 setattr(fn, count, 0)
 
@@ -42,7 +44,7 @@ __all__ = [
     "dia_gcn_rhs", "dia_rhs_plain", "dia_spmm_stencil", "fused_mlp_aggregate",
     "fused_mlp_bwd", "fused_mlp_bwd_plain", "fused_mlp_fwd",
     "fused_mlp_plain", "fused_mlp_variant", "fused_gno_aggregate", "fused_gno_bwd",
-    "fused_gno_bwd_plain", "fused_gno_fwd", "fused_gno_plain",
+    "fused_gno_bwd_plain", "fused_gno_fwd", "fused_gno_plain", "gno_plan",
     "pack_last_layer", "rk_combine", "rk_norm", "SegmentCSR", "build_segment_csr", "segment_max",
     "segment_max_aggregate", "segment_max_plain",
     "segment_spmm", "segment_spmm_plain", "KERNELS", "reset_launch_counts",

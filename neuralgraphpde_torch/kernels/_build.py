@@ -49,6 +49,7 @@ _SIGNATURES = {
     "ngpde_fused_mlp_variant": (_I, _P, _I),
     "ngpde_gno_fwd": (_P,) * 10 + (_I,) * 9 + (_P,),
     "ngpde_gno_bwd": (_P,) * 14 + (_I,) * 9 + (_P,),
+    "ngpde_gno_plan": (_I, _I, _I, _I, _IP),
     "ngpde_block_spmm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I,
                          _P, _P, _I, _I, _P),
     "ngpde_block_gcn_rhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,

@@ -26,8 +26,8 @@ the output's dtype.
   ``dph``, ``dh``, ``dwl`` and ``dbl`` for an output cotangent). CPU tensors
   take the plain versions; CUDA tensors launch the kernels or raise,
   whatever the dtypes. On the card both hold the widths to the kernels'
-  envelope (worked out by the CUDA source) and raise ``ValueError`` outside
-  it.
+  envelope (worked out by the CUDA source: K and OUT up to 4,096, IN up to
+  1,444) and raise ``ValueError`` outside it.
 - ``fused_gno_plain`` / ``fused_gno_bwd_plain``: the plain PyTorch versions,
   the per-edge kernel matrices ``ph @ W + b`` as one ``(E, IN, OUT)``
   tensor, the per-edge matvec, then ``index_add_``, all in f32 (the JAX
@@ -35,9 +35,20 @@ the output's dtype.
 - ``fused_gno_aggregate``: the differentiable call. On the card it is a
   ``torch.autograd.Function`` whose forward and backward are the two
   kernels; on the CPU it is the plain forward under autograd.
+- ``gno_plan``: how the kernels run at given widths (the reduce's passes
+  over a row, the per-edge backward's slices of k), as the CUDA source
+  works it out; None outside the envelope.
+
+Counters, of launches on the card (the plain versions count nothing):
+``fused_gno_fwd.launches`` and ``fused_gno_bwd.launches`` (of them
+``bf16_launches`` with a bf16 operand), and ``reduce_passes`` on each, the
+reduce's passes over every receiver row that those launches made (one a
+launch at the Darcy widths, six at K 1024, IN 64).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -116,11 +127,41 @@ def _check_launch(err: int, what: str, widths) -> None:
     error."""
     if err == _OUTSIDE_ENVELOPE:
         raise ValueError(f"{what}: widths (K, IN, OUT) = {widths} are "
-                         "outside the GNO kernels' envelope: each from 1 to "
-                         "4096, and 2·IN·KP + 32·(IN + KP) floats (KP: K "
-                         "plus the bias, rounded up to 4) within the card's "
-                         "227 KB of shared memory")
+                         "outside the GNO kernels' envelope: K and OUT from "
+                         "1 to 4096, IN from 1 to 1444 (the per-edge "
+                         "backward's block at its narrowest slice of k "
+                         "within the card's 227 KB of shared memory)")
     _build.check(err, what)
+
+
+@functools.lru_cache(maxsize=None)
+def gno_plan(k: int, in_chs: int, out_chs: int,
+             has_bias: bool) -> Optional[dict]:
+    """How K5 runs at the widths ``(K, IN, OUT)`` on the card
+    (``csrc/gno.cu``'s ``reduce_shape`` and ``edge_shape``): the reduce's
+    ``reduce_passes`` over a row, its ``reduce_threads`` a block and
+    ``reduce_buffers``; the per-edge backward's ``edge_slices`` of k,
+    ``edge_slice`` columns each (the last runs to KP) and its block's
+    ``edge_smem`` bytes. None outside the envelope. Builds the kernels."""
+    plan = (ctypes.c_int * 6)()
+    err = _build.library().ngpde_gno_plan(k, in_chs, out_chs, int(has_bias),
+                                          plan)
+    if err == _OUTSIDE_ENVELOPE:
+        return None
+    _build.check(err, "ngpde_gno_plan")
+    names = ("reduce_passes", "reduce_threads", "reduce_buffers",
+             "edge_slices", "edge_slice", "edge_smem")
+    return dict(zip(names, plan))
+
+
+def _plan(what: str, k: int, wlb: torch.Tensor, has_bias: bool) -> dict:
+    """``gno_plan`` for the packed ``Wl'``, raising outside the envelope
+    before anything is allocated."""
+    in_chs, _, out_chs = wlb.shape
+    plan = gno_plan(k, in_chs, out_chs, has_bias)
+    if plan is None:
+        _check_launch(_OUTSIDE_ENVELOPE, what, (k, in_chs, out_chs))
+    return plan
 
 
 def _packed(wl: torch.Tensor, bl: Optional[torch.Tensor]) -> torch.Tensor:
@@ -192,6 +233,7 @@ def _launch_fwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
                 has_bias: bool) -> torch.Tensor:
     """K5 forward on the card, from the packed ``Wl'`` (``_packed``)."""
     _check_cuda(csr, ph, senders, h, wlb)
+    plan = _plan("fused_gno_fwd", k, wlb, has_bias)
     dev = ph.device
     in_chs, kp, out_chs = wlb.shape
     n, j = csr.num_rows, in_chs * kp
@@ -210,6 +252,7 @@ def _launch_fwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
     _check_launch(err, "fused_gno_fwd", (k, in_chs, out_chs))
     fused_gno_fwd.launches += 1
     fused_gno_fwd.bf16_launches += int(any(flags))
+    fused_gno_fwd.reduce_passes += plan["reduce_passes"]
     return out
 
 
@@ -220,6 +263,7 @@ def _launch_bwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
     dWl')`` (``dWl'`` padded as ``Wl'``), the per-edge ``dh`` rows summed
     onto the senders in f32, then rounded to h's dtype."""
     _check_cuda(csr, ph, senders, h, wlb, g_out)
+    plan = _plan("fused_gno_bwd", k, wlb, has_bias)
     dev = ph.device
     in_chs, kp, out_chs = wlb.shape
     n, j = csr.num_rows, in_chs * kp
@@ -243,6 +287,7 @@ def _launch_bwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
     _check_launch(err, "fused_gno_bwd", (k, in_chs, out_chs))
     fused_gno_bwd.launches += 1
     fused_gno_bwd.bf16_launches += int(any(flags))
+    fused_gno_bwd.reduce_passes += plan["reduce_passes"]
     dh = torch.zeros((h.shape[0], in_chs), **f32).index_add_(
         0, senders.long(), dh_edge)
     return dph, dh.to(h.dtype), dwlb
@@ -273,6 +318,7 @@ def fused_gno_fwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
 
 fused_gno_fwd.launches = 0
 fused_gno_fwd.bf16_launches = 0
+fused_gno_fwd.reduce_passes = 0
 
 
 def fused_gno_bwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
@@ -295,6 +341,7 @@ def fused_gno_bwd(csr: SegmentCSR, senders: torch.Tensor, ph: torch.Tensor,
 
 fused_gno_bwd.launches = 0
 fused_gno_bwd.bf16_launches = 0
+fused_gno_bwd.reduce_passes = 0
 
 
 class _FusedGNO(torch.autograd.Function):

@@ -1,6 +1,7 @@
-from .gno import GNOModel
+from .gno import GKNModel, GNOModel
 from .grand import grand_model
 from .mppde import MPPDESolver
 from .vmh import vmh_model
 
-__all__ = ["grand_model", "vmh_model", "GNOModel", "MPPDESolver"]
+__all__ = ["grand_model", "vmh_model", "GNOModel", "GKNModel",
+           "MPPDESolver"]

@@ -1,7 +1,9 @@
-"""Graph kernel network for Darcy flow (Li et al., arXiv:2003.03485;
-counterpart of ``neuralgraphpde.models.gno``): lift the coefficient field
-and positions, apply ``depth`` ``GNOConv`` kernel-integration layers on a
-radius graph, project to the solution."""
+"""Graph kernel networks for Darcy flow (Li et al., arXiv:2003.03485):
+``GNOModel`` (counterpart of ``neuralgraphpde.models.gno``) lifts the
+coefficient field and positions, applies ``depth`` ``GNOConv``
+kernel-integration layers on a radius graph, each with its own kernel
+network, and projects to the solution; ``GKNModel`` is the published
+network, one conv and its kernel network shared by every iteration."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,6 +14,7 @@ from ..graph.gnngraph import GnnGraph
 from ..nn.basic import MLP, Dense
 from ..nn.conv import GNOConv
 from ..nn.gnn import AbstractGNNContainerLayer
+from ..utils.profiling import annotate
 
 
 class GNOModel(AbstractGNNContainerLayer):
@@ -57,4 +60,59 @@ class GNOModel(AbstractGNNContainerLayer):
                 h = conv(h)
             finally:
                 conv.graph = own
+        return self.proj(h)
+
+
+class GKNModel(AbstractGNNContainerLayer):
+    """The graph kernel network as published for Darcy flow (the paper's
+    section 4 and the authors' ``KernelNN``): ``v = P u + p`` from the
+    ``node_dim`` features ``u`` of each node; ``depth`` times ``v ←
+    ReLU(W v + mean_{j→i} κ(e_ij) v_j + b)``, one ``GNOConv`` whose W, b
+    and kernel network serve every iteration; ``Q v + q``. The kernel
+    network is ``MLP(edge_dim → ker_width / 2 → ker_width → width²,
+    ReLU)`` on the edge's ``edge_dim`` features (twice the widths of ``a``
+    and the positions: 6 for Darcy), its output the ``width × width``
+    matrix κ(e_ij).
+
+    The model's graph carries ``ndata = {'x': positions}``;
+    ``forward(u, a)`` hands the conv a copy with ``ndata = {'a': a, 'x':
+    positions}`` (an edge's features ``[a_i, x_i, a_j, x_j]``) and gives
+    the conv its own graph back afterwards. The kernel network's layers but
+    its last depend on those features alone: they run once a forward, in
+    an ``ngpde.gno.kernel_net`` span, and each iteration hands the conv
+    their ``(E, ker_width)`` output (``GNOConv.forward(x, ph)``), so on the
+    card every iteration's K5 call reads that one tensor and autograd sums
+    the iterations' gradients into it. Children: ``lift``, ``conv``,
+    ``proj``. Parameters are drawn from ``generator`` on the CPU and placed
+    on ``device``."""
+
+    layer_names = ("lift", "conv", "proj")
+
+    def __init__(self, node_dim: int = 6, edge_dim: int = 6,
+                 width: int = 64, ker_width: int = 1024, depth: int = 6,
+                 out_dim: int = 1, initialgraph: Optional[GnnGraph] = None,
+                 *, generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__(initialgraph)
+        kw = dict(generator=generator, device=device)
+        self.lift = Dense(node_dim, width, **kw)
+        phi = MLP((edge_dim, ker_width // 2, ker_width, width * width),
+                  activation="relu", **kw)
+        self.conv = GNOConv(width, width, phi, activation="relu",
+                            aggr="mean", **kw)
+        self.proj = Dense(width, out_dim, **kw)
+        self.depth = depth
+
+    def forward(self, u: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        g, conv = self.graph, self.conv
+        own = conv.graph
+        conv.graph = g.copy(ndata={"a": a, "x": g.ndata["x"]})
+        try:
+            with annotate("ngpde.gno.kernel_net"):
+                ph = conv.phi_prefix(u)
+            h = self.lift(u)
+            for _ in range(self.depth):
+                h = conv(h, ph)
+        finally:
+            conv.graph = own
         return self.proj(h)

@@ -424,6 +424,11 @@ class GNOConv(AbstractGNNContainerLayer):
     outside the kernel's envelope raise in its wrapper. Otherwise the exact
     path builds every edge's ``(in, out)`` matrix and ``propagate``s the
     ``einsum('eio,ei->eo')`` messages.
+
+    ``forward(x, ph)`` takes ϕ's prefix (every layer but its linear last,
+    on every edge: ``phi_prefix``) made outside the call, where one conv
+    runs several times on one graph: both paths then apply only ϕ's last
+    layer to it, and autograd sums the calls' gradients into ``ph``.
     """
 
     layer_names = ("linear", "phi")
@@ -456,18 +461,40 @@ class GNOConv(AbstractGNNContainerLayer):
 
         return apply_edges(feats, g, xi=s, xj=s, e=g.edata)
 
-    def _fused_forward(self, x, g):
+    def _split_phi(self):
+        """``(prefix_layers, last_dense)`` of ϕ; raises where ϕ does not end
+        in a linear Dense."""
+        split = split_phi_last_linear(self.phi)
+        if split is None:
+            raise ValueError("GNOConv: ϕ's prefix needs a ϕ that ends in a "
+                             "linear Dense")
+        return split
+
+    def _prefix_on(self, g, like, prefix):
+        """``prefix``'s layers on every edge's features of ``g``."""
+        ph = self._edge_feats(g, like)
+        for layer in prefix:
+            ph = layer(ph)
+        return ph
+
+    def phi_prefix(self, like: torch.Tensor) -> torch.Tensor:
+        """ϕ's layers but its linear last on every edge's features of the
+        conv's graph, ``(num_edges, K)``; the features in ``like``'s
+        dtype."""
+        return self._prefix_on(self.graph, like, self._split_phi()[0])
+
+    def _fused_forward(self, x, g, ph=None):
         """The aggregated message through K5, or None when ϕ or the
-        reduction does not fit it."""
+        reduction does not fit it. ``ph``: ϕ's prefix, made here when
+        None."""
         split = split_phi_last_linear(self.phi)
         red = canonical_reduction(self.aggr)
         if split is None or red not in ("sum", "mean"):
             return None
         prefix, last = split
         with annotate("ngpde.dispatch.k5"):
-            ph = self._edge_feats(g, x)
-            for layer in prefix:
-                ph = layer(ph)
+            if ph is None:
+                ph = self._prefix_on(g, x, prefix)
             wl, bl = pack_last_layer(last.weight, last.bias, self.in_chs,
                                      self.out_chs)
             m = fused_gno_aggregate(ph, x, wl, bl, g.cache["tcsr_edges"],
@@ -477,18 +504,21 @@ class GNOConv(AbstractGNNContainerLayer):
             return m
 
     @annotated("ngpde.conv.GNOConv")
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                ph: Optional[torch.Tensor] = None) -> torch.Tensor:
         g = self.graph
+        last = None if ph is None else self._split_phi()[1]
         m = None
         if self.fused and "tcsr_edges" in g.cache:
             mode = get_spmm_mode()
             if mode == "pallas" or (mode == "auto" and kernel_available(x)):
-                m = self._fused_forward(x, g)
+                m = self._fused_forward(x, g, ph)
         if m is None:
             with annotate(_PER_EDGE_SPAN):
                 E = g.num_edges
-                w = self.phi(self._edge_feats(g, x)).reshape(
-                    E, self.in_chs, self.out_chs)
+                w = (self.phi(self._edge_feats(g, x)) if ph is None
+                     else last(ph))
+                w = w.reshape(E, self.in_chs, self.out_chs)
 
                 def message(xi, xj, e):
                     # in the dtype the two promote to, as jnp.einsum's

@@ -16,6 +16,8 @@ Every name starts with ``ngpde.``:
 - ``ngpde.rhs``: one right-hand-side evaluation that the solver counts;
 - ``ngpde.conv.<Class>``: one conv layer's forward, and inside it
   ``ngpde.dispatch.<path>``, the path taken;
+- ``ngpde.gno.kernel_net``: a ``GKNModel`` forward's one evaluation of
+  its kernel network's layers but the last, on every edge;
 - ``ngpde.train.backward``, ``ngpde.train.optimizer``.
 """
 from __future__ import annotations

@@ -1340,35 +1340,65 @@ def _split_ranges(inner, splits, depth=32):
 
 
 # csrc/gno.cu's reduce: a thread's tile of S (kRI rows i x 4 columns k) and
-# the most threads a block (kRedThreads)
+# the most threads a block (kRedThreads); the shared memory a block may use
+# (kMaxSmem) and what leaves a second block its share of the SM
+# (kHalfSmPerBlock)
 _REDUCE_ROWS = 8
 _REDUCE_THREADS = 384
+_MAX_SMEM = 232448
+_HALF_SM = 233472 // 2 - 1024
 
 
 def _reduce_shape(in_chs, kp):
     """``csrc/gno.cu``'s ``reduce_shape``: the w·h chunk rows' stride (IN
-    rounded up to ``_REDUCE_ROWS``), threads a block and passes."""
+    rounded up to ``_REDUCE_ROWS``), the groups of 4 columns k a pass, the
+    threads a block and the passes."""
     hs = -(-in_chs // _REDUCE_ROWS) * _REDUCE_ROWS
-    tiles = hs // _REDUCE_ROWS * (kp // 4)
-    passes = -(-tiles // _REDUCE_THREADS)
-    per_pass = -(-tiles // passes)
-    return hs, -(-per_pass // 32) * 32, passes
+    ig, kt = hs // _REDUCE_ROWS, kp // 4
+    passes = -(-kt // max(1, _REDUCE_THREADS // ig))
+    kgp = -(-kt // passes)
+    return hs, kgp, -(-(ig * kgp) // 32) * 32, passes
+
+
+def _edge_shape(in_chs, kp):
+    """``csrc/gno.cu``'s ``edge_shape``: the per-edge backward's slice
+    width ``ks`` and slices of k (the last runs to KP)."""
+    inp = -(-in_chs // 4) * 4
+
+    def smem(stride):
+        return 4 * (inp * stride + 32 * (inp + stride))
+
+    if smem(kp) <= _HALF_SM:
+        return kp, 1
+    for budget in (_HALF_SM, _MAX_SMEM):
+        fl = budget // 4 - 32 * inp
+        ks = (fl // (inp + 32) - 4) & ~3 if fl > 0 else 0
+        if ks >= kp:
+            return kp, 1
+        if ks >= 128:
+            ks &= ~127
+        if ks >= 4:
+            return ks, -(-(kp - 4) // ks)
+    return 0, 0
 
 
 def _k5_emulated(csr, senders, ph, h, wl, bl, g, sms):
     """K5 forward and backward by the CUDA kernels' decomposition, in torch
     ops in f32: ``Wl'`` packed with k padded to KP rows (``_packed``); S
-    (N, IN, KP) reduced per receiver row by the reduce's tiles (thread t of
-    pass p owns the ``_REDUCE_ROWS`` × 4 tile p·threads + t in row-major
-    order over (IN rounded up, KP), adds the row's chunks of 32 edge slots
-    in order into its registers and stores the rows below IN once: every S
-    entry is stored by exactly one thread); the products split along their
-    inner dimension for ``sms`` SMs (``_splits``, ``_split_ranges``), the
-    partials summed in split order; dph and the per-edge dh_e of each chunk
-    by warp tasks of TR edges (TR the smallest that leaves none of 8 warps a
-    second task, at most 8), w[s] times each sum; dh_e onto the senders with
+    (N, IN, KP) reduced per receiver row by the reduce's tiles (pass p holds
+    the groups of 4 columns k from p·kgp on, and its thread t the
+    ``_REDUCE_ROWS`` × 4 tile (t // kgn, p·kgp + t % kgn) over (IN rounded
+    up, KP), kgn the pass's groups; it adds the row's chunks of 32 edge
+    slots in order into its registers and stores the rows below IN once:
+    every S entry is stored by exactly one thread); the products split along
+    their inner dimension for ``sms`` SMs (``_splits``, ``_split_ranges``),
+    the partials summed in split order; the per-edge backward slice by slice
+    of k (``_edge_shape``), dph and the per-edge dh_e of each chunk by warp
+    tasks of TR edges (TR the smallest that leaves none of 8 warps a second
+    task, at most 8), dph's columns within the slice, dh_e's sum going on
+    across the slices, w[s] times each sum; dh_e onto the senders with
     ``index_add_``. Returns ``(out, (dph, dh, dwl, dbl), (forward splits,
-    dWl' splits, reduce passes))``."""
+    dWl' splits, reduce passes, per-edge backward slices))``."""
     in_chs, k, out_chs = wl.shape
     wlb = K5._packed(wl, bl)
     kp = wlb.shape[1]
@@ -1384,19 +1414,20 @@ def _k5_emulated(csr, senders, ph, h, wl, bl, g, sms):
         return [(c0, min(c0 + 32, row_ptr[r + 1]))
                 for c0 in range(row_ptr[r], row_ptr[r + 1], 32)]
 
-    hs, threads, passes = _reduce_shape(in_chs, kp)
+    hs, kgp, threads, passes = _reduce_shape(in_chs, kp)
     assert threads % 32 == 0 and threads <= _REDUCE_THREADS
     hwp = torch.zeros(ph.shape[0], hs)  # chunk rows of w·h, hs wide
     hwp[:, :in_chs] = h[snd]
     s_red = torch.full((n, in_chs, kp), float("nan"))
     stores = torch.zeros(in_chs, kp, dtype=torch.int64)
     for pass_ in range(passes):
+        kgn = min(kgp, kp // 4 - pass_ * kgp)
         acc = {}  # tile -> (rows, RI, 4) registers, held across chunks
-        for t in range(pass_ * threads, (pass_ + 1) * threads):
-            if t < hs // _REDUCE_ROWS * (kp // 4):
-                i0, k0 = divmod(t, kp // 4)
-                acc[(i0 * _REDUCE_ROWS, k0 * 4)] = torch.zeros(
-                    n, _REDUCE_ROWS, 4)
+        for t in range(threads):
+            if t < hs // _REDUCE_ROWS * kgn:
+                i0, k0 = divmod(t, kgn)
+                acc[(i0 * _REDUCE_ROWS, (pass_ * kgp + k0) * 4)] = \
+                    torch.zeros(n, _REDUCE_ROWS, 4)
         for r in range(n):
             for c0, c1 in chunks(r):
                 e = col[c0:c1]
@@ -1425,35 +1456,50 @@ def _k5_emulated(csr, senders, ph, h, wl, bl, g, sms):
     dwlb, bwd_splits = product(s_red.reshape(n, j).T, g)
     dph = torch.zeros_like(ph)
     dh_e = torch.zeros(ph.shape[0], in_chs)
-    groups = -(-k // 128) + -(-in_chs // 64)
-    for r in range(n):
-        for c0, c1 in chunks(r):
-            ne = c1 - c0
-            tr = next((t for t in range(1, 9) if -(-ne // t) * groups <= 8),
-                      8)
-            for e0 in range(c0, c1, tr):
-                sl = slice(e0, min(e0 + tr, c1))
-                e, w = col[sl], csr.weight[sl, None]
-                dph[e] = w * (h[snd[e]] @ ds[r, :, :k])
-                dh_e[e] = w * (php[e] @ ds[r].T)
+    ks, slices = _edge_shape(in_chs, kp)
+    for slice_ in range(slices):
+        lo = slice_ * ks
+        hi = lo + ks if slice_ + 1 < slices else kp
+        kd = max(0, min(hi, k) - lo)  # the slice's columns of dph
+        groups = -(-kd // 128) + -(-in_chs // 64)
+        last = slice_ + 1 == slices
+        for r in range(n):
+            for c0, c1 in chunks(r):
+                ne = c1 - c0
+                tr = next((t for t in range(1, 9)
+                           if -(-ne // t) * groups <= 8), 8)
+                for e0 in range(c0, c1, tr):
+                    sl = slice(e0, min(e0 + tr, c1))
+                    e, w = col[sl], csr.weight[sl, None]
+                    dph[e, lo:lo + kd] = w * (h[snd[e]]
+                                              @ ds[r, :, lo:lo + kd])
+                    # the running sum, unscaled until the last slice
+                    dh_e[e] += php[e, lo:hi] @ ds[r, :, lo:hi].T
+                    if last:
+                        dh_e[e] *= w
     dh = torch.zeros_like(h).index_add_(0, snd, dh_e)
     dwlb = dwlb.reshape(in_chs, kp, out_chs)
     return out, (dph, dh, dwlb[:, :k],
                  None if bl is None else dwlb[:, k:k + 1]), (
-        fwd_splits, bwd_splits, passes)
+        fwd_splits, bwd_splits, passes, slices)
 
 
 @pytest.mark.parametrize("k,in_chs,out_chs,bias,n,e,splits", [
     # S.Wl' over 8 · 64 = 512 inner columns (K + 0 padded from 61 to 64)
-    (61, 8, 5, False, 40, 300, (2, 1, 1)),
+    (61, 8, 5, False, 40, 300, (2, 1, 1, 1)),
     # S^T.g over 520 receivers, the last split ragged; KB 14 padded to 16
-    (13, 6, 5, True, 520, 1200, (1, 3, 1)),
-    # the reduce's 8 × 64 tiles of (IN 64, KP 256) in two passes of 256
-    (255, 64, 5, True, 40, 300, (32, 1, 2))])
+    (13, 6, 5, True, 520, 1200, (1, 3, 1, 1)),
+    # the reduce's 8 × 64 tiles of (IN 64, KP 256) in two passes of 32
+    # column groups
+    (255, 64, 5, True, 40, 300, (32, 1, 2, 1)),
+    # IN 512: the reduce in three passes of 24, 24 and 16 columns k; the
+    # per-edge backward in four slices of 16 columns (dS[n] is 128 KB)
+    (61, 512, 5, False, 40, 300, (32, 1, 3, 4))])
 def test_k5_decomposition(jx, k, in_chs, out_chs, bias, n, e, splits):
     """K5's forward and backward as the CUDA kernels decompose them
-    (``_k5_emulated``, 16 SMs; ``splits``: the products' splits and the
-    reduce's passes): the reduce's tiles and passes, the products at their
+    (``_k5_emulated``, 16 SMs; ``splits``: the products' splits, the
+    reduce's passes and the per-edge backward's slices of k): the reduce's
+    tiles and passes, the per-edge backward's slices, the products at their
     split-K boundaries with the partials summed in split order, and the
     per-edge backward's chunks and warp tasks, with every 7th receiver and
     node n − 1 without in-edges and receivers 3, 5 and 6 holding 70, 32 and
@@ -1509,17 +1555,24 @@ def test_k5_decomposition(jx, k, in_chs, out_chs, bias, n, e, splits):
 
 # K5 on the card beyond the Darcy widths: rows of ~90 edges (3 chunks, the
 # reduce's second buffer refilled), a width whose reduce takes two passes
-# (IN 64, KP 256: 512 tiles), and one whose two chunk buffers exceed the
-# card's shared memory (IN 4, KP 1,004: one buffer)
+# (IN 64, KP 256: 512 tiles), one whose two chunk buffers exceed the card's
+# shared memory (IN 4, KP 1,004: one buffer), the graph kernel network's
+# (K 1,024, IN = OUT = 64: six reduce passes, four per-edge backward slices
+# of 256 columns k, the last 260; the f32 test also takes it without the
+# bias) and IN 1,000
+# (the reduce's 125 tile rows in six passes, the per-edge backward in four
+# slices of 20 columns at one block an SM)
 K5_WIDE = [(128, 64, 64, True, 100, 9000), (255, 64, 16, True, 200, 4000),
-           (1000, 4, 8, True, 100, 3000)]
+           (1000, 4, 8, True, 100, 3000), (1024, 64, 64, True, 300, 30000),
+           (64, 1000, 8, True, 100, 2000)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,in_chs,out_chs,bias,n,e", [
     (128, 64, 64, True, 1024, 19092), (128, 64, 64, False, 1024, 19092),
     (128, 64, 64, True, 300, 15000),
-    (7, 5, 9, True, 300, 2000), (40, 33, 17, False, 100, 5000)] + K5_WIDE)
+    (7, 5, 9, True, 300, 2000), (40, 33, 17, False, 100, 5000),
+    (1024, 64, 64, False, 200, 12000)] + K5_WIDE)
 def test_k5_kernels_match_plain_cuda(cuda, k, in_chs, out_chs, bias, n, e):
     """Forward and backward against the plain versions, at the GNO Darcy
     widths, at widths that are not multiples of 4 and at ``K5_WIDE``; the
@@ -1580,14 +1633,17 @@ def test_k5_autograd_function_cuda(cuda):
 @pytest.mark.cuda
 def test_k5_envelope_raises_cuda(cuda):
     """On the card the K5 wrappers raise outside the kernels' envelope
-    (here K = 2048: the per-edge backward block would need ~330 KB of
-    shared memory) and on a dtype other than f32 and bf16, with no launch
-    and no plain version."""
+    (here IN = 1,448: the per-edge backward's block at a slice of 4 columns
+    k would need ~232 KB of shared memory) and on a dtype other than f32
+    and bf16, with no launch and no plain version."""
     csr, senders, ph, h, wl, bl, g = _k5_case(cuda, 16, 8, 8, n=200, e=900)
     with pytest.raises(TypeError, match="f32 or bf16"):
         K5.fused_gno_fwd(csr, senders, ph.to(torch.float16), h, wl, bl)
     fwd0, bwd0 = K5.fused_gno_fwd.launches, K5.fused_gno_bwd.launches
-    csr, senders, ph, h, wl, bl, g = _k5_case(cuda, 2048, 8, 8, n=200, e=900)
+    assert K5.gno_plan(16, 1448, 8, True) is None
+    assert K5.gno_plan(16, 1444, 8, True) is not None
+    csr, senders, ph, h, wl, bl, g = _k5_case(cuda, 16, 1448, 8, n=200,
+                                              e=900)
     with pytest.raises(ValueError, match="envelope"):
         K5.fused_gno_fwd(csr, senders, ph, h, wl, bl)
     with pytest.raises(ValueError, match="envelope"):
@@ -1600,8 +1656,8 @@ def test_k5_envelope_raises_cuda(cuda):
 @pytest.mark.parametrize("mode", ["auto", "pallas"])
 def test_gnoconv_outside_envelope_raises_cuda(cuda, mode):
     """``GNOConv``'s fused gate has no width condition, as in JAX: ϕ with a
-    2,048-wide last hidden layer reaches K5 and raises on the card, while
-    ϕ at kernel width 16 launches the kernel."""
+    4,100-wide last hidden layer (past K5's 4,096) reaches K5 and raises on
+    the card, while ϕ at kernel width 16 launches the kernel."""
     from neuralgraphpde_torch import (MLP, GNOConv, GnnGraph, precompute,
                                       set_spmm_mode, update_graph)
 
@@ -1614,7 +1670,7 @@ def test_gnoconv_outside_envelope_raises_cuda(cuda, mode):
         cuda)
     set_spmm_mode(mode)
     try:
-        for ker, fits in ((16, True), (2048, False)):
+        for ker, fits in ((16, True), (4100, False)):
             gen = torch.Generator().manual_seed(0)
             layer = GNOConv(8, 8, MLP((6, ker, 64), "relu", generator=gen,
                                       device=cuda),
