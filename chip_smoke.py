@@ -146,7 +146,14 @@ Phases, each fatal on failure:
    ``xla`` path agree (loss rel ≤ 1e-4, each gradient within 1e-3 of its
    largest entry, the same accepted steps per sim); then 3 full-batch Rprop
    epochs on the K3 path, each launching both K3 kernels, with finite
-   losses and gradients.
+   losses and gradients. Then one right-hand-side evaluation of that
+   model (``VMHConv`` on its 3,000-point mesh, under ``inference_mode``),
+   eager against one replay of its captured CUDA graph
+   (``nn/conv.py::vmh_graph``), in turns (eager, graphed, graphed, eager):
+   host µs an evaluation (issuing 200 calls, the card left to catch up
+   after), wall µs an evaluation (the same calls to the last one's end),
+   device µs and device kernels an evaluation (``torch.profiler``); every
+   graphed output equal to the eager one bit for bit.
 7. GNO Darcy training at the full configuration (``train_gno_darcy``
    defaults: 32 samples on the 32² grid, width 64, ϕ 6→128→128→4096, 4
    convs, Adam 1e-3, batches of 4): the first batch's loss and parameter
@@ -229,6 +236,7 @@ K3_PARAM_BOUND = 1e-4
 VMH_LOSS_BOUND = 1e-4
 VMH_GRAD_BOUND = 1e-3
 VMH_POINTS_BENCH = 1 << 15
+VMH_GRAPH_REPS = 200
 # K5 dWl/dbl: sums over every receiver, taken in another order than the
 # plain version's
 K5_PARAM_BOUND = 1e-4
@@ -1694,6 +1702,58 @@ def vmh_training(P, K, model, u):
     return {fn.__name__: fn.launches for fn in K.KERNELS}
 
 
+def vmh_graph_rhs(model, u) -> dict:
+    """Phase 6, last: one VMH right-hand-side evaluation under
+    ``inference_mode``, eager against one replay of its captured CUDA graph,
+    in turns (eager, graphed, graphed, eager). Returns the record."""
+    from neuralgraphpde_torch.nn import conv as C
+    from neuralgraphpde_torch.tools.profile_paths import device_per_call
+
+    conv, x = model.model, u[0, 0]
+    graph_fn = C.vmh_graph
+
+    def turn(graphed: bool) -> dict:
+        C.vmh_graph = graph_fn if graphed else (lambda conv, x: None)
+        try:
+            with torch.inference_mode():
+                y = conv(x)
+                torch.cuda.synchronize()
+                replays = graph_fn.replays
+                t0 = time.perf_counter()
+                for _ in range(VMH_GRAPH_REPS):
+                    conv(x)
+                host = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                replays = graph_fn.replays - replays
+                dev_ms, kernels = device_per_call(lambda: conv(x))
+        finally:
+            C.vmh_graph = graph_fn
+        path = "graphed" if graphed else "eager"
+        check(replays == (VMH_GRAPH_REPS if graphed else 0),
+              f"VMH graph: {replays} replays in an {path} turn of "
+              f"{VMH_GRAPH_REPS} calls")
+        return dict(path=path, out=y,
+                    host_us=host / VMH_GRAPH_REPS * 1e6,
+                    wall_us=wall / VMH_GRAPH_REPS * 1e6,
+                    device_us=dev_ms * 1e3, device_kernels=kernels)
+
+    captures = graph_fn.captures
+    turns = [turn(graphed) for graphed in (False, True, True, False)]
+    check(graph_fn.captures - captures == 1,
+          f"VMH graph: {graph_fn.captures - captures} captures, not 1")
+    want = turns[0]["out"]
+    for t in turns:
+        same = torch.equal(t.pop("out"), want)
+        print(f"  {t['path']:8s} host {t['host_us']:8.1f} us  wall "
+              f"{t['wall_us']:8.1f} us  device {t['device_us']:7.1f} us  "
+              f"{t['device_kernels']:.1f} device kernels an evaluation; "
+              f"bits equal to the first eager turn's: {same}")
+        check(same, f"VMH graph: a {t['path']} output differs from the "
+                    "eager one")
+    return dict(turns=turns)
+
+
 def worst_grad(a, b) -> float:
     """The worst gradient error of ``a`` against ``b``, each over its own
     largest entry."""
@@ -2445,6 +2505,9 @@ def main() -> int:
 
     print("VMH training (24 sims x 3,000 points, K3):")
     launches_v = vmh_training(P, K, vmh_model, vmh_u)
+    print("VMH right-hand side, eager against one CUDA graph replay "
+          "(inference_mode, 3,000 points):")
+    vmh_graph_record = vmh_graph_rhs(vmh_model, vmh_u)
 
     print("bf16 GNO (bf16(GNOModel), config 4, K5):")
     launches_gb = bf16_gno(P, K, gno_model, gno_a, gno_u)
@@ -2641,6 +2704,7 @@ def main() -> int:
         check(kernels[-1]["launches"] > 0, f"{name}: no launch in GRAND B")
     check_bounds(kernels)
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"vmh_graph": vmh_graph_record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import warnings
+import weakref
 from typing import Callable, Optional, Union
 
 import torch
@@ -26,6 +27,7 @@ from .basic import (Chain, Dense, glorot_normal, glorot_uniform,
                     make_params, matmul, resolve_activation, zeros_init)
 from .gnn import (INPUT_KEY, AbstractGNNContainerLayer, AbstractGNNLayer,
                   wrap_input)
+from .graphed import CapturedCall, param_ptrs
 
 Aggr = Union[str, Callable]
 # degree-normalized storage of the fused GCN right-hand side, in the JAX
@@ -179,6 +181,19 @@ def _node_degree(g, dtype):
     return _degree(g, dtype, direction="in")
 
 
+def _fused_layers(phi: nn.Module, aggr: Aggr):
+    """ϕ's Dense layers when the fused kernel takes ϕ under ``aggr`` (a
+    Dense stack with kernel activations, reduced by sum or mean); else
+    None."""
+    if canonical_reduction(aggr) not in ("sum", "mean"):
+        return None
+    layers = _split_dense_chain(phi)
+    if layers is None or not all(supported_activation(l.activation)
+                                 for l in layers):
+        return None
+    return layers
+
+
 def fused_phi_plan(phi: nn.Module, aggr: Aggr):
     """Plan for the fused edge-MLP kernel: ``(acts, ws, bs, post)`` when ϕ
     is a Dense stack with kernel activations and ``aggr`` reduces by sum or
@@ -188,11 +203,8 @@ def fused_phi_plan(phi: nn.Module, aggr: Aggr):
     penultimate activations). The plan does not look at widths: on the
     card, an MLP outside the kernels' envelope raises in the kernel's
     wrapper."""
-    if canonical_reduction(aggr) not in ("sum", "mean"):
-        return None
-    layers = _split_dense_chain(phi)
-    if layers is None or not all(supported_activation(l.activation)
-                                 for l in layers):
+    layers = _fused_layers(phi, aggr)
+    if layers is None:
         return None
     post = None
     if len(layers) >= 2 and layers[-1].activation in (None, "identity"):
@@ -225,15 +237,17 @@ def fused_phi_post(reduced, post, deg, red):
     return m
 
 
+def _takes_kernels(mode: str, t: torch.Tensor) -> bool:
+    return mode == "pallas" or (mode == "auto" and kernel_available(t))
+
+
 def _try_fused_phi(phi, feats, g, aggr):
     """``aggr_{e→i} ϕ(feats_e)`` through the fused edge-MLP kernel (K3)
     when the graph carries the edge-id layout (``tcsr_edges``), the mode
     takes kernels (``pallas``, or ``auto`` with feats on the card) and
     ``fused_phi_plan`` accepts ϕ; else None."""
-    if "tcsr_edges" not in g.cache:
-        return None
-    mode = get_spmm_mode()
-    if not (mode == "pallas" or (mode == "auto" and kernel_available(feats))):
+    if "tcsr_edges" not in g.cache or not _takes_kernels(get_spmm_mode(),
+                                                          feats):
         return None
     plan = fused_phi_plan(phi, aggr)
     if plan is None:
@@ -302,7 +316,9 @@ class VMHConv(AbstractGNNContainerLayer):
     per-key differences and the position difference, concatenated in the
     order of ``{**input, **g.ndata}``; γ sees the input and the aggregated
     message. ϕ runs through the fused edge-MLP kernel when
-    ``_try_fused_phi`` accepts it.
+    ``_try_fused_phi`` accepts it. With autograd off, a tensor input on the
+    card whose ϕ takes the fused kernel runs the whole forward as one
+    replay of a captured CUDA graph (``vmh_graph``).
     """
 
     layer_names = ("phi", "gamma")
@@ -315,6 +331,13 @@ class VMHConv(AbstractGNNContainerLayer):
 
     @annotated("ngpde.conv.VMHConv")
     def forward(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            y = vmh_graph(self, x)
+            if y is not None:
+                return y
+        return self._eager(x)
+
+    def _eager(self, x) -> torch.Tensor:
         x = wrap_input(x)
         g = self.graph
         xs = {**x, **g.ndata}
@@ -328,6 +351,59 @@ class VMHConv(AbstractGNNContainerLayer):
         feats = apply_edges(edge_feats, g, xi=xs, xj=xs)
         m = _phi_aggregate(self.phi, feats, g, self.aggr)
         return self.gamma(torch.cat([*x.values(), m], dim=-1))
+
+
+# one captured forward a VMHConv (a new key replaces it and its memory
+# pool); kept outside the module, so that copying or saving a model copies
+# no graph
+_CAPTURED = weakref.WeakKeyDictionary()
+
+
+def vmh_graph(conv: VMHConv, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """``conv``'s forward of the tensor ``x`` as one replay of a captured
+    CUDA graph (an ``ngpde.dispatch.vmh_graph`` span), or None where the
+    eager path runs. It replays when autograd is off (``no_grad`` or
+    ``inference_mode``), ``x`` is on the card, no capture is in progress on
+    the stream, ``_try_fused_phi``'s gate holds (``tcsr_edges``, a mode that
+    takes kernels, ``fused_phi_plan`` accepts ϕ) and every parameter of ϕ
+    and γ is a registered ``Parameter``. The key is the input's shape,
+    dtype and device, the graph object, the parameters' addresses, the
+    mode and whether inference mode is on; the first call under a key
+    captures (``ngpde.dispatch.vmh_capture``). Counters: ``.captures``,
+    ``.replays``, and ``.eager``, the tensor inputs that took the eager
+    path."""
+    g = conv.graph
+    mode = get_spmm_mode()
+    ptrs = None
+    if (not torch.is_grad_enabled() and x.is_cuda
+            and "tcsr_edges" in g.cache and _takes_kernels(mode, x)
+            and not torch.cuda.is_current_stream_capturing()
+            and _fused_layers(conv.phi, conv.aggr) is not None):
+        ptrs = param_ptrs(conv)
+    if ptrs is None:
+        vmh_graph.eager += 1
+        return None
+    key = (x.shape, x.dtype, x.device, id(g), ptrs, mode,
+           torch.is_inference_mode_enabled())
+    call = _CAPTURED.get(conv)
+    if call is None or call.key != key:
+        _CAPTURED.pop(conv, None)
+        with annotate("ngpde.dispatch.vmh_capture"):
+            call = CapturedCall(key, conv._eager, x, keep=g)
+        _CAPTURED[conv] = call
+        vmh_graph.captures += call.graph is not None
+    if call.graph is None:
+        vmh_graph.eager += 1
+        return conv._eager(x)
+    with annotate("ngpde.dispatch.vmh_graph"):
+        y = call(x)
+    vmh_graph.replays += 1
+    return y
+
+
+vmh_graph.captures = 0
+vmh_graph.replays = 0
+vmh_graph.eager = 0
 
 
 # ------------------------------------------------------------------ GNO

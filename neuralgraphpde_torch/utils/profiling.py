@@ -15,7 +15,9 @@ Every name starts with ``ngpde.``:
   step size);
 - ``ngpde.rhs``: one right-hand-side evaluation that the solver counts;
 - ``ngpde.conv.<Class>``: one conv layer's forward, and inside it
-  ``ngpde.dispatch.<path>``, the path taken;
+  ``ngpde.dispatch.<path>``, the path taken (for ``VMHConv`` with autograd
+  off: ``ngpde.dispatch.vmh_graph``, one replay of its captured CUDA
+  graph, and ``ngpde.dispatch.vmh_capture`` where a call captures it);
 - ``ngpde.gno.kernel_net``: a ``GKNModel`` forward's one evaluation of
   its kernel network's layers but the last, on every edge;
 - ``ngpde.train.backward``, ``ngpde.train.optimizer``.
