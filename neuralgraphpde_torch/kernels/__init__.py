@@ -29,13 +29,25 @@ KERNELS = (segment_spmm, dia_spmm_stencil, dia_gcn_rhs, fused_mlp_fwd,
            pbanded_gcn_rhs, rk_combine, rk_norm)
 
 
+_COUNTERS = ("launches", "backward_launches", "bf16_launches",
+            "reduce_passes")
+
+
+def launch_counts() -> dict:
+    """Every counter of every kernel wrapper, ``{(wrapper, name): value}``."""
+    return {(fn, name): getattr(fn, name) for fn in KERNELS
+            for name in _COUNTERS if hasattr(fn, name)}
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``{(wrapper, name): n}`` to the wrappers' counters."""
+    for (fn, name), n in counts.items():
+        setattr(fn, name, getattr(fn, name) + n)
+
+
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
-        for count in ("backward_launches", "bf16_launches",
-                      "reduce_passes"):
-            if hasattr(fn, count):
-                setattr(fn, count, 0)
+    for fn, name in launch_counts():
+        setattr(fn, name, 0)
 
 
 __all__ = [
@@ -47,5 +59,6 @@ __all__ = [
     "fused_gno_bwd_plain", "fused_gno_fwd", "fused_gno_plain", "gno_plan",
     "pack_last_layer", "rk_combine", "rk_norm", "SegmentCSR", "build_segment_csr", "segment_max",
     "segment_max_aggregate", "segment_max_plain",
-    "segment_spmm", "segment_spmm_plain", "KERNELS", "reset_launch_counts",
+    "segment_spmm", "segment_spmm_plain", "KERNELS", "launch_counts",
+    "add_launch_counts", "reset_launch_counts",
 ]

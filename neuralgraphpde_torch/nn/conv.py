@@ -11,16 +11,12 @@ import torch
 from torch import nn
 
 from ..graph.transforms import add_self_loops as _add_self_loops
-from ..graph.transforms import degree as _degree
-from ..kernels.banded_kernels import banded_gcn_rhs, pbanded_gcn_rhs
-from ..kernels.dia_kernels import TF_MAX, dia_gcn_rhs, epilogue_supported
-from ..kernels.fused_mlp_kernels import (fused_mlp_aggregate,
-                                         supported_activation)
-from ..kernels.gno_kernels import fused_gno_aggregate, pack_last_layer
+from ..ops.fused import (edge_mlp_aggregate, edge_mlp_fits, gcn_rhs,
+                         gno_aggregate)
 from ..ops.message_passing import (aggregate_neighbors, apply_edges, copy_xj,
-                                   e_mul_xj, propagate, w_mul_xj)
-from ..ops.scatter import canonical_reduction
-from ..ops.spmm import get_spmm_mode, kernel_available
+                                   e_mul_xj, node_degree, propagate,
+                                   takes_edge_kernels, w_mul_xj)
+from ..ops.spmm import get_spmm_mode
 from ..utils.profiling import annotate, annotated
 from ..utils.state import drop
 from .basic import (Chain, Dense, glorot_normal, glorot_uniform,
@@ -30,13 +26,6 @@ from .gnn import (INPUT_KEY, AbstractGNNContainerLayer, AbstractGNNLayer,
 from .graphed import CapturedCall, param_ptrs
 
 Aggr = Union[str, Callable]
-# degree-normalized storage of the fused GCN right-hand side, in the JAX
-# gate's order
-_NORMALIZED = ("dia_norm", "pbanded_norm", "banded_norm")
-# the profiler span of each path a conv layer's dispatch takes
-_FUSED_SPAN = {"dia_norm": "ngpde.dispatch.dia_fused",
-               "pbanded_norm": "ngpde.dispatch.pbanded_fused",
-               "banded_norm": "ngpde.dispatch.banded_fused"}
 _PER_EDGE_SPAN = "ngpde.dispatch.per_edge"
 
 
@@ -45,17 +34,12 @@ class GCNConv(AbstractGNNLayer):
     with optional bias, self-loops and stored or runtime edge weights, and
     the multiply-before-aggregate order when ``out_chs < in_chs``.
 
-    Fused right-hand side: on graphs carrying degree-normalized storage
-    (``precompute(..., add_self_loops=True)``: ``dia_norm`` on a grid,
-    ``pbanded_norm`` or ``banded_norm`` on a banded mesh), the whole layer
-    runs as one kernel call (K2, K4 or K7) when all of: no edge weights,
-    2-D input, an activation the kernel applies (``epilogue_supported``),
-    a kernel-side width (``out_chs`` if ``out_chs < in_chs``, else
-    ``in_chs``) of at most 512, and a mode that takes kernels (``pallas``,
-    ``bsr``, or ``auto`` with x on the card). Otherwise the exact path runs.
-    Under a profiler the forward is an ``ngpde.conv.GCNConv`` span holding
-    ``ngpde.dispatch.<storage>_fused`` or the SpMM's ``ngpde.dispatch.spmm.
-    <mode>``.
+    Without edge weights, on a graph that ``precompute(...,
+    add_self_loops=True)`` gave degree-normalized storage, the whole layer
+    is one kernel call (K2, K4 or K7) where ``ops.fused.gcn_rhs`` takes it;
+    otherwise the exact path runs. Under a profiler the forward is an
+    ``ngpde.conv.GCNConv`` span holding ``ngpde.dispatch.<storage>_fused``
+    or the SpMM's ``ngpde.dispatch.spmm.<mode>``.
     """
 
     def __init__(self, in_chs: int, out_chs: int,
@@ -112,26 +96,10 @@ class GCNConv(AbstractGNNLayer):
 
         w, b = self.weight, self.bias
         premultiply = self.out_chs < self.in_chs
-        norm = next((k for k in _NORMALIZED if k in g.cache), None)
-        if (edge_weight is None and not self.use_edge_weight
-                and norm is not None and x.dim() == 2):
-            mode = get_spmm_mode()
-            kernel_width = self.out_chs if premultiply else x.shape[1]
-            if (epilogue_supported(self.activation)
-                    and kernel_width <= TF_MAX
-                    and (mode in ("pallas", "bsr")
-                         or (mode == "auto" and kernel_available(x)))):
-                rhs_fn = (dia_gcn_rhs if norm == "dia_norm" else
-                          pbanded_gcn_rhs if norm == "pbanded_norm" else
-                          banded_gcn_rhs)
-                nrm, nrm_rev = g.cache[norm], g.cache.get(norm + "_rev")
-                with annotate(_FUSED_SPAN[norm]):
-                    if premultiply:
-                        y = rhs_fn(self.activation, matmul(x, w), None, b,
-                                   nrm, nrm_rev)
-                    else:
-                        y = rhs_fn(self.activation, x, w, b, nrm, nrm_rev)
-                    return y.to(x.dtype)
+        if edge_weight is None and not self.use_edge_weight:
+            y = gcn_rhs(g, self.activation, x, w, b, premultiply)
+            if y is not None:
+                return y
 
         if premultiply:
             x = matmul(x, w)
@@ -141,10 +109,7 @@ class GCNConv(AbstractGNNLayer):
             dw = g.edata["e"].reshape(-1)
         else:
             dw = None
-        if dw is None and "in_degree" in g.cache:
-            d = g.cache["in_degree"].to(x.dtype)
-        else:
-            d = _degree(g, x.dtype, direction="in", edge_weight=dw)
+        d = node_degree(g, x.dtype, dw)
         c = torch.where(d > 0, 1.0 / torch.sqrt(d.clamp_min(1e-30)),
                         torch.zeros_like(d))
         x = x * c[:, None]
@@ -163,46 +128,31 @@ class GCNConv(AbstractGNNLayer):
 
 
 # ------------------------------------------------------------------ fused ϕ
-def _split_dense_chain(phi: nn.Module):
-    """ϕ's Dense layers, in order, when ϕ is a Dense or a Chain (or MLP) of
-    Dense layers; else None."""
+def _phi_layers(phi: nn.Module):
+    """ϕ's layers, in order, when ϕ is a Dense or a Chain (or MLP); else
+    None."""
     if isinstance(phi, Dense):
         return (phi,)
     if isinstance(phi, Chain):
-        layers = tuple(getattr(phi, name) for name in phi.layer_names)
-        if layers and all(isinstance(l, Dense) for l in layers):
-            return layers
+        return tuple(getattr(phi, name) for name in phi.layer_names)
     return None
 
 
-def _node_degree(g, dtype):
-    if "in_degree" in g.cache:
-        return g.cache["in_degree"].to(dtype)
-    return _degree(g, dtype, direction="in")
-
-
 def _fused_layers(phi: nn.Module, aggr: Aggr):
-    """ϕ's Dense layers when the fused kernel takes ϕ under ``aggr`` (a
-    Dense stack with kernel activations, reduced by sum or mean); else
-    None."""
-    if canonical_reduction(aggr) not in ("sum", "mean"):
-        return None
-    layers = _split_dense_chain(phi)
-    if layers is None or not all(supported_activation(l.activation)
-                                 for l in layers):
+    """ϕ's Dense layers when the fused kernel takes ϕ under ``aggr``
+    (``ops.fused.edge_mlp_fits``); else None."""
+    layers = _phi_layers(phi)
+    if (not layers or not all(isinstance(l, Dense) for l in layers)
+            or not edge_mlp_fits((l.activation for l in layers), aggr)):
         return None
     return layers
 
 
 def fused_phi_plan(phi: nn.Module, aggr: Aggr):
-    """Plan for the fused edge-MLP kernel: ``(acts, ws, bs, post)`` when ϕ
-    is a Dense stack with kernel activations and ``aggr`` reduces by sum or
-    mean; else None. When ϕ ends in a linear Dense (and has another layer),
-    that layer is split off as ``post = (W, b)`` and applied after the
-    reduce (``Σ(h@W+b) = (Σh)@W + deg·b``: the kernel reduces the
-    penultimate activations). The plan does not look at widths: on the
-    card, an MLP outside the kernels' envelope raises in the kernel's
-    wrapper."""
+    """``ops.fused.edge_mlp_aggregate``'s ``(acts, ws, bs, post)`` for ϕ
+    under ``aggr``, or None where ``_fused_layers`` refuses ϕ. A linear last
+    Dense (after another layer) is split off as ``post = (W, b)``, applied
+    after the reduce: the kernel reduces the penultimate activations."""
     layers = _fused_layers(phi, aggr)
     if layers is None:
         return None
@@ -217,56 +167,14 @@ def fused_phi_plan(phi: nn.Module, aggr: Aggr):
     return acts, ws, bs, post
 
 
-def fused_phi_post(reduced, post, deg, red):
-    """Post-reduce epilogue of the fused ϕ path: mean normalization and the
-    split-off linear layer, with the empty-receiver conventions of the
-    segment reduce (an empty mean row stays 0, a sum row gets ``deg·b``)."""
-    if post is None:
-        return (reduced / deg.clamp_min(1.0)[:, None]
-                if red == "mean" else reduced)
-    w, b = post
-    if red == "mean":
-        m = matmul(reduced / deg.clamp_min(1.0)[:, None], w)
-        if b is not None:
-            m = m + b
-        # empty receivers stay 0 (segment-mean convention), not the bias
-        return torch.where(deg[:, None] > 0, m, torch.zeros_like(m))
-    m = matmul(reduced, w)
-    if b is not None:
-        m = m + deg[:, None] * b
-    return m
-
-
-def _takes_kernels(mode: str, t: torch.Tensor) -> bool:
-    return mode == "pallas" or (mode == "auto" and kernel_available(t))
-
-
-def _try_fused_phi(phi, feats, g, aggr):
-    """``aggr_{e→i} ϕ(feats_e)`` through the fused edge-MLP kernel (K3)
-    when the graph carries the edge-id layout (``tcsr_edges``), the mode
-    takes kernels (``pallas``, or ``auto`` with feats on the card) and
-    ``fused_phi_plan`` accepts ϕ; else None."""
-    if "tcsr_edges" not in g.cache or not _takes_kernels(get_spmm_mode(),
-                                                          feats):
-        return None
-    plan = fused_phi_plan(phi, aggr)
-    if plan is None:
-        return None
-    acts, ws, bs, post = plan
-    with annotate("ngpde.dispatch.k3"):
-        reduced = fused_mlp_aggregate(acts, feats, ws, bs,
-                                      g.cache["tcsr_edges"])
-        deg = _node_degree(g, reduced.dtype)
-        return fused_phi_post(reduced, post, deg, canonical_reduction(aggr))
-
-
 def _phi_aggregate(phi, feats, g, aggr):
-    """``aggr_{e→i} ϕ(feats_e)``: the fused kernel path when it applies
-    (an ``ngpde.dispatch.k3`` span), else ϕ on every edge then the segment
-    reduce (``ngpde.dispatch.per_edge``)."""
-    m = _try_fused_phi(phi, feats, g, aggr)
-    if m is not None:
-        return m
+    """``aggr_{e→i} ϕ(feats_e)``: K3 where ``takes_edge_kernels`` holds
+    and ``fused_phi_plan`` accepts ϕ, else ϕ on every edge then the
+    segment reduce (``ngpde.dispatch.per_edge``)."""
+    if takes_edge_kernels(g, feats):
+        plan = fused_phi_plan(phi, aggr)
+        if plan is not None:
+            return edge_mlp_aggregate(plan, feats, g, aggr)
     with annotate(_PER_EDGE_SPAN):
         return aggregate_neighbors(g, aggr, phi(feats))
 
@@ -315,8 +223,8 @@ class VMHConv(AbstractGNNContainerLayer):
     the positions in ``g.ndata['x']``. ϕ sees the receiver's features, the
     per-key differences and the position difference, concatenated in the
     order of ``{**input, **g.ndata}``; γ sees the input and the aggregated
-    message. ϕ runs through the fused edge-MLP kernel when
-    ``_try_fused_phi`` accepts it. With autograd off, a tensor input on the
+    message. ϕ runs through the fused edge-MLP kernel where
+    ``_phi_aggregate`` takes it. With autograd off, a tensor input on the
     card whose ϕ takes the fused kernel runs the whole forward as one
     replay of a captured CUDA graph (``vmh_graph``).
     """
@@ -364,9 +272,8 @@ def vmh_graph(conv: VMHConv, x: torch.Tensor) -> Optional[torch.Tensor]:
     CUDA graph (an ``ngpde.dispatch.vmh_graph`` span), or None where the
     eager path runs. It replays when autograd is off (``no_grad`` or
     ``inference_mode``), ``x`` is on the card, no capture is in progress on
-    the stream, ``_try_fused_phi``'s gate holds (``tcsr_edges``, a mode that
-    takes kernels, ``fused_phi_plan`` accepts ϕ) and every parameter of ϕ
-    and γ is a registered ``Parameter``. The key is the input's shape,
+    the stream, ``_phi_aggregate`` takes K3 and every parameter of ϕ and γ
+    is a registered ``Parameter``. The key is the input's shape,
     dtype and device, the graph object, the parameters' addresses, the
     mode and whether inference mode is on; the first call under a key
     captures (``ngpde.dispatch.vmh_capture``). Counters: ``.captures``,
@@ -376,7 +283,7 @@ def vmh_graph(conv: VMHConv, x: torch.Tensor) -> Optional[torch.Tensor]:
     mode = get_spmm_mode()
     ptrs = None
     if (not torch.is_grad_enabled() and x.is_cuda
-            and "tcsr_edges" in g.cache and _takes_kernels(mode, x)
+            and takes_edge_kernels(g, x)
             and not torch.cuda.is_current_stream_capturing()
             and _fused_layers(conv.phi, conv.aggr) is not None):
         ptrs = param_ptrs(conv)
@@ -464,23 +371,6 @@ class MPPDEConv(AbstractGNNContainerLayer):
         return self.psi(torch.cat([x, m, theta_n], dim=-1))
 
 
-def split_phi_last_linear(phi: nn.Module):
-    """``(prefix_layers, last_dense)`` when ϕ is a Dense or a Chain (or
-    MLP) ending in a linear Dense (the GNO kernel-network shape), else
-    None."""
-    if isinstance(phi, Chain):
-        layers = tuple(getattr(phi, name) for name in phi.layer_names)
-    elif isinstance(phi, Dense):
-        layers = (phi,)
-    else:
-        return None
-    last = layers[-1] if layers else None
-    if not isinstance(last, Dense) or last.activation not in (None,
-                                                              "identity"):
-        return None
-    return layers[:-1], last
-
-
 class GNOConv(AbstractGNNContainerLayer):
     """Graph kernel network layer (Li et al., arXiv:2003.03485):
     ``m_i = aggr_j ϕ(e_ij) · h_j``; ``h_i' = σ(W h_i + m_i + b)``.
@@ -491,14 +381,10 @@ class GNOConv(AbstractGNNContainerLayer):
     ``ndata``'s key order, then ``g.edata``'s values (for
     ``ndata = {'a', 'x'}``: ``[a_i, x_i, a_j, x_j]``).
 
-    Fused path (``fused``): when the graph carries the edge-id layout
-    (``tcsr_edges``), the mode takes kernels (``pallas``, or ``auto`` with
-    ``x`` on the card) and ϕ ends in a linear Dense, ϕ's prefix runs as
-    plain layers and its last layer, the per-edge matvec and the receiver
-    sum run in the GNO kernel (K5, ``fused_gno_aggregate``); mean divides by
-    ``max(in_degree, 1)``. There is no width test: on the card, widths
-    outside the kernel's envelope raise in its wrapper. Otherwise the exact
-    path builds every edge's ``(in, out)`` matrix and ``propagate``s the
+    Fused path (``fused``): ϕ's prefix runs as plain layers, and its linear
+    last layer, the per-edge matvec and the receiver sum run in K5 where
+    ``ops.fused.gno_aggregate`` takes them. Otherwise the exact path
+    builds every edge's ``(in, out)`` matrix and ``propagate``s the
     ``einsum('eio,ei->eo')`` messages.
 
     ``forward(x, ph)`` takes ϕ's prefix (every layer but its linear last,
@@ -537,63 +423,44 @@ class GNOConv(AbstractGNNContainerLayer):
 
         return apply_edges(feats, g, xi=s, xj=s, e=g.edata)
 
-    def _split_phi(self):
-        """``(prefix_layers, last_dense)`` of ϕ; raises where ϕ does not end
-        in a linear Dense."""
-        split = split_phi_last_linear(self.phi)
-        if split is None:
+    def _split_phi(self, required: bool = True):
+        """``(prefix_layers, last_dense)`` when ϕ is a Dense or a Chain (or
+        MLP) ending in a linear Dense (the kernel network's shape); else
+        None, or a ValueError where ``required``."""
+        layers = _phi_layers(self.phi)
+        last = layers[-1] if layers else None
+        if isinstance(last, Dense) and last.activation in (None, "identity"):
+            return layers[:-1], last
+        if required:
             raise ValueError("GNOConv: ϕ's prefix needs a ϕ that ends in a "
                              "linear Dense")
-        return split
-
-    def _prefix_on(self, g, like, prefix):
-        """``prefix``'s layers on every edge's features of ``g``."""
-        ph = self._edge_feats(g, like)
-        for layer in prefix:
-            ph = layer(ph)
-        return ph
+        return None
 
     def phi_prefix(self, like: torch.Tensor) -> torch.Tensor:
         """ϕ's layers but its linear last on every edge's features of the
         conv's graph, ``(num_edges, K)``; the features in ``like``'s
         dtype."""
-        return self._prefix_on(self.graph, like, self._split_phi()[0])
-
-    def _fused_forward(self, x, g, ph=None):
-        """The aggregated message through K5, or None when ϕ or the
-        reduction does not fit it. ``ph``: ϕ's prefix, made here when
-        None."""
-        split = split_phi_last_linear(self.phi)
-        red = canonical_reduction(self.aggr)
-        if split is None or red not in ("sum", "mean"):
-            return None
-        prefix, last = split
-        with annotate("ngpde.dispatch.k5"):
-            if ph is None:
-                ph = self._prefix_on(g, x, prefix)
-            wl, bl = pack_last_layer(last.weight, last.bias, self.in_chs,
-                                     self.out_chs)
-            m = fused_gno_aggregate(ph, x, wl, bl, g.cache["tcsr_edges"],
-                                    g.senders)
-            if red == "mean":
-                m = m / _node_degree(g, m.dtype).clamp_min(1.0)[:, None]
-            return m
+        ph = self._edge_feats(self.graph, like)
+        for layer in self._split_phi()[0]:
+            ph = layer(ph)
+        return ph
 
     @annotated("ngpde.conv.GNOConv")
     def forward(self, x: torch.Tensor,
                 ph: Optional[torch.Tensor] = None) -> torch.Tensor:
         g = self.graph
-        last = None if ph is None else self._split_phi()[1]
+        split = self._split_phi(required=ph is not None)
         m = None
-        if self.fused and "tcsr_edges" in g.cache:
-            mode = get_spmm_mode()
-            if mode == "pallas" or (mode == "auto" and kernel_available(x)):
-                m = self._fused_forward(x, g, ph)
+        if self.fused and split is not None:
+            m = gno_aggregate(
+                g, self.aggr, x,
+                ph if ph is not None else (lambda: self.phi_prefix(x)),
+                split[1].weight, split[1].bias, self.in_chs, self.out_chs)
         if m is None:
             with annotate(_PER_EDGE_SPAN):
                 E = g.num_edges
                 w = (self.phi(self._edge_feats(g, x)) if ph is None
-                     else last(ph))
+                     else split[1](ph))
                 w = w.reshape(E, self.in_chs, self.out_chs)
 
                 def message(xi, xj, e):

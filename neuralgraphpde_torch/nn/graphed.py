@@ -21,8 +21,9 @@ the same kernels with the same launch configurations on the same inputs.
   had at capture. In-place updates (an optimizer's step) are read as they
   stand; a replaced tensor is not, so the caller's key must change with
   the addresses (``param_ptrs``).
-- Launch counters: the kernel wrappers (``kernels.KERNELS``) count each
-  launch in Python, and a capture records launches without running them.
+- Launch counters: the kernel wrappers count each launch in Python
+  (``kernels.launch_counts``), and a capture records launches without
+  running them.
   A capture takes back what it added to the counters, and each replay adds
   it again, so the counters keep counting launches on the card.
 """
@@ -34,18 +35,11 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from ..kernels import KERNELS
+from ..kernels import add_launch_counts, launch_counts
 
-_COUNTERS = ("launches", "backward_launches", "bf16_launches",
-             "reduce_passes")
 # one capture stream a device, as ``torch.cuda.graph``'s own: cuBLAS keeps
 # a workspace (32 MiB on the H100) for every stream it runs on
 _STREAMS = {}
-
-
-def _counts() -> dict:
-    return {(fn, name): getattr(fn, name) for fn in KERNELS
-            for name in _COUNTERS if hasattr(fn, name)}
 
 
 def _ptrs(module: nn.Module, out: list) -> bool:
@@ -77,7 +71,7 @@ class CapturedCall:
     def __init__(self, key, fn: Callable, x: torch.Tensor, keep=None):
         self.key, self.keep = key, keep
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.added = ()
+        self.added = {}
         side = _STREAMS.get(x.device)
         if side is None:
             side = _STREAMS[x.device] = torch.cuda.Stream(x.device)
@@ -87,7 +81,7 @@ class CapturedCall:
         torch.cuda.current_stream(x.device).wait_stream(side)
         self.static_in = torch.empty_like(x, memory_format=torch.
                                           contiguous_format).copy_(x)
-        before = _counts()
+        before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, stream=side):
@@ -98,16 +92,14 @@ class CapturedCall:
             self.static_in = self.static_out = None
             return
         finally:
-            for (fn_, name), n in before.items():
-                added = getattr(fn_, name) - n
-                if added:
-                    self.added += ((fn_, name, added),)
-                setattr(fn_, name, n)
+            after = launch_counts()
+            self.added = {k: after[k] - n for k, n in before.items()
+                          if after[k] != n}
+            add_launch_counts({k: -n for k, n in self.added.items()})
         self.graph = graph
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         self.static_in.copy_(x)
         self.graph.replay()
-        for fn, name, n in self.added:
-            setattr(fn, name, getattr(fn, name) + n)
+        add_launch_counts(self.added)
         return self.static_out.clone()

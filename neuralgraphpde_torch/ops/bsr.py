@@ -373,38 +373,19 @@ def packed_gate(s, r, n: int) -> tuple:
     return fits, slots, nbr
 
 
-def precompute_bsr(g: GnnGraph, *, tb: int = 256, edge_weight=None,
-                   max_density: float = 0.25, dtype=torch.float32,
-                   dia: bool = True, max_bands: int = 16) -> GnnGraph:
-    """Attach the first structured storage that fits, in the JAX package's
-    order: hybrid DIA (``dia``/``dia_rev``/``dia_rem``), full DIA
-    (``dia``/``dia_rev``), packed block bands (``pbanded``/
-    ``pbanded_rev``), dense block bands (``banded``/``banded_rev``), or
-    block-sparse rows (``bsr``) at density ≤ ``max_density``; otherwise
-    return ``g`` unchanged.
-
-    The packed branch is taken only when both orientations pack: the JAX
-    package caches ``pbanded_rev = None`` when the reversed graph needs more
-    than 32 slots in a block-row (a reference fault); here such a graph
-    falls through to the dense bands, as JAX does when the forward
-    orientation fails."""
-    s, r = host_edges(g)
-    n = g.num_nodes
+def structured_storages(s, r, n: int, tb: int, max_bands: int = 16,
+                        dia: bool = True):
+    """The structured storages whose gates these edges pass, lazily (a
+    gate runs only when the ones before it gave no storage), in the JAX
+    package's order: ``"hybrid"`` DIA, full ``"dia"``, ``"pbanded"``, dense
+    ``"banded"`` bands."""
     plan = plan_dia(s, r, n) if dia else None
-    if plan is not None and plan.hybrid_ok and (
-            not plan.full_ok or plan.full_bw > DIA_MAX_BANDWIDTH
-            or 4 * plan.hybrid_bw <= plan.full_bw):
-        hyb = build_dia_hybrid(s, r, n, edge_weight=edge_weight, dtype=dtype)
-        if hyb is not None:
-            dm, rem = hyb
-            return g.copy(cache={**g.cache, "dia": dm,
-                                 "dia_rev": transpose_dia(dm),
-                                 "dia_rem": rem})
-    if plan is not None and plan.full_ok and plan.full_bw <= DIA_MAX_BANDWIDTH:
-        dm = build_dia(s, r, n, edge_weight=edge_weight, dtype=dtype)
-        if dm is not None:
-            return g.copy(cache={**g.cache, "dia": dm,
-                                 "dia_rev": transpose_dia(dm)})
+    if plan is not None:
+        full = plan.full_ok and plan.full_bw <= DIA_MAX_BANDWIDTH
+        if plan.hybrid_ok and (not full or 4 * plan.hybrid_bw <= plan.full_bw):
+            yield "hybrid"
+        if full:
+            yield "dia"
     # packed bands when their traffic per pass (values + one x block per
     # slot, at a nominal F) is ≤ 0.9 of the dense bands', or dense bands
     # do not fit
@@ -414,21 +395,57 @@ def precompute_bsr(g: GnnGraph, *, tb: int = 256, edge_weight=None,
     dense_traffic = n_offs_dense * (-(-n // tb) * tb * tb + n * F_NOM)
     if packed_fits and (not dense_fits
                         or 10 * packed_traffic <= 9 * dense_traffic):
-        kw = dict(tb=PACKED_TB, tb_rows=PACKED_TB_ROWS,
-                  edge_weight=edge_weight, dtype=dtype)
-        pb = build_packed_banded(s, r, n, **kw)
-        pb_rev = None if pb is None else build_packed_banded(r, s, n, **kw)
-        if pb_rev is not None:
-            return g.copy(cache={**g.cache, "pbanded": pb,
-                                 "pbanded_rev": pb_rev})
-    banded = build_banded(s, r, n, tb=tb, edge_weight=edge_weight,
-                          dtype=dtype, max_bands=max_bands)
-    if banded is not None:
-        banded_rev = build_banded(r, s, n, tb=tb, edge_weight=edge_weight,
-                                  dtype=dtype, max_bands=max_bands)
-        return g.copy(cache={**g.cache, "banded": banded,
-                             "banded_rev": banded_rev})
-    bsr = build_bsr(s, r, n, tb=tb, edge_weight=edge_weight, dtype=dtype)
-    if bsr.density > max_density:
+        yield "pbanded"
+    if dense_fits:
+        yield "banded"
+
+
+def precompute_bsr(g: GnnGraph, *, tb: int = 256, edge_weight=None,
+                   max_density: float = 0.25, dtype=torch.float32,
+                   dia: bool = True, max_bands: int = 16) -> GnnGraph:
+    """Attach the first structured storage that fits, in the order of
+    ``structured_storages`` (``dia``/``dia_rev``/``dia_rem``, ``dia``/
+    ``dia_rev``, ``pbanded``/``pbanded_rev``, ``banded``/``banded_rev``),
+    else block-sparse rows (``bsr``) at density ≤ ``max_density``, else
+    return ``g`` unchanged. The packed branch is taken only when both
+    orientations pack: JAX caches ``pbanded_rev = None`` where the reverse
+    does not (a reference fault)."""
+    s, r = host_edges(g)
+    n = g.num_nodes
+    kw = dict(edge_weight=edge_weight, dtype=dtype)
+    for kind in structured_storages(s, r, n, tb, max_bands, dia):
+        if kind == "hybrid":
+            hyb = build_dia_hybrid(s, r, n, **kw)
+            if hyb is not None:
+                dm, rem = hyb
+                return g.copy(cache={**g.cache, "dia": dm,
+                                     "dia_rev": transpose_dia(dm),
+                                     "dia_rem": rem})
+        elif kind == "dia":
+            dm = build_dia(s, r, n, **kw)
+            if dm is not None:
+                return g.copy(cache={**g.cache, "dia": dm,
+                                     "dia_rev": transpose_dia(dm)})
+        elif kind == "pbanded":
+            kw_p = dict(tb=PACKED_TB, tb_rows=PACKED_TB_ROWS, **kw)
+            pb = build_packed_banded(s, r, n, **kw_p)
+            pb_rev = None if pb is None else build_packed_banded(r, s, n,
+                                                                 **kw_p)
+            if pb_rev is not None:
+                return g.copy(cache={**g.cache, "pbanded": pb,
+                                     "pbanded_rev": pb_rev})
+        else:
+            kw_b = dict(tb=tb, max_bands=max_bands, **kw)
+            return g.copy(cache={**g.cache,
+                                 "banded": build_banded(s, r, n, **kw_b),
+                                 "banded_rev": build_banded(r, s, n, **kw_b)})
+    # the density gate before the build: ``build_bsr`` allocates every
+    # occupied block (106 GiB on an ogbn-arxiv-sized graph, where JAX's
+    # order gates after the allocation)
+    nb = -(-n // tb)
+    nnzb = len(np.unique(np.asarray(r, np.int64) // tb * nb
+                         + np.asarray(s, np.int64) // tb))
+    if nnzb / float(nb * nb) > max_density:
         return g
+    bsr = build_bsr(s, r, n, tb=tb, edge_weight=edge_weight, dtype=dtype)
     return g.copy(cache={**g.cache, "bsr": bsr})

@@ -8,12 +8,15 @@ then reduce onto receivers. The fixed-message sum (``copy_xj``, ``e_mul_xj``,
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
 from ..graph.gnngraph import GnnGraph
+from ..graph.transforms import degree
 from .scatter import Reduction, canonical_reduction, gather, segment_reduce
+from .spmm import (segment_max_pallas, segment_min_pallas, segment_sum_pallas,
+                   spmm, takes_kernels)
 
 Features = Union[torch.Tensor, Dict[str, torch.Tensor], None]
 
@@ -54,6 +57,21 @@ def apply_edges(message: Callable, g: GnnGraph, *, xi: Features = None,
                    e)
 
 
+def node_degree(g: GnnGraph, dtype,
+                edge_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each node's in-degree in ``dtype``: the one ``precompute`` cached
+    when there are no runtime edge weights, else summed from the edges."""
+    if edge_weight is None and "in_degree" in g.cache:
+        return g.cache["in_degree"].to(dtype)
+    return degree(g, dtype, direction="in", edge_weight=edge_weight)
+
+
+def takes_edge_kernels(g: GnnGraph, x: torch.Tensor) -> bool:
+    """The gate of the kernels over the edge-id layout (K1 and K6 here, K3
+    and K5 in ``ops.fused``): the layout, and a mode that takes kernels."""
+    return "tcsr_edges" in g.cache and takes_kernels(x)
+
+
 def aggregate_neighbors(g: GnnGraph, aggr: Reduction,
                         messages: torch.Tensor) -> torch.Tensor:
     """Reduce ``(num_edges, F)`` messages onto receiver nodes. Over the
@@ -64,25 +82,19 @@ def aggregate_neighbors(g: GnnGraph, aggr: Reduction,
     receiver's edges in one run); an unsorted graph, and every other case,
     takes the scatter path."""
     red = canonical_reduction(aggr)
-    if (red in ("sum", "mean", "max", "min") and "tcsr_edges" in g.cache
-            and isinstance(messages, torch.Tensor) and messages.dim() == 2):
-        from .spmm import (get_spmm_mode, kernel_available,
-                           segment_max_pallas, segment_min_pallas,
-                           segment_sum_pallas)
-
-        mode = get_spmm_mode()
-        if mode == "pallas" or (mode == "auto" and kernel_available(messages)):
-            if red in ("max", "min"):
-                if g.receivers_sorted:
-                    fn = (segment_max_pallas if red == "max"
-                          else segment_min_pallas)
-                    return fn(g, messages)
-            else:
-                out = segment_sum_pallas(g, messages)
-                if red == "mean":
-                    deg = g.cache["in_degree"].to(out.dtype)
-                    out = out / deg.clamp_min(1.0)[:, None]
-                return out
+    if (red in ("sum", "mean", "max", "min")
+            and isinstance(messages, torch.Tensor) and messages.dim() == 2
+            and takes_edge_kernels(g, messages)):
+        if red in ("max", "min"):
+            if g.receivers_sorted:
+                fn = (segment_max_pallas if red == "max"
+                      else segment_min_pallas)
+                return fn(g, messages)
+        else:
+            out = segment_sum_pallas(g, messages)
+            if red == "mean":
+                out = out / node_degree(g, out.dtype).clamp_min(1.0)[:, None]
+            return out
     return segment_reduce(messages, g.receivers, g.num_nodes, aggr)
 
 
@@ -98,8 +110,6 @@ def propagate(message: Callable, g: GnnGraph, aggr: Reduction, *,
     if (message in _BUILTIN_SUM_FASTPATH
             and canonical_reduction(aggr) == "sum"
             and isinstance(xj, torch.Tensor)):
-        from .spmm import spmm
-
         weight = None
         if message in (e_mul_xj, w_mul_xj):
             weight = e["e"] if isinstance(e, dict) else e

@@ -38,10 +38,9 @@ from ..kernels.dia_kernels import dia_spmm_stencil
 from ..kernels.segment_kernels import (build_segment_csr,
                                        segment_max_aggregate, segment_spmm)
 from ..utils.profiling import annotate
-from .bsr import (DIA_MAX_BANDWIDTH, build_banded, build_packed_banded,
-                  bsr_spmm, dense_band_gate, host_edges, packed_gate,
-                  precompute_bsr)
-from .dia import build_dia, dia_remainder_spmm, plan_dia, transpose_dia
+from .bsr import (build_banded, build_packed_banded, bsr_spmm, host_edges,
+                  precompute_bsr, structured_storages)
+from .dia import build_dia, dia_remainder_spmm, transpose_dia
 
 _MODES = ("auto", "xla", "dense", "pallas", "bsr")
 # the profiler span of each mode ``spmm`` resolves to
@@ -65,22 +64,11 @@ def get_spmm_mode() -> str:
     return _SPMM_MODE
 
 
-def kernel_available(x: torch.Tensor) -> bool:
-    """``auto`` mode takes a CUDA kernel only for tensors on the card (the
-    JAX package's gate is "the backend is a TPU")."""
-    return x.is_cuda
-
-
-def _structured(s, r, n, tb, max_bands: int) -> bool:
-    """Whether ``precompute_bsr`` finds DIA, packed or dense-band storage
-    for these edges (its own gates)."""
-    plan = plan_dia(s, r, n)
-    if plan is not None and (
-            (plan.full_ok and plan.full_bw <= DIA_MAX_BANDWIDTH)
-            or plan.hybrid_ok):
-        return True
-    return (dense_band_gate(s, r, n, tb, max_bands)[0]
-            or packed_gate(s, r, n)[0])
+def takes_kernels(x: torch.Tensor, forced=("pallas",)) -> bool:
+    """Whether the mode sends ``x`` to a hand-written kernel: a mode in
+    ``forced``, or ``auto`` with ``x`` on the card (JAX: "the backend is a
+    TPU"). Every kernel path of ``ops`` and ``nn`` asks this one gate."""
+    return _SPMM_MODE in forced or (_SPMM_MODE == "auto" and x.is_cuda)
 
 
 def _try_auto_reorder(g: GnnGraph, tb: int):
@@ -93,13 +81,14 @@ def _try_auto_reorder(g: GnnGraph, tb: int):
     n = g.num_nodes
     if n < 4 * tb or g.num_edges == 0:
         return g, None, None
-    if _structured(s, r, n, tb, 16):
+    if next(structured_storages(s, r, n, tb, 16), None):
         return g, None, None  # already structured
     order = rcm_order(s, r, n)
     inv = np.empty(n, np.int64)
     inv[order] = np.arange(n, dtype=np.int64)
     s2, r2 = inv[s.astype(np.int64)], inv[r.astype(np.int64)]
-    if not _structured(s2, r2, n, tb, AUTO_REORDER_MAX_BANDS):
+    if not next(structured_storages(s2, r2, n, tb, AUTO_REORDER_MAX_BANDS),
+                None):
         return g, None, None  # expander-like: no narrow ordering exists
     g2, eperm = reorder_graph(g, order, return_edge_perm=True)
     return g2, order, eperm
@@ -219,14 +208,16 @@ def precompute(
         if ((gcn_fused or (gcn_fused is None and add_self_loops))
                 and any(k in g.cache for k in ("banded", "dia", "pbanded"))
                 and "dia_rem" not in g.cache and edge_weight is None):
-            g = g.copy(cache={**g.cache, **_normalized_storage(g, bsr_tb)})
+            g = g.copy(cache={**g.cache, **_normalized_storage(g)})
     return g.to(device)
 
 
-def _normalized_storage(g: GnnGraph, tb: int) -> dict:
+def _normalized_storage(g: GnnGraph) -> dict:
     """The degree-normalized ``C·Ã·C`` (C = D^-1/2) of the structured
     storage ``g`` carries, and its transpose: the two per-stage degree
-    scalings of the GCN right-hand side become stored values."""
+    scalings of the GCN right-hand side become stored values. The build
+    takes that storage's parameters (dtype, block shape, and for dense
+    bands their count as the cap), so it fits where the storage did."""
     d = g.cache["in_degree"].cpu().numpy().astype(np.float64)
     c = np.where(d > 0, 1.0 / np.sqrt(np.maximum(d, 1e-30)), 0.0)
     s, r = host_edges(g)
@@ -237,14 +228,19 @@ def _normalized_storage(g: GnnGraph, tb: int) -> dict:
                        dtype=g.cache["dia"].values.dtype)
         return {"dia_norm": dn, "dia_norm_rev": transpose_dia(dn)}
     if "pbanded" in g.cache:
-        pb = g.cache["pbanded"]
-        kw = dict(tb=pb.tb, tb_rows=pb.row_height, edge_weight=vals,
-                  dtype=pb.blocks.dtype)
-        return {"pbanded_norm": build_packed_banded(s, r, n, **kw),
-                "pbanded_norm_rev": build_packed_banded(r, s, n, **kw)}
-    kw = dict(tb=tb, edge_weight=vals, dtype=g.cache["banded"].bands.dtype)
-    return {"banded_norm": build_banded(s, r, n, **kw),
-            "banded_norm_rev": build_banded(r, s, n, **kw)}
+        key, build, st = "pbanded", build_packed_banded, g.cache["pbanded"]
+        kw = dict(tb=st.tb, tb_rows=st.row_height)
+    else:
+        key, build, st = "banded", build_banded, g.cache["banded"]
+        kw = dict(tb=st.tb, max_bands=len(st.offsets))
+    out = {key + "_norm": build(s, r, n, edge_weight=vals,
+                                dtype=st.blocks.dtype, **kw),
+           key + "_norm_rev": build(r, s, n, edge_weight=vals,
+                                    dtype=st.blocks.dtype, **kw)}
+    if None in out.values():
+        raise RuntimeError(f"the degree-normalized {key} storage does not "
+                           f"fit where {key} did")
+    return out
 
 
 def segment_sum_pallas(g: GnnGraph, messages: torch.Tensor) -> torch.Tensor:
@@ -285,15 +281,6 @@ def spmm_pallas(g: GnnGraph, x: torch.Tensor) -> torch.Tensor:
     return segment_spmm(x, g.cache["tcsr"], csr_rev=g.cache.get("tcsr_rev"))
 
 
-def spmm_pallas_weighted(g: GnnGraph, x: torch.Tensor,
-                         edge_weight: torch.Tensor) -> torch.Tensor:
-    """Runtime-weighted receiver sum: weighted messages formed by gather,
-    then summed by the segment kernel over the edge-index layout."""
-    m = x.index_select(0, g.senders) * edge_weight.reshape(
-        (-1,) + (1,) * (x.dim() - 1))
-    return segment_sum_pallas(g, m)
-
-
 _STRUCTURED = ("dia", "banded", "pbanded", "bsr")
 
 
@@ -322,36 +309,34 @@ def spmm(g: GnnGraph, x: torch.Tensor,
     mode = _SPMM_MODE
     weighted = edge_weight is not None
     two_d = x.dim() == 2
-    kernel = kernel_available(x)
-    structured = any(k in g.cache for k in _STRUCTURED)
+    # runtime weights cannot ride the stored values
+    structured = (two_d and not weighted
+                  and any(k in g.cache for k in _STRUCTURED))
+    # the segment kernel's layout for this call (over the edges if weighted)
+    segments = two_d and ("tcsr_edges" if weighted else "tcsr") in g.cache
     if mode == "auto":
         if "adj" in g.cache and not weighted:
             mode = "dense"
-        elif structured and two_d and not weighted:
+        elif structured:
             mode = "bsr"
-        elif "tcsr" in g.cache and two_d and not weighted and kernel:
-            mode = "pallas"
-        elif "tcsr_edges" in g.cache and two_d and weighted and kernel:
-            mode = "pallas"
         else:
-            mode = "xla"
-    if mode == "dense" and (weighted or "adj" not in g.cache):
+            mode = "pallas" if segments and takes_kernels(x) else "xla"
+    elif mode == "dense" and (weighted or "adj" not in g.cache):
         mode = "xla"
-    if mode == "pallas" and (not two_d or (
-            "tcsr_edges" not in g.cache if weighted
-            else "tcsr" not in g.cache)):
+    elif mode == "pallas" and not segments:
         mode = "xla"
-    if mode == "bsr" and (not structured or not two_d or weighted):
-        # runtime weights cannot ride the stored values
-        mode = ("pallas" if weighted and "tcsr_edges" in g.cache and two_d
-                and kernel else "xla")
+    elif mode == "bsr" and not structured:
+        # the weighted segment kernel where it can run (JAX: "the backend
+        # is a TPU")
+        mode = "pallas" if weighted and segments and x.is_cuda else "xla"
     with annotate(_SPANS[mode]):
         if mode == "dense":
             return spmm_dense(g, x)
         if mode == "bsr":
             return spmm_structured(g, x)
         if mode == "pallas":
-            if weighted:
-                return spmm_pallas_weighted(g, x, edge_weight)
+            if weighted:  # weighted messages, summed over the edge layout
+                return segment_sum_pallas(g, x.index_select(0, g.senders)
+                                          * edge_weight.reshape(-1, 1))
             return spmm_pallas(g, x)
         return spmm_xla(g, x, edge_weight)

@@ -38,7 +38,7 @@ from neuralgraphpde.ode import integrate as jax_int  # noqa: E402
 from neuralgraphpde.train import losses as jl  # noqa: E402
 import neuralgraphpde_torch as P  # noqa: E402
 from neuralgraphpde_torch.examples import train_vmh as port_train  # noqa
-from neuralgraphpde_torch.nn import conv as port_conv  # noqa: E402
+from neuralgraphpde_torch.ops import fused as port_fused  # noqa: E402
 from neuralgraphpde_torch.ode import integrate as port_int  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -290,8 +290,8 @@ def test_vmh_backsolve_matches_jax(monkeypatch, mode):
     finally:
         J.set_spmm_mode("auto")
     calls = []
-    orig = port_conv.fused_mlp_aggregate
-    monkeypatch.setattr(port_conv, "fused_mlp_aggregate",
+    orig = port_fused.fused_mlp_aggregate
+    monkeypatch.setattr(port_fused, "fused_mlp_aggregate",
                         lambda *a: (calls.append(1), orig(*a))[1])
     P.set_spmm_mode(mode)
     try:

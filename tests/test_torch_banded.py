@@ -36,6 +36,7 @@ from neuralgraphpde_torch.ops import bsr as pbsr  # noqa: E402
 from neuralgraphpde_torch.ops import dia as pdia  # noqa: E402
 
 port_spmm = importlib.import_module("neuralgraphpde_torch.ops.spmm")
+port_fused = importlib.import_module("neuralgraphpde_torch.ops.fused")
 F32 = dict(rtol=1e-5, atol=1e-5)
 GRAD = 1e-4
 
@@ -407,6 +408,70 @@ def test_packed_gate_needs_both_orientations():
         P.set_spmm_mode("auto")
     want = port_spmm.spmm_xla(cp, torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, **F32)
+
+
+def test_normalized_bands_keep_the_cap_that_chose_the_bands(monkeypatch):
+    """A Delaunay mesh on a 2 × 1 strip, 500 points, 8 × 8 blocks: after
+    the RCM relabeling its dense bands take 19 block diagonals, which only
+    the raised cap after a reorder (24) admits, and it is too small to
+    pack. The degree-normalized bands are built at that cap, so the fused
+    GCN right-hand side (K7's plain version on the CPU) runs and equals
+    the exact path. JAX rebuilds them at its default cap of 16 and caches
+    ``banded_norm = None`` (a reference fault); the keys and the other
+    storage are JAX's."""
+    pts = (np.random.default_rng(0).random((500, 2))
+           * np.array([2.0, 1.0])).astype(np.float32)
+    kw = dict(add_self_loops=True, dense=False, auto_reorder=True, bsr_tb=8)
+    cj = J.precompute(J.delaunay_graph(pts), **kw)
+    cp = P.precompute(P.delaunay_graph(pts), **kw)
+    assert sorted(cp.cache) == sorted(cj.cache)
+    assert "node_order" in cp.cache and "pbanded" not in cp.cache
+    assert cj.cache["banded_norm"] is None  # the reference fault
+    for key in ("banded", "banded_rev"):
+        assert cp.cache[key].offsets == cj.cache[key].offsets
+        np.testing.assert_array_equal(cp.cache[key].bands.numpy(),
+                                      np.asarray(cj.cache[key].bands))
+    band = cp.cache["banded"]
+    assert 16 < len(band.offsets) <= port_spmm.AUTO_REORDER_MAX_BANDS
+    for key in ("banded_norm", "banded_norm_rev"):
+        assert cp.cache[key].offsets == cp.cache[
+            key.replace("_norm", "")].offsets
+    assert cp.cache["banded_norm"].tb == band.tb == 8
+    conv = P.GCNConv(6, 5, "tanh", generator=torch.Generator().manual_seed(1))
+    P.update_graph(conv, cp)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(500, 6)).astype(np.float32))
+    calls = []
+    orig = port_fused.banded_gcn_rhs
+    monkeypatch.setattr(port_fused, "banded_gcn_rhs",
+                        lambda *a: calls.append(1) or orig(*a))
+    try:
+        P.set_spmm_mode("bsr")
+        got = conv(x)
+        P.set_spmm_mode("xla")
+        want = conv(x)
+    finally:
+        P.set_spmm_mode("auto")
+    assert calls == [1]
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               **F32)
+
+
+def test_dense_block_graph_skips_the_bsr_build(monkeypatch):
+    """A random graph whose 256 × 256 blocks are nearly all occupied fails
+    the block-sparse density gate: ``precompute`` returns without building
+    ``build_bsr``'s ``(nnzb, tb, tb)`` blocks (JAX builds them first, then
+    gates: a reference fault, 106 GiB on an ogbn-arxiv-sized graph) and
+    with JAX's keys."""
+    gj, gp = J.rand_graph(1100, 3000, seed=1), P.rand_graph(1100, 3000,
+                                                            seed=1)
+    def refuse(*a, **k):
+        raise AssertionError("build_bsr ran above the density gate")
+
+    monkeypatch.setattr(pbsr, "build_bsr", refuse)
+    cj, cp = J.precompute(gj, dense=False), P.precompute(gp, dense=False)
+    assert sorted(cp.cache) == sorted(cj.cache)
+    assert "bsr" not in cp.cache
 
 
 @pytest.mark.parametrize("graph", ["pbanded", "banded", "dia_rem", "bsr"])

@@ -54,7 +54,7 @@ from neuralgraphpde_torch.examples import train_gno_darcy as port_train  # noqa
 from neuralgraphpde_torch.kernels import gno_kernels as PK  # noqa: E402
 from neuralgraphpde_torch.kernels.segment_kernels import \
     build_segment_csr  # noqa: E402
-from neuralgraphpde_torch.nn import conv as port_conv  # noqa: E402
+from neuralgraphpde_torch.ops import fused as port_fused  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FWD = 1e-5  # forward and losses: max|port − JAX| / max|JAX|
@@ -293,7 +293,7 @@ def test_gnoconv_matches_jax(monkeypatch, mode, aggr, bias):
         J.set_spmm_mode("auto")
     P.params_from_jax(layer_p, _np(ps))
     P.update_graph(layer_p, gp)
-    fused = _spy(monkeypatch, port_conv, "fused_gno_aggregate")
+    fused = _spy(monkeypatch, port_fused, "fused_gno_aggregate")
     xp = _t(x).requires_grad_()
     P.set_spmm_mode(mode)
     try:
@@ -317,7 +317,7 @@ def test_gnoconv_nonlinear_last_layer_takes_exact_path(monkeypatch):
     phi = P.MLP((6, 8, 12), "relu", final_activation="tanh")
     layer = P.GNOConv(3, 4, phi, generator=torch.Generator().manual_seed(0))
     P.update_graph(layer, gp)
-    fused = _spy(monkeypatch, port_conv, "fused_gno_aggregate")
+    fused = _spy(monkeypatch, port_fused, "fused_gno_aggregate")
     x = _t(rng.normal(size=(30, 3)))
     P.set_spmm_mode("pallas")
     try:
@@ -367,7 +367,7 @@ def test_gnomodel_matches_jax(monkeypatch, mode):
     model = P.GNOModel(a_dim=1, pos_dim=2, width=8, ker_width=16, depth=2)
     P.params_from_jax(model, _np(ps))
     P.update_graph(model, gp)
-    fused = _spy(monkeypatch, port_conv, "fused_gno_aggregate")
+    fused = _spy(monkeypatch, port_fused, "fused_gno_aggregate")
     ap = _t(a).requires_grad_()
     P.set_spmm_mode(mode)
     try:

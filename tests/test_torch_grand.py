@@ -33,7 +33,7 @@ import neuralgraphpde as J  # noqa: E402
 from neuralgraphpde.data import synthetic_cora as jax_cora  # noqa: E402
 from neuralgraphpde.models import grand_model as jax_grand  # noqa: E402
 import neuralgraphpde_torch as P  # noqa: E402
-from neuralgraphpde_torch.nn import conv as port_conv  # noqa: E402
+from neuralgraphpde_torch.ops import fused as port_fused  # noqa: E402
 
 # the module, which ``ops.spmm`` (the function) shadows as an attribute
 port_spmm = importlib.import_module("neuralgraphpde_torch.ops.spmm")
@@ -131,7 +131,7 @@ def test_dia_path(monkeypatch, fused, in_dims):
         size=(g0j.num_nodes, in_dims)).astype(np.float32)
     solve = dict(rtol=1e-5, atol=1e-5, precomputed_self_loops=True)
     want, ps = _jax_logits(jax_grand(in_dims, 12, 5, **solve), gj, x)
-    fused_calls = _spy(monkeypatch, port_conv, "dia_gcn_rhs")
+    fused_calls = _spy(monkeypatch, port_fused, "dia_gcn_rhs")
     stencil_calls = _spy(monkeypatch, port_spmm, "dia_spmm_stencil")
     got = _port_logits(P.grand_model(in_dims, 12, 5, **solve), ps, gp, x,
                        "bsr")

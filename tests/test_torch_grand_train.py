@@ -37,7 +37,7 @@ from neuralgraphpde.models import grand_model as jax_grand  # noqa: E402
 from neuralgraphpde.train import losses as jl  # noqa: E402
 import neuralgraphpde_torch as P  # noqa: E402
 from neuralgraphpde_torch.examples import train_grand_cora as T  # noqa: E402
-from neuralgraphpde_torch.nn import conv as port_conv  # noqa: E402
+from neuralgraphpde_torch.ops import fused as port_fused  # noqa: E402
 
 port_spmm = importlib.import_module("neuralgraphpde_torch.ops.spmm")
 LOSS, GRAD = 1e-5, 1e-4
@@ -129,9 +129,9 @@ def test_grand_gradients_match_jax(monkeypatch, storage):
     P.params_from_jax(model, jax.tree_util.tree_map(np.asarray, ps))
     P.update_graph(model, cp)
     calls = []
-    for module, name in ((port_conv, "dia_gcn_rhs"),
-                         (port_conv, "banded_gcn_rhs"),
-                         (port_conv, "pbanded_gcn_rhs"),
+    for module, name in ((port_fused, "dia_gcn_rhs"),
+                         (port_fused, "banded_gcn_rhs"),
+                         (port_fused, "pbanded_gcn_rhs"),
                          (port_spmm, "dia_spmm_stencil"),
                          (port_spmm, "segment_spmm")):
         orig = getattr(module, name)

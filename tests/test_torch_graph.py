@@ -22,7 +22,7 @@ from neuralgraphpde.data import synthetic_cora as jax_cora  # noqa: E402
 from neuralgraphpde.models import grand_model as jax_grand  # noqa: E402
 from neuralgraphpde.ops.scatter import segment_reduce as jax_reduce  # noqa
 import neuralgraphpde_torch as P  # noqa: E402
-from neuralgraphpde_torch.nn import conv as port_conv  # noqa: E402
+from neuralgraphpde_torch.ops import fused as port_fused  # noqa: E402
 from neuralgraphpde_torch.ops.scatter import segment_reduce  # noqa: E402
 
 port_spmm = importlib.import_module("neuralgraphpde_torch.ops.spmm")
@@ -195,7 +195,7 @@ def _path_spies(monkeypatch):
     spy(jax_seg_kernels, "tiled_segment_spmm", "jax:k1", interpret=True)
     spy(jax_spmm, "spmm_xla", "jax:xla")
     spy(jax_spmm, "spmm_dense", "jax:dense")
-    spy(port_conv, "dia_gcn_rhs", "port:fused")
+    spy(port_fused, "dia_gcn_rhs", "port:fused")
     spy(port_spmm, "dia_spmm_stencil", "port:stencil")
     spy(port_spmm, "segment_spmm", "port:k1")
     spy(port_spmm, "spmm_xla", "port:xla")

@@ -45,7 +45,7 @@ from neuralgraphpde.train import adam as jax_adam  # noqa: E402
 import neuralgraphpde_torch as P  # noqa: E402
 from neuralgraphpde_torch.examples import \
     train_mppde_burgers as port_train  # noqa: E402
-from neuralgraphpde_torch.nn import conv as port_conv  # noqa: E402
+from neuralgraphpde_torch.ops import fused as port_fused  # noqa: E402
 
 port_spmm = importlib.import_module("neuralgraphpde_torch.ops.spmm")
 
@@ -176,7 +176,7 @@ def test_explicit_edgeconv_matches_jax(monkeypatch, aggr, mode):
     assert "layer_1" in ps  # flattened: no "phi" level
     P.params_from_jax(layer_p, _np(ps))
     P.update_graph(layer_p, gp)
-    k3 = _spy(monkeypatch, port_conv, "fused_mlp_aggregate")
+    k3 = _spy(monkeypatch, port_fused, "fused_mlp_aggregate")
     k6 = _spy(monkeypatch, port_spmm, "segment_max_aggregate")
     hp = _t(h).requires_grad_()
     y = _run(mode, lambda: layer_p({"h": hp, "x": _t(junk)}))
@@ -234,7 +234,7 @@ def test_mppdeconv_matches_jax(monkeypatch, aggr, mode, with_edata):
         loss, argnums=(0, 1), has_aux=True)(ps, jnp.asarray(x)))
     P.params_from_jax(layer_p, _np(ps))
     P.update_graph(layer_p, gp)
-    k3 = _spy(monkeypatch, port_conv, "fused_mlp_aggregate")
+    k3 = _spy(monkeypatch, port_fused, "fused_mlp_aggregate")
     k6 = _spy(monkeypatch, port_spmm, "segment_max_aggregate")
     xp = _t(x).requires_grad_()
     y = _run(mode, lambda: layer_p(xp))
@@ -289,7 +289,7 @@ def test_mppde_solver_matches_jax(monkeypatch, mode):
 
     (lj, pred_j), (gps, gw) = _jax_xla(lambda: jax.value_and_grad(
         loss, argnums=(0, 1), has_aux=True)(ps, jnp.asarray(w0)))
-    k3 = _spy(monkeypatch, port_conv, "fused_mlp_aggregate")
+    k3 = _spy(monkeypatch, port_fused, "fused_mlp_aggregate")
     wp = _t(w0).requires_grad_()
 
     def port_loss():

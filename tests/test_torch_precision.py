@@ -50,7 +50,7 @@ from neuralgraphpde.models import GNOModel as JGNOModel  # noqa: E402
 from neuralgraphpde.models import MPPDESolver as JMPPDESolver  # noqa: E402
 from neuralgraphpde.nn.basic import MLP as JMLP  # noqa: E402
 import neuralgraphpde_torch as P  # noqa: E402
-from neuralgraphpde_torch.nn import conv as port_conv  # noqa: E402
+from neuralgraphpde_torch.ops import fused as port_fused  # noqa: E402
 
 BF16 = 1e-2  # max |port − JAX| over max |JAX|
 BF16_GRAPH_GRAD = 3e-2  # the gradients of a layer on a bf16 graph
@@ -201,8 +201,8 @@ def _gno(rng):
 _LAYERS = {"GCNConv": _gcn, "VMHConv": _vmh, "MPPDEConv-max": _mppde_max,
            "GNOConv": _gno}
 # where each layer looks its kernel's differentiable call up
-_KERNEL_MODULES = {"fused_mlp_aggregate": port_conv,
-                   "fused_gno_aggregate": port_conv,
+_KERNEL_MODULES = {"fused_mlp_aggregate": port_fused,
+                   "fused_gno_aggregate": port_fused,
                    "segment_max_aggregate": importlib.import_module(
                        "neuralgraphpde_torch.ops.spmm")}
 

@@ -43,6 +43,7 @@ import neuralgraphpde_torch as P  # noqa: E402
 from neuralgraphpde_torch.examples import train_vmh as port_train  # noqa
 from neuralgraphpde_torch.kernels import fused_mlp_kernels as PK  # noqa
 from neuralgraphpde_torch.nn import conv as port_conv  # noqa: E402
+from neuralgraphpde_torch.ops import fused as port_fused  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -197,7 +198,7 @@ def test_fused_phi_gate_ignores_widths(monkeypatch, hidden, depth):
     assert plan is not None and len(plan[0]) == depth
     layer = P.VMHConv(phi, P.MLP((7, 12, 1)))
     P.update_graph(layer, gp)
-    fused = _spy(monkeypatch, port_conv, "fused_mlp_aggregate")
+    fused = _spy(monkeypatch, port_fused, "fused_mlp_aggregate")
     x = _t(rng.normal(size=(40, 1)))
     P.set_spmm_mode("pallas")
     try:
@@ -267,7 +268,7 @@ def test_vmhconv_matches_jax(monkeypatch, aggr, isolated, mode):
         J.set_spmm_mode("auto")
     P.params_from_jax(layer_p, _np(ps))
     P.update_graph(layer_p, gp)
-    fused = _spy(monkeypatch, port_conv, "fused_mlp_aggregate")
+    fused = _spy(monkeypatch, port_fused, "fused_mlp_aggregate")
     xp = _t(x).requires_grad_()
     P.set_spmm_mode(mode)
     try:
@@ -317,7 +318,7 @@ def test_node_vmh_gradients_match_jax_checkpoint_adjoint(monkeypatch):
         J.set_spmm_mode("auto")
     P.params_from_jax(node_p, _np(ps))
     P.update_graph(node_p, gp)
-    fused = _spy(monkeypatch, port_conv, "fused_mlp_aggregate")
+    fused = _spy(monkeypatch, port_fused, "fused_mlp_aggregate")
     P.set_spmm_mode("pallas")
     try:
         lp = torch.mean(node_p(_t(x)) ** 2)

@@ -33,6 +33,7 @@ torch.set_num_threads(1)
 import neuralgraphpde_torch as P  # noqa: E402
 from neuralgraphpde_torch.kernels import fused_mlp_kernels as PK  # noqa
 from neuralgraphpde_torch.nn import conv as port_conv  # noqa: E402
+from neuralgraphpde_torch.ops import fused as port_fused  # noqa: E402
 from neuralgraphpde_torch.nn import graphed  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,8 +89,8 @@ def test_gate_keeps_the_eager_path(monkeypatch, no_capture, case):
     P.update_graph(layer, g)
     x = _field(pts)
     fused = []
-    orig = port_conv.fused_mlp_aggregate
-    monkeypatch.setattr(port_conv, "fused_mlp_aggregate",
+    orig = port_fused.fused_mlp_aggregate
+    monkeypatch.setattr(port_fused, "fused_mlp_aggregate",
                         lambda *a: fused.append(1) or orig(*a))
     arg = {port_conv.INPUT_KEY: x} if case == "dict input" else x
     mode = "auto" if "auto" in case else "pallas"
