@@ -20,7 +20,9 @@ Phases, each fatal on failure:
    ``fused_mlp.cu`` and ``gno.cu`` that spill, if any, are printed; and
    neither in the six instantiations (f32, bf16, f64, each with 16-byte
    vectors and scalar) of each RK stage kernel in ``rk_stage.cu``
-   (``rk_combine_kernel``, ``rk_norm_kernel``, ``rk_scatter_kernel``).
+   (``rk_combine_kernel``, ``rk_norm_kernel``, ``rk_scatter_kernel``, and
+   ``rk_combine_dh_kernel`` and ``rk_norm_dh_kernel``, which read the step
+   size from the card).
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: max relative error ``max|k − p| / max|p|``
    (bound 1e-5 in f32, 1e-2 in bf16 against a plain version fed the same
@@ -137,9 +139,14 @@ Phases, each fatal on failure:
    (``plain``): a Tsit5 stage input (base and six terms), the Hermite
    save (four terms), the error norm (seven terms over max(|y0|, |y1|)),
    and the backward of a step's first stage (six cotangents to ``k0``'s
-   and ``y``'s); the same bits (the norm within 1e-6, and the same bits
-   again on a rerun), CUDA-event ms of each, and the bound (the bytes,
-   each input read once and each output written once, over 3.35 TB/s).
+   and ``y``'s), and the stage input and the error norm again with the
+   step size a 0-d float64 tensor on the card (``rk_combine_dh_kernel``,
+   ``rk_norm_dh_kernel``, which a captured solver attempt runs) against
+   the plain versions fed its ``float``; the same bits (the norms within
+   1e-6, the same bits again on a rerun, and the device-h norm the same
+   bits as the host-h one), CUDA-event ms of each, and the bound (the
+   bytes, each input read once and each output written once, over 3.35
+   TB/s).
 6. VMH training at the full configuration (24 sims × 3,000 points, ϕ
    4→60→60→60→40, γ 41→60→60→60→1, Tsit5 at rtol 1e-5 / atol 1e-3):
    the epoch-1 full-batch loss and gradients on the K3 path and on the
@@ -207,7 +214,9 @@ bf16 forms (K3 forward and backward, K5 forward and backward, K6), each at
 its bf16 path's shape and operand dtypes with its bf16 bound, library time
 and launches on that path, and every form's record; then the two RK
 stage wrappers (``rk_combine``, whose records are the stage input, the
-Hermite save and the backward's scatter, and ``rk_norm``), with
+Hermite save, the backward's scatter and the stage input with the step
+size on the card, and ``rk_norm``, with the norm with the step size on the
+card beside it), with
 ``replaces`` null, at the grid state with the VMH state beside it, and
 their launches in GRAND B's gradient. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -2114,6 +2123,7 @@ def rk_checks(dev) -> dict:
     from neuralgraphpde_torch.ode.tableaus import TSIT5
 
     hf = 0.0371
+    hd = torch.tensor(hf, dtype=torch.float64, device=dev)
     stage6 = TSIT5.a[6]
     first = [[TSIT5.a[m][0] for m in range(6, 0, -1)], [1.0] * 6]
     cases = [
@@ -2132,10 +2142,19 @@ def rk_checks(dev) -> dict:
                                       1e-3),
          lambda y, y1, ks: rk.norm_plain(hf, TSIT5.b_err, ks, y, y1, 1e-3,
                                          1e-3), 9, 0),
+        ("rk_combine device h", "Tsit5 stage input, h on the card",
+         lambda y, y1, ks: rk.rk_combine(y, hd, stage6, ks[:6]),
+         lambda y, y1, ks: rk.combine_plain(y, hf, stage6, ks[:6]), 7, 1),
+        ("rk_norm device h", "error norm, 7 terms, h on the card",
+         lambda y, y1, ks: rk.rk_norm(hd, TSIT5.b_err, ks, y, y1, 1e-3,
+                                      1e-3),
+         lambda y, y1, ks: rk.norm_plain(hf, TSIT5.b_err, ks, y, y1, 1e-3,
+                                         1e-3), 9, 0),
         ("rk_scatter", "first stage's backward, 6 cotangents to 2",
          lambda y, y1, ks: rk.rk_scatter(ks[:6], first, hf, [True, False]),
          lambda y, y1, ks: rk.scatter_plain(ks[:6], first, hf,
                                             [True, False]), 6, 2)]
+    host_norm = next(c[2] for c in cases if c[0] == "rk_norm")
     records = {}
     for label, shape in (("grid", (512 * 512, 64)), ("VMH", (3000, 1))):
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -2144,11 +2163,14 @@ def rk_checks(dev) -> dict:
         state = y.numel() * y.element_size()
         for name, what, kernel, plain, reads, writes in cases:
             got, want = kernel(y, y1, ks), plain(y, y1, ks)
-            if name == "rk_norm":
+            if name.startswith("rk_norm"):
                 rel = abs(float(got) - float(want)) / float(want)
                 same = torch.equal(kernel(y, y1, ks), got)
                 check(rel <= 1e-6 and same, f"{name} at {label}: rel "
                                             f"{rel:.3e}, rerun same {same}")
+                if name != "rk_norm":  # h on the card: the host-h bits
+                    check(torch.equal(got, host_norm(y, y1, ks)),
+                          f"{name} at {label}: not the host-h norm's bits")
             else:
                 got = got if isinstance(got, list) else [got]
                 want = want if isinstance(want, list) else [want]
@@ -2162,7 +2184,9 @@ def rk_checks(dev) -> dict:
             rec = dict(name=name, what=what, shape=list(shape), ms=ms,
                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        library_ms=None, max_rel_err=rel, max_abs_err=None,
-                       bits="same" if name != "rk_norm" else "rerun same")
+                       bits=("rerun same, host-h same"
+                             if name == "rk_norm device h" else
+                             "rerun same" if name == "rk_norm" else "same"))
             print(f"  {name:<19} {label:<5} {what}: {ms:.4f} ms (eager "
                   f"{plain_ms:.4f} ms, {plain_ms / ms:.1f}x), bound "
                   f"{b_ms:.4f} ms by {b_by} ({b_ms / ms:.0%} of it), "
@@ -2282,7 +2306,9 @@ def main() -> int:
              "gno.cu": {"gno_reduce_kernel": 4, "gno_gemm_kernel": 12,
                         "gno_edge_bwd_kernel": 8},
              "rk_stage.cu": {"rk_combine_kernel": 6, "rk_norm_kernel": 6,
-                             "rk_scatter_kernel": 6}}
+                             "rk_scatter_kernel": 6,
+                             "rk_combine_dh_kernel": 6,
+                             "rk_norm_dh_kernel": 6}}
     for source, kernels in gated.items():
         funcs = ptxas_by_function(info["ptxas_by_source"].get(source, ""))
         spilling = {f: lines for f, (lines, _) in funcs.items() if lines}
@@ -2687,8 +2713,9 @@ def main() -> int:
                        for k in keys + ("dtypes",)}]))
     # the RK stage wrappers: no TPU kernel (XLA fused this algebra), their
     # launches in GRAND B's gradient
-    for name, extra in (("rk_combine", ("rk_combine hermite",
-                                        "rk_scatter")), ("rk_norm", ())):
+    for name, extra in (("rk_combine", ("rk_combine hermite", "rk_scatter",
+                                        "rk_combine device h")),
+                        ("rk_norm", ("rk_norm device h",))):
         rec = rk_records[name]
         kernels.append(dict(
             name=name, route="cuda",

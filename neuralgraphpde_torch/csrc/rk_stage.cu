@@ -7,6 +7,12 @@
 //                       q = e / (atol + rtol * max(|ref0|, |ref1|))
 //   rk_scatter_kernel:  the combinations' backward, several outputs from one
 //                       read of the cotangents: out_p = sum_m c_pm * [h *] g_m
+//   rk_combine_dh_kernel, rk_norm_dh_kernel: the first two with h read from
+//                       one double in device memory, so that a captured CUDA
+//                       graph of a solver attempt takes a new step size on
+//                       every replay; the same code on the same value (the
+//                       double the host would pass, rounded to the compute
+//                       type alike), so the same bits
 //
 // Replaces no Pallas kernel. The JAX reference writes this algebra in jnp
 // (`y + h * sum(a_ij * k_j)`, the error estimate and its norm, the Hermite
@@ -208,8 +214,8 @@ __device__ __forceinline__ void combo_at(const ComboArgs<Op<T>>& a,
 // V elements a thread at a time over the first nvec * V elements, then the
 // scalar tail
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-    rk_combine_kernel(ComboArgs<Op<T>> a, T* __restrict__ out, long long n) {
+__device__ __forceinline__ void combine_all(const ComboArgs<Op<T>>& a,
+                                            T* __restrict__ out, long long n) {
   using O = Op<T>;
   const long long stride = (long long)gridDim.x * kThreads;
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -224,6 +230,23 @@ __global__ void __launch_bounds__(kThreads)
     combo_at<T, 1>(a, e, v);
     store<T, 1>(out + e, v);
   }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    rk_combine_kernel(ComboArgs<Op<T>> a, T* __restrict__ out, long long n) {
+  combine_all<T, V>(a, out, n);
+}
+
+// h from device memory: a.h is replaced by *h, rounded as the host rounds
+// the double it passes (the shared loop leaves rk_combine_kernel's and
+// rk_norm_kernel's code as it was, instruction for instruction)
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    rk_combine_dh_kernel(ComboArgs<Op<T>> a, const double* __restrict__ h,
+                         T* __restrict__ out, long long n) {
+  a.h = static_cast<Op<T>>(*h);
+  combine_all<T, V>(a, out, n);
 }
 
 // sum of v over the block, in a fixed order; the result in thread 0
@@ -281,10 +304,10 @@ __device__ __forceinline__ double norm_terms(const ComboArgs<Op<T>>& a,
 
 // One partial sum of q^2 a block; with one block, the norm itself
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-    rk_norm_kernel(ComboArgs<Op<T>> a, NormArgs<Op<T>> s,
-                   double* __restrict__ partial, T* __restrict__ out,
-                   long long n) {
+__device__ __forceinline__ void norm_all(const ComboArgs<Op<T>>& a,
+                                         const NormArgs<Op<T>>& s,
+                                         double* __restrict__ partial,
+                                         T* __restrict__ out, long long n) {
   const long long stride = (long long)gridDim.x * kThreads;
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long nvec = n / V;
@@ -300,6 +323,24 @@ __global__ void __launch_bounds__(kThreads)
     else
       partial[blockIdx.x] = sum;
   }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    rk_norm_kernel(ComboArgs<Op<T>> a, NormArgs<Op<T>> s,
+                   double* __restrict__ partial, T* __restrict__ out,
+                   long long n) {
+  norm_all<T, V>(a, s, partial, out, n);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    rk_norm_dh_kernel(ComboArgs<Op<T>> a, NormArgs<Op<T>> s,
+                      const double* __restrict__ h,
+                      double* __restrict__ partial, T* __restrict__ out,
+                      long long n) {
+  a.h = static_cast<Op<T>>(*h);
+  norm_all<T, V>(a, s, partial, out, n);
 }
 
 template <typename T>
@@ -388,6 +429,83 @@ int dispatch(int dtype, int vec, F&& f) {
 
 int bad_args() { return static_cast<int>(cudaErrorInvalidValue); }
 
+template <typename O>
+ComboArgs<O> combo_args(const void* const* x, const double* c, int n,
+                        const void* base, double h, int has_h,
+                        int lead_zero) {
+  ComboArgs<O> a{};
+  for (int j = 0; j < n; ++j) {
+    a.x[j] = x[j];
+    a.c[j] = static_cast<O>(c[j]);
+  }
+  a.base = base;
+  a.h = static_cast<O>(h);
+  a.n = n;
+  a.has_h = has_h;
+  a.lead_zero = lead_zero;
+  return a;
+}
+
+// h_dev null: h from the host (rk_combine_kernel), else from *h_dev
+// (rk_combine_dh_kernel)
+int launch_combine(const void* const* x, const double* c, int n,
+                   const void* base, double h, int has_h,
+                   const double* h_dev, int lead_zero, void* out,
+                   long long numel, int dtype, int vec, int grid,
+                   void* stream_ptr) {
+  if (n < 0 || n > kMaxIn || (n == 0 && !lead_zero) || grid <= 0)
+    return bad_args();
+  if (numel == 0) return 0;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int err = dispatch(dtype, vec, [&](auto t, auto v) {
+    using T = decltype(t);
+    constexpr int V = decltype(v)::value;
+    const ComboArgs<Op<T>> a =
+        combo_args<Op<T>>(x, c, n, base, h, has_h, lead_zero);
+    if (h_dev)
+      rk_combine_dh_kernel<T, V><<<grid, kThreads, 0, stream>>>(
+          a, h_dev, static_cast<T*>(out), numel);
+    else
+      rk_combine_kernel<T, V><<<grid, kThreads, 0, stream>>>(
+          a, static_cast<T*>(out), numel);
+    return 0;
+  });
+  if (err) return bad_args();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// as launch_combine, for the norm
+int launch_norm(const void* const* x, const double* c, int n, double h,
+                int has_h, const double* h_dev, int lead_zero,
+                const void* ref0, const void* ref1, double atol, double rtol,
+                double* partial, void* out, long long numel, int dtype,
+                int vec, int grid, void* stream_ptr) {
+  if (n < 1 || n > kMaxIn || grid <= 0 || numel <= 0 || !ref0)
+    return bad_args();
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int err = dispatch(dtype, vec, [&](auto t, auto v) {
+    using T = decltype(t);
+    using O = Op<T>;
+    constexpr int V = decltype(v)::value;
+    const ComboArgs<O> a =
+        combo_args<O>(x, c, n, nullptr, h, has_h, lead_zero);
+    const NormArgs<O> s{ref0, ref1, static_cast<O>(atol),
+                        static_cast<O>(rtol)};
+    if (h_dev)
+      rk_norm_dh_kernel<T, V><<<grid, kThreads, 0, stream>>>(
+          a, s, h_dev, partial, static_cast<T*>(out), numel);
+    else
+      rk_norm_kernel<T, V><<<grid, kThreads, 0, stream>>>(
+          a, s, partial, static_cast<T*>(out), numel);
+    if (grid > 1)
+      rk_norm_finish_kernel<T><<<1, kThreads, 0, stream>>>(
+          partial, grid, static_cast<T*>(out), numel);
+    return 0;
+  });
+  if (err) return bad_args();
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -398,29 +516,19 @@ int ngpde_rk_combine(const void* const* x, const double* c, int n,
                      const void* base, double h, int has_h, int lead_zero,
                      void* out, long long numel, int dtype, int vec, int grid,
                      void* stream_ptr) {
-  if (n < 0 || n > kMaxIn || (n == 0 && !lead_zero) || grid <= 0)
-    return bad_args();
-  if (numel == 0) return 0;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int err = dispatch(dtype, vec, [&](auto t, auto v) {
-    using T = decltype(t);
-    using O = Op<T>;
-    ComboArgs<O> a{};
-    for (int j = 0; j < n; ++j) {
-      a.x[j] = x[j];
-      a.c[j] = static_cast<O>(c[j]);
-    }
-    a.base = base;
-    a.h = static_cast<O>(h);
-    a.n = n;
-    a.has_h = has_h;
-    a.lead_zero = lead_zero;
-    rk_combine_kernel<T, decltype(v)::value><<<grid, kThreads, 0, stream>>>(
-        a, static_cast<T*>(out), numel);
-    return 0;
-  });
-  if (err) return bad_args();
-  return static_cast<int>(cudaGetLastError());
+  return launch_combine(x, c, n, base, h, has_h, nullptr, lead_zero, out,
+                        numel, dtype, vec, grid, stream_ptr);
+}
+
+// as ngpde_rk_combine, with h the double at h_dev in device memory
+int ngpde_rk_combine_dh(const void* const* x, const double* c, int n,
+                        const void* base, const void* h_dev, int lead_zero,
+                        void* out, long long numel, int dtype, int vec,
+                        int grid, void* stream_ptr) {
+  if (!h_dev) return bad_args();
+  return launch_combine(x, c, n, base, 0.0, 1,
+                        static_cast<const double*>(h_dev), lead_zero, out,
+                        numel, dtype, vec, grid, stream_ptr);
 }
 
 // partial: grid doubles of scratch (unused when grid is 1); out: one element
@@ -430,33 +538,20 @@ int ngpde_rk_norm(const void* const* x, const double* c, int n, double h,
                   double atol, double rtol, double* partial, void* out,
                   long long numel, int dtype, int vec, int grid,
                   void* stream_ptr) {
-  if (n < 1 || n > kMaxIn || grid <= 0 || numel <= 0 || !ref0)
-    return bad_args();
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int err = dispatch(dtype, vec, [&](auto t, auto v) {
-    using T = decltype(t);
-    using O = Op<T>;
-    ComboArgs<O> a{};
-    for (int j = 0; j < n; ++j) {
-      a.x[j] = x[j];
-      a.c[j] = static_cast<O>(c[j]);
-    }
-    a.base = nullptr;
-    a.h = static_cast<O>(h);
-    a.n = n;
-    a.has_h = has_h;
-    a.lead_zero = lead_zero;
-    const NormArgs<O> s{ref0, ref1, static_cast<O>(atol),
-                        static_cast<O>(rtol)};
-    rk_norm_kernel<T, decltype(v)::value><<<grid, kThreads, 0, stream>>>(
-        a, s, partial, static_cast<T*>(out), numel);
-    if (grid > 1)
-      rk_norm_finish_kernel<T><<<1, kThreads, 0, stream>>>(
-          partial, grid, static_cast<T*>(out), numel);
-    return 0;
-  });
-  if (err) return bad_args();
-  return static_cast<int>(cudaGetLastError());
+  return launch_norm(x, c, n, h, has_h, nullptr, lead_zero, ref0, ref1, atol,
+                     rtol, partial, out, numel, dtype, vec, grid, stream_ptr);
+}
+
+// as ngpde_rk_norm, with h the double at h_dev in device memory
+int ngpde_rk_norm_dh(const void* const* x, const double* c, int n,
+                     const void* h_dev, int lead_zero, const void* ref0,
+                     const void* ref1, double atol, double rtol,
+                     double* partial, void* out, long long numel, int dtype,
+                     int vec, int grid, void* stream_ptr) {
+  if (!h_dev) return bad_args();
+  return launch_norm(x, c, n, 0.0, 1, static_cast<const double*>(h_dev),
+                     lead_zero, ref0, ref1, atol, rtol, partial, out, numel,
+                     dtype, vec, grid, stream_ptr);
 }
 
 // g: n_in cotangents; out: n_out outputs; c: n_out rows of n_in

@@ -56,8 +56,12 @@ _SIGNATURES = {
                             _P, _P, _I, _I, _I, _I, _I, _P),
     "ngpde_rk_combine": (_PP, _DP, _I, _P, _D, _I, _I, _P, _LL, _I, _I, _I,
                          _P),
+    "ngpde_rk_combine_dh": (_PP, _DP, _I, _P, _P, _I, _P, _LL, _I, _I, _I,
+                            _P),
     "ngpde_rk_norm": (_PP, _DP, _I, _D, _I, _I, _P, _P, _D, _D, _P, _P, _LL,
                       _I, _I, _I, _P),
+    "ngpde_rk_norm_dh": (_PP, _DP, _I, _P, _I, _P, _P, _D, _D, _P, _P, _LL,
+                         _I, _I, _I, _P),
     "ngpde_rk_scatter": (_PP, _I, _PP, _DP, _IP, _I, _D, _LL, _I, _I, _I,
                          _P),
 }

@@ -20,6 +20,11 @@ every input once and writes each output once, in 16-byte vectors.
   ``sqrt(mean(q²))`` with ``q = e / (atol + rtol·max(|ref0|, |ref1|))`` of
   the combination ``e = [h ·] Σ c_j x_j`` (``ref1`` None: ``|ref0|``), as a
   0-d tensor on the state's device: the caller makes the one host read.
+- In both, ``h`` may also be a 0-d float64 tensor on the state's card (a
+  device scalar): the kernel reads it there (``rk_combine_dh_kernel``,
+  ``rk_norm_dh_kernel``), so that a captured CUDA graph takes a new step
+  size on every replay. It rounds as the ``float`` of the same value does,
+  so the results are the same bits.
 - ``rk_scatter(gs, rows, h, use_h)``: the combinations' backward, several
   outputs from one read of the cotangents ``gs``:
   ``out_p = Σ_m rows[p][m] · ([h ·] g_m)`` over the nonzero coefficients,
@@ -162,42 +167,65 @@ def _check_terms(n: int, most: int, what: str) -> None:
         raise ValueError(f"{what} takes at most {most}, got {n}")
 
 
-def rk_combine(base: Optional[torch.Tensor], h: Optional[float],
+def _device_h(h, like: torch.Tensor) -> bool:
+    """Whether ``h`` is a device scalar (module docstring), checked
+    against the state ``like``."""
+    if not isinstance(h, torch.Tensor):
+        return False
+    if h.shape != () or h.dtype != torch.float64 or h.device != like.device:
+        raise TypeError(f"a step size on the card is a 0-d float64 tensor "
+                        f"on {like.device}, got {tuple(h.shape)} "
+                        f"{h.dtype} on {h.device}")
+    return True
+
+
+def _host_h(h):
+    """``h`` for a plain version: a CPU device scalar as its ``float``."""
+    return float(h) if isinstance(h, torch.Tensor) else h
+
+
+def rk_combine(base: Optional[torch.Tensor], h,
                coeffs: Sequence[float], xs: Sequence[torch.Tensor],
                lead_zero: bool = True) -> torch.Tensor:
     """``[base +] [h ·] ([0 +] c0·x0 + c1·x1 + …)`` (module docstring), in
-    one pass on the card."""
+    one pass on the card; ``h`` None, a float or a device scalar."""
     if not xs and (base is None or not lead_zero):
         raise ValueError("a combination needs a term (or a base and 0)")
     like = base if base is not None else xs[0]
     if like.device.type == "cpu":
-        return combine_plain(base, h, coeffs, xs, lead_zero)
+        return combine_plain(base, _host_h(h), coeffs, xs, lead_zero)
     _check_terms(len(xs), MAX_TERMS, "a combination's terms")
     ops = _operands(like, list(xs) + ([] if base is None else [base]))
     terms = ops[:len(xs)]
     out = torch.empty(like.shape, dtype=like.dtype, device=like.device)
     vec = _vec(ops + [out], like.dtype)
     numel = out.numel()
-    err = _build.library().ngpde_rk_combine(
-        _ptrs(terms), _doubles(coeffs), len(terms),
-        None if base is None else ops[-1].data_ptr(),
-        0.0 if h is None else float(h), int(h is not None), int(lead_zero),
-        out.data_ptr(), numel, _DTYPE_CODES[like.dtype], vec,
-        _grid(numel, vec, like.device),
-        torch.cuda.current_stream(like.device).cuda_stream)
+    head = (_ptrs(terms), _doubles(coeffs), len(terms),
+            None if base is None else ops[-1].data_ptr())
+    tail = (int(lead_zero), out.data_ptr(), numel, _DTYPE_CODES[like.dtype],
+            vec, _grid(numel, vec, like.device),
+            torch.cuda.current_stream(like.device).cuda_stream)
+    lib = _build.library()
+    if _device_h(h, like):
+        err = lib.ngpde_rk_combine_dh(*head, h.data_ptr(), *tail)
+    else:
+        err = lib.ngpde_rk_combine(*head, 0.0 if h is None else float(h),
+                                   int(h is not None), *tail)
     _build.check(err, "rk_combine")
     rk_combine.launches += 1
     return out
 
 
-def rk_norm(h: Optional[float], coeffs: Sequence[float],
+def rk_norm(h, coeffs: Sequence[float],
             xs: Sequence[torch.Tensor], ref0: torch.Tensor,
             ref1: Optional[torch.Tensor], rtol: float, atol: float,
             lead_zero: bool = True) -> torch.Tensor:
     """The scaled RMS norm of ``[h ·] Σ c_j x_j`` (module docstring), a 0-d
-    tensor on the state's device; outside autograd."""
+    tensor on the state's device; outside autograd. ``h`` None, a float or
+    a device scalar."""
     if ref0.device.type == "cpu":
-        return norm_plain(h, coeffs, xs, ref0, ref1, rtol, atol, lead_zero)
+        return norm_plain(_host_h(h), coeffs, xs, ref0, ref1, rtol, atol,
+                          lead_zero)
     if not xs:
         raise ValueError("a norm needs a term")
     _check_terms(len(xs), MAX_TERMS, "a norm's terms")
@@ -209,14 +237,18 @@ def rk_norm(h: Optional[float], coeffs: Sequence[float],
     grid = _grid(numel, vec, ref0.device, _NORM_VECTORS)
     partial = torch.empty(grid, dtype=torch.float64, device=ref0.device)
     out = torch.empty((), dtype=ref0.dtype, device=ref0.device)
-    err = _build.library().ngpde_rk_norm(
-        _ptrs(terms), _doubles(coeffs), len(terms),
-        0.0 if h is None else float(h), int(h is not None), int(lead_zero),
-        ops[len(xs)].data_ptr(),
-        None if ref1 is None else ops[len(xs) + 1].data_ptr(),
-        float(atol), float(rtol), partial.data_ptr(), out.data_ptr(), numel,
-        _DTYPE_CODES[ref0.dtype], vec, grid,
-        torch.cuda.current_stream(ref0.device).cuda_stream)
+    head = (_ptrs(terms), _doubles(coeffs), len(terms))
+    tail = (int(lead_zero), ops[len(xs)].data_ptr(),
+            None if ref1 is None else ops[len(xs) + 1].data_ptr(),
+            float(atol), float(rtol), partial.data_ptr(), out.data_ptr(),
+            numel, _DTYPE_CODES[ref0.dtype], vec, grid,
+            torch.cuda.current_stream(ref0.device).cuda_stream)
+    lib = _build.library()
+    if _device_h(h, ref0):
+        err = lib.ngpde_rk_norm_dh(*head, h.data_ptr(), *tail)
+    else:
+        err = lib.ngpde_rk_norm(*head, 0.0 if h is None else float(h),
+                                int(h is not None), *tail)
     _build.check(err, "rk_norm")
     rk_norm.launches += 1 + (grid > 1)  # the partial sums, then their sum
     return out

@@ -16,14 +16,13 @@ from ..ops.fused import (edge_mlp_aggregate, edge_mlp_fits, gcn_rhs,
 from ..ops.message_passing import (aggregate_neighbors, apply_edges, copy_xj,
                                    e_mul_xj, node_degree, propagate,
                                    takes_edge_kernels, w_mul_xj)
-from ..ops.spmm import get_spmm_mode
 from ..utils.profiling import annotate, annotated
 from ..utils.state import drop
 from .basic import (Chain, Dense, glorot_normal, glorot_uniform,
                     make_params, matmul, resolve_activation, zeros_init)
 from .gnn import (INPUT_KEY, AbstractGNNContainerLayer, AbstractGNNLayer,
                   wrap_input)
-from .graphed import CapturedCall, param_ptrs
+from .graphed import CapturedCall, capture_key
 
 Aggr = Union[str, Callable]
 _PER_EDGE_SPAN = "ngpde.dispatch.per_edge"
@@ -270,33 +269,26 @@ _CAPTURED = weakref.WeakKeyDictionary()
 def vmh_graph(conv: VMHConv, x: torch.Tensor) -> Optional[torch.Tensor]:
     """``conv``'s forward of the tensor ``x`` as one replay of a captured
     CUDA graph (an ``ngpde.dispatch.vmh_graph`` span), or None where the
-    eager path runs. It replays when autograd is off (``no_grad`` or
-    ``inference_mode``), ``x`` is on the card, no capture is in progress on
-    the stream, ``_phi_aggregate`` takes K3 and every parameter of ϕ and γ
-    is a registered ``Parameter``. The key is the input's shape,
-    dtype and device, the graph object, the parameters' addresses, the
-    mode and whether inference mode is on; the first call under a key
-    captures (``ngpde.dispatch.vmh_capture``). Counters: ``.captures``,
+    eager path runs. It replays where ``capture_key`` admits the call
+    (autograd off, ``x`` on the card, no capture in progress, registered
+    parameters) and ``_phi_aggregate`` takes K3; the key is
+    ``capture_key``'s. The first call under a key captures
+    (``ngpde.dispatch.vmh_capture``). Counters: ``.captures``,
     ``.replays``, and ``.eager``, the tensor inputs that took the eager
     path."""
-    g = conv.graph
-    mode = get_spmm_mode()
-    ptrs = None
-    if (not torch.is_grad_enabled() and x.is_cuda
-            and takes_edge_kernels(g, x)
-            and not torch.cuda.is_current_stream_capturing()
-            and _fused_layers(conv.phi, conv.aggr) is not None):
-        ptrs = param_ptrs(conv)
-    if ptrs is None:
+    got = capture_key(conv, x)
+    if (got is None or not takes_edge_kernels(conv.graph, x)
+            or _fused_layers(conv.phi, conv.aggr) is None):
         vmh_graph.eager += 1
         return None
-    key = (x.shape, x.dtype, x.device, id(g), ptrs, mode,
-           torch.is_inference_mode_enabled())
+    key, graphs = got
     call = _CAPTURED.get(conv)
     if call is None or call.key != key:
         _CAPTURED.pop(conv, None)
         with annotate("ngpde.dispatch.vmh_capture"):
-            call = CapturedCall(key, conv._eager, x, keep=g)
+            call = CapturedCall(key, conv._eager, torch.empty_like(
+                x, memory_format=torch.contiguous_format).copy_(x),
+                keep=graphs)
         _CAPTURED[conv] = call
         vmh_graph.captures += call.graph is not None
     if call.graph is None:

@@ -1,26 +1,31 @@
-"""One captured CUDA graph in place of a layer's eager forward.
+"""One captured CUDA graph in place of a layer's eager forward, or of a
+solver's attempted step.
 
 A layer whose forward launches many small kernels on fixed shapes spends
 more host time on Python, the dispatcher and the launches than the card
-spends on the work. ``CapturedCall`` records such a forward once as a
+spends on the work. ``CapturedCall`` records such a call once as a
 ``torch.cuda.CUDAGraph`` and replays it: one launch of the whole graph,
 the same kernels with the same launch configurations on the same inputs.
 
-- Capture: ``fn(x)`` runs once eagerly on the capture stream first, so
+- Capture: ``fn(*xs)`` runs once eagerly on the capture stream first, so
   that an error raises exactly as it does eagerly before anything is
   recorded, and lazily made state (cuBLAS's workspace for the stream, the
   kernels' modules) exists before the capture; then ``fn`` runs again
-  under ``torch.cuda.graph`` on a static copy of the input. A forward that
-  cannot be captured (one that reads a value home, say) leaves the call
-  without a graph (``graph is None``), and the caller runs it eagerly.
-- Replay: the input is copied into the static input, the graph replays on
-  the current stream, and a copy of the static output comes back (a
-  solver keeps several evaluations alive at once, each with its own
-  values).
+  under ``torch.cuda.graph`` on the same inputs, which become the static
+  inputs every replay reads (the caller's buffers). A call that cannot be
+  captured (one that reads a value home, say) leaves it without a graph
+  (``graph is None``), and the caller runs it eagerly.
+- Replay: ``call(x)`` copies a layer's one input into the static input,
+  replays the graph on the current stream and returns a copy of the static
+  output (a solver keeps several evaluations alive at once, each with its
+  own values). ``replay()`` alone returns the static outputs themselves,
+  for a caller that manages the static inputs and outputs itself.
 - What a replay reads: every tensor ``fn`` closed over, at the address it
-  had at capture. In-place updates (an optimizer's step) are read as they
-  stand; a replaced tensor is not, so the caller's key must change with
-  the addresses (``param_ptrs``).
+  had at capture, and every global setting it read then. In-place updates
+  (an optimizer's step) are read as they stand; a replaced tensor or a
+  changed setting is not, so the caller's key must change with them:
+  ``capture_key`` is the gate and key of every captured call of a module,
+  to which a caller adds only the terms it reads itself.
 - Launch counters: the kernel wrappers count each launch in Python
   (``kernels.launch_counts``), and a capture records launches without
   running them.
@@ -35,7 +40,9 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from ..graph.gnngraph import GnnGraph
 from ..kernels import add_launch_counts, launch_counts
+from ..ops.spmm import get_spmm_mode
 
 # one capture stream a device, as ``torch.cuda.graph``'s own: cuBLAS keeps
 # a workspace (32 MiB on the H100) for every stream it runs on
@@ -64,31 +71,74 @@ def param_ptrs(module: nn.Module) -> Optional[tuple]:
     return tuple(out) if _ptrs(module, out) else None
 
 
-class CapturedCall:
-    """``fn`` captured for inputs like ``x`` under ``key``; ``keep`` holds
-    objects whose identity the key names, so that their ids stay theirs."""
+def held_graphs(module: nn.Module) -> tuple:
+    """The graphs the layers under ``module`` hold (``layer.graph``, which
+    ``update_graph`` replaces), each once, in the order of
+    ``module.modules()``."""
+    out = {}
+    for m in module.modules():
+        g = getattr(m, "graph", None)
+        if isinstance(g, GnnGraph):
+            out.setdefault(id(g), g)
+    return tuple(out.values())
 
-    def __init__(self, key, fn: Callable, x: torch.Tensor, keep=None):
+
+def on_card(x: torch.Tensor) -> bool:
+    """``x`` is on the card (a test stands another answer in)."""
+    return x.is_cuda
+
+
+def capture_key(module: nn.Module, x: torch.Tensor) -> Optional[tuple]:
+    """The gate and key of a captured call of ``module`` on inputs like
+    ``x``: ``(key, graphs)``, or None where the call runs eagerly.
+
+    Eager: autograd on (a graph records no backward), ``x`` not on the card,
+    a capture in progress on the stream (the caller is being recorded into
+    an outer graph, which takes its kernels directly), or a parameter that
+    is not a registered ``Parameter`` (``param_ptrs``). The key: ``x``'s
+    shape, dtype and device, inference mode, the parameters' addresses, the
+    ids of the graphs the module holds and the SpMM mode; ``graphs``, to be
+    held with the capture so that those ids stay theirs."""
+    if (torch.is_grad_enabled() or not on_card(x)
+            or torch.cuda.is_current_stream_capturing()):
+        return None
+    ptrs = param_ptrs(module)
+    if ptrs is None:
+        return None
+    graphs = held_graphs(module)
+    return (x.shape, x.dtype, x.device, torch.is_inference_mode_enabled(),
+            ptrs, tuple(map(id, graphs)), get_spmm_mode()), graphs
+
+
+class CapturedCall:
+    """``fn`` captured on the static inputs ``xs`` under ``key``; ``keep``
+    holds objects whose identity the key names, so that their ids stay
+    theirs. ``pool``: another capture's memory pool to share, for calls
+    that never run at once and read nothing another leaves in the pool
+    but their static outputs."""
+
+    def __init__(self, key, fn: Callable, *xs: torch.Tensor, keep=None,
+                 pool=None):
         self.key, self.keep = key, keep
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.added = {}
-        side = _STREAMS.get(x.device)
+        device = xs[0].device
+        side = _STREAMS.get(device)
         if side is None:
-            side = _STREAMS[x.device] = torch.cuda.Stream(x.device)
-        side.wait_stream(torch.cuda.current_stream(x.device))
+            side = _STREAMS[device] = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            fn(x)
-        torch.cuda.current_stream(x.device).wait_stream(side)
-        self.static_in = torch.empty_like(x, memory_format=torch.
-                                          contiguous_format).copy_(x)
+            fn(*xs)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.static_in = xs
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, stream=side):
-                self.static_out = fn(self.static_in)
+            with torch.cuda.graph(graph, pool=pool, stream=side):
+                self.static_out = fn(*self.static_in)
         except RuntimeError as err:
-            warnings.warn(f"the forward could not be captured as a CUDA "
-                          f"graph and runs eagerly: {err}", stacklevel=3)
+            warnings.warn(f"a call could not be captured as a CUDA graph "
+                          f"and runs eagerly: {err}", stacklevel=3)
             self.static_in = self.static_out = None
             return
         finally:
@@ -98,8 +148,12 @@ class CapturedCall:
             add_launch_counts({k: -n for k, n in self.added.items()})
         self.graph = graph
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        self.static_in.copy_(x)
+    def replay(self):
+        """Replay on the current stream; the static outputs."""
         self.graph.replay()
         add_launch_counts(self.added)
-        return self.static_out.clone()
+        return self.static_out
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.static_in[0].copy_(x)
+        return self.replay().clone()

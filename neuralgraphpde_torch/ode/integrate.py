@@ -22,11 +22,21 @@ order on the card). Under autograd the stages of one step share a
 ``StageTape``, whose backward writes each stage derivative's cotangent
 once.
 
+With autograd off, a solve on the card whose right-hand side is declared
+to be a module of the state alone (``rhs.autonomous``, which
+``NeuralGraphODE`` sets) runs each attempted step as one replay of a
+captured CUDA graph (``attempt_graph``): the stage combinations, the
+right-hand-side evaluations and the error norm, with the step size as a
+device scalar. The same kernels run on the same values, so the steps and
+saves are the eager path's bits; the controller, the initial step and the
+saves stay on the host.
+
 Under a profiler each solve runs in an ``ngpde.solve`` span (a backsolve's
 backward: one per save interval), each attempted step in
 ``ngpde.solver.attempt`` with its error ratio and next step size in
 ``ngpde.solver.control``, and each counted right-hand-side evaluation in
-``ngpde.rhs`` (``utils.profiling``).
+``ngpde.rhs`` (``utils.profiling``); a replayed attempt is one
+``ngpde.dispatch.attempt_graph`` span, its evaluations open none.
 
 Gradients, as in the JAX package, by one of two adjoints:
 
@@ -53,11 +63,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 from typing import Any, Callable, List, Optional
 
 import torch
 
 from ..kernels import rk_kernels as rk
+from ..nn.graphed import CapturedCall, capture_key
 from ..utils.profiling import annotate
 from .tableaus import Tableau, get_tableau
 
@@ -106,15 +118,16 @@ def _counted(stats: Optional[dict], fn, *args):
     return out
 
 
-def _rk_step(rhs, tab: Tableau, t, y, h, f0, args, stats=None):
+def _rk_step(rhs, tab: Tableau, t, y, h, f0, args, stats=None, hk=None):
     """One explicit RK step from ``(t, y)`` with ``f0 = f(t, y)``. Returns
     ``(y1, ks)``, the stage derivatives ``ks`` (for FSAL tableaus
     ``ks[-1] = f(t + h, y1)``). Each stage input is one combination; when
     the last one is the new state (``_plan``), it is ``y1``. Under autograd
-    the step's stages share one ``StageTape``."""
-    hf = float(h)
+    the step's stages share one ``StageTape``. ``hk``: the step size as the
+    kernels take it where it is not ``float(h)``, an attempt graph's device
+    scalar (``_attempt``)."""
     rows, b, reuse, _ = _plan(tab)
-    tape = rk.StageTape(hf)
+    tape = rk.StageTape(float(h) if hk is None else hk)
     ks = [f0]
     z = None
     for i in range(1, tab.stages):
@@ -153,15 +166,22 @@ def odeint_grid(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
         return torch.stack(ys)
 
 
-def _error_ratio(tab: Tableau, h, ks, y0, y1, rtol, atol,
-                 stats=None) -> torch.Tensor:
+def _error_norm(tab: Tableau, hk, ks, y0, y1, rtol, atol,
+                stats=None) -> torch.Tensor:
     """The controller's scaled RMS error of the step ``y0 → y1``, outside
-    autograd: one pass over the state, one device read."""
+    autograd: one pass over the state, a 0-d tensor on its device. ``hk``
+    as ``_rk_step`` takes it."""
     js, cs = _plan(tab)[3]
     with torch.no_grad():
-        return _counted(stats, rk.rk_norm, float(h), cs,
+        return _counted(stats, rk.rk_norm, hk, cs,
                         [ks[j].detach() for j in js], y0.detach(),
-                        y1.detach(), rtol, atol).cpu()
+                        y1.detach(), rtol, atol)
+
+
+def _error_ratio(tab: Tableau, h, ks, y0, y1, rtol, atol,
+                 stats=None) -> torch.Tensor:
+    """``_error_norm`` read home: an eager attempt's one device read."""
+    return _error_norm(tab, float(h), ks, y0, y1, rtol, atol, stats).cpu()
 
 
 def _optimal_dt(dt, ratio, order, safety=0.9, min_factor=0.2,
@@ -218,6 +238,128 @@ def _hermite_eval(t0, y0, f0, t1, y1, f1, t, stats=None):
                     (y0, f0, y1, f1), False)
 
 
+# the captured attempts of a declared module (a new key replaces them and
+# their memory pools); kept outside the module, so that copying or saving a
+# model copies no graph
+_ATTEMPTS = weakref.WeakKeyDictionary()
+
+
+def attempt_graph(rhs, tab: Tableau, y, f, h, rtol,
+                  atol) -> Optional["_Attempts"]:
+    """The attempted steps of a solve from ``(y, f)`` with ``f = rhs(t,
+    y)`` as replays of captured CUDA graphs (``_Attempts``), or None where
+    they run eagerly.
+
+    Taken where ``rhs.autonomous`` names a module ``m`` with ``rhs(t, y,
+    args) == m(y)``, the tableau is FSAL (Tsit5, dopri5) and
+    ``nn.graphed.capture_key`` admits ``m`` on ``y`` (autograd off, the
+    state on the card, no capture in progress, registered parameters): a
+    right-hand side that read ``t`` or ``args`` would have them baked into
+    the graph, so an undeclared one stays eager. The key: ``capture_key``'s,
+    the tableau and the tolerances; the first solve under a key captures
+    (``ngpde.dispatch.attempt_capture``; ``h`` is the warm-up's step).
+    Counters: ``.captures``, the keys captured; ``.replays`` and
+    ``.eager``, the attempts that replayed and those that ran eagerly,
+    which the solver counts."""
+    module = getattr(rhs, "autonomous", None)
+    got = None if module is None or not tab.fsal else capture_key(module, y)
+    if got is None:
+        return None
+    key, graphs = got
+    key += (tab, rtol, atol)
+    attempts = _ATTEMPTS.get(module)
+    if attempts is None or attempts.key != key:
+        _ATTEMPTS.pop(module, None)
+        with annotate("ngpde.dispatch.attempt_capture"):
+            attempts = _Attempts(key, graphs, module, tab, rtol, atol, y, f,
+                                 h)
+        _ATTEMPTS[module] = attempts
+        attempt_graph.captures += attempts.ready
+    return attempts if attempts.ready else None
+
+
+attempt_graph.captures = 0
+attempt_graph.replays = 0
+attempt_graph.eager = 0
+
+
+def _attempt(module, tab: Tableau, rtol, atol, hk, out, y, f0):
+    """One attempted FSAL step from ``(y, f0)`` with the step size ``hk``
+    on the card, as ``attempt_graph`` captures it: the new state and its
+    derivative copied into the pair ``out``; returns ``(error norm,
+    counts)``, the counts (``nfe``, ``combos``, ``combos_fused``) those an
+    eager attempt adds to the solve's."""
+    counts = dict(nfe=0, combos=0, combos_fused=0)
+
+    def rhs(t, z, args):
+        counts["nfe"] += 1
+        return module(z)
+
+    zero = _f32(0)  # the stages' times: the module does not read them
+    y1, ks = _rk_step(rhs, tab, zero, y, zero, f0, None, counts, hk)
+    norm = _error_norm(tab, hk, ks, y, y1, rtol, atol, counts)
+    out[0].copy_(y1)
+    out[1].copy_(ks[-1])
+    return norm, counts
+
+
+class _Attempts:
+    """A solve's attempts as replays of three captured graphs over three
+    state pairs ``(y, f)`` on the card, in a ring: the graph from pair
+    ``i`` writes the attempt's new state and derivative into pair ``i +
+    1`` (mod 3), and an accepted step makes that pair the current one. So
+    no attempt copies a state on the host, and an attempt never writes the
+    pair of the step before the current one, which the solver's Hermite
+    saves read (with two pairs, a rejected attempt after an accepted one
+    would overwrite it, and an interval that ran out of attempts would save
+    from the rejected state). The graphs share one memory pool: they run
+    one at a time, and each reads only the pairs and its own error norm.
+    The step size is a 0-d float64 scalar on the card that every graph
+    reads."""
+
+    def __init__(self, key, keep, module, tab, rtol, atol, y, f, h):
+        self.key = key
+        self.h = torch.full((), float(h), dtype=torch.float64,
+                            device=y.device)
+        self.pairs = [tuple(torch.empty_like(x, memory_format=torch.
+                                             contiguous_format).copy_(x)
+                            for x in (y, f)) for _ in range(3)]
+        self.calls = []
+        for i in range(3):
+            call = CapturedCall(key, functools.partial(
+                _attempt, module, tab, rtol, atol, self.h,
+                self.pairs[(i + 1) % 3]), *self.pairs[i], keep=keep,
+                pool=self.calls[0].graph.pool() if self.calls else None)
+            if call.graph is None:
+                break
+            self.calls.append(call)
+        self.ready = len(self.calls) == 3
+        self.cur = 0
+
+    def start(self, y, f):
+        """The solve's first pair, holding ``(y, f)``."""
+        self.cur = 0
+        for dst, src in zip(self.pairs[0], (y, f)):
+            dst.copy_(src)
+        return self.pairs[0]
+
+    def replay(self, h, stats: dict):
+        """One attempt from the current pair with step ``h``: ``((y1, f1),
+        error norm)``, ``(y1, f1)`` the next pair."""
+        with annotate("ngpde.dispatch.attempt_graph"):
+            # h travels as the fill kernel's argument, queued before the
+            # replay that reads it
+            self.h.fill_(float(h))
+            norm, counts = self.calls[self.cur].replay()
+        for name, n in counts.items():
+            stats[name] += n
+        attempt_graph.replays += 1
+        return self.pairs[(self.cur + 1) % 3], norm
+
+    def accept(self):
+        self.cur = (self.cur + 1) % 3
+
+
 class _NanGrad(torch.autograd.Function):
     """Identity whose backward returns NaN: the JAX checkpoint adjoint's
     answer when the solve took more accepted steps than its replay buffer
@@ -251,8 +393,11 @@ def _odeint_adaptive(rhs, tab: Tableau, rtol, atol, max_steps, chk_steps,
     with annotate("ngpde.solver.init_step"):
         dt = _initial_step_size(rhs, ts[0], y0, f0, args, tab.order, rtol,
                                 atol, stats)
+    attempts = attempt_graph(rhs, tab, y0, f0, dt, rtol, atol)
     tp, yp, fp = ts[0], y0, f0
     t, y, f = ts[0], y0, f0
+    if attempts is not None:
+        y, f = attempts.start(y0, f0)
     ys = [y0]
     overflow = False
     for target in ts[1:]:
@@ -260,14 +405,23 @@ def _odeint_adaptive(rhs, tab: Tableau, rtol, atol, max_steps, chk_steps,
         while t < target and n < max_steps:
             with annotate("ngpde.solver.attempt"):
                 h = dt if interpolate else torch.minimum(dt, target - t)
-                y1, ks = _rk_step(rhs, tab, t, y, h, f, args, stats)
+                if attempts is None:
+                    y1, ks = _rk_step(rhs, tab, t, y, h, f, args, stats)
+                    f1, norm = ks[-1], None
+                    attempt_graph.eager += 1
+                else:
+                    (y1, f1), norm = attempts.replay(h, stats)
                 with annotate("ngpde.solver.control"):
-                    ratio = _error_ratio(tab, h, ks, y, y1, rtol, atol,
-                                         stats)
+                    ratio = (_error_ratio(tab, h, ks, y, y1, rtol, atol,
+                                          stats) if norm is None
+                             else norm.cpu())
                     dt = _optimal_dt(h, ratio, tab.order)
                 stats["steps"] += 1
                 if ratio <= 1.0:
-                    f1 = ks[-1] if tab.fsal else rhs(t + h, y1, args)
+                    if not tab.fsal:
+                        f1 = rhs(t + h, y1, args)
+                    if attempts is not None:
+                        attempts.accept()
                     tp, yp, fp = t, y, f
                     t, y, f = t + h, y1, f1
                     stats["accepted"] += 1
@@ -277,8 +431,8 @@ def _odeint_adaptive(rhs, tab: Tableau, rtol, atol, max_steps, chk_steps,
             stats["attempts"].append(n)
         if interpolate:
             ys.append(_hermite_eval(tp, yp, fp, t, y, f, target, stats))
-        else:
-            ys.append(y)
+        else:  # the attempt graphs' pairs are overwritten later
+            ys.append(y if attempts is None else y.clone())
             overflow |= accepted > chk_steps or t < target
     if interpolate:
         overflow = (stats["accepted"] > chk_steps
@@ -519,6 +673,11 @@ def odeint(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
     ``backward_nfe`` (its right-hand-side evaluations: one per augmented
     evaluation, one per save), ``backward_steps`` and
     ``backward_accepted`` to the same dict.
+
+    A right-hand side with ``rhs.autonomous = m`` declares ``rhs(t, y,
+    args) == m(y)`` for a module ``m``: with autograd off and the state on
+    the card, each attempted step is then one replay of a captured CUDA
+    graph (``attempt_graph``), with the same counts and bits.
     """
     if interpolation not in ("hermite", "tstop"):
         raise ValueError("interpolation must be 'hermite' or 'tstop'")
@@ -537,6 +696,7 @@ def odeint(rhs: Callable, y0: torch.Tensor, ts, args=None, *,
         with annotate(RHS):
             return rhs(t, y, a)
 
+    counted.autonomous = getattr(rhs, "autonomous", None)
     interpolate = interpolation == "hermite"
     with annotate(SOLVE):
         if adjoint == "backsolve" and torch.is_grad_enabled():

@@ -27,7 +27,9 @@ class NeuralGraphODE(ContainerLayer):
     ``last_stats`` holds the adaptive solver's counts (``nfe``, ``steps``,
     ``accepted``, ``combos``, ``combos_fused``; after a backsolve's
     backward also ``backward_nfe``, ``backward_steps``,
-    ``backward_accepted``).
+    ``backward_accepted``). With autograd off and the state on the card,
+    each attempted step of an adaptive solve replays one captured CUDA
+    graph (``ode.integrate.attempt_graph``).
     """
 
     layer_names = ("model",)
@@ -56,6 +58,8 @@ class NeuralGraphODE(ContainerLayer):
         def rhs(t, u, args):
             return self.model(u)
 
+        # reads neither t nor args: a solve may capture its attempts
+        rhs.autonomous = self.model
         ts = self.saveat if self.saveat is not None else self.tspan
         if self.adjoint == "grid" or not get_tableau(self.solver).adaptive:
             ys = odeint_grid(rhs, x, ts, solver=self.solver,

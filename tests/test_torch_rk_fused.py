@@ -27,7 +27,9 @@ plain version on the card, bit for bit (the norm to 1e-6, and a rerun to
 the bit), in f32, bf16 and f64, at odd lengths, misaligned views and the
 backsolve's packed 1-D state; one step's gradients against the eager
 oracle's bits; a GRAND forward and gradient on a small grid with the same
-evaluations as the eager path, every combination fused.
+evaluations as the eager path, every combination fused; the step size read
+from the card (a 0-d float64 tensor, as an attempt graph passes it) against
+the host's, bit for bit.
 """
 import gc
 import weakref
@@ -411,6 +413,21 @@ def test_combination_counters():
     assert stats["combos"] == 4 + 7 * stats["steps"]
 
 
+def test_step_size_as_a_scalar_tensor_on_the_cpu():
+    """A 0-d float64 step size (an attempt graph's device scalar, here on
+    the CPU) gives the ``float``'s bits in both plain versions."""
+    xs = _states(3, 257, 5)
+    for h in (0.0173, float(_f32(0.3)), 3.7e-6):
+        hd = torch.tensor(h, dtype=torch.float64)
+        for base, lead in ((xs[-1], True), (None, False)):
+            assert torch.equal(rk.rk_combine(base, hd, (0.5, -2.0), xs[:2],
+                                             lead),
+                               rk.rk_combine(base, h, (0.5, -2.0), xs[:2],
+                                             lead))
+        args = ((0.1, -0.2, 0.3), xs[:3], xs[3], xs[4], 1e-3, 1e-4)
+        assert torch.equal(rk.rk_norm(hd, *args), rk.rk_norm(h, *args))
+
+
 # ------------------------------------------------------------ CUDA cases
 @pytest.fixture
 def cuda():
@@ -476,6 +493,41 @@ def test_rk_norm_kernel_matches_plain_cuda(cuda, dtype):
     assert abs(float(got) - float(rk.norm_plain(*args))) <= tol * float(got)
     assert torch.equal(rk.rk_norm(*args), got)
     assert rk.rk_norm.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_device_h_matches_host_h_cuda(cuda, dtype):
+    """``rk_combine`` and ``rk_norm`` with the step size read from the card
+    (``rk_combine_dh_kernel``, ``rk_norm_dh_kernel``) give the host-h
+    kernels' bits; a step size of another dtype or shape raises."""
+    before = (rk.rk_combine.launches, rk.rk_norm.launches)
+    for label, xs in _cases(cuda, dtype):
+        for h in (0.0173, float(_f32(0.3)), 3.7e-6):
+            hd = torch.tensor(h, dtype=torch.float64, device=cuda)
+            for n in (1, 6, rk.MAX_TERMS):
+                cs = [0.31 * (-1) ** j * (j + 1) for j in range(n)]
+                for base, lead in ((xs[-1], True), (None, False)):
+                    got = rk.rk_combine(base, hd, cs, xs[:n], lead)
+                    want = rk.rk_combine(base, h, cs, xs[:n], lead)
+                    assert torch.equal(got, want), (label, n, h, lead)
+            for refs in ((xs[0], xs[1]), (xs[0], None)):
+                args = ((0.1, -0.2, 0.3), xs[2:5], *refs, 1e-3, 1e-4)
+                assert torch.equal(rk.rk_norm(hd, *args),
+                                   rk.rk_norm(h, *args)), (label, h)
+    big = _states(9, 262144 * 8 + 3, 4, cuda, dtype)
+    hd = torch.tensor(0.0173, dtype=torch.float64, device=cuda)
+    args = ((1.0, -1.0), big[:2], big[2], big[3], 1e-3, 1e-3)
+    assert torch.equal(rk.rk_norm(hd, *args), rk.rk_norm(0.0173, *args))
+    assert rk.rk_combine.launches > before[0]
+    assert rk.rk_norm.launches > before[1]
+    for bad in (torch.tensor(0.1, device=cuda),
+                torch.tensor([0.1], dtype=torch.float64, device=cuda),
+                torch.tensor(0.1, dtype=torch.float64)):
+        with pytest.raises(TypeError, match="0-d float64"):
+            rk.rk_combine(big[0], bad, (1.0,), big[1:2])
+        with pytest.raises(TypeError, match="0-d float64"):
+            rk.rk_norm(bad, *args)
 
 
 @pytest.mark.cuda

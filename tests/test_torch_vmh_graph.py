@@ -13,11 +13,12 @@ cell's shapes (a 3,000-point Delaunay mesh, ϕ 4→60→60→60→40, γ
 41→60→60→60→1): a replay equals the eager forward bit for bit (the same
 kernels on the same inputs); a whole rollout of the trained surrogate
 under ``inference_mode`` equals the eager rollout bit for bit, with one
-capture and a replay for every evaluation; outputs do not share storage;
-in-place and replaced parameters, a new graph and alternating grad modes;
-the K3 envelope error raises as it does eagerly, with no capture left
-behind; a forward that reads a value home runs eagerly; the spans and the
-launch counters.
+capture and a replay for each of the initial step's two evaluations (the
+attempts' evaluations run inside the solver's attempt graph); outputs do
+not share storage; in-place and replaced parameters, a new graph and
+alternating grad modes; the K3 envelope error raises as it does eagerly,
+with no capture left behind; a forward that reads a value home runs
+eagerly; the spans and the launch counters.
 """
 import dataclasses
 import os
@@ -35,6 +36,7 @@ from neuralgraphpde_torch.kernels import fused_mlp_kernels as PK  # noqa
 from neuralgraphpde_torch.nn import conv as port_conv  # noqa: E402
 from neuralgraphpde_torch.ops import fused as port_fused  # noqa: E402
 from neuralgraphpde_torch.nn import graphed  # noqa: E402
+from neuralgraphpde_torch.ode import integrate as port_int  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SURROGATE = os.path.join(REPO, "bench_torch", "weights", "vmh-convdiff.pt")
@@ -156,11 +158,13 @@ def cuda():
 
 @pytest.fixture
 def eager(monkeypatch):
-    """A context in which every ``VMHConv`` call takes the eager path."""
+    """A context in which every ``VMHConv`` call takes the eager path, and
+    so does every solver attempt (``ode.integrate.attempt_graph``)."""
 
     class Eager:
         def __enter__(self):
             monkeypatch.setattr(port_conv, "vmh_graph", lambda conv, x: None)
+            monkeypatch.setattr(graphed, "on_card", lambda x: False)
 
         def __exit__(self, *exc):
             monkeypatch.undo()
@@ -212,27 +216,39 @@ def _surrogate(cuda):
 
 @pytest.mark.cuda
 def test_rollout_equals_eager_rollout_cuda(cuda, eager):
-    """The trained surrogate's rollout: every evaluation replays, one
-    capture, the eager rollout's bits and steps."""
+    """The trained surrogate's rollout: one capture; the initial step's
+    evaluations replay, and the attempts' evaluations, recorded in the
+    solver's attempt graph, replay with it; the eager rollout's bits and
+    steps."""
     model, pts = _surrogate(cuda)
     u0 = _field(pts, cuda)
+
+    def attempts():
+        return port_int.attempt_graph.replays
+
     with torch.inference_mode():
         with eager:
             want = model(u0)
         want_stats = dict(model.last_stats)
-        before = _counts()
+        start = _counts()
+        first = model(u0)  # captures VMHConv's graph and the attempt graph
+        before, replays = _counts(), attempts()
         got = model(u0)
-        after = _counts()
+        after, replayed = _counts(), attempts() - replays
         stats = dict(model.last_stats)
         again = model(_field(pts, cuda, 0.8))
         last = _counts()
     assert stats == want_stats and stats["nfe"] > 40
-    assert after[0] - before[0] == 1
-    assert after[1] - before[1] == stats["nfe"]
+    assert before[0] - start[0] == 1
+    assert after[0] == before[0]
+    assert replayed == stats["steps"]
+    # the initial step's two evaluations; the attempts' six each are in
+    # the attempt graph's replays
+    assert after[1] - before[1] == stats["nfe"] - 6 * replayed == 2
     assert after[2] == before[2]
-    assert torch.equal(got, want)
+    assert torch.equal(first, want) and torch.equal(got, want)
     assert last[0] == after[0]  # the next request captures nothing
-    assert last[1] - after[1] == model.last_stats["nfe"]
+    assert last[1] - after[1] == 2
     assert torch.isfinite(again).all()
 
 
