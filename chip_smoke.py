@@ -203,11 +203,27 @@ Phases, each fatal on failure:
    xla path's backsolve: loss rel ≤ 1e-4, each gradient within 1e-3 of its
    largest entry, the same accepted steps forward and backward per sim;
    seconds and peak memory beside the checkpoint epoch.
+12. GraphCast at its published 0.25° widths (``graphcast_graphs()``: the
+   40,962-node multimesh, the 721 × 1,440 grid; ``precompute_graphs`` with
+   Grid2Mesh in 4 and Mesh2Grid in 8 receiver blocks, as the
+   ``graphcast-0p25`` configuration runs): K1 (``segment_spmm`` on
+   ``tcsr_edges``, the edge-id layout: as many columns as edges, rows the
+   receivers) at F 512 on the multimesh's 327,660 edges and on the first
+   Grid2Mesh and Mesh2Grid receiver blocks (a few hundred thousand edges
+   each, senders of another node set) against its plain version within
+   1e-5, timed beside its bound; then one AdamW step of ``GraphCast(
+   recompute=True)`` on N(0, 1) inputs, with K1's counters set to 0 just
+   before it: a finite loss, 36 interaction forwards, and K1 launched
+   twice for each of its 28 calls a forward (16 processor layers, 12
+   blocks; the recomputation runs each again), none of them in the
+   backward (over the edge-id layout K1's backward is a gather); its
+   seconds and peak memory are printed.
 
 The line before the last is ``{"kernels": [...]}``: twelve kernels with
 their operand ``dtypes`` (K4 and K7 also with their ``device_ms``, the fused K2
 with its ``unfused_ms``), the K1, K2, K4 and K7 entries with their launches
-in each gradient run and the part of them made in the backward (the fused
+in each gradient run (K1's also in the GraphCast step, its GraphCast
+shapes in ``other_shapes``) and the part of them made in the backward (the fused
 right-hand sides' backward launches are SpMM launches, counted on the
 SpMM), K3's with their launches in the backsolve gradient; then the five
 bf16 forms (K3 forward and backward, K5 forward and backward, K6), each at
@@ -225,6 +241,7 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -280,6 +297,10 @@ BF16_GRAD_BOUND = 5e-2
 # the backsolve VMH gradient on K3 against the xla path's backsolve
 BACKSOLVE_LOSS_BOUND = 1e-4
 BACKSOLVE_GRAD_BOUND = 1e-3
+# graphcast-0p25: latent width, and Grid2Mesh's and Mesh2Grid's receiver
+# blocks (bench_torch/configs/graphcast-0p25.json)
+GRAPHCAST_F = 512
+GRAPHCAST_BLOCKS = (4, 8)
 # H100 SXM (NVIDIA data sheet, 700 W): device-memory rate, the f32 rate
 # outside the tensor cores (every kernel here computes in true f32), and
 # the dense bf16 tensor-core rate (the bound of a function whose operands
@@ -2199,6 +2220,96 @@ def rk_checks(dev) -> dict:
     return records
 
 
+def graphcast_checks(P, K, dev) -> dict:
+    """Phase 12: K1 at GraphCast's shapes against its plain version, then
+    one GraphCast training step with K1's launches counted. Returns the K1
+    records (``shapes``) and the step's ``launches`` and ``backward``."""
+    from neuralgraphpde_torch.models import graphcast as gc
+
+    t0 = time.perf_counter()
+    graphs = P.graphcast_graphs()
+    prepared = {k: g.to(dev) for k, g in
+                gc.precompute_graphs(graphs, GRAPHCAST_BLOCKS).items()}
+    print(f"  graphs and precompute: {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(22)
+    f = GRAPHCAST_F
+    cases = [("multimesh", prepared["mesh"])]
+    for name, count in zip(("grid2mesh", "mesh2grid"), GRAPHCAST_BLOCKS):
+        first = next(iter(prepared[name].cache["receiver_blocks"]))[0]
+        cases.append((f"{name} block 1 of {count}", first))
+    shapes = []
+    for label, g in cases:
+        csr = g.cache["tcsr_edges"]
+        x = torch.from_numpy(rng.normal(size=(g.num_edges, f)).astype(
+            np.float32)).to(dev)
+        got, want = K.segment_spmm(x, csr), K.segment_spmm_plain(x, csr)
+        torch.cuda.synchronize()
+        rel, diff = rel_err(got, want)
+        ms = cuda_ms(lambda: K.segment_spmm(x, csr))
+        plain_ms = cuda_ms(lambda: K.segment_spmm_plain(x, csr))
+        b_ms, b_by = bound(nbytes(x, got) + csr_bytes(csr),
+                           2.0 * g.num_edges * f)
+        shape = (f"K1 GraphCast {label}: {csr.num_rows} receivers, "
+                 f"{g.num_edges} edges, F={f} f32")
+        print(f"  {shape:<66} rel {rel:.3e} (bound {F32_BOUND:g})  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
+              f"({b_by})")
+        check(csr.num_cols == g.num_edges and csr.num_rows == g.num_nodes,
+              f"{label}: not the edge-id layout")
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+        check(rel <= F32_BOUND, f"{label}: rel error {rel:.3e} > "
+                                f"{F32_BOUND:g}")
+        rec = dict(max_abs_err=diff, max_rel_err=rel, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                   bound_by=b_by, shape=shape)
+        check_bounds(rec, shape)
+        shapes.append(rec)
+        del x, got, want
+
+    model = P.GraphCast(recompute=True,
+                        generator=torch.Generator().manual_seed(22),
+                        device=dev).set_graphs(prepared)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    n = graphs.mesh2grid.num_nodes
+    x = torch.randn((n, 474), generator=gen, device=dev)
+    y = torch.randn((n, 227), generator=gen, device=dev)
+    node_w = torch.from_numpy(gc.area_weights(graphs.grid_lat)).to(dev)
+    chan_w = torch.ones(227, device=dev)
+    opt = P.adamw(model.parameters(), 1e-3, 0.9, 0.95, 1e-8, 0.1)
+    step = P.make_train_step(
+        lambda: P.weighted_mse(x[:, :227] + model(x), y, node_w, chan_w),
+        opt)
+    calls = len(model.processor) + sum(GRAPHCAST_BLOCKS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.segment_spmm.launches = K.segment_spmm.backward_launches = 0
+    forwards = gc.interaction_forwards
+    t0 = time.perf_counter()
+    loss, _ = step()
+    value = float(loss)
+    seconds = time.perf_counter() - t0
+    launches = K.segment_spmm.launches
+    backward = K.segment_spmm.backward_launches
+    forwards = gc.interaction_forwards - forwards
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  one AdamW step (the published widths, recomputation, blocks "
+          f"{GRAPHCAST_BLOCKS}): loss {value:.6f}, {seconds:.2f} s (the "
+          f"first), peak {peak / 1e9:.2f} GB; {forwards} interaction "
+          f"forwards; segment_spmm launches {launches} ({calls} K1 calls a "
+          f"forward, run again in the recomputation), of them in the "
+          f"backward {backward}")
+    check(math.isfinite(value), "GraphCast step: non-finite loss")
+    check(forwards == 36, f"GraphCast step: {forwards} interaction "
+                          f"forwards, expected 36")
+    check(launches == 2 * calls and backward == 0,
+          f"GraphCast step: K1 launched {launches} times ({backward} in "
+          f"the backward), expected {2 * calls} (0)")
+    del model, opt, step, prepared, x, y
+    torch.cuda.empty_cache()
+    return dict(shapes=shapes, launches={"segment_spmm": launches},
+                backward={"segment_spmm": backward})
+
+
 def grand_forward(P, model, g, x, label):
     """A first (cold) forward on the kernel path, a second (warm) one whose
     kernel launches are counted (the main path), two forwards on the xla
@@ -2550,6 +2661,9 @@ def main() -> int:
     print("MP-PDE Burgers training (32 sims on the 256-node chain, K3):")
     launches_m = mppde_training(P, K, mppde_model, mppde_u)
 
+    print("GraphCast at its published 0.25° widths (K1 at F 512):")
+    graphcast = graphcast_checks(P, K, dev)
+
     sources = {
         "segment_spmm": ("neuralgraphpde_torch/csrc/segment_spmm.cu",
                          "neuralgraphpde/kernels/segment_kernels.py:186",
@@ -2593,7 +2707,9 @@ def main() -> int:
     # each differentiable kernel's wrapper, its launches in the gradient
     # runs and the part of them made in backward passes
     runs = {
-        "segment_spmm": ("segment_spmm", [("GRAND A gradient", grad_a)]),
+        "segment_spmm": ("segment_spmm", [
+            ("GRAND A gradient", grad_a),
+            ("GraphCast training step", graphcast)]),
         "dia_gcn_rhs": ("dia_gcn_rhs", [("GRAND B gradient", grad_b)]),
         "dia_spmm_stencil": ("dia_spmm_stencil", [
             ("GRAND B gradient", grad_b),
@@ -2643,6 +2759,8 @@ def main() -> int:
                 v["device_ms"] = k3_records[run][name]["device_ms"]
         if name in gkn_records:
             entry["gkn"] = gkn_records[name]
+        if name == "segment_spmm":
+            entry["other_shapes"] = graphcast["shapes"]
         if name == "segment_max":
             burgers = records["segment_max Burgers"]
             entry["other_shapes"] = [{k: burgers[k] for k in keys}]

@@ -2,12 +2,15 @@ from .gnngraph import GnnGraph, empty_graph
 from .builders import (delaunay_graph, grid_graph_1d, grid_graph_2d,
                        radius_graph, rand_graph)
 from .transforms import (
+    ReceiverBlocks,
     add_self_loops,
     csr_offsets,
     degree,
+    receiver_blocks,
     sort_by_receiver,
     to_dense_adjacency,
 )
+from .sphere import GraphCastGraphs, graphcast_graphs
 from .reorder import (bandwidth, morton_order, permute_nodes, rcm_order,
                       rcm_reorder, reorder_graph, spatial_reorder,
                       unpermute_nodes)
@@ -17,7 +20,8 @@ __all__ = [
     "delaunay_graph",
     "radius_graph",
     "add_self_loops", "degree", "sort_by_receiver", "csr_offsets",
-    "to_dense_adjacency", "rcm_order", "rcm_reorder", "morton_order",
-    "spatial_reorder", "reorder_graph", "permute_nodes", "unpermute_nodes",
+    "to_dense_adjacency", "receiver_blocks", "ReceiverBlocks",
+    "graphcast_graphs", "GraphCastGraphs", "rcm_order", "rcm_reorder",
+    "morton_order", "spatial_reorder", "reorder_graph", "permute_nodes", "unpermute_nodes",
     "bandwidth",
 ]

@@ -7,6 +7,10 @@
 - Feature stores ``ndata``/``edata``/``gdata`` are dicts of row-major
   tensors with a leading entity dimension (``(num_nodes, F)`` etc.); key
   order is the caller's insertion order.
+- A bipartite graph (senders and receivers in different node sets) gives
+  the senders' count as ``num_senders``; ``num_nodes`` counts the
+  receivers' set, which aggregation reduces onto and node features live
+  on. ``num_senders`` is None where both ends index one node set.
 - ``cache`` holds the aggregation structure ``ops.precompute`` attaches
   (dense adjacency, CSR layouts, DIA matrices); ``host_coo`` keeps the numpy
   copy of the edge list so host-side builds never read back from the device.
@@ -91,6 +95,11 @@ class GnnGraph:
     receivers_sorted: bool = False
     cache: Dict[str, Any] = dataclasses.field(default_factory=dict)
     host_coo: Optional[tuple] = dataclasses.field(default=None, repr=False)
+    num_senders: Optional[int] = None
+
+    @property
+    def bipartite(self) -> bool:
+        return self.num_senders is not None
 
     @classmethod
     def from_coo(
@@ -105,9 +114,11 @@ class GnnGraph:
         num_graphs: int = 1,
         graph_indicator=None,
         sort_by_receiver: bool = False,
+        num_senders: Optional[int] = None,
     ) -> "GnnGraph":
         """Build from COO index arrays. Host input (lists, numpy) is also
-        kept as ``host_coo``."""
+        kept as ``host_coo``. ``num_senders``: the sender node set's size
+        where it is not the receivers' (a bipartite graph)."""
         host_coo = None
         if not isinstance(senders, torch.Tensor):
             host_coo = (np.asarray(senders, np.int32),
@@ -157,7 +168,8 @@ class GnnGraph:
             senders=senders, receivers=receivers, ndata=ndata, edata=edata,
             gdata=gdata, graph_indicator=graph_indicator,
             num_nodes=num_nodes, num_edges=num_edges, num_graphs=num_graphs,
-            receivers_sorted=receivers_sorted, host_coo=host_coo)
+            receivers_sorted=receivers_sorted, host_coo=host_coo,
+            num_senders=num_senders)
 
     def replace(self, **kwargs) -> "GnnGraph":
         """Constructor-copy with overrides; feature overrides are

@@ -1,9 +1,12 @@
 """Structural graph transforms: self-loops, degree, CSR offsets, receiver
-sort, dense adjacency (counterparts of ``neuralgraphpde.graph.transforms``).
+sort, dense adjacency (counterparts of ``neuralgraphpde.graph.transforms``),
+and blocks of receivers (``receiver_blocks``, which the JAX package does not
+have).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -76,7 +79,8 @@ def sort_by_receiver(g: GnnGraph, return_perm: bool = False):
         edata={k: v[perm.to(v.device)] for k, v in g.edata.items()},
         gdata=g.gdata, graph_indicator=g.graph_indicator,
         num_nodes=g.num_nodes, num_edges=g.num_edges,
-        num_graphs=g.num_graphs, receivers_sorted=True, host_coo=host_coo)
+        num_graphs=g.num_graphs, receivers_sorted=True, host_coo=host_coo,
+        num_senders=g.num_senders)
     return (g2, perm_np) if return_perm else g2
 
 
@@ -102,3 +106,53 @@ def to_dense_adjacency(g: GnnGraph, *,
     flat = g.receivers.to(torch.int64) * n + g.senders.to(torch.int64)
     dense = torch.zeros(n * n, dtype=dtype, device=w.device)
     return dense.index_add_(0, flat.to(w.device), w).reshape(n, n)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReceiverBlocks:
+    """A receiver-sorted graph cut into blocks of consecutive receivers:
+    block ``b`` holds receivers ``rows[b]:rows[b + 1]`` and edges
+    ``edges[b]:edges[b + 1]`` of the whole, as a graph of its own
+    (``graphs[b]``: its receivers numbered from the block's first, its
+    senders as they are, so a bipartite graph over the whole sender set).
+    Iterating gives ``(graph, (r0, r1), (e0, e1))``; ``to(device)`` moves
+    every block."""
+
+    graphs: tuple
+    rows: tuple
+    edges: tuple
+
+    def __len__(self):
+        return len(self.graphs)
+
+    def __iter__(self):
+        for b, g in enumerate(self.graphs):
+            yield (g, (self.rows[b], self.rows[b + 1]),
+                   (self.edges[b], self.edges[b + 1]))
+
+    def to(self, device) -> "ReceiverBlocks":
+        return dataclasses.replace(
+            self, graphs=tuple(g.to(device) for g in self.graphs))
+
+
+def receiver_blocks(g: GnnGraph, count: int,
+                    prepare: Callable = lambda b: b) -> ReceiverBlocks:
+    """``g`` (sorted by receiver) cut into ``count`` blocks of consecutive
+    receivers with about equal numbers of edges; ``prepare`` is applied to
+    each block's graph (``precompute``, say). Edge features are sliced with
+    the edges; node features stay with ``g``."""
+    if not g.receivers_sorted:
+        raise ValueError("receiver_blocks needs a receiver-sorted graph")
+    s, r = host_edges(g)
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(
+        r.astype(np.int64), minlength=g.num_nodes))])
+    goal = np.arange(1, count) * (g.num_edges / count)
+    rows = [0] + [int(v) for v in np.searchsorted(ptr, goal)] + [g.num_nodes]
+    edges = [int(ptr[v]) for v in rows]
+    senders = g.num_senders if g.bipartite else g.num_nodes
+    graphs = tuple(
+        prepare(GnnGraph.from_coo(
+            s[e0:e1], r[e0:e1] - r0, num_nodes=r1 - r0, num_senders=senders,
+            edata={k: v[e0:e1] for k, v in g.edata.items()}))
+        for r0, r1, e0, e1 in zip(rows, rows[1:], edges, edges[1:]))
+    return ReceiverBlocks(graphs, tuple(rows), tuple(edges))

@@ -1,7 +1,8 @@
 from .gno import GKNModel, GNOModel
+from .graphcast import GraphCast, precompute_graphs
 from .grand import grand_model
 from .mppde import MPPDESolver
 from .vmh import vmh_model
 
 __all__ = ["grand_model", "vmh_model", "GNOModel", "GKNModel",
-           "MPPDESolver"]
+           "MPPDESolver", "GraphCast", "precompute_graphs"]

@@ -1,4 +1,5 @@
-"""Basic layers: ``Dense``, ``Chain``, activations and initializers.
+"""Basic layers: ``Dense``, ``Chain``, ``MLP``, ``LayerNorm``, activations
+and initializers.
 
 Row-major convention as in the JAX package: inputs are ``(entities,
 features)`` and weights are stored ``(in, out)``, so the forward is
@@ -101,6 +102,27 @@ class Dense(Layer):
         return resolve_activation(self.activation)(y)
 
 
+class LayerNorm(Layer):
+    """``(x − mean) / sqrt(var + 1e-5) · scale + offset`` over the last
+    dimension (Haiku's ``LayerNorm`` with its scale and offset, as GraphCast
+    uses it): ``weight`` is the scale ``(1, dims)``, ones; ``bias`` the
+    offset ``(1, dims)``, zeros."""
+
+    eps = 1e-5
+
+    def __init__(self, dims: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.dims = dims
+        self.weight = nn.Parameter(torch.ones((1, dims), dtype=dtype,
+                                              device=device))
+        self.bias = nn.Parameter(torch.zeros((1, dims), dtype=dtype,
+                                             device=device))
+
+    def forward(self, x):
+        return F.layer_norm(x, (self.dims,), self.weight.view(-1),
+                            self.bias.view(-1), self.eps)
+
+
 class Chain(ContainerLayer):
     """Sequential container with children ``layer_1..layer_N``; parameter
     trees always nest per child, even for one child."""
@@ -127,18 +149,22 @@ class MLP(Chain):
     """Dense stack ``dims[0] → … → dims[-1]``: ``activation`` after every
     layer but the last, ``final_activation`` after the last. Its children
     are the Dense layers themselves (``layer_1..layer_N``), so its
-    parameter tree is the JAX ``MLP``'s (that of its inner Chain)."""
+    parameter tree is the JAX ``MLP``'s (that of its inner Chain).
+    ``layer_norm=True`` ends it in a ``LayerNorm`` of the output, one more
+    child (GraphCast's MLPs)."""
 
     def __init__(self, dims, activation: Union[str, Callable] = "tanh",
                  final_activation: Union[None, str, Callable] = None, *,
-                 use_bias: bool = True,
+                 use_bias: bool = True, layer_norm: bool = False,
                  generator: Optional[torch.Generator] = None, device=None,
                  dtype=torch.float32):
         dims = tuple(dims)
         n = len(dims) - 1
-        super().__init__(
-            Dense(dims[i], dims[i + 1],
-                  activation if i < n - 1 else final_activation,
-                  use_bias=use_bias, generator=generator, device=device,
-                  dtype=dtype)
-            for i in range(n))
+        layers = [Dense(dims[i], dims[i + 1],
+                        activation if i < n - 1 else final_activation,
+                        use_bias=use_bias, generator=generator,
+                        device=device, dtype=dtype)
+                  for i in range(n)]
+        if layer_norm:
+            layers.append(LayerNorm(dims[-1], device=device, dtype=dtype))
+        super().__init__(layers)

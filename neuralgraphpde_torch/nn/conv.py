@@ -1,11 +1,12 @@
 """GNN convolution layers (counterpart of ``neuralgraphpde.nn.conv``;
 ``GCNConv``, ``ExplicitEdgeConv``, ``VMHConv``, ``MPPDEConv`` and
-``GNOConv`` so far)."""
+``GNOConv`` so far), and GraphCast's ``InteractionConv``, which the JAX
+package does not have."""
 from __future__ import annotations
 
 import warnings
 import weakref
-from typing import Callable, Optional, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 from torch import nn
@@ -18,7 +19,8 @@ from ..ops.message_passing import (aggregate_neighbors, apply_edges, copy_xj,
                                    takes_edge_kernels, w_mul_xj)
 from ..utils.profiling import annotate, annotated
 from ..utils.state import drop
-from .basic import (Chain, Dense, glorot_normal, glorot_uniform,
+from ..ops.scatter import gather
+from .basic import (MLP, Chain, Dense, glorot_normal, glorot_uniform,
                     make_params, matmul, resolve_activation, zeros_init)
 from .gnn import (INPUT_KEY, AbstractGNNContainerLayer, AbstractGNNLayer,
                   wrap_input)
@@ -466,3 +468,95 @@ class GNOConv(AbstractGNNContainerLayer):
         if self.linear.bias is not None:
             y = y + self.linear.bias
         return resolve_activation(self.activation)(y)
+
+
+class Interaction(NamedTuple):
+    """What an ``InteractionConv`` call returns: the updated edge latents
+    (None where the conv keeps none) and the updated receiver latents.
+    ``grad_fn`` is the receivers' autograd node, the last the call makes,
+    for module hooks that read a layer's output node."""
+
+    edges: Optional[torch.Tensor]
+    nodes: torch.Tensor
+
+    @property
+    def grad_fn(self):
+        return self.nodes.grad_fn
+
+
+class InteractionConv(AbstractGNNContainerLayer):
+    """GraphCast's interaction network (Lam et al., arXiv:2212.12794, as its
+    typed graph network runs one) on the conv's graph, senders → receivers
+    (two node sets where the graph is bipartite), with the residuals:
+
+        m_e = φ_e([e, v_s[s_e], v_r[r_e]]),    e' = e + m_e,
+        v_r' = v_r + φ_v([v_r, Σ_{e→r} m_e]).
+
+    φ_e and φ_v are ``MLP``s with one hidden layer of ``latent``, swish
+    and a ``LayerNorm`` on the output. φ_e's first
+    layer runs split, ``W [e, v_s, v_r] = W_e e + (W_s v_s)[s] + (W_r
+    v_r)[r]``, so the node products run once a node and the ``(E, 3 ·
+    latent)`` concatenation is never made; its weight is one ``(3 · latent,
+    latent)`` parameter, rows in that order. The sum goes through
+    ``aggregate_neighbors`` (K1 over the edge-id layout on the card).
+
+    ``edge_in``: the conv embeds its edge input first with ``edge_embed``
+    (``MLP(edge_in → latent → latent)``, LayerNorm): Grid2Mesh and
+    Mesh2Grid take their raw edge features, whose latents live only inside
+    the call. ``keep_edges=False`` returns no edge latents.
+
+    ``forward(v_s, v_r, e) -> Interaction``: the sender term ``W_s v_s``
+    once, then ``block`` over the conv's graph, or ``schedule(conv, ps,
+    v_r, e)`` where one is set (``models.graphcast.recomputed``: the call
+    under recomputation, in receiver blocks where the graph carries them).
+    Under a profiler the forward is an ``ngpde.conv.InteractionConv``
+    span."""
+
+    def __init__(self, latent: int, initialgraph=None, *,
+                 edge_in: Optional[int] = None, keep_edges: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype=torch.float32):
+        super().__init__(initialgraph)
+        kw = dict(layer_norm=True, generator=generator, device=device,
+                  dtype=dtype)
+        self.latent, self.keep_edges = latent, keep_edges
+        names = ()
+        self.edge_embed = None
+        if edge_in is not None:
+            self.edge_embed = MLP((edge_in, latent, latent), "swish", **kw)
+            names = ("edge_embed",)
+        self.edge_mlp = MLP((3 * latent, latent, latent), "swish", **kw)
+        self.node_mlp = MLP((2 * latent, latent, latent), "swish", **kw)
+        self.layer_names = names + ("edge_mlp", "node_mlp")
+        self.schedule: Optional[Callable] = None
+
+    def sender_term(self, v_s: torch.Tensor) -> torch.Tensor:
+        """``W_s v_s``: φ_e's first layer's sender rows on every sender."""
+        n = self.latent
+        return matmul(v_s, self.edge_mlp.layer_1.weight[n:2 * n])
+
+    def block(self, ps: torch.Tensor, v_r: torch.Tensor, e: torch.Tensor,
+              g) -> Interaction:
+        """One pass over ``g``'s edges: ``ps`` the sender term of every
+        sender, ``v_r`` and ``e`` the latents of ``g``'s receivers and
+        edges (the raw edge features with ``edge_in``)."""
+        n = self.latent
+        first, mlp = self.edge_mlp.layer_1, self.edge_mlp
+        if self.edge_embed is not None:
+            e = self.edge_embed(e)
+        pr = matmul(v_r, first.weight[2 * n:]) + first.bias
+        h = (matmul(e, first.weight[:n]) + gather(ps, g.senders)
+             + gather(pr, g.receivers))
+        m = mlp.layer_3(mlp.layer_2(resolve_activation(first.activation)(h)))
+        agg = aggregate_neighbors(g, "sum", m)
+        e = e + m if self.keep_edges else None
+        v = v_r + self.node_mlp(torch.cat([v_r, agg], dim=-1))
+        return Interaction(e, v)
+
+    @annotated("ngpde.conv.InteractionConv")
+    def forward(self, v_s: torch.Tensor, v_r: torch.Tensor,
+                e: torch.Tensor) -> Interaction:
+        ps = self.sender_term(v_s)
+        if self.schedule is not None:
+            return self.schedule(self, ps, v_r, e)
+        return self.block(ps, v_r, e, self.graph)

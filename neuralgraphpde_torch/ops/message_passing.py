@@ -14,6 +14,7 @@ import torch
 
 from ..graph.gnngraph import GnnGraph
 from ..graph.transforms import degree
+from ..utils.profiling import annotate
 from .scatter import Reduction, canonical_reduction, gather, segment_reduce
 from .spmm import (segment_max_pallas, segment_min_pallas, segment_sum_pallas,
                    spmm, takes_kernels)
@@ -80,7 +81,8 @@ def aggregate_neighbors(g: GnnGraph, aggr: Reduction,
     (K1), and max and min through the segment-max kernel (K6) when the
     graph's edges are sorted by receiver (JAX's guard: its kernel needs each
     receiver's edges in one run); an unsorted graph, and every other case,
-    takes the scatter path."""
+    takes the scatter path. Under a profiler the reduction runs in an
+    ``ngpde.dispatch.k1``, ``.k6`` or ``.scatter`` span."""
     red = canonical_reduction(aggr)
     if (red in ("sum", "mean", "max", "min")
             and isinstance(messages, torch.Tensor) and messages.dim() == 2
@@ -89,13 +91,17 @@ def aggregate_neighbors(g: GnnGraph, aggr: Reduction,
             if g.receivers_sorted:
                 fn = (segment_max_pallas if red == "max"
                       else segment_min_pallas)
-                return fn(g, messages)
+                with annotate("ngpde.dispatch.k6"):
+                    return fn(g, messages)
         else:
-            out = segment_sum_pallas(g, messages)
-            if red == "mean":
-                out = out / node_degree(g, out.dtype).clamp_min(1.0)[:, None]
-            return out
-    return segment_reduce(messages, g.receivers, g.num_nodes, aggr)
+            with annotate("ngpde.dispatch.k1"):
+                out = segment_sum_pallas(g, messages)
+                if red == "mean":
+                    out = out / node_degree(g, out.dtype).clamp_min(
+                        1.0)[:, None]
+                return out
+    with annotate("ngpde.dispatch.scatter"):
+        return segment_reduce(messages, g.receivers, g.num_nodes, aggr)
 
 
 def propagate(message: Callable, g: GnnGraph, aggr: Reduction, *,

@@ -136,6 +136,11 @@ def precompute(
     per-node inputs with ``graph.reorder.permute_nodes(x, order)`` and map
     outputs back with ``unpermute_nodes``.
 
+    A bipartite graph (``g.num_senders`` set: senders and receivers in
+    different node sets) gets ``in_degree``, ``csr_offsets`` and the
+    segment kernel's layouts alone (``tcsr`` reads ``num_senders`` rows of
+    x; ``tcsr_rev`` sums onto them), and takes no loops or reorder.
+
     ``add_self_loops=True`` adds the loops first and marks the cache, so
     ``GCNConv(add_self_loops=True)`` keeps the fast path; ``orig_edge_pos``
     records where each original edge landed. ``edge_weight`` is given in
@@ -143,6 +148,11 @@ def precompute(
     """
     device = g.device
     orig_edges = g.num_edges
+    if g.bipartite:
+        if add_self_loops or auto_reorder or dense or bsr:
+            raise ValueError("a bipartite graph takes the segment layouts "
+                             "alone: no loops, reorder, dense or bsr")
+        dense, bsr = False, False
     if add_self_loops:
         g = _add_self_loops(g)
     ew = None
@@ -195,8 +205,11 @@ def precompute(
     if pallas:
         s, r = host_edges(g)
         n = g.num_nodes
-        cache["tcsr"] = build_segment_csr(s, r, n, edge_weight=ew)
-        cache["tcsr_rev"] = build_segment_csr(r, s, n, edge_weight=ew)
+        ns = g.num_senders if g.bipartite else n
+        cache["tcsr"] = build_segment_csr(s, r, n, num_cols=ns,
+                                          edge_weight=ew)
+        cache["tcsr_rev"] = build_segment_csr(r, s, ns, num_cols=n,
+                                              edge_weight=ew)
         cache["tcsr_edges"] = build_segment_csr(
             np.arange(g.num_edges, dtype=np.int64), r, n,
             num_cols=g.num_edges)

@@ -1,6 +1,8 @@
-from .losses import accuracy, masked_cross_entropy, mse, rollout_mse
+from .losses import (accuracy, masked_cross_entropy, mse, rollout_mse,
+                     weighted_mse)
 from .loop import MetricsLogger, make_train_step
-from .optim import Rprop, adam, rprop
+from .optim import Rprop, adam, adamw, rprop
 
 __all__ = ["accuracy", "masked_cross_entropy", "mse", "rollout_mse",
-           "MetricsLogger", "make_train_step", "Rprop", "adam", "rprop"]
+           "weighted_mse", "MetricsLogger", "make_train_step", "Rprop",
+           "adam", "adamw", "rprop"]

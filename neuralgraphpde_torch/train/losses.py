@@ -1,6 +1,6 @@
 """Loss functions (counterparts of ``neuralgraphpde.train.losses``): masked
 softmax cross-entropy and accuracy for node classification, MSE and rollout
-MSE for PDE training."""
+MSE for PDE training, and the weighted MSE GraphCast trains on."""
 from __future__ import annotations
 
 import torch
@@ -26,6 +26,16 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor,
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred - target) ** 2)
+
+
+def weighted_mse(pred: torch.Tensor, target: torch.Tensor,
+                 node_weight: torch.Tensor,
+                 channel_weight: torch.Tensor) -> torch.Tensor:
+    """``mean_n w_n · mean_c w_c (pred − target)²`` over ``(N, C)``:
+    GraphCast's loss, ``w_n`` each grid point's area weight and ``w_c``
+    each variable and level's weight."""
+    err = (pred - target) ** 2 * channel_weight
+    return (err.mean(dim=-1) * node_weight).mean()
 
 
 def rollout_mse(pred_traj: torch.Tensor,

@@ -1,9 +1,13 @@
 """Optimizers with the JAX package's names and defaults (counterparts of
-``neuralgraphpde.train.optim``): ``adam`` and Rprop−.
+``neuralgraphpde.train.optim``): ``adam`` and Rprop−; and ``adamw``, which
+the JAX package does not have.
 
 ``adam`` is ``torch.optim.Adam`` with optax's defaults (b1 0.9, b2 0.999,
 eps 1e-8 added outside the square root, no weight decay): the same update
-as ``optax.adam``.
+as ``optax.adam``. ``adamw`` is ``torch.optim.AdamW``, Adam with decoupled
+weight decay, ``p ← p − lr · (m̂ / (√v̂ + eps) + wd · p)`` (``optax.adamw``'s
+update; torch scales ``p`` by ``1 − lr · wd`` first, the same to
+rounding).
 
 Rprop− (resilient backprop) is a sign-based step per parameter entry.
 
@@ -31,6 +35,15 @@ def adam(params: Iterable, learning_rate: float = 1e-2) -> torch.optim.Adam:
     optax's moments (b1 0.9, b2 0.999, eps 1e-8)."""
     return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
                             eps=1e-8)
+
+
+def adamw(params: Iterable, learning_rate: float = 1e-3,
+          b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 1e-4) -> torch.optim.AdamW:
+    """``torch.optim.AdamW`` with optax's ``adamw`` argument names and
+    defaults (GraphCast trains with b2 0.95 and weight decay 0.1)."""
+    return torch.optim.AdamW(params, lr=learning_rate, betas=(b1, b2),
+                             eps=eps, weight_decay=weight_decay)
 
 
 class Rprop(torch.optim.Optimizer):
