@@ -108,8 +108,9 @@ Phases, each fatal on failure:
    to run) moves the step sizes, and the xla path differs from itself by up
    to ~1e-4; the script prints that spread and the kernel path's distance
    at 1e-3 without gating on them. Then the gradient of the masked
-   cross-entropy on the kernel path (K1, the fused K2, the stencil K2, each
-   launched in the backward too) against the ``xla`` path run with
+   cross-entropy on the kernel path (K1, the fused K2 with its fused
+   backward, the stencil K2 launched in its own backward) against the
+   ``xla`` path run with
    ``torch.use_deterministic_algorithms``, at the model's tolerances and at
    solver tolerance 1e-5: loss rel ≤ 1e-4, every gradient within 1e-3 of
    its own largest entry, the same accepted steps. The one exception is
@@ -132,6 +133,16 @@ Phases, each fatal on failure:
    hybrid DIA: a GRAND forward on the 256² periodic 8-neighbour grid
    (``dia`` + ``dia_rem``) on the stencil K2 plus the COO remainder, parity
    as above.
+   K2's fused backward alone on the 512² grid, tanh with W and b at F =
+   out = 64 and 128, against its plain version (``dia_gcn_bwd_plain``:
+   dx ≤ 1e-5 of its largest entry, dW and db ≤ 1e-4), the same bits on a
+   second call, CUDA-event ms beside the composition it replaced on the
+   same inputs (``plain_ms``), the bound from
+   ``bench_torch/core/counts.py::gcn_backward``'s operations and the bytes
+   the DIA pass moves; then one
+   ``grand-grid.train`` step (1433 → 64 → 7 on the grid, one Adam step):
+   every backward call on the fused kernel, none eager, no stencil in a
+   backward.
    The solver's RK stage kernels (``csrc/rk_stage.cu``; no Pallas source:
    XLA fused this algebra in the JAX package), each alone at the grid
    state (262,144 × 64 f32) and at a VMH solve's state (3,000 × 1 f32)
@@ -223,9 +234,10 @@ The line before the last is ``{"kernels": [...]}``: twelve kernels with
 their operand ``dtypes`` (K4 and K7 also with their ``device_ms``, the fused K2
 with its ``unfused_ms``), the K1, K2, K4 and K7 entries with their launches
 in each gradient run (K1's also in the GraphCast step, its GraphCast
-shapes in ``other_shapes``) and the part of them made in the backward (the fused
-right-hand sides' backward launches are SpMM launches, counted on the
-SpMM), K3's with their launches in the backsolve gradient; then the five
+shapes in ``other_shapes``) and the part of them made in the backward (the
+block-band fused right-hand sides' backward launches are SpMM launches,
+counted on the SpMM; the DIA one's is its own, ``dia_gcn_rhs backward``,
+after K6), K3's with their launches in the backsolve gradient; then the five
 bf16 forms (K3 forward and backward, K5 forward and backward, K6), each at
 its bf16 path's shape and operand dtypes with its bf16 bound, library time
 and launches on that path, and every form's record; then the two RK
@@ -2220,6 +2232,127 @@ def rk_checks(dev) -> dict:
     return records
 
 
+def _k2_composition_bwd(dm, dmt, x, w, y, g, act):
+    """K2's backward as it was before its fused pass, the JAX package's
+    ``_rhs_bwd`` step by step (phase 5's ``plain_ms``): ``dz = g ·
+    act'(y)``, the aggregate recomputed by the stencil, ``dW = aggᵀ dz``,
+    ``dz Wᵀ``, then ``dx`` = the stencil on ``dia_norm_rev``, ``db = Σ
+    dz``; ``(dx, dW, db)`` in f32."""
+    from neuralgraphpde_torch.kernels import dia_kernels as D
+
+    dz = g.float() * D.act_grad_from_y(act, y.float())
+    agg = D._stencil(dm, x, D.dia_spmm_stencil, True)
+    gup = dz @ w.float().t()
+    return (D._stencil(dmt, gup, D.dia_spmm_stencil, True), agg.t() @ dz,
+            dz.sum(0))
+
+
+def k2_backward_checks(P, K, dev, grid_g) -> dict:
+    """Phase 5, K2's fused backward alone on the self-looped 512² grid
+    (``cache['dia_norm_rev']``), tanh with W and b at F = out = 64 (dW from
+    the kernel's tiles) and 128 (dW as one product on u): against its plain
+    version on the card (``dia_gcn_bwd_plain``, f32; dx ≤ 1e-5 of its
+    largest entry, dW and db ≤ 1e-4), the same bits on a second call, and
+    CUDA-event ms beside the composition it replaced (``_k2_composition_bwd``:
+    dz, db, the recomputed aggregate, two products, the second stencil) on
+    the same inputs. The bound takes ``bench_torch/core/counts.py::
+    gcn_backward``'s operations and the bytes the DIA pass moves (g, y and
+    x read once, dx written once, K values a row, W, dW and db), below the
+    CSR structure's bytes that count assumes. Then one step of
+    ``grand-grid.train``'s model (1433 → 64 → 7 on the grid,
+    ``precompute(dense=False, auto_reorder=True)``, one Adam step) with the
+    counters from 0: every fused backward call launches the kernel once,
+    none is eager, no stencil runs in a backward. Returns the F 64 record,
+    its ``other_shapes`` and the step's counts."""
+    from bench_torch.core.counts import gcn_backward
+    from neuralgraphpde_torch.kernels import dia_kernels as D
+
+    dm, dmt = grid_g.cache["dia_norm"], grid_g.cache["dia_norm_rev"]
+    n, nnz, k = dm.num_nodes, grid_g.num_edges, len(dmt.offsets)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    records = []
+    for f in (64, 128):
+        x = torch.randn(n, f, device=dev, generator=gen)
+        w = torch.randn(f, f, device=dev, generator=gen) / f ** 0.5
+        b = torch.randn(1, f, device=dev, generator=gen) / 10
+        with torch.no_grad():
+            y = K.dia_gcn_rhs("tanh", x, w, b, dm)
+        g = torch.randn(n, f, device=dev, generator=gen)
+
+        def kernel():
+            return D._gcn_bwd(dmt, x, w, y, g, "tanh", True, True, True)
+
+        def composition():
+            return _k2_composition_bwd(dm, dmt, x, w, y, g, "tanh")
+
+        got, again = kernel(), kernel()
+        want = D.dia_gcn_bwd_plain(dmt, x, w, y, g, "tanh")
+        old = composition()
+        torch.cuda.synchronize()
+        errs = [rel_err(a, c)[0] for a, c in zip(got, want)]
+        old_errs = [rel_err(a, c)[0] for a, c in zip(old, want)]
+        same = all(torch.equal(a.view(torch.int32), c.view(torch.int32))
+                   for a, c in zip(got, again))
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(composition)
+        ops = gcn_backward(n, nnz, f, f, input_grad=True).ops
+        dia_bytes = 4 * (4 * n * f + k * n + 2 * f * f + f)
+        b_ms, b_by = bound(dia_bytes, ops)
+        print(f"  K2 fused backward, grid N={n} nnz={nnz} F=out={f} tanh: "
+              f"dx rel {errs[0]:.3e}, dW {errs[1]:.3e}, db {errs[2]:.3e}; "
+              f"same bits twice {same}; kernel {ms:.4f} ms, composition "
+              f"{plain_ms:.4f} ms (rel {max(old_errs):.1e}), bound "
+              f"{b_ms:.4f} ms ({b_by}: {dia_bytes / 1e6:.2f} MB, "
+              f"{ops / 1e9:.3f} GFLOP)")
+        check(errs[0] <= 1e-5 and max(errs[1:]) <= 1e-4,
+              f"K2 backward F {f}: rel errors {errs}")
+        check(old_errs[0] <= 1e-5 and max(old_errs[1:]) <= 1e-4,
+              f"K2 backward F {f}: the composition's rel errors {old_errs}")
+        check(same, f"K2 backward F {f}: two calls differ")
+        check(ms >= b_ms, f"K2 backward F {f}: {ms:.4f} ms below its bound")
+        records.append(dict(
+            max_abs_err=max(rel_err(a, c)[1] for a, c in zip(got, want)),
+            max_rel_err=max(errs), ms=ms, plain_ms=plain_ms,
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            shape=f"K2 fused backward grid N={n} F=out={f} tanh W b"))
+        del x, w, b, y, g, got, again, want, old
+    # one grand-grid.train step: the cell's widths, graph and storage
+    grid = P.grid_graph_2d(512, 512, diagonals=True)
+    cell_g = P.precompute(grid, add_self_loops=True, dense=False,
+                          auto_reorder=True).to(dev)
+    check("dia_norm_rev" in cell_g.cache, "grand-grid step: no DIA storage")
+    model = P.grand_model(1433, 64, 7, precomputed_self_loops=True,
+                          generator=torch.Generator().manual_seed(0),
+                          device=dev)
+    P.update_graph(model, cell_g)
+    x = torch.randn(n, 1433, device=dev, generator=gen)
+    labels = torch.randint(0, 7, (n,), device=dev, generator=gen)
+    mask = torch.rand(n, device=dev, generator=gen) < 0.1
+    step = P.make_train_step(
+        lambda: P.masked_cross_entropy(model(x), labels, mask),
+        P.adam(model.parameters(), 1e-2))
+    K.reset_launch_counts()
+    loss, _ = step()
+    torch.cuda.synchronize()
+    counts = dict(
+        dia_gcn_rhs=K.dia_gcn_rhs.launches,
+        dia_gcn_rhs_backward=K.dia_gcn_rhs.backward_launches,
+        dia_gcn_rhs_backward_eager=K.dia_gcn_rhs.backward_eager,
+        dia_spmm_stencil_backward=K.dia_spmm_stencil.backward_launches,
+        rhs_evals=model.layer_2.last_stats["nfe"])
+    print(f"  one grand-grid.train step (1433 → 64 → 7): loss "
+          f"{float(loss):.7f}; counters {counts}")
+    check(bool(torch.isfinite(loss)), "grand-grid step: non-finite loss")
+    check(counts["dia_gcn_rhs_backward"] > 0
+          and counts["dia_gcn_rhs_backward_eager"] == 0
+          and counts["dia_spmm_stencil_backward"] == 0,
+          f"grand-grid step: the fused K2 backward did not take every "
+          f"backward call: {counts}")
+    rec = records[0]
+    rec["other_shapes"] = records[1:]
+    rec["runs"] = [dict(run="grand-grid.train step", **counts)]
+    return rec
+
+
 def graphcast_checks(P, K, dev) -> dict:
     """Phase 12: K1 at GraphCast's shapes against its plain version, then
     one GraphCast training step with K1's launches counted. Returns the K1
@@ -2566,15 +2699,17 @@ def main() -> int:
           "B unfused: stencil K2 not launched")
     grad_b, xla_b = grand_grad(P, K, model, grid_fused, xg, yg, mg,
                                "B gradient, fused K2")
-    check(grad_b["launches"].get("dia_gcn_rhs", 0) > 0
-          and grad_b["backward"].get("dia_spmm_stencil", 0) > 0,
-          "B: fused K2 not launched, or the stencil not in its backward")
+    check(grad_b["backward"].get("dia_gcn_rhs", 0) > 0
+          and grad_b["backward"].get("dia_spmm_stencil", 0) == 0,
+          "B: the fused K2 backward not launched, or a stencil in it")
     grad_c, _ = grand_grad(P, K, model, grid_plain, xg, yg, mg,
                            "B gradient, gcn_fused=False (stencil K2)",
                            xla=xla_b)
     check(grad_c["backward"].get("dia_spmm_stencil", 0) > 0,
           "B unfused: stencil K2 not launched in the backward")
     del xla_b
+    print("K2's fused backward alone, and in one grand-grid.train step:")
+    k2_bwd = k2_backward_checks(P, K, dev, grid_fused)
     print("RK stage kernels alone (no Pallas source), against the eager "
           "composition:")
     rk_records = rk_checks(dev)
@@ -2829,6 +2964,18 @@ def main() -> int:
         **{k: rec[k] for k in keys + ("dtypes",)},
         other_shapes=[{k: records["segment_max"]["bf16"][k]
                        for k in keys + ("dtypes",)}]))
+    # K2's fused backward: the JAX package's custom VJP of the fused form
+    # (a composition of the Pallas kernel and XLA), one launch a call
+    kernels.append(dict(
+        name="dia_gcn_rhs backward", route="cuda",
+        source="neuralgraphpde_torch/csrc/dia_stencil.cu",
+        replaces="neuralgraphpde/kernels/dia_kernels.py:367",
+        launches=k2_bwd["runs"][0]["dia_gcn_rhs_backward"],
+        runs=k2_bwd["runs"] + [dict(
+            run="GRAND B gradient",
+            backward_launches=grad_b["backward"].get("dia_gcn_rhs", 0))],
+        **{k: k2_bwd[k] for k in keys}, other_shapes=k2_bwd["other_shapes"],
+        dtypes={"every operand": "float32"}))
     # the RK stage wrappers: no TPU kernel (XLA fused this algebra), their
     # launches in GRAND B's gradient
     for name, extra in (("rk_combine", ("rk_combine hermite", "rk_scatter",

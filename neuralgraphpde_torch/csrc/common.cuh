@@ -1,7 +1,8 @@
 // Shared helpers for the port's kernels: f32/bf16 conversion, cp.async
-// copies, float4 reads, the GCN epilogue activations, and the fused GCN epilogue that
-// streams W through a shared tile (used by the DIA stencil and the
-// block-band kernels).
+// copies, float4 reads, the GCN epilogue activations, the fused GCN
+// epilogue that streams W through a shared tile (used by the DIA stencil
+// and the block-band kernels), and the fixed-order sum of per-block
+// partials (the DIA backward's, K3's and K5's).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -137,5 +138,61 @@ __device__ __forceinline__ void gcn_epilogue(
     }
   }
 }
+
+// The sum of per-block partials in a fixed order, so the same inputs give
+// the same bits on every run: out[i] = the sum over parts p of
+// partial[p * n + i], rounded to TO once. A block takes 32 consecutive i,
+// a lane each, with W = min(parts, kSumWarps) warps: warp w adds the parts
+// p = w, w + W, ... in order (kSumBatch loads in flight), then the warps'
+// sums are added in warp order. With parts <= kSumWarps that is the plain
+// sum in part order. Internal to each source that launches it.
+namespace {
+
+constexpr int kSumWarps = 8;
+constexpr int kSumBatch = 8;
+
+template <typename TO>
+__global__ void __launch_bounds__(32 * kSumWarps)
+    sum_partials_kernel(const float* __restrict__ partial,
+                        TO* __restrict__ out, int parts, long long n) {
+  __shared__ float sums[kSumWarps][32];
+  const int lane = threadIdx.x % 32;
+  const int wp = threadIdx.x / 32;
+  const int warps = blockDim.x / 32;
+  const long long i = (long long)blockIdx.x * 32 + lane;
+  float a = 0.f;
+  if (i < n)
+    for (int p = wp; p < parts; p += warps * kSumBatch) {
+      float v[kSumBatch];
+#pragma unroll
+      for (int q = 0; q < kSumBatch; ++q) {
+        const int pq = p + q * warps;
+        v[q] = pq < parts ? partial[(long long)pq * n + i] : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < kSumBatch; ++q)
+        if (p + q * warps < parts) a += v[q];
+    }
+  sums[wp][lane] = a;
+  __syncthreads();
+  if (wp == 0 && i < n) {
+    float s = 0.f;
+    for (int q = 0; q < warps; ++q) s += sums[q][lane];
+    out[i] = from_f32<TO>(s);
+  }
+}
+
+// out (n) = the sum of partial's parts rows of n floats, as above
+template <typename TO>
+cudaError_t sum_partials(const float* partial, TO* out, int parts,
+                         long long n, cudaStream_t stream) {
+  if (n <= 0) return cudaSuccess;
+  const int warps = parts < 1 ? 1 : parts < kSumWarps ? parts : kSumWarps;
+  sum_partials_kernel<TO><<<(unsigned)((n + 31) / 32), 32 * warps, 0,
+                            stream>>>(partial, out, parts, n);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace ngpde

@@ -13,7 +13,9 @@
 // What bounds it on the H100. The stencil moves x once, K values a row and
 // the output: bytes (0.08 ms at the 512^2 grid, F 128), so it must spend
 // few instructions per byte. The fused form adds 2 F O flops a row on the
-// CUDA cores, so its product must spend few shared loads per FMA.
+// CUDA cores, so its product must spend few shared loads per FMA. The
+// backward moves g, y, x and dx once (0.086 ms at the 512^2 grid, F = O =
+// 64) and adds 4 F O flops a row (dx and dW).
 //
 // The design:
 // - stencil_vec, the aggregation both forms call: a thread owns R
@@ -40,6 +42,18 @@
 //   (4 16-byte shared loads for 64 FMAs a k), then b, the activation and
 //   the store. Two blocks fit on an SM at F 128, so one block's
 //   aggregation runs beside the other's product.
+// - dia_gcn_bwd_kernel, the fused form's backward (f32), on C^T:
+//   persistent, 128 threads, 64-row tiles. Per tile: its vals and, for
+//   dW, x's rows, copied by cp.async while the tile before it ran its
+//   products; u = C^T dz by stencil_vec, each neighbour
+//   row's g and y loaded and turned into dz = g * act'(y) in registers,
+//   into a shared u tile; the tile's own rows' dz added to the thread's db
+//   sums; dx = u W^T with 8 rows x 4 columns a thread against W^T staged
+//   once per block (or streamed in k-tiles); dW += x^T u, 8 x 4 a thread,
+//   held in registers over the block's tiles (F, O <= 64; wider, the
+//   wrapper writes u and takes dW as one product).
+//   dz and u never go to device memory. ngpde::sum_partials then adds the
+//   blocks' dW and db partials in a fixed order: the same bits every run.
 // Indexing is 32-bit wherever n * max(F, O, K) < 2^31, else 64-bit.
 #include <algorithm>
 #include <cstdint>
@@ -66,6 +80,15 @@ constexpr int kChunk = 128;         // output columns of a product pass
 constexpr int kKT = 32;             // rows of a streamed W k-tile
 // dynamic shared memory a fused block may take for two to fit on an SM
 constexpr int kTwoBlockSmem = 112 * 1024;
+// the fused backward: consecutive rows a thread aggregates, rows of a db
+// batch, columns of dx a product pass computes, and the widest F and O
+// whose dW a block keeps in registers (kDwTile, DW_TILE in
+// kernels/dia_kernels.py)
+constexpr int kBwdRows = 4;
+constexpr int kBwdBlocks = 3;  // blocks an SM the registers are held to
+constexpr int kDbRows = 8;  // rows whose g and y a db batch loads at once
+constexpr int kCols = 64;
+constexpr int kDwTile = 64;
 
 // offset runs: run q covers offsets k0[q] .. k0[q] + len[q] - 1, whose
 // values are consecutive
@@ -163,17 +186,25 @@ __device__ __forceinline__ float activate(int act, float h) {
   return h;
 }
 
-// The aggregation of both forms: acc[r][e] = sum_k vals[row0 + r, k] *
-// x[row0 + r + offs[k], f0 + e] for R rows and one vector f0 = v * N.
-// svals: the block's vals tile in shared memory (K a row), row0 at its row
-// rloc0; offs: the offsets in shared memory.
-template <typename T, typename Idx, int R>
+struct AsLoaded {
+  __device__ __forceinline__ uint4 operator()(const uint4& r) const {
+    return r;
+  }
+};
+
+// The aggregation of every form: acc[r][e] = sum_k vals[row0 + r, k] *
+// x[row0 + r + offs[k], f0 + e] for R rows and one vector f0 = v * N, where
+// conv(load(j)) gives row j's vector as raw bytes (zero outside [0, n)):
+// a run's loads are all issued before conv reads any of them. svals: the
+// block's vals tile in shared memory (K a row), row0 at its row rloc0;
+// offs: the offsets in shared memory.
+template <typename T, int R, typename Load, typename Conv = AsLoaded>
 __device__ __forceinline__ void stencil_vec(
     const float* svals, int K, int rloc0, const Runs& runs, const int* offs,
-    const T* __restrict__ x, int n, int F, int row0, int v, bool vec,
-    float (&acc)[R][Vec<T>::N]) {
+    int row0, Load load, float (&acc)[R][Vec<T>::N], Conv conv = Conv()) {
   constexpr int N = Vec<T>::N;
   constexpr int M = R + kLmax - 1;
+  using Row = decltype(load(0));
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -182,11 +213,12 @@ __device__ __forceinline__ void stencil_vec(
     const int k0 = runs.k0[q];
     const int L = runs.len[q];
     const int jb = row0 + offs[k0];
+    Row raw[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) raw[m] = m < R + L - 1 ? load(jb + m) : Row{};
     uint4 xs[M];
 #pragma unroll
-    for (int m = 0; m < M; ++m)
-      xs[m] = m < R + L - 1 ? load_vec<T, Idx>(x, jb + m, n, F, v * N, vec)
-                             : make_uint4(0u, 0u, 0u, 0u);
+    for (int m = 0; m < M; ++m) xs[m] = conv(raw[m]);
     const float* vr = svals + rloc0 * K + k0;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -239,8 +271,11 @@ __global__ void __launch_bounds__(kThreads)
     const int row0 = row_base + rg * R;
     if (row0 >= n) break;
     float acc[R][N];
-    stencil_vec<T, Idx, R>(svals, K, rg * R, runs, offs, x, n, F, row0, v,
-                           x_vec, acc);
+    stencil_vec<T, R>(svals, K, rg * R, runs, offs, row0,
+                      [&](int j) {
+                        return load_vec<T, Idx>(x, j, n, F, v * N, x_vec);
+                      },
+                      acc);
     const int f0 = v * N;
     float bias[N];
 #pragma unroll
@@ -366,8 +401,11 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
       const int rg = p / FV;
       const int v = p - rg * FV;
       float acc[R][N];
-      stencil_vec<T, Idx, R>(svals, K, rg * R, runs, offs, x, n, F,
-                             row_base + rg * R, v, x_vec, acc);
+      stencil_vec<T, R>(svals, K, rg * R, runs, offs, row_base + rg * R,
+                        [&](int j) {
+                          return load_vec<T, Idx>(x, j, n, F, v * N, x_vec);
+                        },
+                        acc);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float h[N];
@@ -437,6 +475,312 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
   }
 }
 
+// g * act'(y) with the roundings of the plain version (act_grad_from_y
+// in kernels/dia_kernels.py, then the product): nothing contracted into
+// an FMA
+template <int ACT>
+__device__ __forceinline__ float act_grad_mul(float g, float y) {
+  if (ACT == ngpde::kTanh)
+    return __fmul_rn(g, __fsub_rn(1.f, __fmul_rn(y, y)));
+  if (ACT == ngpde::kSigmoid)
+    return __fmul_rn(g, __fmul_rn(y, __fsub_rn(1.f, y)));
+  if (ACT == ngpde::kRelu) return __fmul_rn(g, y > 0.f ? 1.f : 0.f);
+  return g;
+}
+
+// g[j, f0 .. f0 + 4) and y[j, f0 .. f0 + 4) as raw bytes; zero where j is
+// outside [0, n) or a feature is past O
+struct GyRow {
+  uint4 g, y;
+};
+
+template <typename Idx>
+__device__ __forceinline__ GyRow load_gy(const float* __restrict__ g,
+                                         const float* __restrict__ y, int j,
+                                         int n, int O, int f0, bool vec) {
+  if (f0 >= O) return GyRow{};
+  return GyRow{load_vec<float, Idx>(g, j, n, O, f0, vec),
+               load_vec<float, Idx>(y, j, n, O, f0, vec)};
+}
+
+// dz = g * act'(y) of a loaded row, as raw bytes
+template <int ACT>
+struct DzOf {
+  __device__ __forceinline__ uint4 operator()(const GyRow& r) const {
+    unsigned d[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      d[q] = __float_as_uint(act_grad_mul<ACT>(
+          __uint_as_float(word(r.g, q)), __uint_as_float(word(r.y, q))));
+    return make_uint4(d[0], d[1], d[2], d[3]);
+  }
+};
+
+// dst[0 .. rows) x kCols = W^T[k0 .., c0 ..) = W[c0 + col, k0 + kr] (W
+// (F, O) row-major), zero past O rows and F columns of W^T
+__device__ __forceinline__ void load_wt_tile(float* dst,
+                                             const float* __restrict__ w,
+                                             int k0, int rows, int c0, int F,
+                                             int O, int tid) {
+  for (int idx = tid; idx < rows * kCols; idx += kFusedThreads) {
+    const int kr = idx / kCols;
+    const int f = c0 + idx - kr * kCols;
+    const int k = k0 + kr;
+    dst[idx] = k < O && f < F ? w[(long long)f * O + k] : 0.f;
+  }
+}
+
+// acc += a[tile rows, 0 .. kt) @ b[0 .. kt, kCols), kt a multiple of 4;
+// thread (ty, tx) owns rows ty*4 + i and 32 + ty*4 + i, columns tx*4 + j
+// (3 16-byte shared loads for 32 FMAs a k)
+__device__ __forceinline__ void tile_product_cols(const float* a, int lda,
+                                                  const float* b, int kt,
+                                                  int ty, int tx,
+                                                  float (&acc)[8][4]) {
+  for (int k = 0; k < kt; k += 4) {
+    float4 av[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = ngpde::ld4(a + (ty * 4 + i) * lda + k);
+      av[4 + i] = ngpde::ld4(a + (32 + ty * 4 + i) * lda + k);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 bv = ngpde::ld4(b + (k + kk) * kCols + tx * 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float s = ngpde::part(av[i], kk);
+        acc[i][0] = fmaf(s, bv.x, acc[i][0]);
+        acc[i][1] = fmaf(s, bv.y, acc[i][1]);
+        acc[i][2] = fmaf(s, bv.z, acc[i][2]);
+        acc[i][3] = fmaf(s, bv.w, acc[i][3]);
+      }
+    }
+  }
+}
+
+// acc += xt^T ut over the tile's rows (both kDwTile wide): thread (ty, tx)
+// owns features ty*4 + i and 32 + ty*4 + i, outputs tx*4 + j
+__device__ __forceinline__ void dw_product(const float* xt, const float* ut,
+                                           int ty, int tx,
+                                           float (&acc)[8][4]) {
+#pragma unroll 4
+  for (int r = 0; r < kTile; ++r) {
+    const float4 a0 = ngpde::ld4(xt + r * kDwTile + ty * 4);
+    const float4 a1 = ngpde::ld4(xt + r * kDwTile + 32 + ty * 4);
+    const float4 bv = ngpde::ld4(ut + r * kDwTile + tx * 4);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc[i][0] = fmaf(av[i], bv.x, acc[i][0]);
+      acc[i][1] = fmaf(av[i], bv.y, acc[i][1]);
+      acc[i][2] = fmaf(av[i], bv.z, acc[i][2]);
+      acc[i][3] = fmaf(av[i], bv.w, acc[i][3]);
+    }
+  }
+}
+
+// The fused backward (f32): vals, offsets and runs are C^T's. Per 64-row
+// tile: u = C^T dz into a shared tile (Up wide, zero past O), dz formed
+// from g and y as the neighbour rows load (and u written out where u is
+// given); the tile's own rows' dz added to the thread's db sums; dx = u
+// W^T by kCols-column chunks, W^T whole in shared memory or in k-tiles;
+// and, where x is given (F, O <= kDwTile, Up = kDwTile), dW += x^T u from
+// x's rows staged beside u. The block's dW and db go to its row of
+// partial.
+template <typename Idx, int ACT>
+__global__ void __launch_bounds__(kFusedThreads, kBwdBlocks)
+    dia_gcn_bwd_kernel(const float* __restrict__ vals, int K,
+                       const int* __restrict__ offsets, Runs runs,
+                       const float* __restrict__ g,
+                       const float* __restrict__ y,
+                       const float* __restrict__ x,
+                       const float* __restrict__ w, float* __restrict__ dx,
+                       float* __restrict__ u, float* __restrict__ partial,
+                       int n, int F, int O, int Up, bool w_whole,
+                       bool want_db, bool gy_vec, bool x_vec, bool dx_vec,
+                       bool u_vec) {
+  constexpr int R = kBwdRows;
+  const bool dw = x != nullptr;
+  extern __shared__ float4 smem4[];
+  const int nchunks = (F + kCols - 1) / kCols;
+  float* wsm = reinterpret_cast<float*>(smem4);  // W^T, or one k-tile
+  float* ut = wsm + (w == nullptr ? 0
+                     : w_whole    ? nchunks * Up * kCols
+                                  : kKT * kCols);
+  // two buffers of x's rows (for dW) and of the vals: the next tile's
+  // are copied while this tile's products run
+  float* xts = ut + kTile * Up;
+  float* svalss = xts + (dw ? 2 * kTile * kDwTile : 0);  // 2 x kTile x K
+  __shared__ int offs[kMaxDiags];
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+  if (tid < K) offs[tid] = offsets[tid];
+  if (w != nullptr && w_whole)
+    for (int c = 0; c < nchunks; ++c)
+      load_wt_tile(wsm + c * Up * kCols, w, 0, Up, c * kCols, F, O, tid);
+  if (dw)  // x's columns past F stay zero
+    for (int idx = tid; idx < 2 * kTile * kDwTile; idx += kFusedThreads)
+      xts[idx] = 0.f;
+  __syncthreads();
+  // db: thread tid sums dz over columns cv*4 .. + 3 of rows rgp, rgp + RG,
+  // ... of each tile, in order
+  const int UV = Up / 4;
+  const int RG = min(kTile, kFusedThreads / UV);
+  const int cv = tid % UV;
+  const int rgp = tid / UV;
+  float db[4] = {0.f, 0.f, 0.f, 0.f};
+  float dwacc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dwacc[i][j] = 0.f;
+  const int ntiles = (n + kTile - 1) / kTile;
+  const int FV = (F + 3) / 4;
+  // a tile's vals and x rows into buffer buf, by cp.async
+  auto fetch = [&](int tile, int buf) {
+    const int row_base = tile * kTile;
+    const int count = max(0, min(kTile, n - row_base)) * K;
+    float* sv = svalss + buf * kTile * K;
+    for (int idx = tid; idx < kTile * K; idx += kFusedThreads)
+      ngpde::cp_async4(sv + idx, vals + (Idx)row_base * K + idx,
+                       idx < count);
+    if (dw)
+      for (int idx = tid; idx < kTile * FV; idx += kFusedThreads) {
+        const int r = idx / FV;
+        const int c4 = idx - r * FV;
+        const bool ok = row_base + r < n;
+        float* dst = xts + (buf * kTile + r) * kDwTile + c4 * 4;
+        if (x_vec) {
+          ngpde::cp_async16(dst, ok ? x + (Idx)(row_base + r) * F + c4 * 4
+                                    : x, ok ? 16 : 0);
+        } else {
+          *reinterpret_cast<uint4*>(dst) =
+              load_vec<float, Idx>(x, row_base + r, n, F, c4 * 4, false);
+        }
+      }
+    ngpde::cp_async_commit();
+  };
+  if (blockIdx.x < ntiles) fetch(blockIdx.x, 0);
+  for (int tile = blockIdx.x, it = 0; tile < ntiles;
+       tile += gridDim.x, ++it) {
+    const int row_base = tile * kTile;
+    const float* svals = svalss + (it & 1) * kTile * K;
+    const float* xt = xts + (it & 1) * kTile * kDwTile;
+    ngpde::cp_async_wait<0>();
+    __syncthreads();
+    // 1. u, and the tile's db terms
+    for (int p = tid; p < (kTile / R) * UV; p += kFusedThreads) {
+      const int rg = p / UV;
+      const int v = p - rg * UV;
+      const int row0 = row_base + rg * R;
+      float acc[R][4];
+      stencil_vec<float, R>(svals, K, rg * R, runs, offs, row0,
+                            [&](int j) {
+                              return load_gy<Idx>(g, y, j, n, O, v * 4,
+                                                  gy_vec);
+                            },
+                            acc, DzOf<ACT>());
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool row_ok = row0 + r < n;
+        float h[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          h[e] = row_ok && v * 4 + e < O ? acc[r][e] : 0.f;
+        store_vec<float, 4>(ut + (rg * R + r) * Up + v * 4, h);
+        if (u == nullptr || !row_ok || v * 4 >= O) continue;
+        float* dst = u + (Idx)(row0 + r) * O + v * 4;
+        if (u_vec) {
+          store_vec<float, 4>(dst, h);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (v * 4 + e < O) dst[e] = h[e];
+        }
+      }
+    }
+    if (want_db && rgp < RG)
+      for (int r0 = rgp; r0 < kTile; r0 += kDbRows * RG) {
+        GyRow raw[kDbRows];
+#pragma unroll
+        for (int q = 0; q < kDbRows; ++q)
+          raw[q] = r0 + q * RG < kTile
+                       ? load_gy<Idx>(g, y, row_base + r0 + q * RG, n, O,
+                                      cv * 4, gy_vec)
+                       : GyRow{};
+#pragma unroll
+        for (int q = 0; q < kDbRows; ++q) {
+          const uint4 d = DzOf<ACT>()(raw[q]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) db[e] += __uint_as_float(word(d, e));
+        }
+      }
+    __syncthreads();
+    if (tile + gridDim.x < ntiles) fetch(tile + gridDim.x, (it + 1) & 1);
+    // 2. dx = u W^T by column chunks
+    if (w != nullptr) {
+      for (int c = 0; c < nchunks; ++c) {
+        float acc[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        if (w_whole) {
+          tile_product_cols(ut, Up, wsm + c * Up * kCols, Up, ty, tx, acc);
+        } else {
+          for (int k0 = 0; k0 < Up; k0 += kKT) {
+            const int kt = min(kKT, Up - k0);
+            load_wt_tile(wsm, w, k0, kt, c * kCols, F, O, tid);
+            __syncthreads();
+            tile_product_cols(ut + k0, Up, wsm, kt, ty, tx, acc);
+            __syncthreads();
+          }
+        }
+        const int col = c * kCols + tx * 4;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int row = row_base + (i < 4 ? ty * 4 + i : 28 + ty * 4 + i);
+          if (row >= n || col >= F) continue;
+          float* dst = dx + (Idx)row * F + col;
+          if (dx_vec && col + 4 <= F) {
+            store_vec<float, 4>(dst, acc[i]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (col + j < F) dst[j] = acc[i][j];
+          }
+        }
+      }
+    }
+    // 3. dW += x^T u
+    if (dw) dw_product(xt, ut, ty, tx, dwacc);
+    __syncthreads();  // the next tile rewrites ut
+  }
+  float* part =
+      partial + (Idx)blockIdx.x * ((dw ? F * O : 0) + (want_db ? O : 0));
+  if (dw) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int f = i < 4 ? ty * 4 + i : 28 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (f < F && tx * 4 + j < O) part[f * O + tx * 4 + j] = dwacc[i][j];
+    }
+  }
+  if (want_db) {  // the threads' sums added in row-group order
+    if (rgp < RG) store_vec<float, 4>(ut + rgp * Up + cv * 4, db);
+    __syncthreads();
+    float* pdb = part + (dw ? F * O : 0);
+    for (int o = tid; o < O; o += kFusedThreads) {
+      float s = 0.f;
+      for (int q = 0; q < RG; ++q) s += ut[q * Up + o];
+      pdb[o] = s;
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -499,6 +843,73 @@ cudaError_t launch_gcn_rhs(const void* vals, const int* offsets, int K,
       static_cast<const T*>(w), b, static_cast<TO*>(out), n, F, O, act, Fp,
       w_whole, x_vec, out_vec, w_async);
   return cudaGetLastError();
+}
+
+// The fused backward's launch for these widths: u's padded width, W^T
+// whole in shared memory or streamed, the dynamic shared memory, and the
+// grid (persistent: no more blocks than tiles, nor than the SMs hold at
+// once), which is also the number of rows of partials it writes.
+struct BwdPlan {
+  int Up;
+  bool w_whole;
+  size_t smem;
+  int grid;
+};
+
+template <typename Idx, int ACT>
+cudaError_t plan_gcn_bwd(int K, int n, int F, int O, bool dw, bool has_w,
+                         BwdPlan* p) {
+  p->Up = dw ? kDwTile : (O + 3) / 4 * 4;
+  const int nchunks = (F + kCols - 1) / kCols;
+  const size_t base = sizeof(float) *
+                      (kTile * p->Up + (dw ? 2 * kTile * kDwTile : 0) +
+                       2 * kTile * std::max(K, 1));
+  const size_t whole = sizeof(float) * nchunks * p->Up * kCols;
+  p->w_whole = has_w && base + whole <= kTwoBlockSmem;
+  p->smem = base + (!has_w       ? 0
+                    : p->w_whole ? whole
+                                 : sizeof(float) * kKT * kCols);
+  const int ntiles = (n + kTile - 1) / kTile;
+  p->grid = 0;
+  if (ntiles == 0) return cudaSuccess;
+  auto kernel = dia_gcn_bwd_kernel<Idx, ACT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kFusedThreads, p->smem);
+  if (err != cudaSuccess) return err;
+  p->grid = std::max(1, std::min(ntiles, sms * std::max(per_sm, 1)));
+  return cudaSuccess;
+}
+
+template <typename Idx, int ACT>
+cudaError_t launch_gcn_bwd(const float* vals, const int* offsets, int K,
+                           const Runs& runs, const float* g, const float* y,
+                           const float* x, const float* w, float* dx,
+                           float* u, float* grads, float* partial,
+                           int max_blocks, int n, int F, int O, bool want_db,
+                           cudaStream_t stream) {
+  BwdPlan p;
+  cudaError_t err = plan_gcn_bwd<Idx, ACT>(K, n, F, O, x != nullptr,
+                                           w != nullptr, &p);
+  if (err != cudaSuccess) return err;
+  const int n_params = (x != nullptr ? F * O : 0) + (want_db ? O : 0);
+  const int grid = n_params > 0 ? std::min(p.grid, max_blocks) : p.grid;
+  if (grid > 0) {
+    const bool gy_vec = O % 4 == 0 && aligned16(g) && aligned16(y);
+    dia_gcn_bwd_kernel<Idx, ACT><<<grid, kFusedThreads, p.smem, stream>>>(
+        vals, K, offsets, runs, g, y, x, w, dx, u, partial, n, F, O, p.Up,
+        p.w_whole, want_db, gy_vec, F % 4 == 0 && aligned16(x),
+        F % 4 == 0 && aligned16(dx), O % 4 == 0 && aligned16(u));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (n_params == 0) return cudaSuccess;
+  return ngpde::sum_partials(partial, grads, grid, n_params, stream);
 }
 
 // the runs from the host's (k0, length) pairs: consecutive, each 1 ..
@@ -587,6 +998,74 @@ int ngpde_dia_gcn_rhs(const void* vals, const int* offsets, int K,
   else
     err = NGPDE_GCN(bf16, bf16);
 #undef NGPDE_GCN
+  return static_cast<int>(err);
+}
+
+// The blocks ngpde_dia_gcn_bwd launches at these widths, and so the rows
+// of partial it needs: *blocks. dw: x given (dW from the tiles); has_w: w
+// given (dx wanted).
+int ngpde_dia_gcn_bwd_blocks(int K, int n, int F, int O, int dw, int has_w,
+                             int act, int* blocks) {
+  if (!valid(act, K) || n < 0 || F < 1 || O < 1 || blocks == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = wide_index(n, F, O, K);
+  BwdPlan p;
+  cudaError_t err;
+#define NGPDE_PLAN(ACT)                                                  \
+  (wide ? plan_gcn_bwd<long long, ACT>(K, n, F, O, dw != 0, has_w != 0, \
+                                       &p)                               \
+        : plan_gcn_bwd<int, ACT>(K, n, F, O, dw != 0, has_w != 0, &p))
+  switch (act) {
+    case ngpde::kTanh: err = NGPDE_PLAN(ngpde::kTanh); break;
+    case ngpde::kRelu: err = NGPDE_PLAN(ngpde::kRelu); break;
+    case ngpde::kSigmoid: err = NGPDE_PLAN(ngpde::kSigmoid); break;
+    default: err = NGPDE_PLAN(ngpde::kIdentity);
+  }
+#undef NGPDE_PLAN
+  *blocks = p.grid;
+  return static_cast<int>(err);
+}
+
+// K2's backward in f32, on C^T (vals, offsets and runs of dia_norm_rev):
+// dz = g * act'(y) (g, y (n, O)) and u = C^T dz. Writes, each where its
+// pointer is not null: dx (n, F) = u W^T (W (F, O) given with dx); u (n,
+// O); grads = dW (F, O) = x^T u where x (n, F) is given (F, O <= 64),
+// then db (O) = the sum of dz's rows where want_db, each the sum over the
+// blocks of their rows of partial in ngpde::sum_partials' fixed order
+// (max_blocks rows of as many floats as grads has:
+// ngpde_dia_gcn_bwd_blocks gives the rows needed; fewer run as that many
+// blocks).
+int ngpde_dia_gcn_bwd(const float* vals, const int* offsets, int K,
+                      const int* runs, int n_runs, const float* g,
+                      const float* y, const float* x, const float* w,
+                      float* dx, float* u, float* grads, float* partial,
+                      int max_blocks, int n, int F, int O, int act,
+                      int want_db, void* stream_ptr) {
+  Runs r{};
+  const bool sums = x != nullptr || want_db;
+  if (!valid(act, K) || F < 1 || F > 512 || O < 1 || O > 512 ||
+      (dx == nullptr) != (w == nullptr) ||
+      (x != nullptr && (F > kDwTile || O > kDwTile)) ||
+      (sums && (grads == nullptr || partial == nullptr || max_blocks < 1)) ||
+      !make_runs(runs, n_runs, K, &r))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  const bool wide = wide_index(n, F, O, K);
+  cudaError_t err;
+#define NGPDE_BWD(ACT)                                                      \
+  (wide ? launch_gcn_bwd<long long, ACT>(vals, offsets, K, r, g, y, x, w,   \
+                                         dx, u, grads, partial, max_blocks, \
+                                         n, F, O, want_db != 0, s)          \
+        : launch_gcn_bwd<int, ACT>(vals, offsets, K, r, g, y, x, w, dx, u,  \
+                                   grads, partial, max_blocks, n, F, O,     \
+                                   want_db != 0, s))
+  switch (act) {
+    case ngpde::kTanh: err = NGPDE_BWD(ngpde::kTanh); break;
+    case ngpde::kRelu: err = NGPDE_BWD(ngpde::kRelu); break;
+    case ngpde::kSigmoid: err = NGPDE_BWD(ngpde::kSigmoid); break;
+    default: err = NGPDE_BWD(ngpde::kIdentity);
+  }
+#undef NGPDE_BWD
   return static_cast<int>(err);
 }
 

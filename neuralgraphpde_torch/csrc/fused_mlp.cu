@@ -27,7 +27,8 @@
 // - no atomics, and the same result on every run: every output has one
 //   owning thread, and every sum runs in one fixed order (k ascending within
 //   a W tile, tiles in order, then the bias; slots ascending within a chunk,
-//   chunks in order, blocks in order; j ascending in dh).
+//   chunks in order, the blocks' partials as ngpde::sum_partials adds them;
+//   j ascending in dh).
 // - a block owns a run of consecutive receiver rows and walks their edge
 //   slots in chunks; widths are padded to a multiple of 4 with zeros. Each
 //   row's sum is kept in shared memory by one owning thread, added in slot
@@ -1132,28 +1133,6 @@ __global__ void __launch_bounds__(kChunkThreads)
                                           n_rows, rows, n_params, te, kt);
 }
 
-// out[i] = sum over blocks b, in order, of partial[b, i], rounded to TW
-// once; kBatch loads in flight at a time, added in block order
-template <typename TW>
-__global__ void sum_partials_kernel(const float* __restrict__ partial,
-                                    TW* __restrict__ out, int n_blocks,
-                                    int n_params) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_params) return;
-  float a = 0.f;
-  int b = 0;
-  for (; b + kBatch <= n_blocks; b += kBatch) {
-    float v[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-      v[u] = partial[(long long)(b + u) * n_params + i];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) a += v[u];
-  }
-  for (; b < n_blocks; ++b) a += partial[(long long)b * n_params + i];
-  out[i] = from_f32<TW>(a);
-}
-
 // host: the MLP's widths; 0 or kOutsideEnvelope. K3's envelope: 1 to
 // kMaxLayers layers of widths 1 to kMaxWidth (the cap keeps the layouts'
 // int arithmetic from overflowing) that have a streamed plan, forward and
@@ -1315,9 +1294,8 @@ int ngpde_fused_mlp_bwd(const int* row_ptr, const int* col, const float* ew,
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    sum_partials_kernel<TW><<<(n_params + 255) / 256, 256, 0, stream>>>(
-        partial, static_cast<TW*>(grads), blocks, n_params);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(ngpde::sum_partials(
+        partial, static_cast<TW*>(grads), blocks, n_params, stream));
   });
 }
 

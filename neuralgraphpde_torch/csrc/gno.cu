@@ -69,8 +69,9 @@
 //   swizzled (the 16-byte chunk q of row n sits at q ^ (n / 4 mod kBK / 4)).
 //   Each thread stores its 4 columns of a row as 16 bytes. A product with
 //   few output tiles is split along its inner dimension into per-split
-//   partials that a second kernel adds in split order: deterministic. bf16
-//   operands take plain loads, converted on their way into shared memory.
+//   partials that ngpde::sum_partials adds in a fixed order: deterministic.
+//   bf16 operands take plain loads, converted on their way into shared
+//   memory.
 // - per-edge backward: one block per receiver row, 3 an SM (2 in the
 //   sliced form, below: its own instantiation). dS[n] is
 //   staged by 16-byte cp.async, under the gather of the chunk's h and ph'
@@ -577,19 +578,6 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
     }
 }
 
-// out[i] = sum over splits z, in order, of partial[z * n + i], rounded to
-// TC once
-template <typename TC>
-__global__ void sum_splits_kernel(const float* __restrict__ partial,
-                                  TC* __restrict__ out, int splits,
-                                  long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float a = 0.f;
-  for (int z = 0; z < splits; ++z) a += partial[z * n + i];
-  out[i] = from_f32<TC>(a);
-}
-
 // ------------------------------------------------------ per-edge backward
 // The chunk [c0, c1) of slots: h[snd_s] rows into hs (kTE x inp) and the
 // columns [k_lo, k_lo + kw) of the ph'[e_s] rows into pp (kTE rows of
@@ -875,7 +863,7 @@ bool aligned16(const void* ptr, long long ld) {
 }
 
 // C = A . B as gno_gemm_kernel describes it; with splits > 1 through
-// `partial` (splits * M * N floats) and sum_splits_kernel.
+// `partial` (splits * M * N floats) and ngpde::sum_partials.
 template <bool AK, bool BK, typename TA, typename TB, typename TC>
 cudaError_t launch_gemm(int M, int N, int K, int splits, const TA* A,
                         long long lda, const TB* B, long long ldb, TC* C,
@@ -898,10 +886,7 @@ cudaError_t launch_gemm(int M, int N, int K, int splits, const TA* A,
   if (splits == 1) return run(gno_gemm_kernel<AK, BK, TA, TB, TC>, C);
   cudaError_t err = run(gno_gemm_kernel<AK, BK, TA, TB, float>, partial);
   if (err != cudaSuccess) return err;
-  const long long n = (long long)M * N;
-  sum_splits_kernel<TC><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      partial, C, splits, n);
-  return cudaGetLastError();
+  return ngpde::sum_partials(partial, C, splits, (long long)M * N, stream);
 }
 
 template <typename TP, typename TH>

@@ -4,7 +4,8 @@ the first kernel launch (``kernels._build``)."""
 from .banded_kernels import (banded_gcn_rhs, banded_spmm_pallas,
                              block_rhs_plain, pbanded_gcn_rhs,
                              pbanded_spmm_pallas)
-from .dia_kernels import dia_gcn_rhs, dia_rhs_plain, dia_spmm_stencil
+from .dia_kernels import (dia_gcn_bwd_plain, dia_gcn_rhs, dia_rhs_plain,
+                          dia_spmm_stencil)
 from .fused_mlp_kernels import (fused_mlp_aggregate, fused_mlp_bwd,
                                 fused_mlp_bwd_plain, fused_mlp_fwd,
                                 fused_mlp_plain, fused_mlp_variant)
@@ -18,7 +19,9 @@ from .segment_kernels import (SegmentCSR, build_segment_csr, segment_max,
 
 # every kernel wrapper, each counting its launches in ``.launches`` (the
 # differentiable ones also count the part made in backward passes in
-# ``.backward_launches``; K3, K5 and K6 count the launches that read a bf16
+# ``.backward_launches``; ``dia_gcn_rhs`` the backward calls that took its
+# eager composition or the CPU in ``.backward_eager``; K3, K5 and K6 count
+# the launches that read a bf16
 # operand in ``.bf16_launches``, K5 its reduce's passes over the rows in
 # ``.reduce_passes``; ``rk_combine`` counts the RK stage
 # algebra's combinations and their backward's scatters, ``rk_norm`` its
@@ -29,8 +32,8 @@ KERNELS = (segment_spmm, dia_spmm_stencil, dia_gcn_rhs, fused_mlp_fwd,
            pbanded_gcn_rhs, rk_combine, rk_norm)
 
 
-_COUNTERS = ("launches", "backward_launches", "bf16_launches",
-            "reduce_passes")
+_COUNTERS = ("launches", "backward_launches", "backward_eager",
+             "bf16_launches", "reduce_passes")
 
 
 def launch_counts() -> dict:
@@ -53,7 +56,8 @@ def reset_launch_counts() -> None:
 __all__ = [
     "banded_gcn_rhs", "banded_spmm_pallas", "block_rhs_plain",
     "pbanded_gcn_rhs", "pbanded_spmm_pallas",
-    "dia_gcn_rhs", "dia_rhs_plain", "dia_spmm_stencil", "fused_mlp_aggregate",
+    "dia_gcn_bwd_plain", "dia_gcn_rhs", "dia_rhs_plain", "dia_spmm_stencil",
+    "fused_mlp_aggregate",
     "fused_mlp_bwd", "fused_mlp_bwd_plain", "fused_mlp_fwd",
     "fused_mlp_plain", "fused_mlp_variant", "fused_gno_aggregate", "fused_gno_bwd",
     "fused_gno_bwd_plain", "fused_gno_fwd", "fused_gno_plain", "gno_plan",

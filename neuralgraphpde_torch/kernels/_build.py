@@ -42,6 +42,9 @@ _SIGNATURES = {
                           _I, _P),
     "ngpde_dia_gcn_rhs": (_P, _P, _I, _IP, _I, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _I, _P),
+    "ngpde_dia_gcn_bwd": (_P, _P, _I, _IP, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _I, _I, _I, _I, _I, _I, _P),
+    "ngpde_dia_gcn_bwd_blocks": (_I, _I, _I, _I, _I, _I, _I, _IP),
     "ngpde_fused_mlp_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                             _P, _I, _I, _P),
     "ngpde_fused_mlp_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -9,10 +9,18 @@ kernel behind ``dia_spmm_pallas`` and ``dia_gcn_rhs``). CUDA source:
   values (``cache['dia_norm']``): the whole GCN ODE right-hand side in one
   kernel; ``W`` and ``b`` may be None.
 
-Both are differentiable (``autograd.Function``s whose backward runs the
-stencil kernel on the transposed values, ``dia_rev`` / ``dia_norm_rev``, as
-the JAX package's custom VJPs do; those launches count on
-``dia_spmm_stencil`` as backward launches).
+Both are differentiable. The stencil's backward is the stencil kernel on
+the transposed values (``dia_rev``), as the JAX package's custom VJP. The
+fused form's backward is the JAX package's ``_rhs_bwd`` reassociated: with
+``dz = g · act'(y)`` and ``u = Ĉᵀ dz`` (``dia_norm_rev``), ``dx = u Wᵀ``,
+``dW = xᵀ u`` and ``db = Σ dz``, so the aggregate is never recomputed and
+one stencil a call is left. On the card it is one kernel pass in f32 and a
+fixed-order sum of the blocks' dW and db partials (counted on
+``dia_gcn_rhs`` as one launch and one backward launch). The CPU, bf16 and
+widths past ``TF_MAX`` take the same algebra unfused
+(``dia_gcn_bwd_plain``: the stencil, then two products), counted on
+``dia_gcn_rhs.backward_eager``; on the card its stencil counts on
+``dia_spmm_stencil`` as a backward launch.
 
 What bounds it on the H100: the stencil reads x about once from device
 memory (the ±bandwidth rows a block touches stay in L2), K values per row
@@ -29,6 +37,20 @@ persistent: each block stages W once in shared memory (or streams it in
 k-tiles when it does not fit), aggregates 64-row tiles into shared memory
 and multiplies them by W with 8 × 8 outputs a thread, so the aggregate
 never goes to device memory.
+
+The fused backward (``_gcn_bwd``) is built like the fused forward:
+persistent, 64-row tiles of ``Ĉᵀ``. Its prologue is the stencil, each
+neighbour row's ``dz`` formed from ``g`` and ``y`` in registers as it
+loads, into a shared tile of u; the tile's own rows' ``dz`` go to the
+thread's ``db`` sums; ``dx = u Wᵀ`` is register-tiled (8 × 4 outputs a
+thread, 64 columns a pass) against ``Wᵀ`` staged once per block; and where
+F and out are at most 64, ``dW += xᵀ u`` from x's rows staged beside u,
+held in registers over the block's tiles. Neither ``dz`` nor u goes to
+device memory (wider: u is written and dW is one f32 product ``xᵀ u``).
+A block copies its next tile's vals and x rows by ``cp.async`` while the
+current tile's products run. A second launch adds the blocks' dW and db
+partials in a fixed order. True f32 on the CUDA cores; the same inputs
+give the same bits.
 
 bf16 follows the TPU kernel: x is read in the values' dtype, W is cast to
 bf16 when the values are bf16, the f32 accumulator is rounded to bf16 before
@@ -47,6 +69,7 @@ from . import _build
 from .segment_kernels import _check_cuda_inputs
 
 TF_MAX = 512  # widest fused input (a 64-row tile of it in shared memory)
+DW_TILE = 64  # widest F and out whose dW the fused backward keeps per block
 MAX_DIAGS = 32
 MAX_BANDWIDTH = 8192
 RUN_MAX = 4  # longest offset run the kernel reads at once (kLmax there)
@@ -213,12 +236,105 @@ class _DiaSpmm(torch.autograd.Function):
                 None)
 
 
+def dia_gcn_bwd_plain(dm_rev: DiaMatrix, x: torch.Tensor,
+                      w: Optional[torch.Tensor], y: torch.Tensor,
+                      g: torch.Tensor, act) -> tuple:
+    """K2's backward without its fused kernel, in f32: ``dz = g ·
+    act'(y)``, ``u = Ĉᵀ dz`` (the stencil on ``dm_rev``: the kernel on the
+    card, counted on ``dia_spmm_stencil`` as a backward launch; the plain
+    version on the CPU), then ``(dx, dW, db) = (u Wᵀ, xᵀ u, Σ dz)``; with
+    ``w`` None, ``dx = u`` and ``dW`` is None. ``Ĉᵀ(dz Wᵀ) = (Ĉᵀ dz) Wᵀ``
+    and ``(Ĉ x)ᵀ dz = xᵀ(Ĉᵀ dz)``, so the aggregate is never recomputed."""
+    dz = g.float() * act_grad_from_y(act, y.float())
+    u = _stencil(dm_rev, dz, dia_spmm_stencil, True)
+    if w is None:
+        return u, None, dz.sum(0)
+    return u @ w.float().t(), x.float().t() @ u, dz.sum(0)
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_blocks(K: int, n: int, F: int, O: int, dw: bool, has_w: bool,
+                act_code: int, device: int) -> int:
+    """The blocks the fused backward launches at these widths on the
+    current card (``device``, its index), so the rows of its partials: the
+    launcher's own plan, asked once a shape."""
+    blocks = ctypes.c_int(0)
+    err = _build.library().ngpde_dia_gcn_bwd_blocks(
+        K, n, F, O, int(dw), int(has_w), act_code, ctypes.byref(blocks))
+    _build.check(err, "dia_gcn_rhs")
+    return blocks.value
+
+
+def _gcn_bwd(dmt: DiaMatrix, x: torch.Tensor, w: Optional[torch.Tensor],
+             y: torch.Tensor, g: torch.Tensor, act, need_x: bool,
+             need_w: bool, need_b: bool) -> tuple:
+    """K2's fused backward on the card (f32): one pass over the tiles of
+    ``Ĉᵀ`` (``dmt``) and, for its dW and db, a fixed-order sum of the
+    blocks' partials. ``(dx, dW, db)``, each None where not needed. dW comes
+    from the kernel's tiles where F and out are at most ``DW_TILE``, else
+    from one f32 product ``xᵀ u`` on the u the kernel writes."""
+    n, O = g.shape
+    F = x.shape[1]
+    K = len(dmt.offsets)
+    g, y = g.float().contiguous(), y.float().contiguous()
+    dw_inline = need_w and F <= DW_TILE and O <= DW_TILE
+    dev = g.device
+    dx = u = wk = None
+    if w is None:
+        u = torch.empty((n, O), device=dev) if need_x else None
+    else:
+        if need_x:
+            dx = torch.empty((n, F), device=dev)
+            wk = w.float().contiguous()
+        if need_w and not dw_inline:
+            u = torch.empty((n, O), device=dev)
+    xk = x.float().contiguous() if dw_inline else None
+    n_params = (F * O if dw_inline else 0) + (O if need_b else 0)
+    grads = partial = None
+    blocks = 0
+    if n_params:
+        blocks = max(1, _bwd_blocks(K, n, F, O, dw_inline, wk is not None,
+                                    _ACT_CODES[act], dev.index))
+        grads = torch.empty(n_params, device=dev)
+        partial = torch.empty((blocks, n_params), device=dev)
+    _check_cuda_inputs(g, y, dmt.values, dmt.offsets_t,
+                       *[t for t in (xk, wk) if t is not None])
+    runs, n_runs = _runs_arg(dmt.offsets)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _build.library().ngpde_dia_gcn_bwd(
+        dmt.values.data_ptr(), dmt.offsets_t.data_ptr(), K, runs, n_runs,
+        g.data_ptr(), y.data_ptr(), ptr(xk), ptr(wk), ptr(dx), ptr(u),
+        ptr(grads), ptr(partial), blocks, n, F, O, _ACT_CODES[act],
+        int(need_b), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "dia_gcn_rhs")
+    dia_gcn_rhs.launches += 1
+    dia_gcn_rhs.backward_launches += 1
+    if w is None:
+        dx, dw = u, None
+    elif dw_inline:
+        dw = grads[:F * O].view(F, O)
+    else:
+        dw = x.float().t() @ u if need_w else None
+    return dx, dw, grads[-O:] if need_b else None
+
+
+def _fused_backward_fits(dmt: DiaMatrix, x: torch.Tensor,
+                         y: torch.Tensor) -> bool:
+    """Whether the fused backward kernel takes this call: on the card, a
+    forward computed in f32 (f32 values and output; x and W were cast to
+    f32 for it), widths within ``TF_MAX``."""
+    f32 = torch.float32
+    return (x.is_cuda and dmt.values.dtype == f32 and y.dtype == f32
+            and len(dmt.offsets) <= MAX_DIAGS
+            and max(x.shape[1], y.shape[1]) <= TF_MAX)
+
+
 class _DiaGcnRhs(torch.autograd.Function):
-    """The fused right-hand side under autograd, the VJP of the JAX
-    package's ``_rhs_bwd``: ``dz = g · act'(y)``, ``db = Σ dz``, the
-    aggregate recomputed by the stencil kernel, ``dW = aggᵀ dz`` and
-    ``dz Wᵀ`` as f32 matrix products, then ``dx`` = the stencil on
-    ``dia_norm_rev``."""
+    """The fused right-hand side under autograd. Its backward is the JAX
+    package's ``_rhs_bwd`` reassociated: on the card, for a forward in f32
+    within ``TF_MAX``, one kernel pass (``_gcn_bwd``); otherwise (the CPU,
+    bf16, a width the kernel refuses) ``dia_gcn_bwd_plain``, counted on
+    ``dia_gcn_rhs.backward_eager``."""
 
     @staticmethod
     def forward(ctx, x, w, b, dm, dm_rev, act):
@@ -234,18 +350,19 @@ class _DiaGcnRhs(torch.autograd.Function):
     def backward(ctx, g):
         x, w, b, y = ctx.saved_tensors
         dm, act = ctx.dm, ctx.act
-        dz = g.float() * act_grad_from_y(act, y.float())
-        db = None if b is None else dz.sum(0).reshape(b.shape).to(b.dtype)
-        dw = None
-        gup = dz
-        # both products are stencil launches, counted on the stencil
-        if w is not None:
-            agg = _stencil(dm, x, dia_spmm_stencil, True)
-            dw = (agg.t() @ dz).to(w.dtype)
-            gup = dz @ w.float().t()
         dmt = ctx.dm_rev if ctx.dm_rev is not None else transpose_dia(dm)
-        dx = _stencil(dmt, gup, dia_spmm_stencil, True).to(x.dtype)
-        return dx, dw, db, None, None, None
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        need_w, need_b = need_w and w is not None, need_b and b is not None
+        if _fused_backward_fits(dmt, x, y):
+            dx, dw, db = _gcn_bwd(dmt, x, w, y, g, act, need_x, need_w,
+                                  need_b)
+        else:
+            dia_gcn_rhs.backward_eager += 1
+            dx, dw, db = dia_gcn_bwd_plain(dmt, x, w, y, g, act)
+        return (None if dx is None or not need_x else dx.to(x.dtype),
+                None if dw is None or not need_w else dw.to(w.dtype),
+                db.reshape(b.shape).to(b.dtype) if need_b else None,
+                None, None, None)
 
 
 def dia_spmm_stencil(x: torch.Tensor, dm: DiaMatrix,
@@ -277,3 +394,4 @@ dia_spmm_stencil.launches = 0
 dia_spmm_stencil.backward_launches = 0
 dia_gcn_rhs.launches = 0
 dia_gcn_rhs.backward_launches = 0
+dia_gcn_rhs.backward_eager = 0

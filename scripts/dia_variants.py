@@ -7,8 +7,11 @@ rows per thread, and another checkout's package.
 A variant ``r<s>-<f>`` builds the kernels with ``s`` consecutive rows a
 thread in the stencil kernel and ``f`` in the fused one (``kStencilRows``
 and ``kFusedRows`` in ``csrc/dia_stencil.cu``; the fused form's 64-row tile
-then has ``64 / f`` row groups); ``r<rows>`` sets both. The package as it
-is builds ``r4-8``. For each one this copies the package under
+then has ``64 / f`` row groups); ``r<rows>`` sets both. A suffix
+``-b<rows>x<blocks>`` sets the fused backward's rows a thread in its
+prologue and the blocks an SM its registers are held to (``kBwdRows``,
+``kBwdBlocks``). The package as it is builds ``r4-8-b4x3``. For each one
+this copies the package under
 ``build/dia_variants/<variant>/``, edits the copy's source (a pattern that
 does not match exactly once stops the run) and, in a process of its own,
 builds that copy. The variant ``parent`` runs the package of the checkout
@@ -20,8 +23,12 @@ fused right-hand side (tanh, W 128×128, b) in f32 and in bf16, and the
 fused form's unfused composition (the stencil kernel, ``torch.addmm``,
 ``tanh``): CUDA-event ms over 20 calls and device ms per call
 (``tools.profile_paths.device_per_call``), and each kernel's error against
-its plain version. Prints the ptxas lines of ``dia_stencil.cu`` with their
-registers and spills. The package itself is not changed.
+its plain version; and the fused right-hand side's backward alone (tanh,
+W and b, F = out = 64 and 128, through autograd on a kept graph, so that a
+parent without the fused backward times its composition), its gradients'
+error against the plain version's. Prints the ptxas lines of
+``dia_stencil.cu`` with their registers and spills. The package itself is
+not changed.
 """
 from __future__ import annotations
 
@@ -32,13 +39,15 @@ from _variants import PACKAGE, copy_package, edit, main
 
 def variant(name: str):
     """The directory holding the package of variant ``name``."""
-    rows = re.fullmatch(r"r(\d+)(?:-(\d+))?", name)
+    rows = re.fullmatch(r"r(\d+)(?:-(\d+))?(?:-b(\d+)x(\d+))?", name)
     if rows is None:
         raise SystemExit(f"unknown variant {name!r}")
     root = copy_package("dia_variants", name)
     cu = root / PACKAGE.name / "csrc" / "dia_stencil.cu"
-    for const, value in (("kStencilRows", rows[1]),
-                         ("kFusedRows", rows[2] or rows[1])):
+    consts = [("kStencilRows", rows[1]), ("kFusedRows", rows[2] or rows[1])]
+    if rows[3]:
+        consts += [("kBwdRows", rows[3]), ("kBwdBlocks", rows[4])]
+    for const, value in consts:
         edit(cu, rf"constexpr int {const} = \d+;",
              f"constexpr int {const} = {value};")
     return root
@@ -95,10 +104,27 @@ def child(name: str) -> dict:
             lambda: torch.tanh(torch.addmm(b, K.dia_spmm_stencil(x, dn), w)),
             lambda: K.dia_rhs_plain(dn, x, w, b, "tanh", True, f32)),
     }
+    gt = normal(n, 128)
+    for f in (64, 128):
+        xf, wf, bf = (t.contiguous().requires_grad_()
+                      for t in (x[:, :f], w[:f, :f], b[:, :f]))
+        y = K.dia_gcn_rhs("tanh", xf, wf, bf, dn, g.cache["dia_norm_rev"])
+        yp = K.dia_rhs_plain(dn, xf, wf, bf, "tanh", True, f32)
+        gf = gt[:, :f].contiguous()
+        cases[f"fused backward tanh f32 F{f}"] = (
+            (lambda y=y, xf=xf, wf=wf, bf=bf, gf=gf: torch.autograd.grad(
+                y, (xf, wf, bf), gf, retain_graph=True)),
+            (lambda yp=yp, xf=xf, wf=wf, bf=bf, gf=gf: torch.autograd.grad(
+                yp, (xf, wf, bf), gf, retain_graph=True)))
     out = dict(variant=name, ptxas=ptxas, cases={})
     for what, (kernel, plain) in cases.items():
-        got, want = kernel().float(), plain().float()
-        rel = float((got - want).abs().max() / want.abs().max())
+        got, want = kernel(), plain()
+        if isinstance(got, tuple):  # gradients: the worst over the leaves
+            rel = max(float((a - c).abs().max() / c.abs().max())
+                      for a, c in zip(got, want))
+        else:
+            got, want = got.float(), want.float()
+            rel = float((got - want).abs().max() / want.abs().max())
         for _ in range(3):
             kernel()
         start = torch.cuda.Event(enable_timing=True)
@@ -119,5 +145,5 @@ def child(name: str) -> dict:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main(__file__, ["r4-8", "r8", "r4", "r16"], variant,
-                          child, parent=True))
+    raise SystemExit(main(__file__, ["r4-8-b4x3", "r8", "r4", "r16"],
+                          variant, child, parent=True))

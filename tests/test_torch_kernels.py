@@ -20,6 +20,7 @@ the ``cuda`` marker), so this file also runs where only one of the two
 exists: ``python -m pytest --noconftest tests/test_torch_kernels.py`` on a
 machine with a GPU and no JAX runs the CUDA cases.
 """
+import functools
 import types
 
 import numpy as np
@@ -209,6 +210,131 @@ def test_k2_bf16_matches_pallas(jx, fused):
             got = dia_spmm_stencil(xp, dp)
     assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
     assert _rel(got.float(), np.asarray(want, np.float32)) < BF16
+
+
+def _stencil64(dm, x):
+    """``stencil_f32``'s loop in x's dtype (float64 for the references)."""
+    n = dm.num_nodes
+    vals = dm.values[:n].to(x.dtype)
+    acc = x.new_zeros((n, x.shape[1]))
+    for k, d in enumerate(dm.offsets):
+        lo, hi = max(0, -d), min(n, n - d)
+        if lo < hi:
+            acc[lo:hi] = acc[lo:hi] + vals[lo:hi, k:k + 1] * x[lo + d:hi + d]
+    return acc
+
+
+def _rhs64(dm, act, x, w, b, y):
+    """``dia_rhs_plain``'s fused form in x's dtype: ``act((Ĉ x) W + b)``.
+    Its relu keeps the entries where the f32 output ``y`` is positive, so
+    that a pre-activation within rounding of 0 takes the VJP's side."""
+    h = _stencil64(dm, x)
+    if w is not None:
+        h = h @ w
+    if b is not None:
+        h = h + b
+    if act == "relu":
+        return h * (y > 0).to(h.dtype)
+    return {None: lambda v: v, "identity": lambda v: v, "tanh": torch.tanh,
+            "sigmoid": torch.sigmoid}[act](h)
+
+
+# the fused VJP's cases: (act, W 12 → 7, b); W None is the premultiplied
+# encoder's form (relu), so out = F = 12
+_K2_VJP_CASES = [("tanh", True, True), ("relu", True, False),
+                 ("sigmoid", True, True), (None, True, True),
+                 ("identity", True, False), ("tanh", False, True),
+                 ("relu", False, True)]
+
+
+@pytest.mark.parametrize("act,has_w,has_b", _K2_VJP_CASES)
+@pytest.mark.parametrize("x_grad", [True, False])
+def test_k2_backward_plain_matches_f64(act, has_w, has_b, x_grad):
+    """On the CPU the fused VJP is its reassociated plain version
+    (``dia_gcn_bwd_plain``: u = Ĉᵀ dz, dx = u Wᵀ, dW = xᵀ u, db = Σ dz):
+    against autograd through the plain version in float64 on the 240-node
+    grid (not a multiple of the card's 64-row tile), 1e-5 of the largest
+    entry for dx, 1e-4 for dW and db. An x that needs no gradient gets
+    none; each call counts one eager backward and no stencil launch."""
+    s, r, n = _grid()
+    rng = np.random.default_rng(31)
+    dm = build_dia(s, r, n, edge_weight=rng.random(len(s)).astype(np.float32))
+    f, o = 12, 7 if has_w else 12
+    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32))
+    w = (torch.from_numpy((rng.normal(size=(f, o)) / 3).astype(np.float32))
+         if has_w else None)
+    b = (torch.from_numpy(rng.normal(size=(1, o)).astype(np.float32))
+         if has_b else None)
+    g = torch.from_numpy(rng.normal(size=(n, o)).astype(np.float32))
+    leaves = [None if t is None else t.clone().requires_grad_(grad)
+              for t, grad in ((x, x_grad), (w, True), (b, True))]
+    refs = [None if t is None else t.double().requires_grad_(grad)
+            for t, grad in ((x, x_grad), (w, True), (b, True))]
+    eager = dia_gcn_rhs.backward_eager
+    stencil = dia_spmm_stencil.backward_launches
+    y = dia_gcn_rhs(act, *leaves, dm, transpose_dia(dm))
+    y.backward(g)
+    assert dia_gcn_rhs.backward_eager == eager + 1
+    assert dia_spmm_stencil.backward_launches == stencil
+    _rhs64(dm, act, *refs, y.detach()).backward(g.double())
+    for got, want, bound in zip(leaves, refs, (1e-5, 1e-4, 1e-4)):
+        if got is None:
+            continue
+        if not got.requires_grad:
+            assert got.grad is None
+            continue
+        assert _rel(got.grad, want.grad.float()) <= bound
+
+
+@pytest.mark.parametrize("act,has_w,has_b", [
+    (False, False, False), ("tanh", True, True), ("relu", True, False),
+    ("sigmoid", True, True), (None, True, True), ("tanh", False, True)])
+def test_k2_vjp_matches_pallas(jx, act, has_w, has_b):
+    """The VJPs against the JAX package's custom VJPs through its Pallas
+    kernel in interpret mode, on ``test_k2_f32_matches_pallas``'s cases:
+    the stencil's (``act=False``) and the fused form's, whose port side is
+    the reassociated ``dia_gcn_bwd_plain`` (JAX: the aggregate recomputed,
+    ``dx`` = Ĉᵀ(dz Wᵀ)). 1e-5 of the largest entry for dx, 1e-4 for dW
+    and db."""
+    import jax
+
+    s, r, n = _grid()
+    rng = np.random.default_rng(4)
+    w_edge = rng.random(len(s)).astype(np.float32)
+    x = rng.normal(size=(n, 12)).astype(np.float32)
+    w = rng.normal(size=(12, 7)).astype(np.float32) / 3 if has_w else None
+    o = 7 if has_w else 12
+    b = rng.normal(size=(1, o)).astype(np.float32) if has_b else None
+    g = rng.normal(size=(n, o)).astype(np.float32)
+    dj = jx.dia.build_dia(s, r, n, edge_weight=w_edge)
+    # Ĉᵀ built here: inside the VJP it would run eagerly between the
+    # interpret-mode kernels' callbacks
+    dj_rev = jax.block_until_ready(jx.dia.transpose_dia(dj))
+    dp = build_dia(s, r, n, edge_weight=w_edge)
+    jnp = jx.jnp
+    given = [a for a in (x, w, b) if a is not None]
+
+    def jax_fn(*args):
+        it = iter(args)
+        xa, wa, ba = (None if a is None else next(it) for a in (x, w, b))
+        if act is False:
+            return jx.dk.dia_spmm_pallas(xa, dj, dj_rev)
+        return jx.dk.dia_gcn_rhs(act, xa, wa, ba, dj, dj_rev)
+
+    with jx.pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(jax_fn, *map(jnp.asarray, given))
+        want = [np.asarray(a) for a in vjp(jnp.asarray(g))]
+    leaves = [torch.from_numpy(a).requires_grad_() for a in given]
+    it = iter(leaves)
+    xt, wt, bt = (None if a is None else next(it) for a in (x, w, b))
+    if act is False:
+        dia_spmm_stencil(xt, dp, transpose_dia(dp)).backward(
+            torch.from_numpy(g))
+    else:
+        dia_gcn_rhs(act, xt, wt, bt, dp, transpose_dia(dp)).backward(
+            torch.from_numpy(g))
+    for leaf, ref, bound in zip(leaves, want, (1e-5, 1e-4, 1e-4)):
+        assert _rel(leaf.grad.numpy(), ref) <= bound
 
 
 @pytest.mark.parametrize("kind", ["grid", "grid4", "periodic", "lone",
@@ -561,10 +687,12 @@ def test_kernels_refuse_autograd_cuda(cuda):
                                      (128, torch.bfloat16)])
 def test_k1_k2_backward_cuda(cuda, f, dtype, kind, f2, o):
     """K1's backward (the kernel on the transposed CSR) and K2's (the
-    stencil on ``dia_rev``; the fused VJP with the aggregate recomputed and
-    ``dx`` on ``dia_norm_rev``) against autograd through the plain versions:
-    1e-5 (bf16: 2e-2) of the largest entry for ``dx``, 1e-4 for ``dW`` and
-    ``db``. K2 in f32 at each storage and width of ``_K2_CASES``."""
+    stencil on ``dia_rev``; the fused VJP as one launch of its own kernel on
+    ``dia_norm_rev``, no stencil) against autograd through the plain
+    versions: 1e-5 (bf16: 2e-2) of the largest entry for ``dx``, 1e-4 for
+    ``dW`` and ``db``. K2 in f32 at each storage and width of
+    ``_K2_CASES``: W^T whole in shared memory or in k-tiles, dW as a
+    product on u (out past 64)."""
     s, r, w_e, rng = _edges(3000, 40000, 17)
     csr = build_segment_csr(s, r, 3000, edge_weight=w_e).to(cuda)
     csr_rev = build_segment_csr(r, s, 3000, edge_weight=w_e).to(cuda)
@@ -590,8 +718,8 @@ def test_k1_k2_backward_cuda(cuda, f, dtype, kind, f2, o):
     fused0 = dia_gcn_rhs.launches
     stencil0 = dia_spmm_stencil.backward_launches
     dia_gcn_rhs("tanh", *leaves_k, dm, dm_rev).backward(g)
-    assert dia_gcn_rhs.launches == fused0 + 1
-    assert dia_spmm_stencil.backward_launches == stencil0 + 2
+    assert dia_gcn_rhs.launches == fused0 + 2
+    assert dia_spmm_stencil.backward_launches == stencil0
     dia_rhs_plain(dm, leaves_p[0], leaves_p[1], leaves_p[2], "tanh", True,
                   torch.float32).backward(g)
     for k, p, bd in zip(leaves_k, leaves_p, (1e-5, 1e-4, 1e-4)):
@@ -602,6 +730,134 @@ def test_k1_k2_backward_cuda(cuda, f, dtype, kind, f2, o):
     dia_rhs_plain(dm, xp, None, None, None, False,
                   torch.float32).backward(gx)
     assert _rel(xk.grad.cpu(), xp.grad.cpu()) <= 1e-5
+
+
+@functools.lru_cache(maxsize=2)
+def _k2_bwd_storage(kind):
+    """Ĉ and Ĉᵀ (``precompute``'s ``dia_norm``, ``dia_norm_rev``) on the
+    host: ``grid512``, the self-looped 512² 8-neighbour grid (the
+    ``grand-grid.train`` cell's), or ``large``, a 161 × 130 one (20,930
+    nodes: not a multiple of the 64-row tile)."""
+    shape = {"grid512": (512, 512), "large": (161, 130)}[kind]
+    g = P.precompute(grid_graph_2d(*shape, diagonals=True),
+                     add_self_loops=True)
+    return g.cache["dia_norm"], g.cache["dia_norm_rev"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,f,o,act,has_w,x_grad", [
+    ("grid512", 64, 64, "tanh", True, True),
+    ("grid512", 64, 64, "tanh", True, False),
+    ("grid512", 64, 64, "relu", False, True),
+    ("grid512", 64, 64, "sigmoid", True, True),
+    ("grid512", 64, 64, "identity", True, True),
+    ("grid512", 64, 40, "tanh", True, True),
+    ("grid512", 48, 64, "sigmoid", True, True),
+    ("grid512", 128, 64, "tanh", True, True),
+    ("large", 64, 64, "tanh", True, True),
+    ("large", 64, 64, "relu", False, True)])
+def test_k2_fused_backward_cuda(cuda, kind, f, o, act, has_w, x_grad):
+    """K2's fused backward at the grid cell's shape class (F = out = 64,
+    dW from the kernel's tiles), at F ≠ out, and past 64 (dW as a product
+    on u), with W and b or in the premultiplied encoder's form (``w=None``,
+    relu), against autograd through the plain version in float64: 1e-5 of
+    the largest entry for dx, 1e-4 for dW and db. An x that needs no
+    gradient gets none. One launch of the backward a call and no stencil
+    launch; the same bits on a second call (the blocks' dW and db partials
+    added in a fixed order)."""
+    dm, dm_rev = (t.to(cuda) for t in _k2_bwd_storage(kind))
+    n = dm.num_nodes
+    o = o if has_w else f
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    x = torch.randn(n, f, device=cuda, generator=gen)
+    w = (torch.randn(f, o, device=cuda, generator=gen) / f ** 0.5
+         if has_w else None)
+    b = torch.randn(1, o, device=cuda, generator=gen) / 4
+    g = torch.randn(n, o, device=cuda, generator=gen)
+    grads = []
+    for _ in range(2):
+        leaves = [None if t is None else t.clone().requires_grad_(need)
+                  for t, need in ((x, x_grad), (w, True), (b, True))]
+        counts = (dia_gcn_rhs.backward_launches, dia_gcn_rhs.backward_eager,
+                  dia_spmm_stencil.backward_launches)
+        y = dia_gcn_rhs(act, *leaves, dm, dm_rev)
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert (dia_gcn_rhs.backward_launches - counts[0],
+                dia_gcn_rhs.backward_eager - counts[1],
+                dia_spmm_stencil.backward_launches - counts[2]) == (1, 0, 0)
+        grads.append([None if t is None else t.grad for t in leaves])
+    refs = [None if t is None else t.double().requires_grad_(need)
+            for t, need in ((x, x_grad), (w, True), (b, True))]
+    _rhs64(dm, act, *refs, y.detach()).backward(g.double())
+    for got, again, ref, bound in zip(*grads, refs, (1e-5, 1e-4, 1e-4)):
+        if ref is None or not ref.requires_grad:
+            assert got is None and again is None
+            continue
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        assert _rel(got.cpu(), ref.grad.float().cpu()) <= bound
+
+
+@pytest.mark.cuda
+def test_k2_fused_backward_nan_pattern_cuda(cuda):
+    """A NaN in the output's cotangent reaches the same entries of dx, dW
+    and db as in the plain version (``dia_gcn_bwd_plain``): the rows of u
+    with a stored value on its row (zeros included) and, through Wᵀ, their
+    whole rows of dx; its column of dW and its entry of db."""
+    from neuralgraphpde_torch.kernels.dia_kernels import (_gcn_bwd,
+                                                          dia_gcn_bwd_plain)
+
+    dm, dm_rev = (t.to(cuda) for t in _k2_bwd_storage("large"))
+    n, f = dm.num_nodes, 64
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    x = torch.randn(n, f, device=cuda, generator=gen)
+    w = torch.randn(f, f, device=cuda, generator=gen) / 8
+    with torch.no_grad():
+        y = dia_gcn_rhs("tanh", x, w, None, dm)
+    g = torch.randn(n, f, device=cuda, generator=gen)
+    g[1000, 7] = float("nan")
+    got = _gcn_bwd(dm_rev, x, w, y, g, "tanh", True, True, True)
+    want = dia_gcn_bwd_plain(dm_rev, x, w, y, g, "tanh")
+    torch.cuda.synchronize()
+    for a, c in zip(got, want):
+        assert torch.equal(a.isnan(), c.isnan())
+        assert int(a.isnan().sum()) > 0
+        assert _rel(torch.nan_to_num(a).cpu(),
+                    torch.nan_to_num(c).cpu()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_k2_backward_eager_counts_cuda(cuda):
+    """bf16, and an output wider than ``TF_MAX``, take the unfused
+    reassociated backward (``dia_gcn_bwd_plain``): one eager backward a
+    call, its one stencil launch, no launch of the fused backward; finite
+    gradients, and in f32 against autograd through the plain version."""
+    s, r, n = _grid()
+    rng = np.random.default_rng(41)
+    for dtype, f, o in ((torch.bfloat16, 64, 64), (torch.float32, 64, 520)):
+        dm = _dia_graph("grid", rng.random, dtype)
+        dm, dm_rev = dm.to(cuda), transpose_dia(dm).to(cuda)
+        x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(
+            cuda, dtype)
+        w = torch.from_numpy(rng.normal(size=(f, o)).astype(np.float32)
+                             / np.sqrt(f)).to(cuda)
+        b = torch.randn(1, o, device=cuda)
+        g = torch.randn(n, o, device=cuda).to(dtype)
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        counts = (dia_gcn_rhs.backward_launches, dia_gcn_rhs.backward_eager,
+                  dia_spmm_stencil.backward_launches)
+        dia_gcn_rhs("tanh", *leaves, dm, dm_rev).backward(g)
+        torch.cuda.synchronize()
+        assert (dia_gcn_rhs.backward_launches - counts[0],
+                dia_gcn_rhs.backward_eager - counts[1],
+                dia_spmm_stencil.backward_launches - counts[2]) == (0, 1, 1)
+        assert all(bool(torch.isfinite(t.grad).all()) for t in leaves)
+        if dtype == torch.bfloat16:
+            continue
+        refs = [t.clone().requires_grad_() for t in (x, w, b)]
+        dia_rhs_plain(dm, *refs, "tanh", True, dtype).backward(g)
+        for got, ref in zip(leaves, refs):
+            assert _rel(got.grad.cpu(), ref.grad.cpu()) <= 1e-4
 
 
 def _k4_k7_case(cuda, kind, dtype, seed=18, isolated=False):
@@ -892,6 +1148,24 @@ def _tiled(h, w, kt):
     return z
 
 
+def _sum_partials(parts):
+    """``csrc/common.cuh``'s ``sum_partials`` order: with W = min(len,
+    8) warps, warp w adds the parts w, w + W, ... in order onto 0, then the
+    warps' sums are added in warp order (with at most 8 parts, the plain
+    sum in part order)."""
+    warps = max(1, min(len(parts), 8))
+    sums = []
+    for w in range(warps):
+        a = torch.zeros_like(parts[0])
+        for part in parts[w::warps]:
+            a = a + part
+        sums.append(a)
+    total = torch.zeros_like(parts[0])
+    for a in sums:
+        total = total + a
+    return total
+
+
 def _stream_bwd_emulated(acts, csr, feats, ws, bs, g, sms, te, kt,
                          streamed=True):
     """The K3 backward's decomposition in torch ops, in f32: blocks of
@@ -902,7 +1176,7 @@ def _stream_bwd_emulated(acts, csr, feats, ws, bs, g, sms, te, kt,
     added; ``kt`` None: W as one tile, as the resident block holds it), its
     dW/db summed over the chunk's slots in order and added onto one partial
     per block, chunk after chunk, dh taken by W k-tiles; the blocks'
-    partials summed in block order."""
+    partials summed in ``_sum_partials``' order."""
     rows, _ = K3._rows_rule(csr.num_rows, csr.col.shape[0], sms, streamed,
                             True)
     n_blocks = -(-csr.num_rows // rows)
@@ -933,9 +1207,7 @@ def _stream_bwd_emulated(acts, csr, feats, ws, bs, g, sms, te, kt,
                                 for k0 in range(0, w.shape[0], step)], 1)
             dfeats[csr.col[sl].long()] = dz
         partials.append(dws + dbs)
-    total = partials[0]
-    for part in partials[1:]:
-        total = [a + b for a, b in zip(total, part)]
+    total = [_sum_partials(list(parts)) for parts in zip(*partials)]
     n = len(ws)
     return (dfeats, tuple(total[:n]),
             tuple(t.reshape(b.shape) for t, b in zip(total[n:], bs)))
@@ -1392,12 +1664,12 @@ def _k5_emulated(csr, senders, ph, h, wl, bl, g, sms):
     slots in order into its registers and stores the rows below IN once:
     every S entry is stored by exactly one thread); the products split along
     their inner dimension for ``sms`` SMs (``_splits``, ``_split_ranges``),
-    the partials summed in split order; the per-edge backward slice by slice
-    of k (``_edge_shape``), dph and the per-edge dh_e of each chunk by warp
-    tasks of TR edges (TR the smallest that leaves none of 8 warps a second
-    task, at most 8), dph's columns within the slice, dh_e's sum going on
-    across the slices, w[s] times each sum; dh_e onto the senders with
-    ``index_add_``. Returns ``(out, (dph, dh, dwl, dbl), (forward splits,
+    the partials summed in ``_sum_partials``' order; the per-edge backward
+    slice by slice of k (``_edge_shape``), dph and the per-edge dh_e of each
+    chunk by warp tasks of TR edges (TR the smallest that leaves none of 8
+    warps a second task, at most 8), dph's columns within the slice, dh_e's
+    sum going on across the slices, w[s] times each sum; dh_e onto the
+    senders with ``index_add_``. Returns ``(out, (dph, dh, dwl, dbl), (forward splits,
     dWl' splits, reduce passes, per-edge backward slices))``."""
     in_chs, k, out_chs = wl.shape
     wlb = K5._packed(wl, bl)
@@ -1445,10 +1717,7 @@ def _k5_emulated(csr, senders, ph, h, wl, bl, g, sms):
         splits = K5._splits(a.shape[0], b.shape[1], a.shape[1], sms)
         parts = [a[:, lo:hi] @ b[lo:hi]
                  for lo, hi in _split_ranges(a.shape[1], splits)]
-        total = parts[0]
-        for part in parts[1:]:
-            total = total + part
-        return total, splits
+        return _sum_partials(parts), splits
 
     w2 = wlb.reshape(j, out_chs)
     out, fwd_splits = product(s_red.reshape(n, j), w2)
@@ -1500,10 +1769,11 @@ def test_k5_decomposition(jx, k, in_chs, out_chs, bias, n, e, splits):
     (``_k5_emulated``, 16 SMs; ``splits``: the products' splits, the
     reduce's passes and the per-edge backward's slices of k): the reduce's
     tiles and passes, the per-edge backward's slices, the products at their
-    split-K boundaries with the partials summed in split order, and the
-    per-edge backward's chunks and warp tasks, with every 7th receiver and
-    node n − 1 without in-edges and receivers 3, 5 and 6 holding 70, 32 and
-    33 edges (chunks of 32, 32 and 6; one full chunk; 32 and 1): against
+    split-K boundaries with the partials summed in ``_sum_partials``' order,
+    and the per-edge backward's chunks and warp tasks, with every 7th
+    receiver and node n − 1 without in-edges and receivers 3, 5 and 6
+    holding 70, 32 and 33 edges (chunks of 32, 32 and 6; one full chunk; 32
+    and 1): against
     ``fused_gno_plain`` / ``fused_gno_bwd_plain`` and ``_fused_gno_fwd`` /
     ``_fused_gno_bwd_pallas`` in interpret mode, the forward, dph and dh
     within 1e-5 and dWl, dbl within 1e-4 of their largest entries."""
