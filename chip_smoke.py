@@ -22,7 +22,10 @@ Phases, each fatal on failure:
    vectors and scalar) of each RK stage kernel in ``rk_stage.cu``
    (``rk_combine_kernel``, ``rk_norm_kernel``, ``rk_scatter_kernel``, and
    ``rk_combine_dh_kernel`` and ``rk_norm_dh_kernel``, which read the step
-   size from the card).
+   size from the card), nor in the two instantiations (heads of 64 and
+   128) of each of K8's kernels in ``mesh_attention.cu``
+   (``attention_fwd_kernel``, ``attention_bwd_kv_kernel``,
+   ``attention_bwd_q_kernel``).
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: max relative error ``max|k − p| / max|p|``
    (bound 1e-5 in f32, 1e-2 in bf16 against a plain version fed the same
@@ -229,6 +232,21 @@ Phases, each fatal on failure:
    blocks; the recomputation runs each again), none of them in the
    backward (over the edge-id layout K1's backward is a gather); its
    seconds and peak memory are printed.
+13. K8, the mesh attention (``csrc/mesh_attention.cu``), at
+   GenCast's published shapes: the M6 mesh in its local order, the
+   32-hop layout built on the card, 4 heads of 128: forward within 1e-5
+   and every gradient within 1e-4 of the plain version, the kernel's
+   forward and forward-and-backward times beside its bound (the least
+   work over the pairs that attend at 67 TFLOP/s), the plain version's
+   and SDPA's with the dense mask on 4,096 queries (``library_ms``, a
+   yardstick the port never calls); then one GenCast AdamW step (the
+   published widths, recomputation) with K8's counters set to 0 before
+   it and under the profiler: a finite loss, 4 launches a layer (forward,
+   the recomputation's forward, the two backward kernels), 2 of them in
+   the backward, the pairs they computed (the tiles' area a launch), and
+   no PyTorch attention operator. Alone: ``python3 -c`` importing
+   ``chip_smoke``, TF32 off, then ``gencast_checks(P, K,
+   torch.device("cuda", 0))`` (~2 min with the graph build).
 
 The line before the last is ``{"kernels": [...]}``: twelve kernels with
 their operand ``dtypes`` (K4 and K7 also with their ``device_ms``, the fused K2
@@ -246,7 +264,10 @@ Hermite save, the backward's scatter and the stage input with the step
 size on the card, and ``rk_norm``, with the norm with the step size on the
 card beside it), with
 ``replaces`` null, at the grid state with the VMH state beside it, and
-their launches in GRAND B's gradient. The last line is
+their launches in GRAND B's gradient; then K8 (``mesh_attention``,
+route ``cuda``, ``replaces`` null) with its training pair and its
+launches, backward launches and pairs in the GenCast step. The last line
+is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -313,6 +334,10 @@ BACKSOLVE_GRAD_BOUND = 1e-3
 # blocks (bench_torch/configs/graphcast-0p25.json)
 GRAPHCAST_F = 512
 GRAPHCAST_BLOCKS = (4, 8)
+# gencast-0p25: the attention's hops on M6, and the queries of the SDPA
+# yardstick (a dense (queries, nodes) mask)
+GENCAST_HOPS = 32
+GENCAST_SDPA_QUERIES = 4096
 # H100 SXM (NVIDIA data sheet, 700 W): device-memory rate, the f32 rate
 # outside the tensor cores (every kernel here computes in true f32), and
 # the dense bf16 tensor-core rate (the bound of a function whose operands
@@ -2443,6 +2468,147 @@ def graphcast_checks(P, K, dev) -> dict:
                 backward={"segment_spmm": backward})
 
 
+def gencast_checks(P, K, dev) -> dict:
+    """Phase 13: K8, the mesh attention, at GenCast's published shapes (the
+    M6 mesh in its local order, 32 hops, 4 heads of 128) against its plain
+    version, forward and every gradient, timed beside its bound (the work
+    over the pairs that attend, ``bench_torch/core/gencast_counts.py``),
+    its plain version and ``library_ms``: SDPA with the dense mask on
+    ``GENCAST_SDPA_QUERIES`` queries against every key, a yardstick the
+    port never calls; then one full-size GenCast AdamW step with K8's
+    counters set to 0 before it, under the profiler: launches, backward
+    launches and pairs, and no PyTorch attention operator. Returns the
+    record and the step's counts."""
+    from bench_torch.core import gencast_counts as gnc
+    from neuralgraphpde_torch.kernels import attention_kernels as ak
+    from neuralgraphpde_torch.models import gencast as gm
+
+    t0 = time.perf_counter()
+    graphs = P.gencast_graphs()
+    built = time.perf_counter()
+    prepared = {k: g.to(dev) for k, g in gm.precompute_graphs(
+        graphs, GENCAST_HOPS, GRAPHCAST_BLOCKS, dev).items()}
+    torch.cuda.synchronize()
+    lay = prepared["mesh"].cache["attention_layout"]
+    n, heads, d = lay.num_nodes, 4, 128
+    print(f"  graphs {built - t0:.1f} s, precompute (the {GENCAST_HOPS}-hop "
+          f"layout on the card) {time.perf_counter() - built:.2f} s: "
+          f"{n} nodes, {lay.pairs} pairs, {lay.tiles} tiles, fill "
+          f"{lay.fill:.4f}")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    q, k, v, cot = (torch.randn((n, heads * d), generator=gen, device=dev)
+                    for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = K.mesh_attention(*leaves, lay, heads)
+    g_got = torch.autograd.grad(got, leaves, cot)
+    want = ak.mesh_attention_plain(*leaves, lay, heads)
+    g_want = torch.autograd.grad(want, leaves, cot)
+    torch.cuda.synchronize()
+    rel, diff = rel_err(got, want)
+    grads = [rel_err(a, b)[0] for a, b in zip(g_got, g_want)]
+    del want, g_want, got, g_got
+
+    def train_pair():
+        out = K.mesh_attention(*leaves, lay, heads)
+        torch.autograd.grad(out, leaves, cot)
+
+    ms = cuda_ms(lambda: K.mesh_attention(q, k, v, lay, heads), reps=5,
+                 warmup=1)
+    pair_ms = cuda_ms(train_pair, reps=3, warmup=1)
+    plain_ms = cuda_ms(lambda: ak.mesh_attention_plain(q, k, v, lay, heads),
+                       reps=2, warmup=1)
+    fwd = gnc.attention_forward(lay.pairs, n, heads, d)
+    bwd = gnc.attention_backward(lay.pairs, n, heads, d)
+    b_ms, b_by = bound(fwd.bytes, fwd.ops)
+    bb_ms, _ = bound(bwd.bytes, bwd.ops)
+    m = GENCAST_SDPA_QUERIES
+    rows = torch.zeros((m, n), dtype=torch.bool, device=dev)
+    rp = lay.row_ptr.tolist()
+    offs = torch.arange(64, device=dev)
+    for i in range(m // 64):
+        t0_, t1_ = rp[i], rp[i + 1]
+        keys = (lay.cols[t0_:t1_].long()[:, None] * 64 + offs).reshape(-1)
+        bits = ak._bit_mask(lay.masks[t0_:t1_]).permute(1, 0, 2).reshape(
+            64, -1)
+        real = keys < n
+        rows[i * 64:(i + 1) * 64, keys[real]] = bits[:, real]
+    qb = q[:m].view(m, heads, d).transpose(0, 1)[None]
+    kb, vb = (t.view(n, heads, d).transpose(0, 1)[None] for t in (k, v))
+    library_ms = cuda_ms(lambda: torch.nn.functional.
+                         scaled_dot_product_attention(qb, kb, vb,
+                                                      attn_mask=rows),
+                         reps=3, warmup=1)
+    shape = (f"K8 GenCast M6, {GENCAST_HOPS} hops: {n} nodes, {lay.pairs} "
+             f"pairs in {lay.tiles} tiles (fill {lay.fill:.3f}), "
+             f"{heads} x {d} f32")
+    print(f"  {shape}: rel {rel:.3e} (bound {F32_BOUND:g}), gradients "
+          f"{', '.join(f'{g:.3e}' for g in grads)} (bound "
+          f"{K3_PARAM_BOUND:g}); kernel {ms:.2f} ms, forward and backward "
+          f"{pair_ms:.2f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.2f} ms "
+          f"forward ({b_by}) and {bb_ms:.2f} ms backward; SDPA on {m} "
+          f"queries with the dense mask {library_ms:.2f} ms")
+    check(rel <= F32_BOUND, f"K8: rel error {rel:.3e}")
+    check(all(g <= K3_PARAM_BOUND for g in grads), f"K8 gradients {grads}")
+    rec = dict(max_abs_err=diff, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+               shape=shape, training_pair=dict(
+                   ms=pair_ms, bound_ms=b_ms + bb_ms, grad_rel=grads),
+               library=f"SDPA, {m} queries x every key, dense bool mask")
+    check_bounds(rec, shape)
+    del q, k, v, cot, leaves, rows, qb, kb, vb
+
+    model = P.GenCast(recompute=True,
+                      generator=torch.Generator().manual_seed(24),
+                      device=dev).set_graphs(prepared)
+    ng = graphs.mesh2grid.num_nodes
+    x = torch.randn((ng, 188), generator=gen, device=dev)
+    r = torch.randn((ng, 84), generator=gen, device=dev)
+    eps = torch.randn((ng, 84), generator=gen, device=dev)
+    sigma = torch.tensor(1.7, device=dev)
+    node_w = torch.from_numpy(P.models.graphcast.area_weights(
+        graphs.grid_lat)).to(dev)
+    chan_w = torch.ones(84, device=dev)
+    opt = P.adamw(model.parameters(), 1e-3, 0.9, 0.95, 1e-8, 0.1)
+    step = P.make_train_step(lambda: P.edm_weighted_mse(
+        model(x, r + sigma * eps, sigma), r, sigma, node_w, chan_w), opt)
+    step()  # the first step allocates what the second reuses
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn = K.mesh_attention
+    fn.launches = fn.backward_launches = fn.pairs = 0
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        loss, _ = step()
+        value = float(loss)
+        seconds = time.perf_counter() - t0
+    fused = sorted({e.name for e in prof.events()
+                    if "attention" in e.name and e.name.startswith("aten::")})
+    peak = torch.cuda.max_memory_allocated(dev)
+    layers = len(model.processor)
+    print(f"  one AdamW step (the published widths, recomputation): loss "
+          f"{value:.6f}, {seconds:.2f} s (the second), peak "
+          f"{peak / 1e9:.2f} GB; mesh_attention launches {fn.launches}, of "
+          f"them in the backward {fn.backward_launches}, pairs "
+          f"{fn.pairs} ({fn.pairs / lay.pairs:.2f} x the pairs that "
+          f"attend); PyTorch attention operators: {fused or 'none'}")
+    check(math.isfinite(value), "GenCast step: non-finite loss")
+    check(fn.launches == 4 * layers and fn.backward_launches == 2 * layers,
+          f"GenCast step: K8 launched {fn.launches} times "
+          f"({fn.backward_launches} in the backward), expected "
+          f"{4 * layers} ({2 * layers})")
+    check(fn.pairs == 4 * layers * lay.tiles * 64 * 64,
+          f"GenCast step: {fn.pairs} pairs")
+    check(not fused, f"GenCast step ran {fused}")
+    counts = dict(launches={"mesh_attention": fn.launches},
+                  backward={"mesh_attention": fn.backward_launches},
+                  pairs=fn.pairs, seconds=seconds, peak_bytes=peak)
+    del model, opt, step, prepared, x, r, eps
+    torch.cuda.empty_cache()
+    return dict(record=rec, step=counts)
+
+
 def grand_forward(P, model, g, x, label):
     """A first (cold) forward on the kernel path, a second (warm) one whose
     kernel launches are counted (the main path), two forwards on the xla
@@ -2542,7 +2708,8 @@ def main() -> int:
     # no local array (a stack frame of 0 bytes), in every instantiation: K3's
     # four dtype pairs, the reduce's 4, the product's 12 (three operand
     # layouts by four dtype combinations) and the per-edge backward's 8
-    # (whole and sliced by four)
+    # (whole and sliced by four); the RK stage kernels' 6 and K8's 2 (heads
+    # of 64 and 128) likewise
     gated = {"fused_mlp.cu": {"fused_mlp_fwd_stream_kernel": 4,
                               "fused_mlp_bwd_stream_kernel": 4,
                               "fused_mlp_fwd_resident_kernel": 4,
@@ -2552,7 +2719,10 @@ def main() -> int:
              "rk_stage.cu": {"rk_combine_kernel": 6, "rk_norm_kernel": 6,
                              "rk_scatter_kernel": 6,
                              "rk_combine_dh_kernel": 6,
-                             "rk_norm_dh_kernel": 6}}
+                             "rk_norm_dh_kernel": 6},
+             "mesh_attention.cu": {"attention_fwd_kernel": 2,
+                                   "attention_bwd_kv_kernel": 2,
+                                   "attention_bwd_q_kernel": 2}}
     for source, kernels in gated.items():
         funcs = ptxas_by_function(info["ptxas_by_source"].get(source, ""))
         spilling = {f: lines for f, (lines, _) in funcs.items() if lines}
@@ -2798,6 +2968,8 @@ def main() -> int:
 
     print("GraphCast at its published 0.25° widths (K1 at F 512):")
     graphcast = graphcast_checks(P, K, dev)
+    print("GenCast at its published 0.25° widths (K8, the mesh attention):")
+    gencast = gencast_checks(P, K, dev)
 
     sources = {
         "segment_spmm": ("neuralgraphpde_torch/csrc/segment_spmm.cu",
@@ -2994,6 +3166,21 @@ def main() -> int:
                                                 for e in extra],
             dtypes={"every operand": "float32"}))
         check(kernels[-1]["launches"] > 0, f"{name}: no launch in GRAND B")
+    # K8: no TPU kernel (the JAX package has no attention), its launches
+    # in one GenCast training step
+    kernels.append(dict(
+        name="mesh_attention", route="cuda",
+        source="neuralgraphpde_torch/csrc/mesh_attention.cu",
+        replaces=None, launches=gencast["step"]["launches"]["mesh_attention"],
+        runs=[dict(run="GenCast training step",
+                   launches=gencast["step"]["launches"]["mesh_attention"],
+                   backward_launches=gencast["step"]["backward"][
+                       "mesh_attention"],
+                   pairs=gencast["step"]["pairs"])],
+        **{k: gencast["record"][k] for k in keys},
+        training_pair=gencast["record"]["training_pair"],
+        library=gencast["record"]["library"],
+        dtypes={"every operand": "float32"}))
     check_bounds(kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"vmh_graph": vmh_graph_record}))

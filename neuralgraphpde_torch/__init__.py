@@ -9,8 +9,9 @@ This package imports neither ``jax`` nor ``neuralgraphpde``.
 """
 
 from .graph import (GnnGraph, add_self_loops, bandwidth, csr_offsets, degree,
-                    delaunay_graph, empty_graph, graphcast_graphs,
-                    grid_graph_1d, grid_graph_2d, morton_order,
+                    delaunay_graph, empty_graph, gencast_graphs,
+                    graphcast_graphs, grid_graph_1d, grid_graph_2d,
+                    morton_order,
                     permute_nodes, radius_graph, rand_graph, rcm_order,
                     rcm_reorder, receiver_blocks, reorder_graph,
                     sort_by_receiver, spatial_reorder, to_dense_adjacency,
@@ -20,17 +21,18 @@ from .ops import (aggregate_neighbors, apply_edges, copy_xj,
                   segment_reduce, set_spmm_mode, spmm, w_mul_xj)
 from .nn import (MLP, AbstractGNNContainerLayer, AbstractGNNLayer, Chain,
                  ContainerLayer, Dense, ExplicitEdgeConv, GCNConv, GNOConv,
-                 InteractionConv, Layer, LayerNorm, MPPDEConv, Precision,
+                 ConditionalLayerNorm, InteractionConv, Layer, LayerNorm,
+                 MeshAttention, MPPDEConv, Precision, TransformerBlock,
                  VMHConv, bf16)
 from .utils import drop, update_graph, wrapgraph
 from .ode import NeuralGraphODE, odeint, odeint_grid, solve_stats
-from .models import (GKNModel, GNOModel, GraphCast, MPPDESolver, grand_model,
-                     precompute_graphs, vmh_model)
+from .models import (GKNModel, GNOModel, GenCast, GraphCast, MPPDESolver,
+                     grand_model, precompute_graphs, vmh_model)
 from .data import (burgers_dataset, convection_diffusion_dataset,
                    cora_dataset, darcy_dataset, load_cora, synthetic_cora)
 from .train import (MetricsLogger, Rprop, accuracy, adam, adamw,
-                    make_train_step, masked_cross_entropy, mse, rollout_mse,
-                    rprop, weighted_mse)
+                    edm_weighted_mse, make_train_step, masked_cross_entropy,
+                    mse, rollout_mse, rprop, weighted_mse)
 from .interop import params_from_jax
 
 __version__ = "0.1.0"

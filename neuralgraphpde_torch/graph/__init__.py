@@ -10,7 +10,8 @@ from .transforms import (
     sort_by_receiver,
     to_dense_adjacency,
 )
-from .sphere import GraphCastGraphs, graphcast_graphs
+from .sphere import (GenCastGraphs, GraphCastGraphs, gencast_graphs,
+                     graphcast_graphs)
 from .reorder import (bandwidth, morton_order, permute_nodes, rcm_order,
                       rcm_reorder, reorder_graph, spatial_reorder,
                       unpermute_nodes)
@@ -21,7 +22,8 @@ __all__ = [
     "radius_graph",
     "add_self_loops", "degree", "sort_by_receiver", "csr_offsets",
     "to_dense_adjacency", "receiver_blocks", "ReceiverBlocks",
-    "graphcast_graphs", "GraphCastGraphs", "rcm_order", "rcm_reorder",
+    "graphcast_graphs", "GraphCastGraphs", "gencast_graphs", "GenCastGraphs",
+    "rcm_order", "rcm_reorder",
     "morton_order", "spatial_reorder", "reorder_graph", "permute_nodes", "unpermute_nodes",
     "bandwidth",
 ]

@@ -279,3 +279,110 @@ def graphcast_graphs(splits: int = 6, n_lat: int = 721, n_lon: int = 1440,
     return GraphCastGraphs(mesh=mesh, grid2mesh=g2m, mesh2grid=m2g,
                            grid_lat=lat, grid_lon=lon,
                            grid_features=node_features(grid))
+
+
+def mesh_order(faces: np.ndarray, num_vertices: int) -> np.ndarray:
+    """A local order of a refined icosahedral mesh's vertices: by the
+    first face that holds each vertex, in ``refine``'s face order, which
+    is depth first (a face's four children follow each other, so
+    consecutive faces touch and a run of them covers a patch); ``order
+    [new] = old``. ``refine``'s own vertex order is level by level, so
+    neighbours there lie far apart."""
+    first = np.full(num_vertices, len(faces), np.int64)
+    np.minimum.at(first, faces.reshape(-1),
+                  np.repeat(np.arange(len(faces), dtype=np.int64), 3))
+    return np.argsort(first, kind="stable")
+
+
+def neighbour_table(senders: np.ndarray, receivers: np.ndarray,
+                    num_nodes: int) -> np.ndarray:
+    """``(nodes, largest degree)`` int64: each node's senders, padded with
+    the node itself."""
+    s = np.asarray(senders, np.int64)
+    r = np.asarray(receivers, np.int64)
+    order = np.lexsort((s, r))
+    s, r = s[order], r[order]
+    deg = np.bincount(r, minlength=num_nodes)
+    table = np.repeat(np.arange(num_nodes, dtype=np.int64)[:, None],
+                      max(1, int(deg.max(initial=0))), axis=1)
+    start = np.concatenate([[0], np.cumsum(deg)[:-1]])
+    table[r, np.arange(len(r)) - start[r]] = s
+    return table
+
+
+def khop_bits(senders: np.ndarray, receivers: np.ndarray, num_nodes: int,
+              hops: int, device=None):
+    """Every node's ``hops``-hop neighbourhood (itself included) as packed
+    bits, built on ``device`` by ``hops`` rounds of OR-ing each node's row
+    with its neighbours' rows: ``(64·blocks, blocks)`` int64 torch tensor,
+    ``blocks = ⌈nodes / 64⌉``, row ``i``'s word ``w`` bit ``c`` set where
+    node ``64·w + c`` lies within ``hops`` edges of node ``i``."""
+    import torch
+
+    blocks = -(-num_nodes // 64)
+    table = torch.as_tensor(neighbour_table(senders, receivers, num_nodes),
+                            device=device)
+    bits = torch.zeros((blocks * 64, blocks), dtype=torch.int64,
+                       device=device)
+    i = torch.arange(num_nodes, device=device)
+    bits[i, i // 64] = torch.ones_like(i) << (i % 64)
+    live = bits[:num_nodes]
+    for _ in range(hops):
+        grown = live.clone()
+        for col in table.T:
+            grown |= live[col]
+        live.copy_(grown)
+    return bits
+
+
+@dataclasses.dataclass(frozen=True)
+class GenCastGraphs:
+    """GenCast's graphs, sorted by receiver, on the host: the finest mesh
+    alone (``mesh``: its sides both ways, node features ``ndata['x']``, no
+    edge features), its vertices in ``mesh_order``, and GraphCast's
+    bipartite ``grid2mesh`` and ``mesh2grid`` to and from it (edge
+    features in ``edata['e']``); the grid as in ``GraphCastGraphs``."""
+
+    mesh: GnnGraph
+    grid2mesh: GnnGraph
+    mesh2grid: GnnGraph
+    grid_lat: np.ndarray
+    grid_lon: np.ndarray
+    grid_features: np.ndarray
+
+
+def gencast_graphs(splits: int = 6, n_lat: int = 721, n_lon: int = 1440,
+                   radius_fraction: float = 0.6) -> GenCastGraphs:
+    """GenCast's graphs: the mesh ``M_splits`` alone (the published 0.25°
+    model's M6: 40,962 vertices, 245,760 directed edges), renumbered by
+    ``mesh_order`` (so that the attention's tiles are full); the ``n_lat ×
+    n_lon`` grid; grid → mesh within ``radius_fraction`` of the mesh's
+    longest side and mesh → grid from each grid point's containing face,
+    as GraphCast's."""
+    verts, faces = icosahedral_meshes(splits)[-1]
+    order = mesh_order(faces, len(verts))
+    new_id = np.empty(len(verts), np.int64)
+    new_id[order] = np.arange(len(verts))
+    verts, faces = verts[order], new_id[faces]
+    lat, lon = lat_lon_grid(n_lat, n_lon)
+    grid = to_xyz(lat, lon)
+    n_mesh, n_grid = len(verts), len(grid)
+
+    def graph(s, r, n_recv, n_send, s_xyz, r_xyz):
+        return GnnGraph.from_coo(
+            s.astype(np.int32), r.astype(np.int32), num_nodes=n_recv,
+            num_senders=n_send,
+            edata={"e": edge_features(s_xyz, r_xyz, s, r)})
+
+    s, r = _by_receiver(*face_edges(faces))
+    mesh = GnnGraph.from_coo(s.astype(np.int32), r.astype(np.int32),
+                             num_nodes=n_mesh,
+                             ndata={"x": node_features(verts)})
+    s, r = grid2mesh_edges(grid, verts,
+                           radius_fraction * longest_side(verts, faces))
+    g2m = graph(s, r, n_mesh, n_grid, grid, verts)
+    s, r = mesh2grid_edges(grid, verts, faces)
+    m2g = graph(s, r, n_grid, n_mesh, verts, grid)
+    return GenCastGraphs(mesh=mesh, grid2mesh=g2m, mesh2grid=m2g,
+                         grid_lat=lat, grid_lon=lon,
+                         grid_features=node_features(grid))

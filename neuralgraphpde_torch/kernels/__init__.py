@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version. Importing this package builds nothing: the library is compiled at
 the first kernel launch (``kernels._build``)."""
+from .attention_kernels import (AttentionLayout, build_attention_layout,
+                                mesh_attention, mesh_attention_plain)
 from .banded_kernels import (banded_gcn_rhs, banded_spmm_pallas,
                              block_rhs_plain, pbanded_gcn_rhs,
                              pbanded_spmm_pallas)
@@ -25,15 +27,16 @@ from .segment_kernels import (SegmentCSR, build_segment_csr, segment_max,
 # operand in ``.bf16_launches``, K5 its reduce's passes over the rows in
 # ``.reduce_passes``; ``rk_combine`` counts the RK stage
 # algebra's combinations and their backward's scatters, ``rk_norm`` its
-# error norms)
+# error norms; ``mesh_attention`` the (query, key) scores its launches
+# computed in ``.pairs``)
 KERNELS = (segment_spmm, dia_spmm_stencil, dia_gcn_rhs, fused_mlp_fwd,
            fused_mlp_bwd, fused_gno_fwd, fused_gno_bwd, segment_max,
            banded_spmm_pallas, pbanded_spmm_pallas, banded_gcn_rhs,
-           pbanded_gcn_rhs, rk_combine, rk_norm)
+           pbanded_gcn_rhs, rk_combine, rk_norm, mesh_attention)
 
 
 _COUNTERS = ("launches", "backward_launches", "backward_eager",
-             "bf16_launches", "reduce_passes")
+             "bf16_launches", "reduce_passes", "pairs")
 
 
 def launch_counts() -> dict:
@@ -54,7 +57,9 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "banded_gcn_rhs", "banded_spmm_pallas", "block_rhs_plain",
+    "AttentionLayout", "build_attention_layout", "mesh_attention",
+    "mesh_attention_plain", "banded_gcn_rhs", "banded_spmm_pallas",
+    "block_rhs_plain",
     "pbanded_gcn_rhs", "pbanded_spmm_pallas",
     "dia_gcn_bwd_plain", "dia_gcn_rhs", "dia_rhs_plain", "dia_spmm_stencil",
     "fused_mlp_aggregate",

@@ -67,6 +67,8 @@ _SIGNATURES = {
                          _I, _I, _I, _P),
     "ngpde_rk_scatter": (_PP, _I, _PP, _DP, _IP, _I, _D, _LL, _I, _I, _I,
                          _P),
+    "ngpde_mesh_attention_fwd": (_P,) * 8 + (_I,) * 4 + (_D, _P),
+    "ngpde_mesh_attention_bwd": (_P,) * 12 + (_I,) * 4 + (_D, _P),
 }
 
 _lib = None

@@ -36,7 +36,8 @@ again in a backward (a processor layer, or one receiver block).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import sys
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,54 +57,69 @@ chunks = 0
 recomputed_blocks = 0
 
 
-def _count(name: str) -> None:
-    globals()[name] += 1
+_THIS = sys.modules[__name__]
 
 
-def _checkpointed(conv: InteractionConv, ps, v_r, e, g, on_recompute):
-    """``conv.block`` on ``g`` under recomputation: its first run is the
-    forward, every later run (the backward's) is counted and spanned."""
+def checkpointed(fn: Callable, *args, counters=_THIS,
+                 rerun: Optional[Callable] = None,
+                 on_recompute: Optional[Callable[[], None]] = None):
+    """``fn(*args)`` under recomputation: its first run is the forward;
+    every later run (the backward's) adds one to ``counters
+    .recomputed_blocks`` (a model module: this one, or GenCast's), calls
+    ``on_recompute`` and runs ``rerun`` (``fn`` if None) in an
+    ``ngpde.recompute`` span."""
     runs = [0]
 
-    def run(ps, v_r, e):
+    def run(*args):
         runs[0] += 1
         if runs[0] == 1:
-            return tuple(conv.block(ps, v_r, e, g))
-        _count("recomputed_blocks")
-        on_recompute()
+            return fn(*args)
+        counters.recomputed_blocks += 1
+        if on_recompute is not None:
+            on_recompute()
         with annotate("ngpde.recompute"):
-            return tuple(conv.block(ps, v_r, e, g))
+            return (rerun or fn)(*args)
 
-    return checkpoint(run, ps, v_r, e, use_reentrant=False,
+    return checkpoint(run, *args, use_reentrant=False,
                       preserve_rng_state=False)
 
 
 def recomputed(conv: InteractionConv, ps: torch.Tensor, v_r: torch.Tensor,
-               e: torch.Tensor) -> Interaction:
+               e: torch.Tensor, cond: Optional[torch.Tensor] = None, *,
+               counters=_THIS) -> Interaction:
     """An ``InteractionConv.schedule``: the call under recomputation when
     autograd records it, in the receiver blocks of ``conv.graph.cache
     ['receiver_blocks']`` where there are some (their results
-    concatenated); the plain call otherwise."""
+    concatenated); the plain call otherwise. ``cond``: the conditioning
+    vector of a conditioned conv (GenCast's), or None. The passes count
+    in ``counters``, the model's module (this one by default)."""
+
+    def unit(g, on_recompute, ps, v_r, e):
+        return Interaction(*checkpointed(
+            lambda *a: tuple(conv.block(*a[:3], g, a[3])), ps, v_r, e, cond,
+            counters=counters, on_recompute=on_recompute))
+
+    def done():
+        counters.interaction_forwards += 1
+
     blocks = conv.graph.cache.get("receiver_blocks")
     if blocks is None:
         if not torch.is_grad_enabled():
-            return conv.block(ps, v_r, e, conv.graph)
-        return Interaction(*_checkpointed(
-            conv, ps, v_r, e, conv.graph,
-            lambda: _count("interaction_forwards")))
+            return conv.block(ps, v_r, e, conv.graph, cond)
+        return unit(conv.graph, done, ps, v_r, e)
     left = [len(blocks)]
 
     def block_done():
         left[0] -= 1
         if left[0] == 0:
-            _count("interaction_forwards")
+            done()
 
     outs = []
     for g, (r0, r1), (e0, e1) in blocks:
-        _count("chunks")
+        counters.chunks += 1
         args = (ps, v_r[r0:r1], e[e0:e1])
-        outs.append(Interaction(*_checkpointed(conv, *args, g, block_done))
-                    if torch.is_grad_enabled() else conv.block(*args, g))
+        outs.append(unit(g, block_done, *args) if torch.is_grad_enabled()
+                    else conv.block(*args, g, cond))
     edges = (torch.cat([o.edges for o in outs]) if conv.keep_edges
              else None)
     return Interaction(edges, torch.cat([o.nodes for o in outs]))
@@ -117,14 +133,17 @@ def precompute_graphs(graphs: GraphCastGraphs,
     precomputed, where their count is above 1."""
     out = {"mesh": precompute(graphs.mesh, dense=False, bsr=False)}
     for name, count in zip(("grid2mesh", "mesh2grid"), blocks):
-        g = getattr(graphs, name)
-        if count > 1:
-            cut = receiver_blocks(
-                g, count, lambda b: precompute(b, dense=False))
-            out[name] = g.copy(cache={"receiver_blocks": cut})
-        else:
-            out[name] = precompute(g, dense=False)
+        out[name] = precompute_bipartite(getattr(graphs, name), count)
     return out
+
+
+def precompute_bipartite(g, count: int):
+    """``g`` after ``precompute(dense=False)``, cut into ``count`` receiver
+    blocks, each precomputed, where ``count`` is above 1."""
+    if count > 1:
+        cut = receiver_blocks(g, count, lambda b: precompute(b, dense=False))
+        return g.copy(cache={"receiver_blocks": cut})
+    return precompute(g, dense=False)
 
 
 def area_weights(lat: np.ndarray) -> np.ndarray:
@@ -190,7 +209,8 @@ class GraphCast(AbstractGNNContainerLayer):
         return self
 
     def _conv(self, conv, v_s, v_r, e) -> Interaction:
-        _count("interaction_forwards")
+        global interaction_forwards
+        interaction_forwards += 1
         return conv(v_s, v_r, e)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Basic layers: ``Dense``, ``Chain``, ``MLP``, ``LayerNorm``, activations
-and initializers.
+"""Basic layers: ``Dense``, ``Chain``, ``MLP``, ``LayerNorm``,
+``ConditionalLayerNorm``, activations and initializers.
 
 Row-major convention as in the JAX package: inputs are ``(entities,
 features)`` and weights are stored ``(in, out)``, so the forward is
@@ -123,6 +123,31 @@ class LayerNorm(Layer):
                             self.bias.view(-1), self.eps)
 
 
+class ConditionalLayerNorm(ContainerLayer):
+    """``LN(x) · (1 + W_s c + b_s) + W_o c + b_o``: a LayerNorm whose scale
+    and offset are Dense maps of a conditioning vector ``c`` ``(1,
+    cond_dims)`` (GenCast's noise-level conditioning of every LayerNorm).
+    Children ``scale`` and ``offset``, each ``Dense(cond_dims → dims)``;
+    with their weights and biases zero it is ``LayerNorm`` at its initial
+    scale and offset. ``forward(x, cond)``."""
+
+    eps = LayerNorm.eps
+    layer_names = ("scale", "offset")
+
+    def __init__(self, dims: int, cond_dims: int, *,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dims = dims
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.scale = Dense(cond_dims, dims, **kw)
+        self.offset = Dense(cond_dims, dims, **kw)
+
+    def forward(self, x, cond):
+        y = F.layer_norm(x, (self.dims,), None, None, self.eps)
+        return y * (1.0 + self.scale(cond)) + self.offset(cond)
+
+
 class Chain(ContainerLayer):
     """Sequential container with children ``layer_1..layer_N``; parameter
     trees always nest per child, even for one child."""
@@ -151,11 +176,14 @@ class MLP(Chain):
     are the Dense layers themselves (``layer_1..layer_N``), so its
     parameter tree is the JAX ``MLP``'s (that of its inner Chain).
     ``layer_norm=True`` ends it in a ``LayerNorm`` of the output, one more
-    child (GraphCast's MLPs)."""
+    child (GraphCast's MLPs); with ``cond`` (the conditioning vector's
+    width) that child is a ``ConditionalLayerNorm`` and ``forward(x,
+    cond)`` hands it the vector (GenCast's MLPs)."""
 
     def __init__(self, dims, activation: Union[str, Callable] = "tanh",
                  final_activation: Union[None, str, Callable] = None, *,
                  use_bias: bool = True, layer_norm: bool = False,
+                 cond: Optional[int] = None,
                  generator: Optional[torch.Generator] = None, device=None,
                  dtype=torch.float32):
         dims = tuple(dims)
@@ -166,5 +194,16 @@ class MLP(Chain):
                         device=device, dtype=dtype)
                   for i in range(n)]
         if layer_norm:
-            layers.append(LayerNorm(dims[-1], device=device, dtype=dtype))
+            layers.append(
+                LayerNorm(dims[-1], device=device, dtype=dtype)
+                if cond is None else
+                ConditionalLayerNorm(dims[-1], cond, generator=generator,
+                                     device=device, dtype=dtype))
         super().__init__(layers)
+
+    def forward(self, x, cond=None):
+        for name in self.layer_names:
+            layer = getattr(self, name)
+            x = (layer(x, cond) if isinstance(layer, ConditionalLayerNorm)
+                 else layer(x))
+        return x

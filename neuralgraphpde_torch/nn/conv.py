@@ -1,7 +1,8 @@
 """GNN convolution layers (counterpart of ``neuralgraphpde.nn.conv``;
 ``GCNConv``, ``ExplicitEdgeConv``, ``VMHConv``, ``MPPDEConv`` and
-``GNOConv`` so far), and GraphCast's ``InteractionConv``, which the JAX
-package does not have."""
+``GNOConv`` so far), and GraphCast's ``InteractionConv`` and GenCast's
+``MeshAttention`` and ``TransformerBlock``, which the JAX package does not
+have."""
 from __future__ import annotations
 
 import warnings
@@ -13,15 +14,17 @@ from torch import nn
 
 from ..graph.transforms import add_self_loops as _add_self_loops
 from ..ops.fused import (edge_mlp_aggregate, edge_mlp_fits, gcn_rhs,
-                         gno_aggregate)
+                         gno_aggregate, mesh_attention)
 from ..ops.message_passing import (aggregate_neighbors, apply_edges, copy_xj,
                                    e_mul_xj, node_degree, propagate,
                                    takes_edge_kernels, w_mul_xj)
 from ..utils.profiling import annotate, annotated
 from ..utils.state import drop
 from ..ops.scatter import gather
-from .basic import (MLP, Chain, Dense, glorot_normal, glorot_uniform,
-                    make_params, matmul, resolve_activation, zeros_init)
+from .basic import (MLP, Chain, ConditionalLayerNorm, Dense, glorot_normal,
+                    glorot_uniform, make_params, matmul, resolve_activation,
+                    zeros_init)
+from .core import ContainerLayer
 from .gnn import (INPUT_KEY, AbstractGNNContainerLayer, AbstractGNNLayer,
                   wrap_input)
 from .graphed import CapturedCall, capture_key
@@ -503,22 +506,25 @@ class InteractionConv(AbstractGNNContainerLayer):
     ``edge_in``: the conv embeds its edge input first with ``edge_embed``
     (``MLP(edge_in → latent → latent)``, LayerNorm): Grid2Mesh and
     Mesh2Grid take their raw edge features, whose latents live only inside
-    the call. ``keep_edges=False`` returns no edge latents.
+    the call. ``keep_edges=False`` returns no edge latents. ``cond``: the
+    width of a conditioning vector that every LayerNorm of the conv takes
+    (``ConditionalLayerNorm``, GenCast's); the call then takes the vector.
 
-    ``forward(v_s, v_r, e) -> Interaction``: the sender term ``W_s v_s``
-    once, then ``block`` over the conv's graph, or ``schedule(conv, ps,
-    v_r, e)`` where one is set (``models.graphcast.recomputed``: the call
-    under recomputation, in receiver blocks where the graph carries them).
-    Under a profiler the forward is an ``ngpde.conv.InteractionConv``
-    span."""
+    ``forward(v_s, v_r, e, cond=None) -> Interaction``: the sender term
+    ``W_s v_s`` once, then ``block`` over the conv's graph, or
+    ``schedule(conv, ps, v_r, e, cond)`` where one is set
+    (``models.graphcast.recomputed``: the call under recomputation, in
+    receiver blocks where the graph carries them). Under a profiler the
+    forward is an ``ngpde.conv.InteractionConv`` span."""
 
     def __init__(self, latent: int, initialgraph=None, *,
                  edge_in: Optional[int] = None, keep_edges: bool = True,
+                 cond: Optional[int] = None,
                  generator: Optional[torch.Generator] = None, device=None,
                  dtype=torch.float32):
         super().__init__(initialgraph)
-        kw = dict(layer_norm=True, generator=generator, device=device,
-                  dtype=dtype)
+        kw = dict(layer_norm=True, cond=cond, generator=generator,
+                  device=device, dtype=dtype)
         self.latent, self.keep_edges = latent, keep_edges
         names = ()
         self.edge_embed = None
@@ -536,27 +542,97 @@ class InteractionConv(AbstractGNNContainerLayer):
         return matmul(v_s, self.edge_mlp.layer_1.weight[n:2 * n])
 
     def block(self, ps: torch.Tensor, v_r: torch.Tensor, e: torch.Tensor,
-              g) -> Interaction:
+              g, cond: Optional[torch.Tensor] = None) -> Interaction:
         """One pass over ``g``'s edges: ``ps`` the sender term of every
         sender, ``v_r`` and ``e`` the latents of ``g``'s receivers and
         edges (the raw edge features with ``edge_in``)."""
         n = self.latent
         first, mlp = self.edge_mlp.layer_1, self.edge_mlp
         if self.edge_embed is not None:
-            e = self.edge_embed(e)
+            e = self.edge_embed(e, cond)
         pr = matmul(v_r, first.weight[2 * n:]) + first.bias
         h = (matmul(e, first.weight[:n]) + gather(ps, g.senders)
              + gather(pr, g.receivers))
-        m = mlp.layer_3(mlp.layer_2(resolve_activation(first.activation)(h)))
+        m = mlp.layer_2(resolve_activation(first.activation)(h))
+        m = mlp.layer_3(m) if cond is None else mlp.layer_3(m, cond)
         agg = aggregate_neighbors(g, "sum", m)
         e = e + m if self.keep_edges else None
-        v = v_r + self.node_mlp(torch.cat([v_r, agg], dim=-1))
+        v = v_r + self.node_mlp(torch.cat([v_r, agg], dim=-1), cond)
         return Interaction(e, v)
 
     @annotated("ngpde.conv.InteractionConv")
     def forward(self, v_s: torch.Tensor, v_r: torch.Tensor,
-                e: torch.Tensor) -> Interaction:
+                e: torch.Tensor,
+                cond: Optional[torch.Tensor] = None) -> Interaction:
         ps = self.sender_term(v_s)
         if self.schedule is not None:
-            return self.schedule(self, ps, v_r, e)
-        return self.block(ps, v_r, e, self.graph)
+            return self.schedule(self, ps, v_r, e, cond)
+        return self.block(ps, v_r, e, self.graph, cond)
+
+
+class MeshAttention(AbstractGNNLayer):
+    """Multi-head attention over the neighbourhoods of the conv's graph:
+    ``o_i = Σ_{j ∈ N(i)} softmax_j(q_i · k_j / √d) v_j`` per head, ``N(i)``
+    the pairs of ``graph.cache['attention_layout']`` (GenCast's processor:
+    each mesh node and every node within k hops of it; built by
+    ``models.gencast.precompute_graphs``). No parameters: the projections
+    are the transformer block's.
+
+    ``forward(q, k, v)``: ``(nodes, heads · d)`` each, head ``h`` in
+    columns ``h·d … (h + 1)·d``; the attended values, same shape. Where
+    ``ops.spmm.takes_kernels`` holds, K8 (``ngpde.dispatch.mesh_attention``);
+    otherwise its plain version, block row by block row
+    (``ngpde.dispatch.mesh_attention_plain``). Under a profiler the forward
+    is an ``ngpde.conv.MeshAttention`` span. ``attend`` is the same call
+    without the module's hooks (the recomputation's)."""
+
+    def __init__(self, heads: int, initialgraph=None):
+        super().__init__(initialgraph)
+        self.heads = heads
+
+    def attend(self, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+        with annotate("ngpde.conv.MeshAttention"):
+            return mesh_attention(q, k, v,
+                                  self.graph.cache["attention_layout"],
+                                  self.heads)
+
+    def forward(self, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+        return self.attend(q, k, v)
+
+
+class TransformerBlock(ContainerLayer):
+    """A pre-norm transformer block over a mesh (GenCast's processor
+    layer), every LayerNorm conditioned on ``cond``:
+
+        h ← h + W_o · MeshAttention(W_q x, W_k x, W_v x),  x = CLN_1(h),
+        h ← h + FFW(CLN_2(h)),  FFW = MLP(d → ffw → d, gelu).
+
+    Children ``norm_1``, ``query``, ``key``, ``value``, ``attention``,
+    ``proj``, ``norm_2``, ``ffw``; every Dense has a bias.
+    ``forward(h, cond, hooks=True)``; ``hooks=False`` calls the attention's
+    ``attend`` (a recomputation's run, which module hooks do not see)."""
+
+    layer_names = ("norm_1", "query", "key", "value", "attention", "proj",
+                   "norm_2", "ffw")
+
+    def __init__(self, latent: int, heads: int, ffw: int, cond: int, *,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.norm_1 = ConditionalLayerNorm(latent, cond, **kw)
+        self.query, self.key, self.value = (Dense(latent, latent, **kw)
+                                            for _ in range(3))
+        self.attention = MeshAttention(heads)
+        self.proj = Dense(latent, latent, **kw)
+        self.norm_2 = ConditionalLayerNorm(latent, cond, **kw)
+        self.ffw = MLP((latent, ffw, latent), "gelu", **kw)
+
+    def forward(self, h: torch.Tensor, cond: torch.Tensor,
+                hooks: bool = True) -> torch.Tensor:
+        x = self.norm_1(h, cond)
+        attend = self.attention if hooks else self.attention.attend
+        h = h + self.proj(attend(self.query(x), self.key(x), self.value(x)))
+        return h + self.ffw(self.norm_2(h, cond))

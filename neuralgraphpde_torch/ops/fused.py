@@ -12,6 +12,9 @@ from ..kernels.banded_kernels import banded_gcn_rhs, pbanded_gcn_rhs
 from ..kernels.dia_kernels import TF_MAX, dia_gcn_rhs, epilogue_supported
 from ..kernels.fused_mlp_kernels import (fused_mlp_aggregate,
                                          supported_activation)
+from ..kernels.attention_kernels import (AttentionLayout,
+                                         mesh_attention_plain)
+from ..kernels.attention_kernels import mesh_attention as _mesh_attention
 from ..kernels.gno_kernels import fused_gno_aggregate, pack_last_layer
 from ..nn.basic import matmul
 from ..utils.profiling import annotate
@@ -112,3 +115,15 @@ def gno_aggregate(g: GnnGraph, aggr: Reduction, x: torch.Tensor,
         if red == "mean":
             m = m / node_degree(g, m.dtype).clamp_min(1.0)[:, None]
         return m
+
+
+def mesh_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   layout: AttentionLayout, heads: int) -> torch.Tensor:
+    """Attention over ``layout``'s pairs: K8 where ``takes_kernels`` holds
+    (``ngpde.dispatch.mesh_attention``), its plain version otherwise
+    (``ngpde.dispatch.mesh_attention_plain``)."""
+    if takes_kernels(q):
+        with annotate("ngpde.dispatch.mesh_attention"):
+            return _mesh_attention(q, k, v, layout, heads)
+    with annotate("ngpde.dispatch.mesh_attention_plain"):
+        return mesh_attention_plain(q, k, v, layout, heads)

@@ -1,6 +1,7 @@
 """Loss functions (counterparts of ``neuralgraphpde.train.losses``): masked
 softmax cross-entropy and accuracy for node classification, MSE and rollout
-MSE for PDE training, and the weighted MSE GraphCast trains on."""
+MSE for PDE training, the weighted MSE GraphCast trains on, and GenCast's
+EDM-weighted form of it."""
 from __future__ import annotations
 
 import torch
@@ -36,6 +37,16 @@ def weighted_mse(pred: torch.Tensor, target: torch.Tensor,
     each variable and level's weight."""
     err = (pred - target) ** 2 * channel_weight
     return (err.mean(dim=-1) * node_weight).mean()
+
+
+def edm_weighted_mse(denoised: torch.Tensor, target: torch.Tensor,
+                     sigma: torch.Tensor, node_weight: torch.Tensor,
+                     channel_weight: torch.Tensor) -> torch.Tensor:
+    """``λ(σ) · weighted_mse(denoised, target)``, ``λ(σ) = (σ² + 1) / σ²``:
+    GenCast's denoising loss (EDM's weighting at σ_data = 1)."""
+    s2 = sigma * sigma
+    return (s2 + 1.0) / s2 * weighted_mse(denoised, target, node_weight,
+                                          channel_weight)
 
 
 def rollout_mse(pred_traj: torch.Tensor,
